@@ -1,0 +1,521 @@
+"""ProPainter inpainting generator, NCHW inside. Counterpart of
+`propainter_tpu/models/propainter.py`; `state_dict()` keys are
+ProPainter.pth's.
+
+Tokens between SoftSplit and SoftComp are channel-last, (B, T, h, w, C).
+The sparse window attention computes both branches for every window and
+selects per window by occupancy, as the JAX module does: branch A (masked
+windows attend over the selected frames' window, rolled-band and pooled
+tokens) runs through kernel K4; branch B (within window, same frame) is a
+plain batched softmax. Feature propagation's deformable alignment is
+kernel K3.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from propainter_tpu_torch.models.layers import (
+    Deconv, SplitGroupConv2d, conv2d, deform_align)
+from propainter_tpu_torch.ops.flash_attention import (
+    NEG_INF, flash_window_attention)
+from propainter_tpu_torch.ops.interp import max_pool2d, resize
+from propainter_tpu_torch.ops.patches import unfold_output_size
+from propainter_tpu_torch.ops.warp import (
+    fb_consistency_from_warped, flow_warp_bilinear_nearest, flow_warp_nchw)
+
+KERNEL = (7, 7)
+STRIDE = (3, 3)
+PADDING = (3, 3)
+
+
+def binary_mask(mask, th: float = 0.1):
+    return (mask > th).to(mask.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Encoder / decoder
+# ---------------------------------------------------------------------------
+
+
+class Encoder(nn.Module):
+    """Stride-4 encoder whose last four convs are grouped over the
+    interleaved concat of the stage-8 features and the running output.
+    Reference model/propainter.py:193-232."""
+
+    def __init__(self):
+        super().__init__()
+        self.layers = nn.Sequential(
+            conv2d(5, 64, 3, 2, 1), nn.LeakyReLU(0.2, inplace=True),
+            conv2d(64, 64, 3, 1, 1), nn.LeakyReLU(0.2, inplace=True),
+            conv2d(64, 128, 3, 2, 1), nn.LeakyReLU(0.2, inplace=True),
+            conv2d(128, 256, 3, 1, 1), nn.LeakyReLU(0.2, inplace=True),
+            conv2d(256, 384, 3, 1, 1), nn.LeakyReLU(0.2, inplace=True),
+            SplitGroupConv2d(640, 512, 2), nn.LeakyReLU(0.2, inplace=True),
+            SplitGroupConv2d(768, 384, 4), nn.LeakyReLU(0.2, inplace=True),
+            SplitGroupConv2d(640, 256, 8), nn.LeakyReLU(0.2, inplace=True),
+            SplitGroupConv2d(512, 128, 1), nn.LeakyReLU(0.2, inplace=True))
+
+    def forward(self, x):
+        out = x
+        x0 = None
+        for i, layer in enumerate(self.layers):
+            if i == 8:
+                x0 = out
+            if isinstance(layer, SplitGroupConv2d):
+                g = layer.groups
+                out = layer([torch.cat(pair, dim=1) for pair in
+                             zip(x0.chunk(g, dim=1), out.chunk(g, dim=1))])
+            else:
+                out = layer(out)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Soft split / soft comp tokenizers
+# ---------------------------------------------------------------------------
+
+
+class SoftSplit(nn.Module):
+    """Overlapping 7x7 / stride-3 patches -> Linear. Reference
+    sparse_transformer.py:7-31. The Linear over unfolded patches is one
+    strided conv with the Linear's weight (the im2col identity)."""
+
+    def __init__(self, channel: int = 128, hidden: int = 512):
+        super().__init__()
+        self.channel = channel
+        self.embedding = nn.Linear(channel * KERNEL[0] * KERNEL[1], hidden)
+
+    def forward(self, x, b: int):
+        """x (B*T, C, h, w) -> tokens (b, T, fh, fw, hidden)."""
+        w = self.embedding.weight.view(-1, self.channel, *KERNEL)
+        y = F.conv2d(x, w, self.embedding.bias, STRIDE, PADDING)
+        y = y.permute(0, 2, 3, 1)
+        return y.reshape(b, -1, *y.shape[1:])
+
+
+class SoftComp(nn.Module):
+    """Linear -> fold (overlapping taps summed) -> 3x3 conv. Reference
+    sparse_transformer.py:34-61."""
+
+    def __init__(self, channel: int = 128, hidden: int = 512):
+        super().__init__()
+        self.embedding = nn.Linear(hidden, channel * KERNEL[0] * KERNEL[1])
+        self.bias_conv = conv2d(channel, channel, 3, 1, 1)
+
+    def forward(self, x, output_size):
+        """tokens (b, t, fh, fw, hidden) -> (b*t, C, h, w)."""
+        feat = self.embedding(x.flatten(0, 1).flatten(1, 2))
+        feat = F.fold(feat.transpose(1, 2), output_size, KERNEL,
+                      padding=PADDING, stride=STRIDE)
+        return self.bias_conv(feat)
+
+
+# ---------------------------------------------------------------------------
+# Transformer
+# ---------------------------------------------------------------------------
+
+
+class FusionFeedForward(nn.Module):
+    """fc1 -> fold / coverage -> unfold -> GELU -> fc2. Reference
+    sparse_transformer.py:64-101."""
+
+    def __init__(self, dim: int = 512, hidden_dim: int = 1960):
+        super().__init__()
+        self.fc1 = nn.Sequential(nn.Linear(dim, hidden_dim))
+        self.fc2 = nn.Sequential(nn.GELU(), nn.Linear(hidden_dim, dim))
+
+    def forward(self, x, output_size):
+        """x (b, n, dim) with n = T * fh * fw tokens."""
+        fh = unfold_output_size(output_size[0], KERNEL[0], STRIDE[0],
+                                PADDING[0])
+        fw = unfold_output_size(output_size[1], KERNEL[1], STRIDE[1],
+                                PADDING[1])
+        x = self.fc1(x)
+        b, n, c = x.shape
+        frames = x.reshape(-1, fh * fw, c).transpose(1, 2)
+        ones = x.new_ones(1, c, fh * fw)
+        cover = F.fold(ones, output_size, KERNEL, padding=PADDING,
+                       stride=STRIDE)
+        folded = F.fold(frames, output_size, KERNEL, padding=PADDING,
+                        stride=STRIDE)
+        x = F.unfold(folded / cover, KERNEL, padding=PADDING, stride=STRIDE)
+        x = x.transpose(1, 2).reshape(b, n, c)
+        return self.fc2(x)
+
+
+def _valid_rolled_indices(window, expand) -> np.ndarray:
+    """Indices of rolled-window tokens outside the centre window.
+    Reference sparse_transformer.py:142-153."""
+    eh, ew = expand
+    ms = []
+    for rows, cols in ((slice(None, -eh), slice(None, -ew)),
+                       (slice(None, -eh), slice(ew, None)),
+                       (slice(eh, None), slice(None, -ew)),
+                       (slice(eh, None), slice(ew, None))):
+        m = np.ones(window, np.bool_)
+        m[rows, cols] = False
+        ms.append(m)
+    return np.nonzero(np.stack(ms, 0).reshape(-1))[0]
+
+
+def _window_gather_indices(nwh, nww, window, expand, valid_idx) -> np.ndarray:
+    """(nW, win + n_valid_rolled) flat-grid indices: each window's centre
+    tokens, then the valid band of its four rolled (wrap-around) copies."""
+    wh, ww = window
+    H, W = nwh * wh, nww * ww
+    eh, ew = expand
+    shifts = [(-eh, -ew), (-eh, ew), (eh, -ew), (eh, ew)]
+    a = np.arange(wh)[:, None]
+    b = np.arange(ww)[None, :]
+    idx = []
+    for wi in range(nwh):
+        for wj in range(nww):
+            center = ((wi * wh + a) * W + (wj * ww + b)).reshape(-1)
+            rolled = np.concatenate([
+                (((wi * wh + a - sy) % H) * W + (wj * ww + b - sx) % W
+                 ).reshape(-1) for sy, sx in shifts])[valid_idx]
+            idx.append(np.concatenate([center, rolled]))
+    return np.asarray(idx, np.int64)
+
+
+class SparseWindowAttention(nn.Module):
+    """Mask-guided sparse window attention (dense dual-branch form).
+    Reference sparse_transformer.py:117-281."""
+
+    def __init__(self, dim: int = 512, n_head: int = 4,
+                 window_size=(5, 9), pool_size=(4, 4)):
+        super().__init__()
+        self.n_head = n_head
+        self.window_size = tuple(window_size)
+        self.key = nn.Linear(dim, dim)
+        self.query = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.proj = nn.Linear(dim, dim)
+        self.pool_layer = nn.Conv2d(dim, dim, pool_size, pool_size, 0,
+                                    groups=dim)
+        self.expand = ((window_size[0] + 1) // 2, (window_size[1] + 1) // 2)
+        self._valid_idx = _valid_rolled_indices(self.window_size, self.expand)
+        # kept for the checkpoint's keys; the indices are static
+        self.register_buffer("valid_ind_rolled",
+                             torch.as_tensor(self._valid_idx))
+        self._gather_idx: dict = {}   # (nwh, nww, device) -> indices
+
+    def forward(self, x, mask, static_sel, frame_valid=None):
+        """x (B, T, H, W, C) tokens; mask (B, l_t, H, W, 1) pooled local
+        masks; static_sel (T,) numpy bool — frames visible to branch A (the
+        temporal dilation); frame_valid (T,) bool tensor or None — False
+        masks padded reference frames' keys."""
+        B, T, H, W, C = x.shape
+        wh, ww = self.window_size
+        nh = self.n_head
+        ch = C // nh
+        nwh, nww = math.ceil(H / wh), math.ceil(W / ww)
+        new_h, new_w = nwh * wh, nww * ww
+        pad_b, pad_r = new_h - H, new_w - W
+        if pad_b or pad_r:
+            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+            mask = F.pad(mask, (0, 0, 0, pad_r, 0, pad_b))
+        nW = nwh * nww
+        win = wh * ww
+
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        key = (nwh, nww, x.device)
+        if key not in self._gather_idx:
+            self._gather_idx[key] = torch.as_tensor(_window_gather_indices(
+                nwh, nww, self.window_size, self.expand, self._valid_idx),
+                device=x.device)
+        idx_all = self._gather_idx[key]
+        idx_q = idx_all[:, :win]
+
+        def gather_windows(t, idx):
+            """(B, T', H', W', C) -> (B, nW, head, T', n_idx, ch)."""
+            tf = t.reshape(B, t.shape[1], new_h * new_w, C)
+            g = tf.index_select(2, idx.reshape(-1))
+            g = g.reshape(B, t.shape[1], idx.shape[0], idx.shape[1], nh, ch)
+            return g.permute(0, 2, 4, 1, 3, 5)
+
+        win_q = gather_windows(q, idx_q)
+        win_k = gather_windows(k, idx_q)
+        win_v = gather_windows(v, idx_q)
+
+        pool_x = self.pool_layer(
+            x.reshape(B * T, new_h, new_w, C).permute(0, 3, 1, 2))
+        p_h, p_w = pool_x.shape[2:]
+        pool_x = pool_x.permute(0, 2, 3, 1).reshape(B, T, p_h * p_w, C)
+        pool_k, pool_v = self.key(pool_x), self.value(pool_x)
+
+        l_t = mask.shape[1]
+        mp = max_pool2d(mask.reshape(B * l_t, new_h, new_w, 1),
+                        self.window_size, self.window_size)
+        occ = mp.reshape(B, l_t, nW).sum(dim=1)              # (B, nW)
+        scale = 1.0 / math.sqrt(ch)
+
+        # branch A: every window over the selected frames' window, rolled
+        # band and pooled tokens (kernel K4)
+        sel = torch.as_tensor(np.nonzero(static_sel)[0], device=x.device)
+        Ts = sel.numel()
+
+        def pool_windows(p):
+            p = p.index_select(1, sel).reshape(B, Ts, p_h * p_w, nh, ch)
+            p = p.permute(0, 3, 1, 2, 4)[:, None]
+            return p.expand(B, nW, nh, Ts, p_h * p_w, ch)
+
+        k_all = torch.cat([gather_windows(k.index_select(1, sel), idx_all),
+                           pool_windows(pool_k)], dim=4)
+        v_all = torch.cat([gather_windows(v.index_select(1, sel), idx_all),
+                           pool_windows(pool_v)], dim=4)
+        k_tok = k_all.shape[4]
+        bias = None
+        if frame_valid is not None:
+            fv = frame_valid.to(x.device).index_select(0, sel)
+            bias = torch.where(fv, 0.0, NEG_INF).to(torch.float32)
+            bias = bias.repeat_interleave(k_tok)[None].expand(B, -1)
+            bias = bias.contiguous()
+        out_a = flash_window_attention(
+            win_q.reshape(B, nW * nh, T * win, ch).contiguous(),
+            k_all.reshape(B, nW * nh, Ts * k_tok, ch).contiguous(),
+            v_all.reshape(B, nW * nh, Ts * k_tok, ch).contiguous(),
+            bias, scale)
+        out_a = out_a.reshape(B, nW, nh, T, win, ch)
+
+        # branch B: within window, same frame
+        att_b = torch.softmax(win_q @ win_k.transpose(-1, -2) * scale, dim=-1)
+        out_b = att_b @ win_v
+
+        out = torch.where((occ > 0)[:, :, None, None, None, None],
+                          out_a, out_b)
+        out = out.reshape(B, nwh, nww, nh, T, wh, ww, ch)
+        out = out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, T, new_h, new_w,
+                                                          C)
+        if pad_b or pad_r:
+            out = out[:, :, :H, :W]
+        return self.proj(out)
+
+
+class TemporalSparseTransformer(nn.Module):
+    """Pre-LN attention + FusionFeedForward block. Reference :284-314."""
+
+    def __init__(self, dim: int = 512, n_head: int = 4, window_size=(5, 9),
+                 pool_size=(4, 4)):
+        super().__init__()
+        self.attention = SparseWindowAttention(dim, n_head, window_size,
+                                               pool_size)
+        self.norm1 = nn.LayerNorm(dim)
+        self.norm2 = nn.LayerNorm(dim)
+        self.mlp = FusionFeedForward(dim)
+
+    def forward(self, x, fold_x_size, mask, static_sel, frame_valid=None):
+        B, T, H, W, C = x.shape
+        x = x + self.attention(self.norm1(x), mask, static_sel, frame_valid)
+        y = self.mlp(self.norm2(x).reshape(B, T * H * W, C), fold_x_size)
+        return x + y.reshape(B, T, H, W, C)
+
+
+class TemporalSparseTransformerBlock(nn.Module):
+    """Blocks with alternating temporal dilation. Reference :317-344."""
+
+    def __init__(self, dim: int = 512, n_head: int = 4, window_size=(5, 9),
+                 pool_size=(4, 4), depths: int = 8):
+        super().__init__()
+        self.transformer = nn.Sequential(*[
+            TemporalSparseTransformer(dim, n_head, window_size, pool_size)
+            for _ in range(depths)])
+
+    def forward(self, x, fold_x_size, l_mask, t_dilation: int = 2,
+                frame_valid=None):
+        T = x.shape[1]
+        for i, block in enumerate(self.transformer):
+            static_sel = np.zeros(T, np.bool_)
+            static_sel[i % t_dilation::t_dilation] = True
+            x = block(x, fold_x_size, l_mask, static_sel, frame_valid)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# Propagation
+# ---------------------------------------------------------------------------
+
+
+def image_propagation(x, flows_forward, flows_backward, mask):
+    """Non-learnable bidirectional pixel propagation with forward-backward
+    consistency gating and nearest-mode pixel warps. Reference
+    model/propainter.py:104-190 (learnable=False).
+
+    x (B, T, H, W, 3) masked frames; flows (B, T-1, H, W, 2); mask
+    (B, T, H, W, 1). Returns (prop_frames, updated_masks), NHWC."""
+
+    def run(frames, masks, flows_prop, flows_check):
+        feat_prop, mask_prop = frames[0], masks[0]
+        feats, out_masks = [feat_prop], [mask_prop]
+        for i in range(1, len(frames)):
+            flow_prop, flow_check = flows_prop[i - 1], flows_check[i - 1]
+            bundle = torch.cat([flow_check, mask_prop], dim=-1)
+            warped, feat_warped = flow_warp_bilinear_nearest(
+                bundle, feat_prop, flow_prop)
+            flow_valid = fb_consistency_from_warped(flow_prop,
+                                                    warped[..., :2])
+            mask_prop_valid = binary_mask(warped[..., 2:3])
+            union = binary_mask(masks[i] * flow_valid * (1 - mask_prop_valid))
+            feat_prop = union * feat_warped + (1 - union) * frames[i]
+            mask_prop = binary_mask(
+                masks[i] * (1 - flow_valid * (1 - mask_prop_valid)))
+            feats.append(feat_prop)
+            out_masks.append(mask_prop)
+        return feats, out_masks
+
+    frames = list(x.unbind(1))
+    masks = list(mask.unbind(1))
+    ff = list(flows_forward.unbind(1))
+    fb = list(flows_backward.unbind(1))
+    back_f, back_m = run(frames[::-1], masks[::-1], ff[::-1], fb[::-1])
+    fwd_f, fwd_m = run(back_f[::-1], back_m[::-1], fb, ff)
+    return torch.stack(fwd_f, dim=1), torch.stack(fwd_m, dim=1)
+
+
+class DeformableAlignment(nn.Module):
+    """Flow-guided deformable alignment. Reference model/propainter.py:34-69."""
+
+    def __init__(self, channel: int = 128, deform_groups: int = 16,
+                 max_residue_magnitude: float = 3.0):
+        super().__init__()
+        self.dg = deform_groups
+        self.max_residue_magnitude = max_residue_magnitude
+        self.weight = nn.Parameter(torch.empty(channel, channel, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(channel))
+        nn.init.kaiming_normal_(self.weight)
+        self.conv_offset = nn.Sequential(
+            conv2d(2 * channel + 2 + 1 + 2, channel, 3, 1, 1),
+            nn.LeakyReLU(0.1, inplace=True),
+            conv2d(channel, channel, 3, 1, 1), nn.LeakyReLU(0.1, inplace=True),
+            conv2d(channel, channel, 3, 1, 1), nn.LeakyReLU(0.1, inplace=True),
+            conv2d(channel, 27 * deform_groups, 3, 1, 1))
+
+    def forward(self, x, cond, flow):
+        """x (B, C, H, W); cond (B, 2C+5, H, W); flow (B, H, W, 2)."""
+        return deform_align(x, self.conv_offset(cond), self.weight,
+                            self.bias, self.dg, self.max_residue_magnitude,
+                            flow)
+
+
+class FeaturePropagation(nn.Module):
+    """Learnable bidirectional feature propagation. Reference
+    model/propainter.py:72-190 (learnable=True)."""
+
+    def __init__(self, channel: int = 128):
+        super().__init__()
+        self.deform_align = nn.ModuleDict()
+        self.backbone = nn.ModuleDict()
+        for name in ("backward_1", "forward_1"):
+            self.deform_align[name] = DeformableAlignment(channel)
+            self.backbone[name] = nn.Sequential(
+                conv2d(2 * channel + 2, channel, 3, 1, 1),
+                nn.LeakyReLU(0.2, inplace=True),
+                conv2d(channel, channel, 3, 1, 1))
+        self.fuse = nn.Sequential(
+            conv2d(2 * channel + 2, channel, 3, 1, 1),
+            nn.LeakyReLU(0.2, inplace=True),
+            conv2d(channel, channel, 3, 1, 1))
+
+    def _run(self, name, frames, masks, flows_prop, flows_check):
+        outs = []
+        feat_prop = None
+        for i, (cur, m) in enumerate(zip(frames, masks)):
+            if i == 0:
+                feat_prop = cur
+            else:
+                flow_prop, flow_check = flows_prop[i - 1], flows_check[i - 1]
+                warped = flow_warp_nchw(
+                    torch.cat([flow_check.permute(0, 3, 1, 2), feat_prop],
+                              dim=1), flow_prop)
+                flow_valid = fb_consistency_from_warped(
+                    flow_prop, warped[:, :2].permute(0, 2, 3, 1))
+                cond = torch.cat([cur, warped[:, 2:],
+                                  flow_prop.permute(0, 3, 1, 2),
+                                  flow_valid.permute(0, 3, 1, 2), m], dim=1)
+                feat_prop = self.deform_align[name](feat_prop, cond,
+                                                    flow_prop)
+            feat = torch.cat([cur, feat_prop, m], dim=1)
+            feat_prop = feat_prop + self.backbone[name](feat)
+            outs.append(feat_prop)
+        return outs
+
+    def forward(self, x, flows_forward, flows_backward, mask):
+        """x (B, T, C, h, w); flows (B, T-1, h, w, 2); mask (B, T, 2, h, w)
+        (mask_in, mask_updated). Returns (B, T, C, h, w)."""
+        frames, masks = list(x.unbind(1)), list(mask.unbind(1))
+        ff, fb = list(flows_forward.unbind(1)), list(flows_backward.unbind(1))
+        back = self._run("backward_1", frames[::-1], masks[::-1], ff[::-1],
+                         fb[::-1])[::-1]
+        fwd = self._run("forward_1", back, masks, fb, ff)
+        fused = torch.cat([torch.stack(back, 1), torch.stack(fwd, 1), mask],
+                          dim=2).flatten(0, 1)
+        out = self.fuse(fused) + x.flatten(0, 1)
+        return out.view_as(x)
+
+
+# ---------------------------------------------------------------------------
+# Generator
+# ---------------------------------------------------------------------------
+
+
+class InpaintGenerator(nn.Module):
+    """Encoder -> feature propagation -> sparse transformer -> decoder.
+    Reference model/propainter.py:256-372 (inference forward)."""
+
+    def __init__(self, channel: int = 128, hidden: int = 512,
+                 depths: int = 8, num_heads: int = 4, window_size=(5, 9),
+                 pool_size=(4, 4)):
+        super().__init__()
+        self.encoder = Encoder()
+        self.decoder = nn.Sequential(
+            Deconv(channel, 128), nn.LeakyReLU(0.2, inplace=True),
+            conv2d(128, 64, 3, 1, 1), nn.LeakyReLU(0.2, inplace=True),
+            Deconv(64, 64), nn.LeakyReLU(0.2, inplace=True),
+            conv2d(64, 3, 3, 1, 1))
+        self.ss = SoftSplit(channel, hidden)
+        self.sc = SoftComp(channel, hidden)
+        self.feat_prop_module = FeaturePropagation(channel)
+        self.transformers = TemporalSparseTransformerBlock(
+            hidden, num_heads, window_size, pool_size, depths)
+
+    def forward(self, masked_frames, completed_flows, masks_in, masks_updated,
+                num_local_frames: int, t_dilation: int = 2, frame_valid=None):
+        """masked_frames (B, T, H, W, 3) in [-1, 1]; completed_flows
+        (flows_f, flows_b) each (B, l_t-1, H, W, 2); masks_in / masks_updated
+        (B, T, H, W, 1); frame_valid (T,) bool or None (False = padded
+        reference frame). Returns (B, l_t, H, W, 3) in [-1, 1]."""
+        l_t = num_local_frames
+        B, T, H, W, _ = masked_frames.shape
+        enc_in = torch.cat([masked_frames, masks_in, masks_updated], dim=-1)
+        enc = self.encoder(enc_in.reshape(B * T, H, W, 5).permute(0, 3, 1, 2))
+        _, c, h, w = enc.shape
+        enc = enc.view(B, T, c, h, w)
+        fold_size = (h, w)
+
+        flows_f, flows_b = completed_flows
+        ds_ff = resize(flows_f, (h, w), "bilinear") / 4.0
+        ds_fb = resize(flows_b, (h, w), "bilinear") / 4.0
+        ds_mask_in = resize(masks_in[:, :l_t], (h, w), "nearest")
+        ds_mask_upd = resize(masks_updated[:, :l_t], (h, w), "nearest")
+        pooled = max_pool2d(ds_mask_in.reshape(B * l_t, h, w, 1), KERNEL,
+                            STRIDE, PADDING)
+        mask_pool_l = pooled.reshape(B, l_t, *pooled.shape[1:])
+
+        prop_mask = torch.cat([ds_mask_in, ds_mask_upd], dim=-1)
+        local = self.feat_prop_module(enc[:, :l_t], ds_ff, ds_fb,
+                                      prop_mask.permute(0, 1, 4, 2, 3))
+        enc = torch.cat([local, enc[:, l_t:]], dim=1)
+
+        tokens = self.ss(enc.flatten(0, 1), B)
+        tokens = self.transformers(tokens, fold_size, mask_pool_l, t_dilation,
+                                   frame_valid)
+        trans = self.sc(tokens[:, :l_t], fold_size).view(B, l_t, c, h, w)
+        dec_in = (enc[:, :l_t] + trans).flatten(0, 1)
+        out = torch.tanh(self.decoder(dec_in))
+        return out.view(B, l_t, 3, H, W).permute(0, 1, 3, 4, 2)

@@ -1,0 +1,62 @@
+"""Attention for the sparse window attention's full branch (branch A):
+softmax(q·kᵀ·scale + key_bias)·v with fp32 logits and softmax.
+Counterpart of `propainter_tpu/ops/flash_attention.py`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from propainter_tpu_torch import _build
+
+NEG_INF = -1e9
+
+
+def _flash_window_attention_plain(q, k, v, key_bias, scale):
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def flash_window_attention(q, k, v, key_bias, scale: float):
+    """q: (B, G, Tq, ch); k, v: (B, G, Tk, ch); key_bias: (B, Tk) additive
+    logit bias shared over the G problems (0 live, -1e9 masked) or None.
+    Returns (B, G, Tq, ch).
+
+    Kernel K4 (`csrc/window_attention.cu`) replaces
+    `propainter_tpu/ops/flash_attention.py:_kernel`. A problem's K/V
+    (2380 x 128 fp32, 1.2 MB each at 432x240) does not fit in shared
+    memory, so unlike the TPU kernel it streams K/V in 64-key tiles with an
+    fp32 online softmax, one block per (problem, 128-query tile); the
+    (Tq, Tk) logits never reach device memory. Keys past Tk are excluded;
+    the bias is applied per key. Bound: operations (4 * Tq * Tk * ch fp32
+    FLOPs per problem on CUDA cores)."""
+    if q.device.type == "cpu":
+        return _flash_window_attention_plain(q, k, v, key_bias, scale)
+    _build.require_cuda(q, k, v, key_bias)
+    B, G, Tq, ch = q.shape
+    Tk = k.shape[2]
+    if ch != 128 or k.shape != (B, G, Tk, ch) or v.shape != k.shape:
+        raise ValueError(f"K4 takes ch = 128 and matching k/v, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if key_bias is not None and key_bias.shape != (B, Tk):
+        raise ValueError(f"key_bias must be (B, Tk), got "
+                         f"{tuple(key_bias.shape)}")
+    tensors = (q, k, v) + (() if key_bias is None else (key_bias,))
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           for t in tensors):
+        raise ValueError("K4 inputs must be contiguous float32")
+    out = torch.empty_like(q)
+    fn = _build.function("window_attention", "window_attention", 5, 4, 1)
+    bias_ptr = None if key_bias is None else key_bias.data_ptr()
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+                    out.data_ptr(), B * G, G, Tq, Tk, float(scale),
+                    _build.stream_of(q)), "window_attention")
+    flash_window_attention.launches += 1
+    return out
+
+
+flash_window_attention.launches = 0

@@ -1,0 +1,324 @@
+"""End-to-end video inpainting (the reference's 4-stage schedule), fp32.
+Counterpart of `propainter_tpu/pipeline.py`.
+
+  stage 1  bidirectional RAFT flow, chunked by clip length (by width);
+  stage 2  flow completion, chunked by subvideo_length with 5-frame overlap;
+  stage 3  image propagation, chunked with 10-frame overlap;
+  stage 4  sliding-window generation with capped, padded global reference
+           frames and sequential uint8 compositing.
+
+The JAX package's TPU scheduling tricks (occupancy bucketing, encoder
+overlap carry, reference-token precompute, last-block query shrink, window
+batching) are not ported: its tests pin each bit-exact to the plain
+schedule, which is what runs here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from propainter_tpu_torch.device import resolve_device
+from propainter_tpu_torch.models.flow_completion import (
+    combine_flow, forward_bidirect_flow)
+from propainter_tpu_torch.models.propainter import image_propagation
+
+
+def get_short_clip_len(width: int) -> int:
+    """RAFT chunk length by width. Reference inference_propainter.py:302-309."""
+    if width <= 640:
+        return 12
+    if width <= 720:
+        return 8
+    if width <= 1280:
+        return 4
+    return 2
+
+
+def equal_chunk_schedule(length: int, n_chunks: int, pad: int
+                         ) -> list[tuple[int, int, int, int]] | None:
+    """Equal-length overlapping chunks [(start, end, out_start, out_end)]
+    with every output frame >= pad frames from its chunk's border (except at
+    the video's ends), or None when the video is too short to split."""
+    if n_chunks < 2:
+        return None
+    step = -(-length // n_chunks)
+    L = min(length, step + 2 * pad)
+    if L >= length:
+        return None
+    starts = [i * (length - L) // (n_chunks - 1) for i in range(n_chunks)]
+    if any(starts[i] + L - starts[i + 1] < 2 * pad
+           for i in range(n_chunks - 1)):
+        return None
+    bounds = ([0]
+              + [(starts[i] + starts[i + 1] + L) // 2
+                 for i in range(n_chunks - 1)]
+              + [length])
+    return [(starts[i], starts[i] + L, bounds[i], bounds[i + 1])
+            for i in range(n_chunks)]
+
+
+def get_ref_index(mid_neighbor_id, neighbor_ids, length, ref_stride=10,
+                  ref_num=-1):
+    """Global reference frames. Reference inference_propainter.py:159-173."""
+    ref_index = []
+    if ref_num == -1:
+        for i in range(0, length, ref_stride):
+            if i not in neighbor_ids:
+                ref_index.append(i)
+    else:
+        start_idx = max(0, mid_neighbor_id - ref_stride * (ref_num // 2))
+        end_idx = min(length, mid_neighbor_id + ref_stride * (ref_num // 2))
+        for i in range(start_idx, end_idx, ref_stride):
+            if i not in neighbor_ids:
+                if len(ref_index) > ref_num:
+                    break
+                ref_index.append(i)
+    return ref_index
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    ref_stride: int = 10
+    neighbor_length: int = 10
+    subvideo_length: int = 80
+    raft_iter: int = 20
+    precision: str = "fp32"
+
+
+@contextlib.contextmanager
+def _fp32_numerics():
+    """Full fp32 for convolutions and matmuls on the GPU (cuDNN defaults to
+    TF32 for fp32 convolutions); the previous settings are restored."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+class ProPainterPipeline:
+    """The three models and the four stages.
+
+    raft / flowcomp / inpaint: `RAFT`, `RecurrentFlowCompleteNet`,
+    `InpaintGenerator` modules with their weights loaded. They are moved to
+    `device` (None = the GPU; without one this raises) and set to eval."""
+
+    def __init__(self, raft, flowcomp, inpaint,
+                 config: PipelineConfig | None = None, *, device=None):
+        self.config = config or PipelineConfig()
+        if self.config.precision != "fp32":
+            raise NotImplementedError(
+                f"precision={self.config.precision!r}: only fp32 is ported")
+        self.device = resolve_device(device)
+        self.raft = raft.to(self.device).eval()
+        self.flowcomp = flowcomp.to(self.device).eval()
+        self.inpaint = inpaint.to(self.device).eval()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---- stages ----------------------------------------------------------
+
+    def _raft_bi(self, frames, iters: int):
+        """frames (B, T, H, W, 3) in [-1, 1] -> (flows_f, flows_b), each
+        (B, T-1, H, W, 2). Each frame is encoded once; the forward pairs
+        (t, t+1) and backward pairs (t+1, t) refine in one batch."""
+        B, T, H, W, C = frames.shape
+        flat = frames.reshape(B * T, H, W, C).permute(0, 3, 1, 2)
+        fmap, net, inp = self.raft.encode(flat)
+
+        def pairs(x):
+            x = x.reshape(B, T, *x.shape[1:])
+            return (x[:, :-1].flatten(0, 1), x[:, 1:].flatten(0, 1))
+
+        (f1, f2), (n1, n2), (i1, i2) = pairs(fmap), pairs(net), pairs(inp)
+        _, flow = self.raft.refine(torch.cat([f1, f2]), torch.cat([f2, f1]),
+                                   torch.cat([n1, n2]), torch.cat([i1, i2]),
+                                   iters)
+        flow = flow.permute(0, 2, 3, 1)
+        n = B * (T - 1)
+        return (flow[:n].reshape(B, T - 1, H, W, 2),
+                flow[n:].reshape(B, T - 1, H, W, 2))
+
+    def compute_flows(self, frames):
+        """Stage 1: chunked bidirectional RAFT (chunks overlap by one frame).
+        Reference inference_propainter.py:302-330."""
+        T, W = frames.shape[1], frames.shape[3]
+        clip = get_short_clip_len(W)
+        iters = self.config.raft_iter
+        if T <= clip:
+            return self._raft_bi(frames, iters)
+        fs, bs = [], []
+        for f in range(0, T, clip):
+            s = f if f == 0 else f - 1
+            ff, fb = self._raft_bi(frames[:, s:min(T, f + clip)], iters)
+            fs.append(ff)
+            bs.append(fb)
+        return torch.cat(fs, dim=1), torch.cat(bs, dim=1)
+
+    def _complete_flow(self, flows_f, flows_b, flow_masks):
+        flows = (flows_f, flows_b)
+        pred = forward_bidirect_flow(self.flowcomp, flows, flow_masks)
+        return combine_flow(flows, pred, flow_masks)
+
+    def complete_flows(self, gt_flows_bi, flow_masks):
+        """Stage 2: chunked flow completion with 5-frame overlap trim.
+        Reference inference_propainter.py:341-368."""
+        flows_f, flows_b = gt_flows_bi
+        n = flows_f.shape[1]
+        sub = self.config.subvideo_length
+        if n <= sub:
+            return self._complete_flow(flows_f, flows_b, flow_masks)
+        pred_f, pred_b = [], []
+        pad = 5
+        for f in range(0, n, sub):
+            s, e = max(0, f - pad), min(n, f + sub + pad)
+            ps, pe = f - s, e - min(n, f + sub)
+            pf, pb = self._complete_flow(flows_f[:, s:e], flows_b[:, s:e],
+                                         flow_masks[:, s:e + 1])
+            pred_f.append(pf[:, ps:e - s - pe])
+            pred_b.append(pb[:, ps:e - s - pe])
+        return torch.cat(pred_f, dim=1), torch.cat(pred_b, dim=1)
+
+    def _img_prop(self, frames, flows_f, flows_b, masks):
+        masked = frames * (1 - masks)
+        prop, updated = image_propagation(masked, flows_f, flows_b, masks)
+        return masked + prop * masks, updated
+
+    def propagate_images(self, frames, pred_flows_bi, masks_dilated):
+        """Stage 3: chunked image propagation with 10-frame overlap trim.
+        Reference inference_propainter.py:371-404."""
+        T = frames.shape[1]
+        sub = min(100, self.config.subvideo_length)
+        flows_f, flows_b = pred_flows_bi
+        if T <= sub:
+            return self._img_prop(frames, flows_f, flows_b, masks_dilated)
+        upd_frames, upd_masks = [], []
+        pad = 10
+        for f in range(0, T, sub):
+            s, e = max(0, f - pad), min(T, f + sub + pad)
+            ps, pe = f - s, e - min(T, f + sub)
+            uf, um = self._img_prop(frames[:, s:e], flows_f[:, s:e - 1],
+                                    flows_b[:, s:e - 1],
+                                    masks_dilated[:, s:e])
+            upd_frames.append(uf[:, ps:e - s - pe])
+            upd_masks.append(um[:, ps:e - s - pe])
+        return torch.cat(upd_frames, dim=1), torch.cat(upd_masks, dim=1)
+
+    def generate(self, updated_frames, pred_flows_bi, masks_dilated,
+                 updated_masks, ori_frames):
+        """Stage 4: sliding windows through the generator, composited into
+        uint8 frames in window order. Reference inference_propainter.py:
+        407-452:
+
+            img  = floor((pred + 1) / 2 * 255) clipped, inside the mask;
+                   the original pixel outside it
+            comp = img                     on a frame's first visit
+            comp = floor(comp/2 + img/2)   on each revisit
+
+        ori_frames: (T, H, W, 3) uint8 tensor on the device. Returns
+        (T, H, W, 3) uint8 on the device."""
+        cfg = self.config
+        _, T, H, W, _ = updated_frames.shape
+        stride = cfg.neighbor_length // 2
+        ref_num = (cfg.subvideo_length // cfg.ref_stride
+                   if T > cfg.subvideo_length else -1)
+        # every window gets the same number of reference slots; unused ones
+        # repeat a real reference and are masked out by frame_valid
+        ref_pad = max(1, -(-min(T, cfg.subvideo_length) // cfg.ref_stride))
+        flows_f, flows_b = pred_flows_bi
+        comp = torch.zeros((T, H, W, 3), dtype=torch.float32,
+                           device=self.device)
+        visited = torch.zeros(T, dtype=torch.bool)
+        ori = ori_frames.float()
+        masks_bin = masks_dilated[0]
+        for f in range(0, T, stride):
+            nb = list(range(max(0, f - stride), min(T, f + stride + 1)))
+            refs = get_ref_index(f, nb, T, cfg.ref_stride, ref_num)[:ref_pad]
+            l_t = len(nb)
+            pad_id = refs[0] if refs else nb[0]
+            ids = nb + refs + [pad_id] * (ref_pad - len(refs))
+            valid = torch.zeros(l_t + ref_pad, dtype=torch.bool)
+            valid[:l_t + len(refs)] = True
+            idx = torch.as_tensor(ids, device=self.device)
+            pred = self.inpaint(
+                updated_frames[:, idx], (flows_f[:, nb[:-1]],
+                                         flows_b[:, nb[:-1]]),
+                masks_dilated[:, idx], updated_masks[:, idx], l_t,
+                frame_valid=valid.to(self.device))[0]
+            img8 = torch.floor((pred + 1.0) / 2.0 * 255.0).clamp(0.0, 255.0)
+            for j, t in enumerate(nb):
+                m = masks_bin[t]
+                img = img8[j] * m + ori[t] * (1.0 - m)
+                if visited[t]:
+                    img = torch.floor(0.5 * comp[t] + 0.5 * img)
+                comp[t] = img
+                visited[t] = True
+        return comp.to(torch.uint8)
+
+    # ---- whole pipeline --------------------------------------------------
+
+    @torch.inference_mode()
+    def inpaint_video(self, frames_np: np.ndarray, flow_masks_np: np.ndarray,
+                      masks_dilated_np: np.ndarray,
+                      timings: dict | None = None) -> list[np.ndarray]:
+        """frames_np (T, H, W, 3) uint8; flow_masks_np / masks_dilated_np
+        (T, H, W) bool/uint8, 1 = hole. `timings` receives per-stage wall
+        seconds (raft, flow_completion, image_propagation, generation,
+        readback), each ending in a device synchronize. Returns a list of
+        (H, W, 3) uint8 frames."""
+        # Below 128 px the coarsest RAFT level degenerates: pad frames
+        # (edge) and masks (zeros, never hole) to 128 and crop the output.
+        T0, H0, W0 = frames_np.shape[:3]
+        pad_h, pad_w = max(0, 128 - H0), max(0, 128 - W0)
+        if pad_h or pad_w:
+            frames_np = np.pad(frames_np, ((0, 0), (0, pad_h), (0, pad_w),
+                                           (0, 0)), mode="edge")
+            flow_masks_np, masks_dilated_np = (
+                np.pad(np.asarray(m), ((0, 0), (0, pad_h), (0, pad_w)))
+                for m in (flow_masks_np, masks_dilated_np))
+
+        def upload(a):
+            return torch.from_numpy(np.ascontiguousarray(a).astype(np.uint8)
+                                    ).to(self.device)
+
+        def timed(key, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            self._sync()
+            if timings is not None:
+                timings[key] = (timings.get(key, 0.0)
+                                + time.perf_counter() - t0)
+            return out
+
+        with _fp32_numerics():
+            ori = upload(frames_np)
+            frames = (ori.float() / 255.0 * 2.0 - 1.0)[None]
+            flow_masks = upload(flow_masks_np).float()[None, ..., None]
+            masks_dilated = upload(masks_dilated_np).float()[None, ..., None]
+            gt_flows = timed("raft", lambda: self.compute_flows(frames))
+            pred_flows = timed("flow_completion",
+                               lambda: self.complete_flows(gt_flows,
+                                                           flow_masks))
+            updated_frames, updated_masks = timed(
+                "image_propagation",
+                lambda: self.propagate_images(frames, pred_flows,
+                                              masks_dilated))
+            out = timed("generation",
+                        lambda: self.generate(updated_frames, pred_flows,
+                                              masks_dilated, updated_masks,
+                                              ori))
+            out_np = timed("readback", lambda: out.cpu().numpy())
+        if pad_h or pad_w:
+            out_np = out_np[:, :H0, :W0]
+        return list(out_np)

@@ -1,0 +1,190 @@
+"""Each CUDA kernel's plain PyTorch version against the JAX kernel function
+it replaces, run as the JAX package's own tests run it on the CPU (Pallas
+interpret mode), at tiny shapes. The kernels themselves run only on a GPU:
+the `cuda`-marked tests hold them against their plain versions there and
+skip on a host without one.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from propainter_tpu.ops.corr import corr_pyramid as jax_corr_pyramid
+from propainter_tpu.ops.corr_pallas import corr_lookup_flat, corr_pyramid_flat
+from propainter_tpu.ops.deform import (
+    split_offset_mask_channels as jax_split_offset_mask)
+from propainter_tpu.ops.deform_pallas import modulated_deform_conv2d_fused_out
+from propainter_tpu.ops.flash_attention import (
+    flash_window_attention as jax_flash_attention)
+
+from propainter_tpu_torch.ops import corr, deform, flash_attention
+from propainter_tpu_torch.ops.warp import coords_grid
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _corr_inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    B, H, W, D = 2, 16, 16, 32
+    f1, f2 = _rand(rng, B, H, W, D), _rand(rng, B, H, W, D)
+    coords = (np.asarray(coords_grid(B, H, W)) + _rand(rng, B, H, W, 2,
+                                                       scale=3.0))
+    coords[0, 0, :4] = [[-7.0, 2.0], [20.0, 3.5], [3.25, -6.0], [40.0, 40.0]]
+    w = _rand(rng, 324, 256, scale=0.05)
+    b = _rand(rng, 256, scale=0.05)
+    return f1, f2, coords, w, b
+
+
+def _deform_inputs(seed=1):
+    rng = np.random.default_rng(seed)
+    B, H, W, C, dg = 1, 6, 10, 64, 16
+    x = _rand(rng, B, H, W, C)
+    raw = _rand(rng, B, H, W, 27 * dg)
+    flow = _rand(rng, B, H, W, 2, scale=2.0)
+    weight = _rand(rng, 3, 3, C, 128, scale=0.05)
+    bias = _rand(rng, 128, scale=0.1)
+    return x, raw, flow, weight, bias, dg
+
+
+def _attention_inputs(seed=2):
+    rng = np.random.default_rng(seed)
+    B, G, Tq, Tk, ch = 1, 3, 50, 150, 128
+    q, k, v = (_rand(rng, B, G, T_, ch) for T_ in (Tq, Tk, Tk))
+    bias = np.zeros((B, Tk), np.float32)
+    bias[:, 100:] = -1e9
+    return q, k, v, bias, 1.0 / math.sqrt(ch)
+
+
+def test_corr_pyramid_build_plain_matches_jax():
+    """K2: levels 1-3 by 2x2 average pooling of the level-0 volume."""
+    f1, f2, *_ = _corr_inputs()
+    want = jax_corr_pyramid(jnp.asarray(f1), jnp.asarray(f2), 4)
+    got = corr.corr_pyramid(torch.from_numpy(f1), torch.from_numpy(f2), 4)
+    for j, t in zip(want, got):
+        np.testing.assert_allclose(np.asarray(j)[..., 0], t.numpy(), rtol=0,
+                                   atol=2e-5)
+
+
+def test_corr_lookup_moenc_plain_matches_jax_kernel():
+    """K1 against the TPU lookup kernel (interpret mode) over the flat
+    pyramid, followed by convc1 in fp32 (the TPU epilogue's bf16 operand
+    rounding is not part of the fp32 semantics)."""
+    f1, f2, coords, w, b = _corr_inputs()
+    pyr = corr_pyramid_flat(jnp.asarray(f1), jnp.asarray(f2), 4,
+                            interpret=True)
+    window = np.asarray(corr_lookup_flat(pyr, jnp.asarray(coords),
+                                         interpret=True))
+    want = np.maximum(window.reshape(-1, 324) @ w + b, 0.0)
+    tpyr = corr.corr_pyramid(torch.from_numpy(f1), torch.from_numpy(f2), 4)
+    got = corr.corr_lookup_moenc(tpyr, torch.from_numpy(coords),
+                                 torch.from_numpy(w), torch.from_numpy(b))
+    # window values agree to fp32 noise; the 324-term product adds its own
+    np.testing.assert_allclose(
+        corr.corr_lookup(tpyr, torch.from_numpy(coords)).numpy(), window,
+        rtol=0, atol=3e-5)
+    np.testing.assert_allclose(got.numpy().reshape(-1, 256), want, rtol=0,
+                               atol=5e-5)
+
+
+def test_modulated_deform_conv2d_plain_matches_jax_kernel():
+    """K3 against the fused TPU deform kernel (interpret mode)."""
+    x, raw, flow, weight, bias, dg = _deform_inputs()
+    j_off, j_mask = jax_split_offset_mask(jnp.asarray(raw), dg, 3.0,
+                                          jnp.asarray(flow))
+    want = modulated_deform_conv2d_fused_out(
+        jnp.asarray(x), j_off, j_mask, jnp.asarray(weight),
+        jnp.asarray(bias), interpret=True)
+    t_off, t_mask = deform.split_offset_mask_channels(
+        torch.from_numpy(raw), dg, 3.0, torch.from_numpy(flow))
+    np.testing.assert_allclose(t_off.numpy(), np.asarray(j_off), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(t_mask.numpy(), np.asarray(j_mask), rtol=0,
+                               atol=1e-6)
+    got = deform.modulated_deform_conv2d(
+        torch.from_numpy(x), t_off, t_mask, torch.from_numpy(weight),
+        torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_flash_window_attention_plain_matches_jax_kernel(with_bias):
+    """K4 against the TPU flash attention kernel (interpret mode)."""
+    q, k, v, bias, scale = _attention_inputs()
+    bias = bias if with_bias else None
+    want = jax_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if bias is None else jnp.asarray(bias), scale, interpret=True)
+    got = flash_attention.flash_window_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        None if bias is None else torch.from_numpy(bias), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor neither on the CPU nor on a GPU is refused, never moved."""
+    t = torch.empty((1, 4, 4, 2), device="meta")
+    with pytest.raises(ValueError):
+        corr.corr_lookup_moenc([t] * 4, t, t, t)
+    with pytest.raises(ValueError):
+        corr.corr_pyramid_build(torch.empty((4, 8, 8), device="meta"))
+    with pytest.raises(ValueError):
+        deform.modulated_deform_conv2d(t, t, t, t, None)
+    with pytest.raises(ValueError):
+        flash_attention.flash_window_attention(t, t, t, None, 1.0)
+
+
+# ---- on the card: each kernel against its plain version ------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on a GPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _to(dev, *arrays):
+    return [None if a is None else torch.from_numpy(a).to(dev)
+            for a in arrays]
+
+
+@pytest.mark.cuda
+def test_cuda_corr_kernels(cuda):
+    f1, f2, coords, w, b = _to(cuda, *_corr_inputs())
+    level0 = corr.corr_pyramid(f1, f2, 4)[0]
+    pyr = corr.corr_pyramid_build(level0, 4)
+    for got, want in zip(pyr, corr._corr_pyramid_build_plain(level0, 4)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    got = corr.corr_lookup_moenc(pyr, coords, w, b)
+    want = corr._corr_lookup_moenc_plain(pyr, coords, w, b, 4)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_deform_kernel(cuda):
+    x, raw, flow, weight, bias, dg = _deform_inputs()
+    x, raw, flow, weight, bias = _to(cuda, x, raw, flow, weight, bias)
+    off, mask = deform.split_offset_mask_channels(raw, dg, 3.0, flow)
+    off, mask = off.contiguous(), mask.contiguous()
+    got = deform.modulated_deform_conv2d(x, off, mask, weight, bias)
+    want = deform._modulated_deform_conv2d_plain(x, off, mask, weight, bias)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_cuda_attention_kernel(cuda, with_bias):
+    q, k, v, bias, scale = _attention_inputs()
+    q, k, v, bias = _to(cuda, q, k, v, bias if with_bias else None)
+    got = flash_attention.flash_window_attention(q, k, v, bias, scale)
+    want = flash_attention._flash_window_attention_plain(q, k, v, bias,
+                                                         scale)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
