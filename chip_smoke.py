@@ -5,24 +5,35 @@
     python3 chip_smoke.py --phases build,kernels --out-dir results
 
 Phases:
-  device    card name and `nvidia-smi` name / power limit;
-  build     compile every CUDA kernel (one nvcc per source, in parallel);
-  kernels   each kernel at the main path's shapes against its plain PyTorch
-            version on the card (max abs error within a stated tolerance),
-            timed beside the plain version and a library yardstick;
-  pipeline  `ProPainterPipeline.inpaint_video` at 80 frames of 432x240,
-            fp32, full-width models with seeded random weights: output
-            shape/dtype, unmasked pixels unchanged, every kernel launched;
-  small     a 6-frame 144x160 clip through `ProInpainter` on the GPU
-            (kernels) and on the CPU (plain versions), fan-in scaled
-            weights: uint8 outputs within 12 max / 0.5 mean LSB, a std of
-            at least 10 LSB inside the hole, and the float outputs of
-            RAFT, flow completion and one generator window within 1e-3
-            of their scale;
-  profile   (only when named) one main-path run under torch.profiler:
-            device time by kernel, the device's busy share, and host and
-            device time by op shape for one RAFT chunk and one generator
-            window.
+  device      card name and `nvidia-smi` name / power limit;
+  build       compile every CUDA kernel (one nvcc per source, in parallel);
+  kernels     each kernel at the main path's shapes against its plain
+              PyTorch version on the card (max abs error within a stated
+              tolerance), timed beside the plain version and a library
+              yardstick; K5 at three occupancies and both temporal-dilation
+              parities, and A/B against K4 plus branch B;
+  deform_opt  K6's path: the differentiable deform dispatchers
+              (`modulated_deform_conv2d_opt` through K6, `_opt2` through
+              K3) forward and backward at both call sites' shapes; values
+              and gradients against autograd of the plain version;
+  pipeline    `ProPainterPipeline.inpaint_video` at 80 frames of 432x240,
+              fp32, full-width models with seeded random weights, in both
+              attention configurations ('flash', then 'pallas' on the same
+              weights and clip): output shape/dtype, unmasked pixels
+              unchanged, every kernel of each path launched (K5 once per
+              transformer block and K4 never under 'pallas'), the two
+              outputs within 12 max / 0.5 mean LSB;
+  small       a 6-frame 144x160 clip on the GPU (kernels) and on the CPU
+              (plain versions), fan-in scaled weights, in both attention
+              configurations ('flash' through `ProInpainter`): uint8
+              outputs within 12 max / 0.5 mean LSB, a std of at least 10
+              LSB inside the hole, and the float outputs of RAFT, flow
+              completion and one generator window within 1e-3 of their
+              scale;
+  profile     (only when named) one main-path run under torch.profiler:
+              device time by kernel, the device's busy share, and host and
+              device time by op shape for one RAFT chunk and one generator
+              window.
 
 Prints one line per kernel, then the `{"kernels": [...]}` JSON line, the
 `nvidia-smi` line, and as the last line
@@ -36,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -44,15 +56,16 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-PHASES = ("device", "build", "kernels", "pipeline", "small")
+PHASES = ("device", "build", "kernels", "deform_opt", "pipeline", "small")
 EXTRA_PHASES = ("profile",)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores
 # and HBM3 bandwidth — the denominators of every bound_ms below.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # fp32 kernels against their fp32 plain versions: the only differences are
-# summation order (up to 2304 terms in K3) and the online softmax in K4, a
-# few ulp of the largest term; 1e-4 of the output scale leaves > 10x room.
+# summation order (up to 2304 terms in K3) and the online softmax in K4 and
+# K5, a few ulp of the largest term; 1e-4 of the output scale leaves > 10x
+# room.
 REL_TOL = 1e-4
 # GPU (kernels) vs CPU (plain) on the small clip, uint8 LSB: the fp32
 # tolerance of the JAX package's on-chip golden check.
@@ -181,9 +194,10 @@ def phase_kernels(records: dict) -> None:
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None)
 
-    # ---- K3 at both call sites: the generator's feature propagation (the
-    # record) and the flow completion's (an extra entry in the record)
-    k3 = []
+    # ---- K3 and K6 at both call sites on the same inputs: the generator's
+    # feature propagation (the record) and the flow completion's (an extra
+    # entry in the record)
+    k3, k6 = [], []
     for Bd, Hd, Wd, C, dg, max_res in ((1, 60, 108, 128, 16, 3.0),
                                        (2, 30, 54, 256, 16, 5.0)):
         x = randn(Bd, Hd, Wd, C)
@@ -207,11 +221,54 @@ def phase_kernels(records: dict) -> None:
         k3.append(dict(shape=shape, max_abs_err=err, ms=ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=None))
+
+        sy, sx = (c.contiguous() for c in deform._tap_coords(off))
+        s6 = deform.deform_sample(x, sy, sx, msk, dg)
+        err = _compare(f"deform_sample {shape}", s6,
+                       deform._deform_sample_plain(x, sy, sx, msk, dg))
+        _compare(f"modulated_deform_conv2d_fused vs K3 {shape}",
+                 deform.modulated_deform_conv2d_fused(x, off, msk, wt, bs),
+                 got)
+        ms = _time_ms(lambda: deform.deform_sample(x, sy, sx, msk, dg), 20)
+        plain_ms = _time_ms(
+            lambda: deform._deform_sample_plain(x, sy, sx, msk, dg), 5)
+        # yardstick: F.grid_sample per group with the 9 taps along the
+        # width, times the mask (the layouts prepared outside the timing)
+        Cg = C // dg
+        xg = x.reshape(Bd, Hd, Wd, dg, Cg).permute(0, 3, 4, 1, 2)
+        xg = xg.reshape(Bd * dg, Cg, Hd, Wd).contiguous()
+
+        def per_group(a):
+            return a.permute(0, 3, 1, 2, 4).reshape(Bd * dg, Hd, Wd * 9)
+
+        grid = torch.stack([per_group(sx) * (2.0 / (Wd - 1)) - 1.0,
+                            per_group(sy) * (2.0 / (Hd - 1)) - 1.0], -1)
+        mg = per_group(msk)[:, None].contiguous()
+
+        def library():
+            return F.grid_sample(xg, grid, mode="bilinear",
+                                 padding_mode="zeros",
+                                 align_corners=True) * mg
+
+        lib = library().reshape(Bd, dg, Cg, Hd, Wd, 9)
+        _compare(f"grid_sample yardstick vs K6 {shape}",
+                 lib.permute(0, 3, 4, 1, 5, 2), s6)
+        library_ms = _time_ms(library, 20)
+        bound_ms, bound_by = _bound(_nbytes(x, sy, sx, msk, s6),
+                                    12 * s6.numel())
+        k6.append(dict(shape=shape, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms))
     records["modulated_deform_conv2d"] = dict(
         name="modulated_deform_conv2d", route="cuda",
         source="propainter_tpu_torch/csrc/deform_conv.cu",
         replaces="propainter_tpu/ops/deform_pallas.py:173", **k3[0],
         flow_completion_site=k3[1])
+    records["deform_sample"] = dict(
+        name="deform_sample", route="cuda",
+        source="propainter_tpu_torch/csrc/deform_conv.cu",
+        replaces="propainter_tpu/ops/deform_pallas.py:38", **k6[0],
+        flow_completion_site=k6[1])
 
     # ---- K4: one transformer block of one window (16 windows x 4 heads)
     Gp, Tq, Tk, ch = 64, 855, 2380, 128
@@ -245,21 +302,223 @@ def phase_kernels(records: dict) -> None:
         shape=f"q {tuple(q.shape)} k {tuple(k.shape)}", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=library_ms)
+    records["sparse_window_attention"] = _check_k5(randn)
     for r in records.values():
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
               f"bound {r['bound_ms']:.3f} by {r['bound_by']}, library "
               f"{r['library_ms']})")
 
 
+def _smoke_occupancy():
+    """(1, 16) occupancy of the main path's middle generator window (the
+    local frames of the window centred on frame 40), through the
+    generator's own mask chain: the dilated masks resized to the encoder's
+    feature grid (1/4 of the frame), `token_masks`, `window_occupancy`."""
+    import numpy as np
+    import torch
+    from propainter_tpu_torch.models.propainter import (token_masks,
+                                                        window_occupancy)
+    from propainter_tpu_torch.ops.interp import resize
+    from propainter_tpu_torch.pipeline import PipelineConfig
+    from propainter_tpu_torch.utils.masks import binary_dilation_cross
+
+    T, H, W = 80, 240, 432
+    _, mask = _synthetic_clip(T, H, W, seed=0)
+    stride = PipelineConfig().neighbor_length // 2
+    local = mask[40 - stride:40 + stride + 1]
+    m = np.stack([binary_dilation_cross(f, 4) for f in local])
+    m = torch.from_numpy(m).float().cuda()[None, ..., None]
+    feat = resize(m, (H // 4, W // 4), "nearest")
+    return window_occupancy(token_masks(feat), (5, 9))
+
+
+def _check_k5(randn) -> dict:
+    """K5 at one transformer block of one generator window of the 'pallas'
+    path: 16 windows x 4 heads, 19 frames (11 local, 8 reference, the last
+    one padded), 45 tokens per window, 45 pooled tokens. Against its plain
+    version at the smoke clip's occupancy, all clean and all dirty, for
+    both temporal-dilation parities; timed beside its plain version,
+    F.scaled_dot_product_attention over the dirty problems (the yardstick)
+    and the 'flash' path's K4 plus branch B on the same inputs (the A/B)."""
+    import torch
+    import torch.nn.functional as F
+    from propainter_tpu_torch.models.propainter import _valid_rolled_indices
+    from propainter_tpu_torch.ops import attention, flash_attention
+
+    dev = torch.device("cuda")
+    n_head, nW, T, win, P, ch = 4, 16, 19, 45, 45, 128
+    BH = n_head
+    wq, wk, wv = (randn(BH, nW, T, win, ch) for _ in range(3))
+    rk, rv = (randn(BH, nW, 4, T, win, ch) for _ in range(2))
+    pk, pv = (randn(BH, T, P, ch) for _ in range(2))
+    valid_idx = torch.as_tensor(_valid_rolled_indices((5, 9), (3, 5)),
+                                device=dev)
+    roll_valid = torch.zeros(4 * win, dtype=torch.bool, device=dev)
+    roll_valid[valid_idx] = True
+    frame_valid = torch.ones(T, dtype=torch.bool, device=dev)
+    frame_valid[-1] = False                      # one padded reference frame
+
+    def static_sel(parity):
+        s = torch.zeros(T, dtype=torch.bool, device=dev)
+        s[parity::2] = True
+        return s
+
+    occs = {"smoke": _smoke_occupancy(),
+            "all clean": torch.zeros(1, nW, device=dev),
+            "all dirty": torch.ones(1, nW, device=dev)}
+    inputs = (wq, wk, wv, rk, rv, pk, pv, roll_valid)
+
+    def k5(occ, fsel):
+        return attention.sparse_window_attention(*inputs, occ, fsel, n_head)
+
+    err = 0.0
+    for name, occ in occs.items():
+        for parity in (0, 1):
+            fsel = (static_sel(parity) & frame_valid)[None]
+            err = max(err, _compare(
+                f"sparse_window_attention {name}, parity {parity}",
+                k5(occ, fsel), attention._sparse_window_attention_plain(
+                    *inputs, occ, fsel, n_head)))
+    fsel = (static_sel(0) & frame_valid)[None]
+    scale = 1.0 / math.sqrt(ch)
+
+    def bound(occ):
+        """Operations and bytes this run's occupancy and frame selection
+        need (with K4's count of 5 per logit for the softmax). Every window
+        reads its queries and writes its output; a clean window reads its
+        own keys and values of every frame; a dirty one those of the
+        selected frames, their valid rolled rows, and (once per batch·head)
+        their pooled tokens."""
+        dirty = int((occ.to(torch.int32) > 0).sum())
+        Ts = int(fsel.sum())
+        keys = Ts * (win + len(valid_idx) + P)
+        n_ops = (dirty * n_head * (4 * ch + 5) * T * win * keys
+                 + (nW - dirty) * n_head * T * (4 * ch + 5) * win * win)
+        rows = BH * (2 * nW * T * win                            # q, out
+                     + 2 * (nW - dirty) * T * win                # clean k, v
+                     + 2 * dirty * Ts * (win + len(valid_idx))   # dirty k, v
+                     + (2 * Ts * P if dirty else 0))             # pooled k, v
+        n_bytes = rows * ch * wq.element_size() + _nbytes(
+            occ, fsel, roll_valid)
+        return _bound(n_bytes, n_ops)
+
+    # yardstick: the dirty problems' branch A in one library call, over
+    # the selected frames' 270 keys each, invalid rolled keys masked out
+    sel = fsel[0].nonzero()[:, 0]
+    Ts = sel.numel()
+
+    def all_keys(c, r, p):
+        r = r[:, :, :, sel].transpose(2, 3).reshape(BH, nW, Ts, 4 * win, ch)
+        p = p[:, sel][:, None].expand(BH, nW, Ts, P, ch)
+        return torch.cat([c[:, :, sel], r, p], 3).reshape(BH, nW, -1, ch)
+
+    k_all, v_all = all_keys(wk, rk, pk), all_keys(wv, rv, pv)
+    key_ok = torch.cat([roll_valid.new_ones(win), roll_valid,
+                        roll_valid.new_ones(P)]).repeat(Ts)[None]
+
+    def sdpa_ms(occ):
+        dirty = (occ[0].to(torch.int32) > 0).nonzero()[:, 0]
+        q_d = wq[:, dirty].reshape(BH, -1, T * win, ch)
+        k_d, v_d = k_all[:, dirty], v_all[:, dirty]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q_d, k_d, v_d, attn_mask=key_ok, scale=scale)
+
+        _compare(f"SDPA yardstick vs K5, {int(dirty.numel())} dirty "
+                 f"windows", library(),
+                 k5(occ, fsel)[:, dirty].reshape(q_d.shape))
+        return _time_ms(library, 10)
+
+    # A/B: the 'flash' form on the same inputs — K4 over every window on
+    # the static parity's frames (the padded one masked by a -1e9 bias) and
+    # its valid keys, branch B for every window, then the occupancy picks
+    static = static_sel(0).nonzero()[:, 0]
+    Tf = static.numel()
+
+    def valid_keys(c, r, p):
+        r = r[:, :, :, static].transpose(2, 3)
+        r = r.reshape(BH, nW, Tf, 4 * win, ch)[:, :, :, valid_idx]
+        p = p[:, static][:, None].expand(BH, nW, Tf, P, ch)
+        return torch.cat([c[:, :, static], r, p], 3).reshape(
+            1, BH * nW, -1, ch).contiguous()
+
+    k4_k, k4_v = valid_keys(wk, rk, pk), valid_keys(wv, rv, pv)
+    k4_bias = torch.where(frame_valid[static], 0.0, flash_attention.NEG_INF)
+    k4_bias = k4_bias.repeat_interleave(k4_k.shape[2] // Tf)[None]
+    k4_q = wq.reshape(1, BH * nW, T * win, ch)
+
+    def flash_form(occ):
+        out_a = flash_attention.flash_window_attention(k4_q, k4_k, k4_v,
+                                                       k4_bias, scale)
+        att_b = torch.softmax(wq @ wk.transpose(-1, -2) * scale, dim=-1)
+        out_b = att_b @ wv
+        dirty = (occ > 0).expand(BH, nW)[:, :, None, None, None]
+        return torch.where(dirty, out_a.reshape(out_b.shape), out_b)
+
+    timing = {}
+    for name, occ in occs.items():
+        bound_ms, bound_by = bound(occ)
+        _compare(f"K4 + branch B vs K5, {name}", flash_form(occ),
+                 k5(occ, fsel))
+        timing[name] = dict(
+            ms=_time_ms(lambda: k5(occ, fsel), 10),
+            k4_plus_branch_b_ms=_time_ms(lambda: flash_form(occ), 10),
+            library_ms=(sdpa_ms(occ) if occ.max() > 0 else None),
+            bound_ms=bound_ms, bound_by=bound_by,
+            dirty_windows=int((occ > 0).sum()))
+        print(f"  sparse_window_attention {name} "
+              f"({timing[name]['dirty_windows']}/{nW} dirty): K5 "
+              f"{timing[name]['ms']:.3f} ms, K4 + branch B "
+              f"{timing[name]['k4_plus_branch_b_ms']:.3f} ms, SDPA over the "
+              f"dirty windows {timing[name]['library_ms']}, bound "
+              f"{bound_ms:.3f} by {bound_by}")
+    plain_ms = _time_ms(lambda: attention._sparse_window_attention_plain(
+        *inputs, occs["smoke"], fsel, n_head), 3)
+    smoke = timing.pop("smoke")
+    return dict(
+        name="sparse_window_attention", route="cuda",
+        source="propainter_tpu_torch/csrc/sparse_window_attention.cu",
+        replaces="propainter_tpu/ops/attention.py:42",
+        shape=f"windows {tuple(wq.shape)} rolled {tuple(rk.shape)} pooled "
+              f"{tuple(pk.shape)}, smoke occupancy "
+              f"{smoke['dirty_windows']}/{nW} dirty",
+        max_abs_err=err, ms=smoke["ms"], plain_ms=plain_ms,
+        bound_ms=smoke["bound_ms"], bound_by=smoke["bound_by"],
+        library_ms=smoke["library_ms"],
+        k4_plus_branch_b_ms=smoke["k4_plus_branch_b_ms"],
+        occupancies=timing)
+
+
 def _launch_counters():
-    from propainter_tpu_torch.ops import corr, deform, flash_attention
+    from propainter_tpu_torch.ops import attention, corr, deform, flash_attention
 
     return {
         "corr_pyramid_build": corr.corr_pyramid_build,
         "corr_lookup_moenc": corr.corr_lookup_moenc,
         "modulated_deform_conv2d": deform.modulated_deform_conv2d,
         "flash_window_attention": flash_attention.flash_window_attention,
+        "sparse_window_attention": attention.sparse_window_attention,
+        "deform_sample": deform.deform_sample,
     }
+
+
+# the driven run whose launches each kernel's record reports: the main
+# path in its two attention configurations, and the deform dispatchers
+KERNEL_PATH = {"corr_pyramid_build": "flash", "corr_lookup_moenc": "flash",
+               "modulated_deform_conv2d": "flash",
+               "flash_window_attention": "flash",
+               "sparse_window_attention": "pallas",
+               "deform_sample": "deform_opt"}
+
+
+def _zero_launches() -> None:
+    for fn in _launch_counters().values():
+        fn.launches = 0
+
+
+def _read_launches() -> dict:
+    return {k: fn.launches for k, fn in _launch_counters().items()}
 
 
 def _synthetic_clip(T: int, H: int, W: int, seed: int):
@@ -308,44 +567,143 @@ def _main_path_inputs():
     return pipe, frames, flow_masks
 
 
-def phase_pipeline(state: dict, smi: str) -> None:
-    """The main path at full size, once to warm up (cuDNN plans, lazy
-    module loading), then measured; every kernel must launch in the
-    measured run."""
+def _pallas_pipeline(pipe):
+    """`pipe` in the 'pallas' form: the same RAFT and flow completion, and
+    a copy of its generator (the same weights), so each pipeline keeps its
+    own generator's attention form."""
+    import copy
+
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+
+    return ProPainterPipeline(pipe.raft, pipe.flowcomp,
+                              copy.deepcopy(pipe.inpaint),
+                              PipelineConfig(attention_impl="pallas"),
+                              device="cuda")
+
+
+def phase_deform_opt(state: dict) -> None:
+    """K6's path: the differentiable deform dispatchers, forward and
+    backward, at both call sites' shapes, as a training step calls them;
+    launches counted from zero over just that. Then each value and gradient
+    against autograd of the plain version on the same inputs."""
+    import torch
+    from propainter_tpu_torch.ops import deform
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    cases = []
+    for Bd, Hd, Wd, C, dg in ((1, 60, 108, 128, 16), (2, 30, 54, 256, 16)):
+        off = 3.0 * torch.tanh(randn(Bd, Hd, Wd, dg, 9, 2))
+        inputs = (randn(Bd, Hd, Wd, C), off.contiguous(),
+                  torch.sigmoid(randn(Bd, Hd, Wd, dg, 9)),
+                  randn(3, 3, C, 128, std=0.02), randn(128, std=0.02))
+        cases.append((f"x {(Bd, Hd, Wd, C)} dg {dg}", inputs))
+
+    def value_and_grads(fn, inputs):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        (out ** 2).sum().backward()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    names = ("modulated_deform_conv2d_opt", "modulated_deform_conv2d_opt2")
+    _zero_launches()
+    got = {(name, shape): value_and_grads(getattr(deform, name), inputs)
+           for shape, inputs in cases for name in names}
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    state.setdefault("launches", {})["deform_opt"] = launches
+    print(f"  launches: {launches}")
+    if (launches["deform_sample"] != len(cases)
+            or launches["modulated_deform_conv2d"] != len(cases)):
+        raise AssertionError("each dispatcher's forward must launch its "
+                             "kernel once per call")
+    for shape, inputs in cases:
+        want = value_and_grads(deform._modulated_deform_conv2d_plain, inputs)
+        for name in names:
+            for what, a, b in zip(("value", "d x", "d offset", "d mask",
+                                   "d weight", "d bias"),
+                                  got[(name, shape)], want):
+                _compare(f"{name} {shape} {what}", a, b)
+
+
+def _measured_run(pipe, frames, flow_masks, smi: str):
+    """One main-path run with the launch counts zeroed just before and
+    read just after: (uint8 output, launches, stage summary)."""
     import numpy as np
     import torch
 
-    pipe, frames, flow_masks = _main_path_inputs()
-    state["main_path"] = (pipe, frames, flow_masks)
     T, H, W = frames.shape[:3]
-    t0 = time.perf_counter()
-    pipe.inpaint_video(frames, flow_masks, flow_masks)
-    print(f"  warm-up run: {time.perf_counter() - t0:.3f} s")
-    counters = _launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_launches()
     timings: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = np.stack(pipe.inpaint_video(frames, flow_masks, flow_masks,
                                       timings=timings))
     total = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    state["launches"] = launches
-    print(f"  launches: {launches}")
+    launches = _read_launches()
+    impl = pipe.config.attention_impl
+    print(f"  launches ({impl}): {launches}")
     if out.shape != (T, H, W, 3) or out.dtype != np.uint8:
         raise AssertionError(f"output {out.shape} {out.dtype}")
     keep = flow_masks == 0
     if not np.array_equal(out[keep], frames[keep]):
         raise AssertionError("unmasked pixels changed")
-    missing = [k for k, n in launches.items() if n == 0]
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+    print(f"  pipeline {T}x{W}x{H} fp32, attention_impl={impl!r}: "
+          f"{total:.3f} s, {T / total:.3f} fps ({stages}) on {smi}")
+    return out, launches, dict(seconds=total, fps=T / total, stages=timings)
+
+
+def phase_pipeline(state: dict, smi: str) -> None:
+    """The main path at full size in its two attention configurations on
+    the same weights and clip, each once to warm up (cuDNN plans, lazy
+    module loading), then measured; every kernel of each path must launch
+    in its measured run."""
+    import numpy as np
+
+    pipe, frames, flow_masks = _main_path_inputs()
+    state["main_path"] = (pipe, frames, flow_masks)
+    t0 = time.perf_counter()
+    pipe.inpaint_video(frames, flow_masks, flow_masks)
+    print(f"  warm-up run: {time.perf_counter() - t0:.3f} s")
+    out, launches, state["pipeline"] = _measured_run(pipe, frames,
+                                                     flow_masks, smi)
+    state.setdefault("launches", {})["flash"] = launches
+    missing = [k for k, path in KERNEL_PATH.items()
+               if path == "flash" and launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    stages = ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
-    print(f"  pipeline {T}x{W}x{H} fp32: {total:.3f} s, {T / total:.3f} fps "
-          f"({stages}) on {smi}")
-    state["pipeline"] = dict(seconds=total, fps=T / total, stages=timings)
+
+    sparse = _pallas_pipeline(pipe)
+    state["main_path_pallas"] = sparse
+    sparse.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
+    out_p, launches, state["pipeline_pallas"] = _measured_run(
+        sparse, frames, flow_masks, smi)
+    state["launches"]["pallas"] = launches
+    # one K5 launch per transformer block of every generator window
+    n_windows = len(range(0, frames.shape[0],
+                          sparse.config.neighbor_length // 2))
+    want_k5 = n_windows * len(sparse.inpaint.transformers.transformer)
+    diff = np.abs(out_p.astype(int) - out.astype(int))
+    print(f"  'pallas' vs 'flash' output: max {diff.max()} LSB, mean "
+          f"{diff.mean():.4f} LSB (limits {SMALL_MAX_LSB} / "
+          f"{SMALL_MEAN_LSB}); K5 launches {launches['sparse_window_attention']}"
+          f" (want {want_k5}), K4 launches "
+          f"{launches['flash_window_attention']} (want 0)")
+    state["pipeline_pallas"].update(max_lsb_vs_flash=int(diff.max()),
+                                    mean_lsb_vs_flash=float(diff.mean()))
+    missing = [k for k in ("corr_pyramid_build", "corr_lookup_moenc",
+                           "modulated_deform_conv2d") if launches[k] == 0]
+    if (missing or launches["sparse_window_attention"] != want_k5
+            or launches["flash_window_attention"] != 0):
+        raise AssertionError(f"the 'pallas' path launched {launches}")
+    if diff.max() > SMALL_MAX_LSB or diff.mean() > SMALL_MEAN_LSB:
+        raise AssertionError("'pallas' and 'flash' outputs disagree")
 
 
 def phase_profile(state: dict) -> None:
@@ -372,9 +730,13 @@ def phase_profile(state: dict) -> None:
                    for e in events if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in kern)
-    ours = {k: sum(r[1] for r in kern if k + "_kernel" in r[0])
+    # whole-symbol match: "window_attention_kernel" must not count
+    # "sparse_window_attention_kernel"
+    ours = {k: sum(r[1] for r in kern
+                   if re.search(rf"\b{k}_kernel\b", r[0]))
             for k in ("corr_lookup_moenc", "corr_pyramid_build",
-                      "deform_conv", "window_attention")}
+                      "deform_conv", "deform_sample", "window_attention",
+                      "sparse_window_attention")}
     lines = [f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
              f"({100 * busy / (wall * 1e3):.1f}%), stages (s): " + ", ".join(
                  f"{k} {v:.3f}" for k, v in timings.items())]
@@ -386,7 +748,8 @@ def phase_profile(state: dict) -> None:
     print(f"  port kernels (ms): {ours}")
 
     # one RAFT chunk (13 frames) and one generator window (11 local + 8
-    # reference frames) with input shapes: host and device ms per op shape
+    # reference frames) in both attention forms, after a warm-up call: host
+    # and device ms per op shape, and device ms by kernel
     import torch
 
     T, H, W = 19, frames.shape[1], frames.shape[2]
@@ -394,17 +757,25 @@ def phase_profile(state: dict) -> None:
     m = torch.from_numpy(flow_masks[:T]).cuda().float()[None, ..., None]
     zero_flow = torch.zeros((1, 10, H, W, 2), device="cuda")
     valid = torch.ones(T, dtype=torch.bool, device="cuda")
+
+    def window(generator):
+        return lambda: generator(x, (zero_flow, zero_flow), m, m, 11,
+                                 frame_valid=valid)
+
+    sparse = state.get("main_path_pallas") or _pallas_pipeline(pipe)
     work = {"RAFT chunk": lambda: pipe.compute_flows(x[:, :13]),
-            "generator window": lambda: pipe.inpaint(
-                x, (zero_flow, zero_flow), m, m, 11, frame_valid=valid)}
+            "generator window": window(pipe.inpaint),
+            "generator window ('pallas')": window(sparse.inpaint)}
     ops = ("aten::convolution", "aten::linear", "aten::matmul", "aten::bmm",
            "aten::col2im", "aten::im2col")
     for what, fn in work.items():
-        with torch.inference_mode(), profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                record_shapes=True) as prof:
+        with torch.inference_mode():
             fn()
-            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                fn()
+                torch.cuda.synchronize()
         rows = [e for e in prof.key_averages(group_by_input_shape=True)
                 if e.key in ops]
         rows.sort(key=lambda e: -e.device_time_total)
@@ -412,8 +783,16 @@ def phase_profile(state: dict) -> None:
         lines += [f"{e.cpu_time_total / 1e3:9.2f} "
                   f"{e.device_time_total / 1e3:9.2f} x{e.count:<5d} {e.key} "
                   f"{str(e.input_shapes)[:100]}" for e in rows]
+        kern = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        lines += [f"{what}: device {sum(r[1] for r in kern):.2f} ms; by "
+                  f"kernel"]
+        lines += [f"{ms:10.2f} ms x{n:<6d} {name[:100]}"
+                  for name, ms, n in kern]
         report += lines
-        for line in lines[:14]:
+        for line in lines[:14] + lines[len(lines) - len(kern) - 1:][:13]:
             print("  " + line)
     state["profile"] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
                             kernels_ms=ours, report=report)
@@ -447,50 +826,66 @@ def _stage_outputs(pipe, frames, mask, given=None) -> dict:
 
 
 def phase_small(state: dict) -> None:
-    """The same small clip and weights on the GPU and on the CPU. The
-    weights are fan-in scaled so the inpainted region varies (its spread
-    must reach SMALL_MIN_HOLE_STD). The uint8 outputs are held to the
-    golden check's limits, and the float outputs of RAFT, flow completion
-    and one generator window to STAGE_REL_TOL of their scale."""
+    """The same small clip and weights on the GPU and on the CPU, in both
+    attention configurations ('flash' through the `ProInpainter` facade,
+    'pallas' through the pipeline). The weights are fan-in scaled so the
+    inpainted region varies (its spread must reach SMALL_MIN_HOLE_STD).
+    The uint8 outputs are held to the golden check's limits, and the float
+    outputs of RAFT, flow completion and one generator window to
+    STAGE_REL_TOL of their scale."""
     import numpy as np
     from propainter_tpu_torch.api import ProInpainter
     from propainter_tpu_torch.pipeline import (PipelineConfig,
                                                ProPainterPipeline)
+    from propainter_tpu_torch.utils.masks import binary_dilation_cross
 
     frames, mask = _synthetic_clip(6, 144, 160, seed=2)
-    outs, stages = {}, {}
-    for device in ("cpu", "cuda"):
-        mods = _models(seed=5, fan_in_scaled=True)
-        outs[device] = ProInpainter(mods, device=device).inpaint(
-            frames, mask, raft_iter=3, neighbor_length=4, ref_stride=3)
-        pipe = ProPainterPipeline(mods["raft"], mods["flowcomp"],
-                                  mods["inpaint"],
-                                  PipelineConfig(raft_iter=3), device=device)
-        stages[device] = _stage_outputs(pipe, frames, mask,
-                                        stages.get("cpu"))
-    diff = np.abs(outs["cuda"].astype(int) - outs["cpu"].astype(int))
-    hole_std = float(outs["cpu"][mask.astype(bool)].std())
-    print(f"  small clip GPU vs CPU: max {diff.max()} LSB, mean "
-          f"{diff.mean():.4f} LSB (limits {SMALL_MAX_LSB} / "
-          f"{SMALL_MEAN_LSB}); std inside the hole {hole_std:.2f} LSB "
-          f"(at least {SMALL_MIN_HOLE_STD})")
-    stage_err = {}
-    for key, want in stages["cpu"].items():
-        got = stages["cuda"][key]
-        err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        scale = max(max(w.abs().max().item() for w in want), 1.0)
-        stage_err[key] = err / scale
-        print(f"  {key} GPU vs CPU: max abs {err:.3e}, scale {scale:.3f} "
-              f"(relative limit {STAGE_REL_TOL})")
-    state["small"] = dict(max_lsb=int(diff.max()), mean_lsb=float(diff.mean()),
-                          hole_std_lsb=hole_std, stage_rel_err=stage_err)
-    if hole_std < SMALL_MIN_HOLE_STD:
-        raise AssertionError("the inpainted region is too flat to compare")
-    if diff.max() > SMALL_MAX_LSB or diff.mean() > SMALL_MEAN_LSB:
-        raise AssertionError("GPU and CPU outputs disagree")
-    bad = [k for k, e in stage_err.items() if e > STAGE_REL_TOL]
-    if bad:
-        raise AssertionError(f"GPU and CPU stages disagree: {bad}")
+    flow_masks = np.stack([binary_dilation_cross(m, 4) for m in mask])
+    failures = []
+    for impl in ("flash", "pallas"):
+        outs, stages = {}, {}
+        for device in ("cpu", "cuda"):
+            mods = _models(seed=5, fan_in_scaled=True)
+            pipe = ProPainterPipeline(
+                mods["raft"], mods["flowcomp"], mods["inpaint"],
+                PipelineConfig(raft_iter=3, neighbor_length=4, ref_stride=3,
+                               attention_impl=impl), device=device)
+            if impl == "flash":
+                outs[device] = ProInpainter(mods, device=device).inpaint(
+                    frames, mask, raft_iter=3, neighbor_length=4,
+                    ref_stride=3)
+            else:
+                outs[device] = np.stack(pipe.inpaint_video(
+                    frames, flow_masks, flow_masks))
+            stages[device] = _stage_outputs(pipe, frames, mask,
+                                            stages.get("cpu"))
+        diff = np.abs(outs["cuda"].astype(int) - outs["cpu"].astype(int))
+        hole_std = float(outs["cpu"][mask.astype(bool)].std())
+        print(f"  small clip ({impl}) GPU vs CPU: max {diff.max()} LSB, "
+              f"mean {diff.mean():.4f} LSB (limits {SMALL_MAX_LSB} / "
+              f"{SMALL_MEAN_LSB}); std inside the hole {hole_std:.2f} LSB "
+              f"(at least {SMALL_MIN_HOLE_STD})")
+        stage_err = {}
+        for key, want in stages["cpu"].items():
+            got = stages["cuda"][key]
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            scale = max(max(w.abs().max().item() for w in want), 1.0)
+            stage_err[key] = err / scale
+            print(f"  {key} ({impl}) GPU vs CPU: max abs {err:.3e}, scale "
+                  f"{scale:.3f} (relative limit {STAGE_REL_TOL})")
+        state.setdefault("small", {})[impl] = dict(
+            max_lsb=int(diff.max()), mean_lsb=float(diff.mean()),
+            hole_std_lsb=hole_std, stage_rel_err=stage_err)
+        if hole_std < SMALL_MIN_HOLE_STD:
+            failures.append(f"{impl}: the inpainted region is too flat to "
+                            f"compare")
+        if diff.max() > SMALL_MAX_LSB or diff.mean() > SMALL_MEAN_LSB:
+            failures.append(f"{impl}: GPU and CPU outputs disagree")
+        bad = [k for k, e in stage_err.items() if e > STAGE_REL_TOL]
+        if bad:
+            failures.append(f"{impl}: GPU and CPU stages disagree: {bad}")
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def main(argv=None) -> int:
@@ -540,6 +935,8 @@ def main(argv=None) -> int:
                       f"{max(times.values(), default=0.0):.1f} s")
             elif phase == "kernels":
                 phase_kernels(records)
+            elif phase == "deform_opt":
+                phase_deform_opt(state)
             elif phase == "pipeline":
                 phase_pipeline(state, smi)
             elif phase == "small":
@@ -554,8 +951,10 @@ def main(argv=None) -> int:
     launches = state.get("launches", {})
     kernels = []
     for key, r in records.items():
-        kernels.append(dict(r, launches=launches.get(key)))
+        kernels.append(dict(r, launches=launches.get(KERNEL_PATH[key], {})
+                            .get(key)))
     state.pop("main_path", None)
+    state.pop("main_path_pallas", None)
     if args.out_dir:
         out = Path(args.out_dir)
         out.mkdir(parents=True, exist_ok=True)

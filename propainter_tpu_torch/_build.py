@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use by its own `nvcc` process into `build/kernels/<name>-<digest>.so` at the
-root of the checkout (the digest covers the source and the flags, so an
-edited kernel is rebuilt), then loaded with `ctypes`. Every pointer and the
-CUDA stream cross the boundary as `ctypes.c_void_p`; every C entry returns
-`cudaGetLastError()` and `check` raises when it is not 0.
+root of the checkout (the digest covers the source, every `csrc/*.cuh`
+header and the flags, so an edited kernel or header is rebuilt), then
+loaded with `ctypes`. Every pointer and the CUDA stream cross the boundary
+as `ctypes.c_void_p`; every C entry returns `cudaGetLastError()` and
+`check` raises when it is not 0.
 
 Nothing here runs at import: the CPU tests import every module, and a CPU
 host has no `nvcc`.
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("corr_lookup_moenc", "corr_pyramid_build",
-                  "deform_conv", "window_attention")
+                  "deform_conv", "sparse_window_attention", "window_attention")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -48,8 +49,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 

@@ -13,7 +13,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from propainter_tpu_torch.ops.deform import (
-    modulated_deform_conv2d, split_offset_mask_channels)
+    modulated_deform_conv2d_opt2, split_offset_mask_channels)
 
 
 def conv2d(in_ch: int, out_ch: int, kernel_size, stride=1, padding=0,
@@ -156,10 +156,11 @@ def leaky_relu(x, negative_slope: float = 0.2):
 
 def deform_align(x, raw, weight, bias, dg, max_residue_magnitude, flow=None):
     """Modulated deform conv of x (B, C, H, W) with offsets/masks from the
-    conv_offset output raw (B, 27*dg, H, W) -> (B, O, H, W)."""
+    conv_offset output raw (B, 27*dg, H, W) -> (B, O, H, W), through the
+    differentiable dispatcher the JAX models call (kernel K3 forward)."""
     offset, mask = split_offset_mask_channels(
         raw.permute(0, 2, 3, 1), dg, max_residue_magnitude, flow)
-    out = modulated_deform_conv2d(
+    out = modulated_deform_conv2d_opt2(
         x.permute(0, 2, 3, 1).contiguous(), offset.contiguous(),
         mask.contiguous(), weight.permute(2, 3, 1, 0).contiguous(), bias)
     return out.permute(0, 3, 1, 2)

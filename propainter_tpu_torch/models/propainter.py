@@ -3,11 +3,12 @@
 ProPainter.pth's.
 
 Tokens between SoftSplit and SoftComp are channel-last, (B, T, h, w, C).
-The sparse window attention computes both branches for every window and
-selects per window by occupancy, as the JAX module does: branch A (masked
-windows attend over the selected frames' window, rolled-band and pooled
-tokens) runs through kernel K4; branch B (within window, same frame) is a
-plain batched softmax. Feature propagation's deformable alignment is
+The sparse window attention has two forms (`attention_impl`): 'flash'
+computes both branches for every window and selects per window by
+occupancy — branch A (masked windows attend over the selected frames'
+window, rolled-band and pooled tokens) through kernel K4, branch B (within
+window, same frame) a plain batched softmax; 'pallas' lets kernel K5 take
+each window's branch. Feature propagation's deformable alignment is
 kernel K3.
 """
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 
 from propainter_tpu_torch.models.layers import (
     Deconv, SplitGroupConv2d, conv2d, deform_align)
+from propainter_tpu_torch.ops.attention import sparse_window_attention
 from propainter_tpu_torch.ops.flash_attention import (
     NEG_INF, flash_window_attention)
 from propainter_tpu_torch.ops.interp import max_pool2d, resize
@@ -184,13 +186,75 @@ def _window_gather_indices(nwh, nww, window, expand, valid_idx) -> np.ndarray:
     return np.asarray(idx, np.int64)
 
 
+def _window_partition(x, window, n_head):
+    """(B, T, H, W, C) -> (B, nW, n_head, T, wh*ww, C/n_head), head-major
+    channel split. Reference sparse_transformer.py:104-115."""
+    B, T, H, W, C = x.shape
+    wh, ww = window
+    nh, nw = H // wh, W // ww
+    x = x.reshape(B, T, nh, wh, nw, ww, n_head, C // n_head)
+    x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+    return x.reshape(B, nh * nw, n_head, T, wh * ww, C // n_head)
+
+
+def token_masks(masks):
+    """(B, l_t, h, w, 1) masks on the encoder's feature grid -> (B, l_t,
+    h', w', 1) on the transformer's token grid (the soft split's max
+    pool)."""
+    B, l_t, h, w, _ = masks.shape
+    pooled = max_pool2d(masks.reshape(B * l_t, h, w, 1), KERNEL, STRIDE,
+                        PADDING)
+    return pooled.reshape(B, l_t, *pooled.shape[1:])
+
+
+def window_occupancy(mask, window_size):
+    """(B, l_t, H, W, 1) token-grid masks of the local frames -> (B, nW)
+    occupancy: each window's max summed over the frames (> 0 = dirty),
+    on the grid zero-padded to whole windows."""
+    B, l_t, H, W, _ = mask.shape
+    wh, ww = window_size
+    pad_b, pad_r = (-H) % wh, (-W) % ww
+    if pad_b or pad_r:
+        mask = F.pad(mask, (0, 0, 0, pad_r, 0, pad_b))
+    mp = max_pool2d(mask.reshape(B * l_t, H + pad_b, W + pad_r, 1),
+                    window_size, window_size)
+    return mp.reshape(B, l_t, -1).sum(dim=1)
+
+
+def _check_attention_impl(impl: str) -> None:
+    if impl == "xla":
+        raise NotImplementedError(
+            "attention_impl='xla' is the JAX package's differentiable dense "
+            "form for training; it comes with the training slice "
+            "(ROADMAP.md, modules to port: Training)")
+    if impl not in ("flash", "pallas"):
+        raise ValueError(f"attention_impl must be 'flash' or 'pallas', got "
+                         f"{impl!r}")
+
+
 class SparseWindowAttention(nn.Module):
-    """Mask-guided sparse window attention (dense dual-branch form).
-    Reference sparse_transformer.py:117-281."""
+    """Mask-guided sparse window attention. Reference
+    sparse_transformer.py:117-281.
+
+    attention_impl:
+      'flash'  (default) — both branches for every window, selected per
+               window by occupancy: branch A (over the selected frames'
+               window, rolled-band and pooled tokens) through kernel K4,
+               branch B (within window and frame) a plain batched softmax.
+      'pallas' — one kernel, K5, that takes each window's branch itself,
+               so branch-A work scales with the dirty windows; its inputs
+               are the window partition of q/k/v and of four rolled copies
+               of k/v on the padded token grid.
+    The JAX module's default is 'xla', the dense differentiable form its
+    training uses; the port has no training yet ('xla' raises
+    NotImplementedError), and 'flash' is the JAX pipeline's default."""
 
     def __init__(self, dim: int = 512, n_head: int = 4,
-                 window_size=(5, 9), pool_size=(4, 4)):
+                 window_size=(5, 9), pool_size=(4, 4),
+                 attention_impl: str = "flash"):
         super().__init__()
+        _check_attention_impl(attention_impl)
+        self.attention_impl = attention_impl
         self.n_head = n_head
         self.window_size = tuple(window_size)
         self.key = nn.Linear(dim, dim)
@@ -204,6 +268,11 @@ class SparseWindowAttention(nn.Module):
         # kept for the checkpoint's keys; the indices are static
         self.register_buffer("valid_ind_rolled",
                              torch.as_tensor(self._valid_idx))
+        # K5's mask of the rolled band's tokens outside the centre window
+        roll_valid = torch.zeros(4 * window_size[0] * window_size[1],
+                                 dtype=torch.bool)
+        roll_valid[self._valid_idx] = True
+        self.register_buffer("roll_valid", roll_valid, persistent=False)
         self._gather_idx: dict = {}   # (nwh, nww, device) -> indices
 
     def forward(self, x, mask, static_sel, frame_valid=None):
@@ -220,16 +289,41 @@ class SparseWindowAttention(nn.Module):
         pad_b, pad_r = new_h - H, new_w - W
         if pad_b or pad_r:
             x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
-            mask = F.pad(mask, (0, 0, 0, pad_r, 0, pad_b))
-        nW = nwh * nww
-        win = wh * ww
 
         q, k, v = self.query(x), self.key(x), self.value(x)
-        key = (nwh, nww, x.device)
+        pool_x = self.pool_layer(
+            x.reshape(B * T, new_h, new_w, C).permute(0, 3, 1, 2))
+        p_h, p_w = pool_x.shape[2:]
+        pool_x = pool_x.permute(0, 2, 3, 1).reshape(B, T, p_h * p_w, C)
+        pool_k, pool_v = self.key(pool_x), self.value(pool_x)
+
+        occ = window_occupancy(mask, self.window_size)          # (B, nW)
+
+        windows = (self._sparse_windows if self.attention_impl == "pallas"
+                   else self._dense_windows)
+        out = windows(q, k, v, pool_k, pool_v, occ, static_sel, frame_valid)
+        out = out.reshape(B, nwh, nww, nh, T, wh, ww, ch)
+        out = out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, T, new_h, new_w,
+                                                          C)
+        if pad_b or pad_r:
+            out = out[:, :, :H, :W]
+        return self.proj(out)
+
+    def _dense_windows(self, q, k, v, pool_k, pool_v, occ, static_sel,
+                       frame_valid):
+        """'flash': both branches for every window -> (B, nW, head, T, win,
+        ch)."""
+        B, T, new_h, new_w, C = q.shape
+        wh, ww = self.window_size
+        nh = self.n_head
+        ch = C // nh
+        nwh, nww = new_h // wh, new_w // ww
+        nW, win, P = nwh * nww, wh * ww, pool_k.shape[2]
+        key = (nwh, nww, q.device)
         if key not in self._gather_idx:
             self._gather_idx[key] = torch.as_tensor(_window_gather_indices(
                 nwh, nww, self.window_size, self.expand, self._valid_idx),
-                device=x.device)
+                device=q.device)
         idx_all = self._gather_idx[key]
         idx_q = idx_all[:, :win]
 
@@ -243,28 +337,17 @@ class SparseWindowAttention(nn.Module):
         win_q = gather_windows(q, idx_q)
         win_k = gather_windows(k, idx_q)
         win_v = gather_windows(v, idx_q)
-
-        pool_x = self.pool_layer(
-            x.reshape(B * T, new_h, new_w, C).permute(0, 3, 1, 2))
-        p_h, p_w = pool_x.shape[2:]
-        pool_x = pool_x.permute(0, 2, 3, 1).reshape(B, T, p_h * p_w, C)
-        pool_k, pool_v = self.key(pool_x), self.value(pool_x)
-
-        l_t = mask.shape[1]
-        mp = max_pool2d(mask.reshape(B * l_t, new_h, new_w, 1),
-                        self.window_size, self.window_size)
-        occ = mp.reshape(B, l_t, nW).sum(dim=1)              # (B, nW)
         scale = 1.0 / math.sqrt(ch)
 
         # branch A: every window over the selected frames' window, rolled
         # band and pooled tokens (kernel K4)
-        sel = torch.as_tensor(np.nonzero(static_sel)[0], device=x.device)
+        sel = torch.as_tensor(np.nonzero(static_sel)[0], device=q.device)
         Ts = sel.numel()
 
         def pool_windows(p):
-            p = p.index_select(1, sel).reshape(B, Ts, p_h * p_w, nh, ch)
+            p = p.index_select(1, sel).reshape(B, Ts, P, nh, ch)
             p = p.permute(0, 3, 1, 2, 4)[:, None]
-            return p.expand(B, nW, nh, Ts, p_h * p_w, ch)
+            return p.expand(B, nW, nh, Ts, P, ch)
 
         k_all = torch.cat([gather_windows(k.index_select(1, sel), idx_all),
                            pool_windows(pool_k)], dim=4)
@@ -273,7 +356,7 @@ class SparseWindowAttention(nn.Module):
         k_tok = k_all.shape[4]
         bias = None
         if frame_valid is not None:
-            fv = frame_valid.to(x.device).index_select(0, sel)
+            fv = frame_valid.to(q.device).index_select(0, sel)
             bias = torch.where(fv, 0.0, NEG_INF).to(torch.float32)
             bias = bias.repeat_interleave(k_tok)[None].expand(B, -1)
             bias = bias.contiguous()
@@ -288,24 +371,52 @@ class SparseWindowAttention(nn.Module):
         att_b = torch.softmax(win_q @ win_k.transpose(-1, -2) * scale, dim=-1)
         out_b = att_b @ win_v
 
-        out = torch.where((occ > 0)[:, :, None, None, None, None],
-                          out_a, out_b)
-        out = out.reshape(B, nwh, nww, nh, T, wh, ww, ch)
-        out = out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, T, new_h, new_w,
-                                                          C)
-        if pad_b or pad_r:
-            out = out[:, :, :H, :W]
-        return self.proj(out)
+        return torch.where((occ > 0)[:, :, None, None, None, None],
+                           out_a, out_b)
+
+    def _sparse_windows(self, q, k, v, pool_k, pool_v, occ, static_sel,
+                        frame_valid):
+        """'pallas': each window's branch inside kernel K5 -> (B, nW,
+        head, T, win, ch)."""
+        B, T, _, _, C = q.shape
+        nh = self.n_head
+        ch = C // nh
+        eh, ew = self.expand
+        shifts = ((-eh, -ew), (-eh, ew), (eh, -ew), (eh, ew))
+
+        def bh(a):   # (B, nW, head, ...) -> (B*head, nW, ...)
+            a = a.transpose(1, 2)
+            return a.reshape(B * nh, *a.shape[2:]).contiguous()
+
+        def windows(t):
+            return _window_partition(t, self.window_size, nh)
+
+        def rolled(t):   # the four rolled copies on the padded grid
+            return bh(torch.stack([windows(torch.roll(t, s, dims=(2, 3)))
+                                   for s in shifts], dim=3))
+
+        def pool_bh(p):  # (B, T, P, C) -> (B*head, T, P, ch)
+            p = p.reshape(B, T, p.shape[2], nh, ch).permute(0, 3, 1, 2, 4)
+            return p.reshape(B * nh, T, -1, ch).contiguous()
+
+        frame_select = torch.as_tensor(static_sel, device=q.device)[None]
+        if frame_valid is not None:
+            frame_select = frame_select & frame_valid.to(q.device)[None]
+        out = sparse_window_attention(
+            bh(windows(q)), bh(windows(k)), bh(windows(v)), rolled(k),
+            rolled(v), pool_bh(pool_k), pool_bh(pool_v), self.roll_valid,
+            occ, frame_select.expand(B, T), nh)
+        return out.reshape(B, nh, *out.shape[1:]).transpose(1, 2)
 
 
 class TemporalSparseTransformer(nn.Module):
     """Pre-LN attention + FusionFeedForward block. Reference :284-314."""
 
     def __init__(self, dim: int = 512, n_head: int = 4, window_size=(5, 9),
-                 pool_size=(4, 4)):
+                 pool_size=(4, 4), attention_impl: str = "flash"):
         super().__init__()
         self.attention = SparseWindowAttention(dim, n_head, window_size,
-                                               pool_size)
+                                               pool_size, attention_impl)
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = FusionFeedForward(dim)
@@ -321,10 +432,12 @@ class TemporalSparseTransformerBlock(nn.Module):
     """Blocks with alternating temporal dilation. Reference :317-344."""
 
     def __init__(self, dim: int = 512, n_head: int = 4, window_size=(5, 9),
-                 pool_size=(4, 4), depths: int = 8):
+                 pool_size=(4, 4), depths: int = 8,
+                 attention_impl: str = "flash"):
         super().__init__()
         self.transformer = nn.Sequential(*[
-            TemporalSparseTransformer(dim, n_head, window_size, pool_size)
+            TemporalSparseTransformer(dim, n_head, window_size, pool_size,
+                                      attention_impl)
             for _ in range(depths)])
 
     def forward(self, x, fold_x_size, l_mask, t_dilation: int = 2,
@@ -466,11 +579,13 @@ class FeaturePropagation(nn.Module):
 
 class InpaintGenerator(nn.Module):
     """Encoder -> feature propagation -> sparse transformer -> decoder.
-    Reference model/propainter.py:256-372 (inference forward)."""
+    Reference model/propainter.py:256-372 (inference forward).
+    attention_impl: the sparse window attention's form, 'flash' or
+    'pallas' (SparseWindowAttention)."""
 
     def __init__(self, channel: int = 128, hidden: int = 512,
                  depths: int = 8, num_heads: int = 4, window_size=(5, 9),
-                 pool_size=(4, 4)):
+                 pool_size=(4, 4), attention_impl: str = "flash"):
         super().__init__()
         self.encoder = Encoder()
         self.decoder = nn.Sequential(
@@ -482,7 +597,14 @@ class InpaintGenerator(nn.Module):
         self.sc = SoftComp(channel, hidden)
         self.feat_prop_module = FeaturePropagation(channel)
         self.transformers = TemporalSparseTransformerBlock(
-            hidden, num_heads, window_size, pool_size, depths)
+            hidden, num_heads, window_size, pool_size, depths,
+            attention_impl)
+
+    def set_attention_impl(self, impl: str) -> None:
+        """Switch every transformer block to `impl` (the same weights)."""
+        _check_attention_impl(impl)
+        for block in self.transformers.transformer:
+            block.attention.attention_impl = impl
 
     def forward(self, masked_frames, completed_flows, masks_in, masks_updated,
                 num_local_frames: int, t_dilation: int = 2, frame_valid=None):
@@ -503,9 +625,7 @@ class InpaintGenerator(nn.Module):
         ds_fb = resize(flows_b, (h, w), "bilinear") / 4.0
         ds_mask_in = resize(masks_in[:, :l_t], (h, w), "nearest")
         ds_mask_upd = resize(masks_updated[:, :l_t], (h, w), "nearest")
-        pooled = max_pool2d(ds_mask_in.reshape(B * l_t, h, w, 1), KERNEL,
-                            STRIDE, PADDING)
-        mask_pool_l = pooled.reshape(B, l_t, *pooled.shape[1:])
+        mask_pool_l = token_masks(ds_mask_in)
 
         prop_mask = torch.cat([ds_mask_in, ds_mask_upd], dim=-1)
         local = self.feat_prop_module(enc[:, :l_t], ds_ff, ds_fb,

@@ -88,6 +88,11 @@ class PipelineConfig:
     subvideo_length: int = 80
     raft_iter: int = 20
     precision: str = "fp32"
+    # the generator's sparse window attention: 'flash' (kernel K4 over
+    # every window, then the occupancy selects) or 'pallas' (kernel K5
+    # takes each window's branch); the pipeline sets it on its generator
+    # when it is built
+    attention_impl: str = "flash"
 
 
 @contextlib.contextmanager
@@ -110,7 +115,9 @@ class ProPainterPipeline:
 
     raft / flowcomp / inpaint: `RAFT`, `RecurrentFlowCompleteNet`,
     `InpaintGenerator` modules with their weights loaded. They are moved to
-    `device` (None = the GPU; without one this raises) and set to eval."""
+    `device` (None = the GPU; without one this raises) and set to eval;
+    the generator is switched to the config's `attention_impl` (a
+    generator shared by two pipelines runs the later one's form)."""
 
     def __init__(self, raft, flowcomp, inpaint,
                  config: PipelineConfig | None = None, *, device=None):
@@ -118,6 +125,7 @@ class ProPainterPipeline:
         if self.config.precision != "fp32":
             raise NotImplementedError(
                 f"precision={self.config.precision!r}: only fp32 is ported")
+        inpaint.set_attention_impl(self.config.attention_impl)
         self.device = resolve_device(device)
         self.raft = raft.to(self.device).eval()
         self.flowcomp = flowcomp.to(self.device).eval()

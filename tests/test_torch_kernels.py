@@ -12,15 +12,20 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import jax
+
+from propainter_tpu.ops.attention import sparse_window_attention_pallas
 from propainter_tpu.ops.corr import corr_pyramid as jax_corr_pyramid
 from propainter_tpu.ops.corr_pallas import corr_lookup_flat, corr_pyramid_flat
 from propainter_tpu.ops.deform import (
     split_offset_mask_channels as jax_split_offset_mask)
+from propainter_tpu.ops import deform_pallas
 from propainter_tpu.ops.deform_pallas import modulated_deform_conv2d_fused_out
 from propainter_tpu.ops.flash_attention import (
     flash_window_attention as jax_flash_attention)
 
-from propainter_tpu_torch.ops import corr, deform, flash_attention
+from propainter_tpu_torch.models.propainter import _valid_rolled_indices
+from propainter_tpu_torch.ops import attention, corr, deform, flash_attention
 from propainter_tpu_torch.ops.warp import coords_grid
 
 
@@ -58,6 +63,51 @@ def _attention_inputs(seed=2):
     bias = np.zeros((B, Tk), np.float32)
     bias[:, 100:] = -1e9
     return q, k, v, bias, 1.0 / math.sqrt(ch)
+
+
+# (occupancy, frame_select) per batch row; "frame0_off" leaves frame 0 of
+# both rows unselected (the odd-block temporal dilation), the -1e9 path of
+# the TPU kernel's running max; "none_selected" gives row 0's dirty windows
+# no frame at all (every logit -1e9: the mean of all values)
+_SPARSE_CASES = {
+    "dirty": ([[2.0, 0.0, 0.5, 1.0], [0.0, 3.0, 1.0, 0.0]],
+              [[1, 0, 1, 1], [1, 1, 1, 0]]),
+    "all_clean": ([[0.0] * 4, [0.0, 0.0, 0.9, 0.0]],
+                  [[1, 0, 1, 1], [1, 1, 1, 0]]),
+    "frame0_off": ([[1.0] * 4, [2.0] * 4], [[0, 1, 0, 1], [0, 0, 1, 1]]),
+    "none_selected": ([[1.0, 0.0, 1.0, 1.0], [1.0] * 4],
+                      [[0, 0, 0, 0], [1, 0, 1, 0]]),
+}
+
+
+def _sparse_attention_inputs(case, seed=3, ch=16):
+    """Two batch rows of two heads, 2x2 windows of (5, 9) tokens, 4 frames,
+    8 pooled tokens: the shapes of tests/test_pallas_attention.py."""
+    rng = np.random.default_rng(seed)
+    B, n_head, nW, T, win, P = 2, 2, 4, 4, 45, 8
+    BH = B * n_head
+    q, k, v = (_rand(rng, BH, nW, T, win, ch) for _ in range(3))
+    rk, rv = (_rand(rng, BH, nW, 4, T, win, ch) for _ in range(2))
+    pk, pv = (_rand(rng, BH, T, P, ch) for _ in range(2))
+    roll_valid = np.zeros(4 * win, np.bool_)
+    roll_valid[_valid_rolled_indices((5, 9), (3, 5))] = True
+    occ, fsel = _SPARSE_CASES[case]
+    return (q, k, v, rk, rv, pk, pv, roll_valid,
+            np.asarray(occ, np.float32), np.asarray(fsel, np.bool_), n_head)
+
+
+def _deform_sample_inputs(seed=4):
+    """Coordinates around each tap, some far outside the image."""
+    rng = np.random.default_rng(seed)
+    B, H, W, C, dg, K = 2, 6, 10, 32, 4, 9
+    x = _rand(rng, B, H, W, C)
+    base_y = np.arange(H, dtype=np.float32)[None, :, None, None, None]
+    base_x = np.arange(W, dtype=np.float32)[None, None, :, None, None]
+    sy = (base_y + _rand(rng, B, H, W, dg, K, scale=3.0)).astype(np.float32)
+    sx = (base_x + _rand(rng, B, H, W, dg, K, scale=3.0)).astype(np.float32)
+    sy[0, 0, 0, 0, :3] = [-1.5, H - 0.25, 40.0]
+    mask = rng.uniform(0, 1, (B, H, W, dg, K)).astype(np.float32)
+    return x, sy, sx, mask, dg
 
 
 def test_corr_pyramid_build_plain_matches_jax():
@@ -127,6 +177,73 @@ def test_flash_window_attention_plain_matches_jax_kernel(with_bias):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("case", list(_SPARSE_CASES))
+def test_sparse_window_attention_plain_matches_jax_kernel(case):
+    """K5 against the TPU sparse window attention kernel (interpret mode):
+    mixed dirty/clean windows (a fractional occupancy counts as clean), all
+    clean, and frame 0 unselected. fp32 softmax over at most 1080 keys;
+    only summation order differs."""
+    *arrays, n_head = _sparse_attention_inputs(case)
+    want = sparse_window_attention_pallas(
+        *map(jnp.asarray, arrays), n_head, interpret=True)
+    got = attention.sparse_window_attention(*map(torch.from_numpy, arrays),
+                                            n_head)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+def test_deform_sample_plain_matches_jax_kernel():
+    """K6 against the TPU deform sampling kernel (interpret mode)."""
+    x, sy, sx, mask, dg = _deform_sample_inputs()
+    want = deform_pallas.deform_sample_pallas(
+        *map(jnp.asarray, (x, sy, sx, mask)), dg, interpret=True)
+    got = deform.deform_sample(*map(torch.from_numpy, (x, sy, sx, mask)), dg)
+    assert got.shape == want.shape == (2, 6, 10, 4, 9, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+def test_modulated_deform_conv2d_fused_matches_jax():
+    """K6 + one matmul against the JAX function of that name (interpret
+    mode); 576-term products, fp32 noise."""
+    x, raw, flow, weight, bias, dg = _deform_inputs()
+    j_off, j_mask = jax_split_offset_mask(jnp.asarray(raw), dg, 3.0,
+                                          jnp.asarray(flow))
+    want = deform_pallas.modulated_deform_conv2d_fused(
+        jnp.asarray(x), j_off, j_mask, jnp.asarray(weight),
+        jnp.asarray(bias), interpret=True)
+    got = deform.modulated_deform_conv2d_fused(
+        torch.from_numpy(x), torch.from_numpy(np.array(j_off)),
+        torch.from_numpy(np.array(j_mask)), torch.from_numpy(weight),
+        torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["modulated_deform_conv2d_opt",
+                                  "modulated_deform_conv2d_opt2"])
+def test_deform_dispatchers_match_jax_grad(name):
+    """The differentiable dispatchers: values and the gradients of a
+    squared-sum loss in every input against jax.grad of the JAX
+    dispatcher of the same name (its CPU path, the XLA formulation)."""
+    x, raw, flow, weight, bias, dg = _deform_inputs(seed=6)
+    off, mask = (np.array(a) for a in jax_split_offset_mask(
+        jnp.asarray(raw), dg, 3.0, jnp.asarray(flow)))
+    inputs = (x, off, mask, weight, bias)
+    jax_fn = getattr(deform_pallas, name)
+    want, want_grads = jax.value_and_grad(
+        lambda *a: jnp.sum(jax_fn(*a) ** 2), argnums=(0, 1, 2, 3, 4))(
+            *map(jnp.asarray, inputs))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    loss = (getattr(deform, name)(*leaves) ** 2).sum()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
+    for leaf, g in zip(leaves, want_grads):
+        g = np.asarray(g)
+        np.testing.assert_allclose(leaf.grad.numpy(), g, rtol=0,
+                                   atol=2e-4 * max(1.0, np.abs(g).max()))
+
+
 def test_wrappers_refuse_other_devices():
     """A tensor neither on the CPU nor on a GPU is refused, never moved."""
     t = torch.empty((1, 4, 4, 2), device="meta")
@@ -138,6 +255,11 @@ def test_wrappers_refuse_other_devices():
         deform.modulated_deform_conv2d(t, t, t, t, None)
     with pytest.raises(ValueError):
         flash_attention.flash_window_attention(t, t, t, None, 1.0)
+    with pytest.raises(ValueError):
+        deform.deform_sample(t, t, t, t, 1)
+    w = torch.empty((1, 1, 1, 1, 1), device="meta")
+    with pytest.raises(ValueError):
+        attention.sparse_window_attention(w, w, w, w, w, w, w, w, w, w, 1)
 
 
 # ---- on the card: each kernel against its plain version ------------------
@@ -188,3 +310,22 @@ def test_cuda_attention_kernel(cuda, with_bias):
     want = flash_attention._flash_window_attention_plain(q, k, v, bias,
                                                          scale)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_SPARSE_CASES))
+def test_cuda_sparse_window_attention_kernel(cuda, case):
+    *arrays, n_head = _sparse_attention_inputs(case, ch=128)
+    tensors = _to(cuda, *arrays)
+    got = attention.sparse_window_attention(*tensors, n_head)
+    want = attention._sparse_window_attention_plain(*tensors, n_head)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_deform_sample_kernel(cuda):
+    x, sy, sx, mask, dg = _deform_sample_inputs()
+    x, sy, sx, mask = _to(cuda, x, sy, sx, mask)
+    got = deform.deform_sample(x, sy, sx, mask, dg)
+    want = deform._deform_sample_plain(x, sy, sx, mask, dg)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)

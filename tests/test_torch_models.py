@@ -18,13 +18,16 @@ from propainter_tpu.convert import assert_tree_shapes_match
 from propainter_tpu.models.flow_completion import (
     RecurrentFlowCompleteNet as JaxFlowComplete, convert_flowcomp_state_dict)
 from propainter_tpu.models.propainter import (
-    InpaintGenerator as JaxGenerator, convert_inpaint_state_dict)
+    InpaintGenerator as JaxGenerator,
+    SparseWindowAttention as JaxSparseWindowAttention,
+    convert_inpaint_state_dict)
 from propainter_tpu.models.raft import RAFT as JaxRAFT, convert_raft_state_dict
 
 from propainter_tpu_torch.models.flow_completion import (
     RecurrentFlowCompleteNet)
 from propainter_tpu_torch.models.layers import GemmConv2d
-from propainter_tpu_torch.models.propainter import InpaintGenerator
+from propainter_tpu_torch.models.propainter import (
+    InpaintGenerator, SparseWindowAttention)
 from propainter_tpu_torch.models.raft import RAFT
 from propainter_tpu_torch.weights import (
     FLOWCOMP_RENAMES, INPAINT_RENAMES, RAFT_RENAMES, seeded_init_,
@@ -105,12 +108,15 @@ def test_flow_completion_matches_jax():
                                atol=2e-5)
 
 
-def test_generator_matches_jax():
-    """Reduced depth (2 blocks); a padded reference frame masked by
-    frame_valid; flash attention in the JAX module, K4's plain version in
-    the port."""
+@pytest.mark.parametrize("attention_impl", ["flash", "pallas"])
+def test_generator_matches_jax(attention_impl):
+    """Reduced depth (2 blocks, both temporal-dilation parities); a padded
+    reference frame masked by frame_valid; the same attention form in the
+    JAX module (its Pallas kernels in interpret mode) and in the port (the
+    plain versions of K4 or K5), on one parameter tree."""
     tree = _fill(_generator_tree(), 4)
-    model = _load(InpaintGenerator(depths=2), tree, INPAINT_RENAMES)
+    model = _load(InpaintGenerator(depths=2, attention_impl=attention_impl),
+                  tree, INPAINT_RENAMES)
     rng = np.random.default_rng(5)
     T, l_t, H, W = 5, 3, 64, 96
     frames = rng.uniform(-1, 1, (1, T, H, W, 3)).astype(np.float32)
@@ -121,7 +127,7 @@ def test_generator_matches_jax():
     m_upd = m_in.copy()
     m_upd[:, :, 25:35] = 0
     valid = np.array([True] * (T - 1) + [False])
-    want = JaxGenerator(depths=2, attention_impl="flash").apply(
+    want = JaxGenerator(depths=2, attention_impl=attention_impl).apply(
         {"params": tree}, frames, (ff, fb), m_in, m_upd, l_t,
         frame_valid=jnp.asarray(valid))
     with torch.no_grad():
@@ -129,6 +135,31 @@ def test_generator_matches_jax():
                     (torch.from_numpy(ff), torch.from_numpy(fb)),
                     torch.from_numpy(m_in), torch.from_numpy(m_upd), l_t,
                     frame_valid=torch.from_numpy(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
+def test_sparse_window_attention_pallas_matches_jax():
+    """attention_impl='pallas' on a 7x11 token grid, padded to 2x2 windows
+    of (5, 9): the rolled copies wrap on the padded grid. Odd-block
+    dilation (frame 0 unselected) and a padded reference frame."""
+    rng = np.random.default_rng(8)
+    B, T, l_t, Hg, Wg, C = 1, 5, 3, 7, 11, 64
+    x = rng.standard_normal((B, T, Hg, Wg, C)).astype(np.float32)
+    mask = np.zeros((B, l_t, Hg, Wg, 1), np.float32)
+    mask[:, 1, 1:3, 2:4] = 1.0           # dirties window (0, 0) only
+    static_sel = np.array([False, True, False, True, False])
+    valid = np.array([True] * (T - 1) + [False])
+    jax_mod = JaxSparseWindowAttention(C, 4, (5, 9), (4, 4), "pallas")
+    tree = _fill(jax.eval_shape(lambda: jax_mod.init(
+        KEY, x, mask, (static_sel, jnp.asarray(valid))))["params"], 9)
+    want = jax_mod.apply({"params": tree}, x, mask,
+                         (static_sel, jnp.asarray(valid)))
+    model = _load(SparseWindowAttention(C, 4, attention_impl="pallas"), tree,
+                  ())
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), torch.from_numpy(mask), static_sel,
+                    torch.from_numpy(valid))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=2e-5)
 

@@ -76,12 +76,17 @@ def _golden_inputs():
     return frames, mask
 
 
-def test_golden_pipeline_output():
+@pytest.mark.parametrize("attention_impl", ["flash", "pallas"])
+def test_golden_pipeline_output(attention_impl):
+    """Both attention forms reproduce the golden, which the JAX pipeline
+    froze with its default ('flash')."""
     mods = _golden_modules()
     pipe = torch_pipeline.ProPainterPipeline(
         mods["raft"], mods["flowcomp"], mods["inpaint"],
         torch_pipeline.PipelineConfig(ref_stride=3, neighbor_length=4,
-                                      raft_iter=3), device="cpu")
+                                      raft_iter=3,
+                                      attention_impl=attention_impl),
+        device="cpu")
     frames, mask = _golden_inputs()
     timings = {}
     out = np.stack(pipe.inpaint_video(frames, mask, mask, timings=timings))
@@ -129,6 +134,11 @@ def test_precision_and_device_guards():
         torch_pipeline.ProPainterPipeline(
             *mods.values(), torch_pipeline.PipelineConfig(precision="bf16"),
             device="cpu")
+    # the dense differentiable form comes with training
+    with pytest.raises(NotImplementedError):
+        torch_pipeline.ProPainterPipeline(
+            *mods.values(), torch_pipeline.PipelineConfig(
+                attention_impl="xla"), device="cpu")
     if not torch.cuda.is_available():
         # no silent fallback: the default device is the GPU
         with pytest.raises(RuntimeError):
