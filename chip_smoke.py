@@ -7,11 +7,17 @@
 Phases:
   device      card name and `nvidia-smi` name / power limit;
   build       compile every CUDA kernel (one nvcc per source, in parallel);
+              for K4 and K5 print registers, spills and shared memory
+              (`-Xptxas -v`), the HMMA count of their SASS, resident blocks
+              per SM and the waves of the main path's grid; fails if either
+              has no HMMA instruction or spills;
   kernels     each kernel at the main path's shapes against its plain
               PyTorch version on the card (max abs error within a stated
               tolerance), timed beside the plain version and a library
-              yardstick; K5 at three occupancies and both temporal-dilation
-              parities, and A/B against K4 plus branch B;
+              yardstick; K4 also at ragged shapes (a partial query and key
+              tile, a bias masking a whole key tile); K5 at three
+              occupancies and both temporal-dilation parities, and A/B
+              against K4 plus branch B;
   deform_opt  K6's path: the differentiable deform dispatchers
               (`modulated_deform_conv2d_opt` through K6, `_opt2` through
               K3) forward and backward at both call sites' shapes; values
@@ -58,14 +64,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 PHASES = ("device", "build", "kernels", "deform_opt", "pipeline", "small")
 EXTRA_PHASES = ("profile",)
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores
-# and HBM3 bandwidth — the denominators of every bound_ms below.
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
+# dense TF32 on the tensor cores and HBM3 bandwidth — the denominators of
+# every bound_ms below.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# fp32 kernels against their fp32 plain versions: the only differences are
-# summation order (up to 2304 terms in K3) and the online softmax in K4 and
-# K5, a few ulp of the largest term; 1e-4 of the output scale leaves > 10x
-# room.
+# fp32 kernels against their fp32 plain versions: the differences are
+# summation order (up to 2304 terms in K3), the online softmax in K4 and
+# K5, and K4's and K5's 3xTF32 products (~2^-21 of each product), a few ulp
+# of the largest term; 1e-4 of the output scale leaves > 10x room (one
+# pass of TF32 would not: tests/test_torch_kernels.py).
 REL_TOL = 1e-4
 # GPU (kernels) vs CPU (plain) on the small clip, uint8 LSB: the fp32
 # tolerance of the JAX package's on-chip golden check.
@@ -111,6 +120,23 @@ def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _attention_bounds(n_bytes: float, product_flops: float,
+                      softmax_ops: float) -> dict:
+    """K4's and K5's bounds: `bound_ms` is "operations (3xTF32)", the
+    larger of the bytes over the memory rate and the operations (the two
+    products three times over at the TF32 tensor-core rate, or the softmax
+    on CUDA cores, whichever takes longer); `fp32_bound_ms` all operations
+    on CUDA cores, the bound of the fp32 tile before it."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(3 * product_flops / PEAK_TF32_FLOPS,
+                softmax_ops / PEAK_FP32_FLOPS) * 1e3
+    fp32_ms, fp32_by = _bound(n_bytes, product_flops + softmax_ops)
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_basis="operations (3xTF32)", fp32_bound_ms=fp32_ms,
+                fp32_bound_by=fp32_by)
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -125,6 +151,108 @@ def _compare(name, got, ref) -> float:
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return err
+
+
+# K4's and K5's library names and the main path's problem: (query rows per
+# problem, problems per launch); K4 16 windows x 4 heads of 855 rows, K5
+# 16 windows x 4 heads of 19 frames x 45 tokens
+ATTENTION_KERNELS = {"window_attention": (855, 64),
+                     "sparse_window_attention": (855, 64)}
+
+
+def _ptxas_report(log: str) -> dict:
+    """{kernel symbol: registers, spill stores/loads and static shared
+    memory in bytes} from `-Xptxas -v` output."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = {}
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                report[fn].update(spill_stores=int(m[1]),
+                                  spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[fn]["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                report[fn]["static_smem"] = int(m[1])
+    return report
+
+
+def _sass_counts(sass: str, opcode: str) -> dict:
+    """{kernel symbol: instructions with `opcode`} in `cuobjdump -sass`."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def phase_build(state: dict) -> None:
+    """Compile every kernel, then report on K4 and K5: registers, spills
+    and shared memory, the tensor-core (HMMA) instructions of their SASS,
+    resident blocks per SM and the waves of the main path's grid on this
+    card's SMs. Fails if either has no HMMA instruction or spills."""
+    import ctypes
+
+    import torch
+    from propainter_tpu_torch import _build
+
+    times = _build.build()
+    print(f"  built {sorted(times)} in "
+          f"{max(times.values(), default=0.0):.1f} s")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    report, failures = {}, []
+    for lib, (rows, problems) in ATTENTION_KERNELS.items():
+        symbol = f"{lib}_kernel"
+        ptxas = {fn: r
+                 for fn, r in _ptxas_report(_build.build_log(lib)).items()
+                 if symbol in fn}
+        hmma = sum(n
+                   for fn, n in _sass_counts(_build.sass(lib), "HMMA").items()
+                   if symbol in fn)
+        info = (ctypes.c_int * 5)()
+        _build.check(_build.function(lib, f"{lib}_launch_info", 1, 0)(
+            ctypes.addressof(info), None), f"{lib}_launch_info")
+        blocks_per_sm, smem, threads, block_rows, split = info
+        grid = -(-rows // block_rows) * split * problems
+        waves = grid / (n_sm * blocks_per_sm) if blocks_per_sm else math.inf
+        report[symbol] = dict(ptxas=ptxas, hmma=hmma,
+                              dynamic_smem=smem, threads=threads,
+                              query_rows_per_block=block_rows,
+                              blocks_per_query_tile=split,
+                              blocks_per_sm=blocks_per_sm, grid=grid,
+                              sms=n_sm, waves=waves)
+        for fn, r in ptxas.items():
+            print(f"  {symbol}: {r.get('registers')} registers, "
+                  f"{r.get('spill_stores')} B spill stores, "
+                  f"{r.get('spill_loads')} B spill loads, "
+                  f"{r.get('static_smem', 0)} B static + {smem} B dynamic "
+                  f"shared memory")
+        print(f"  {symbol}: {hmma} HMMA instructions; {threads} threads x "
+              f"{blocks_per_sm} blocks per SM; main path grid {grid} blocks "
+              f"({split} per {block_rows}-row query tile) = {waves:.2f} "
+              f"waves on {n_sm} SMs")
+        if not ptxas:
+            failures.append(f"{symbol}: no -Xptxas -v report")
+        if hmma == 0:
+            failures.append(f"{symbol}: no HMMA instruction")
+        if any(r.get("spill_stores", 0) for r in ptxas.values()):
+            failures.append(f"{symbol}: spills")
+        if blocks_per_sm < 1:
+            failures.append(f"{symbol}: no block fits on an SM")
+    state["build"] = report
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def phase_kernels(records: dict) -> None:
@@ -284,6 +412,17 @@ def phase_kernels(records: dict) -> None:
         q, k, v, None, scale)
     err = max(err, _compare("flash_window_attention (no bias)", got_nb,
                             want_nb))
+    # ragged: a partial query tile and a partial key tile, and a bias that
+    # masks a whole 32-key tile
+    qr, kr, vr = (randn(1, 3, T_, ch) for T_ in (130, 70, 70))
+    kbr = torch.zeros(1, 70, device=dev)
+    kbr[:, 32:64] = flash_attention.NEG_INF
+    for b_, what in ((kbr, "bias"), (None, "no bias")):
+        err = max(err, _compare(
+            f"flash_window_attention Tq 130 Tk 70 ({what})",
+            flash_attention.flash_window_attention(qr, kr, vr, b_, scale),
+            flash_attention._flash_window_attention_plain(qr, kr, vr, b_,
+                                                          scale)))
     ms = _time_ms(
         lambda: flash_attention.flash_window_attention(q, k, v, kb, scale), 10)
     plain_ms = _time_ms(
@@ -293,19 +432,20 @@ def phase_kernels(records: dict) -> None:
     library_ms = _time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
                                                scale=scale), 10)
-    bound_ms, bound_by = _bound(_nbytes(q, k, v, kb, got),
-                                Gp * (4 * Tq * Tk * ch + 5 * Tq * Tk))
     records["flash_window_attention"] = dict(
         name="flash_window_attention", route="cuda",
         source="propainter_tpu_torch/csrc/window_attention.cu",
         replaces="propainter_tpu/ops/flash_attention.py:36",
         shape=f"q {tuple(q.shape)} k {tuple(k.shape)}", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=library_ms)
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **_attention_bounds(_nbytes(q, k, v, kb, got), Gp * 4 * Tq * Tk * ch,
+                            Gp * 5 * Tq * Tk))
     records["sparse_window_attention"] = _check_k5(randn)
     for r in records.values():
+        tc = (f" on tensor cores in 3xTF32, fp32 {r['fp32_bound_ms']:.3f}"
+              if "fp32_bound_ms" in r else "")
         print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
-              f"bound {r['bound_ms']:.3f} by {r['bound_by']}, library "
+              f"bound {r['bound_ms']:.3f} by {r['bound_by']}{tc}, library "
               f"{r['library_ms']})")
 
 
@@ -383,24 +523,24 @@ def _check_k5(randn) -> dict:
     scale = 1.0 / math.sqrt(ch)
 
     def bound(occ):
-        """Operations and bytes this run's occupancy and frame selection
-        need (with K4's count of 5 per logit for the softmax). Every window
-        reads its queries and writes its output; a clean window reads its
-        own keys and values of every frame; a dirty one those of the
-        selected frames, their valid rolled rows, and (once per batch·head)
-        their pooled tokens."""
+        """Bounds from the operations and bytes this run's occupancy and
+        frame selection need (with K4's count of 5 per logit for the
+        softmax). Every window reads its queries and writes its output; a
+        clean window reads its own keys and values of every frame; a dirty
+        one those of the selected frames, their valid rolled rows, and
+        (once per batch·head) their pooled tokens."""
         dirty = int((occ.to(torch.int32) > 0).sum())
         Ts = int(fsel.sum())
         keys = Ts * (win + len(valid_idx) + P)
-        n_ops = (dirty * n_head * (4 * ch + 5) * T * win * keys
-                 + (nW - dirty) * n_head * T * (4 * ch + 5) * win * win)
+        logits = (dirty * n_head * T * win * keys
+                  + (nW - dirty) * n_head * T * win * win)
         rows = BH * (2 * nW * T * win                            # q, out
                      + 2 * (nW - dirty) * T * win                # clean k, v
                      + 2 * dirty * Ts * (win + len(valid_idx))   # dirty k, v
                      + (2 * Ts * P if dirty else 0))             # pooled k, v
         n_bytes = rows * ch * wq.element_size() + _nbytes(
             occ, fsel, roll_valid)
-        return _bound(n_bytes, n_ops)
+        return _attention_bounds(n_bytes, 4 * ch * logits, 5 * logits)
 
     # yardstick: the dirty problems' branch A in one library call, over
     # the selected frames' 270 keys each, invalid rolled keys masked out
@@ -458,21 +598,19 @@ def _check_k5(randn) -> dict:
 
     timing = {}
     for name, occ in occs.items():
-        bound_ms, bound_by = bound(occ)
         _compare(f"K4 + branch B vs K5, {name}", flash_form(occ),
                  k5(occ, fsel))
         timing[name] = dict(
             ms=_time_ms(lambda: k5(occ, fsel), 10),
             k4_plus_branch_b_ms=_time_ms(lambda: flash_form(occ), 10),
             library_ms=(sdpa_ms(occ) if occ.max() > 0 else None),
-            bound_ms=bound_ms, bound_by=bound_by,
-            dirty_windows=int((occ > 0).sum()))
+            dirty_windows=int((occ > 0).sum()), **bound(occ))
+        r = timing[name]
         print(f"  sparse_window_attention {name} "
-              f"({timing[name]['dirty_windows']}/{nW} dirty): K5 "
-              f"{timing[name]['ms']:.3f} ms, K4 + branch B "
-              f"{timing[name]['k4_plus_branch_b_ms']:.3f} ms, SDPA over the "
-              f"dirty windows {timing[name]['library_ms']}, bound "
-              f"{bound_ms:.3f} by {bound_by}")
+              f"({r['dirty_windows']}/{nW} dirty): K5 {r['ms']:.3f} ms, K4 "
+              f"+ branch B {r['k4_plus_branch_b_ms']:.3f} ms, SDPA over the "
+              f"dirty windows {r['library_ms']}, bound {r['bound_ms']:.3f} "
+              f"by {r['bound_by']} (3xTF32; fp32 {r['fp32_bound_ms']:.3f})")
     plain_ms = _time_ms(lambda: attention._sparse_window_attention_plain(
         *inputs, occs["smoke"], fsel, n_head), 3)
     smoke = timing.pop("smoke")
@@ -483,11 +621,7 @@ def _check_k5(randn) -> dict:
         shape=f"windows {tuple(wq.shape)} rolled {tuple(rk.shape)} pooled "
               f"{tuple(pk.shape)}, smoke occupancy "
               f"{smoke['dirty_windows']}/{nW} dirty",
-        max_abs_err=err, ms=smoke["ms"], plain_ms=plain_ms,
-        bound_ms=smoke["bound_ms"], bound_by=smoke["bound_by"],
-        library_ms=smoke["library_ms"],
-        k4_plus_branch_b_ms=smoke["k4_plus_branch_b_ms"],
-        occupancies=timing)
+        max_abs_err=err, plain_ms=plain_ms, **smoke, occupancies=timing)
 
 
 def _launch_counters():
@@ -908,7 +1042,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from propainter_tpu_torch import _build
+        import propainter_tpu_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -930,9 +1064,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         try:
             if phase == "build":
-                times = _build.build()
-                print(f"  built {sorted(times)} in "
-                      f"{max(times.values(), default=0.0):.1f} s")
+                phase_build(state)
             elif phase == "kernels":
                 phase_kernels(records)
             elif phase == "deform_opt":

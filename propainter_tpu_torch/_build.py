@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use by its own `nvcc` process into `build/kernels/<name>-<digest>.so` at the
 root of the checkout (the digest covers the source, every `csrc/*.cuh`
 header and the flags, so an edited kernel or header is rebuilt), then
-loaded with `ctypes`. Every pointer and the CUDA stream cross the boundary
+loaded with `ctypes`. The compiler's output (`-Xptxas -v`: each kernel's
+registers, spills and shared memory) is kept beside the library as
+`<name>-<digest>.log`. Every pointer and the CUDA stream cross the boundary
 as `ctypes.c_void_p`; every C entry returns `cudaGetLastError()` and
 `check` raises when it is not 0.
 
@@ -26,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_SOURCES = ("corr_lookup_moenc", "corr_pyramid_build",
                   "deform_conv", "sparse_window_attention", "window_attention")
 
@@ -35,16 +37,16 @@ _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
+    cand = Path(cuda_home) / "bin" / name
     if cand.exists():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
         raise RuntimeError(
-            "nvcc not found: the CUDA kernels are built on a machine with "
-            "the CUDA toolkit (CUDA_HOME or PATH)")
+            f"{name} not found: the CUDA kernels are built on a machine "
+            f"with the CUDA toolkit (CUDA_HOME or PATH)")
     return found
 
 
@@ -69,7 +71,8 @@ def build(names=KERNEL_SOURCES) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp, out)
     times, errors = {}, []
@@ -79,10 +82,23 @@ def build(names=KERNEL_SOURCES) -> dict[str, float]:
         if p.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log.decode()}")
             continue
+        out.with_suffix(".log").write_bytes(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return times
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for the built `name` (build it first)."""
+    return _target(name).with_suffix(".log").read_text()
+
+
+def sass(name: str) -> str:
+    """The SASS of the built `name` (`cuobjdump -sass`; build it first)."""
+    return subprocess.run([_tool("cuobjdump"), "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
 
 
 def function(lib_name: str, symbol: str, n_ptrs: int, n_ints: int,

@@ -1,194 +1,460 @@
 // The streamed-softmax tile shared by K4 (window_attention.cu) and K5
-// (sparse_window_attention.cu): fp32 logits and softmax, head width 128.
+// (sparse_window_attention.cu): fp32 inputs and outputs, head width 128,
+// both products on the tensor cores in 3xTF32.
 //
-// One block of kThreads threads holds kBQ queries, transposed, in shared
-// memory and streams keys through it kBK at a time with an online softmax
-// (running max and sum per query row; the output is rescaled when the max
-// grows). Each thread owns an 8 x 4 block of a tile's logits and an 8 x 8
-// block of the output. The (queries, keys) logits never reach device
-// memory. A key or a (query, key) pair that is masked gets probability 0
-// exactly (never exp of a large negative number), so a row whose keys are
-// all masked so far carries nothing forward.
+// Numerics. Every product operand x is split as x = big + small, with
+// big = tf32(x) rounded to nearest (the rounding of cvt.rna.tf32.f32) and
+// small = x - big, exact in fp32, which the tensor core reads as TF32 by
+// dropping its low 13 bits; a·b ~ big_a·big_b + big_a·small_b +
+// small_a·big_b is summed by mma.sync.m16n8k8 (tf32 in, fp32
+// accumulators). The dropped small·small term and the truncation leave
+// ~2^-21 of each product: fp32 level, where one pass of TF32 (~2^-11) does
+// not hold 1e-4 of the output scale. The running max, sum and
+// exponentials are fp32; logits are kept in log2 units (the queries are
+// prescaled by scale · log2 e, biases by log2 e) so the exponentials are
+// ex2.approx, a few ulp. A masked key or (query, key) pair gets
+// probability 0 exactly, never the exp of a large negative number, so a
+// row whose keys are all masked so far carries nothing forward.
 //
-// A kernel calls, per block: load_queries; then per key tile
-// __syncthreads, load_keys, __syncthreads, softmax_step; then store.
+// Work split (FlashAttention-2). A block of kWarps warps holds kBQ = 16 *
+// kWarps query rows; warp w owns rows 16w .. 16w + 15 for the whole key
+// stream. Thread (g, t) = (lane / 4, lane % 4) of the warp holds rows g and
+// g + 8, so a row's max and sum live in the 4 threads of an mma quad. The
+// logits never leave registers: the logit accumulator of an 8-key n-tile is,
+// element for element, the A fragment of the P·V k-step over those keys
+// once its k slots t and t + 4 stand for keys 2t and 2t + 1. The Q·Kᵀ
+// k-steps number the head dimension the same way (slots t, t + 4 of k-step
+// 2p are d = 16p + 4t, +1; of k-step 2p + 1, d + 2, d + 3), so one 128-bit
+// load gives a thread its Q or K values of two k-steps.
+//
+// Where the split happens. Shared memory holds the fp32 values only, and
+// each warp splits the fragments it loads, in registers. Splitting once in
+// shared memory (big and small copies of Q and of each K/V tile) needs
+// twice the room and a third pass over every tile: at 205 KB one block
+// filled an SM, the split pass and its barrier stalled all four warps, and
+// K4 took 2.35 ms on an H100 (PERF.md, §6). Here a block takes 105 KB,
+// two blocks share an SM, and the splits are ALU work beside the mma.
+//
+// Shared memory, in carve() order (floats):
+//   Q    [kBQ][kLdQK]             the queries (prescaled), loaded once
+//   ring [kStages] x (K [kBK][kLdQK], V [kBK][kLdV])  filled by cp.async
+// kLdQK = 16 (mod 32) makes the 128-bit Q and K fragment loads free of bank
+// conflicts, kLdV = 4 (mod 32) the 32-bit V loads.
+//
+// Pipeline (stream()): per key tile j, wait for its copies, one barrier
+// (tile j visible; every warp done with tile j - 1's slot), start tile
+// j + kStages - 1's copies into that slot, compute tile j.
+//
+// Split-K over a cluster (split_range(), finish_split(); K5's dirty
+// windows). A query tile's key tiles are shared by a cluster of kSplit = 2
+// blocks, each streaming half; block 1 then writes its part of the running
+// softmax (o unnormalized, row max and sum) into block 0's shared memory,
+// and block 0 merges the two and writes the rows. Halving the blocks'
+// length halves the last wave's idle tail: at the main path's occupancy K5
+// has 336 dirty query tiles for 264 resident blocks, two rounds of whole
+// blocks; as 672 half blocks they take three rounds of half blocks.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace attn {
 
-constexpr int kD = 128;     // head width
-constexpr int kBQ = 128;    // queries per block
-constexpr int kBK = 64;     // keys per streamed tile
-constexpr int kRows = 8;    // query rows per thread
-constexpr int kThreads = 256;
-constexpr int kLdQ = kBQ + 4;   // padded leading dims of the
-constexpr int kLdK = kBK + 4;   // transposed tiles
-constexpr size_t kSmemFloats =
-    kD * kLdQ          // Qs[d][query]
-    + kD * kLdK        // Ks[d][key]
-    + kBK * kD         // Vs[key][d]
-    + kBK * kLdQ;      // Ps[key][query]
-constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
+constexpr int kD = 128;             // head width
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;    // queries per block
+constexpr int kBK = 32;             // keys per streamed tile
+constexpr int kNT = kBK / 8;        // 8-key n-tiles per key tile
+constexpr int kStages = 2;          // ring slots
+constexpr int kBlocksPerSm = 2;     // resident blocks the kernels ask for
+constexpr int kSplit = 2;           // blocks (a cluster) per query tile
+constexpr int kLdQK = kD + 16;
+constexpr int kLdV = kD + 4;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSlotFloats = kBK * kLdQK + kBK * kLdV;
+constexpr size_t kSmemBytes =
+    sizeof(float) * (kBQ * kLdQK + kStages * kSlotFloats);
+static_assert(kStages * kSlotFloats >= kBQ * (kD + 2),
+              "block 0's ring receives block 1's part");
 
 struct Smem {
-  float* Qs;
-  float* Ks;
-  float* Vs;
-  float* Ps;
+  float* Q;
+  float* ring;
 };
 
 __device__ __forceinline__ Smem carve(float* smem) {
-  Smem s;
-  s.Qs = smem;
-  s.Ks = s.Qs + kD * kLdQ;
-  s.Vs = s.Ks + kD * kLdK;
-  s.Ps = s.Vs + kBK * kD;
-  return s;
+  return Smem{smem, smem + kBQ * kLdQK};
 }
 
-// One thread's rows of the running softmax.
+__device__ __forceinline__ float* slot_k(const Smem& s, int stage) {
+  return s.ring + stage * kSlotFloats;
+}
+
+__device__ __forceinline__ float* slot_v(const Smem& s, int stage) {
+  return slot_k(s, stage) + kBK * kLdQK;
+}
+
+// ---- 3xTF32 pieces -------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: the rounding of cvt.rna.tf32.f32, bit for bit on finite inputs, in
+// two integer instructions; the cvt itself compiles to four on sm_90a
+// (it also screens Inf and NaN, which pass through this unchanged).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small as mma operands: three instructions per value, which
+// each warp spends on every fragment it loads.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d += a · b for one m16n8k8 tile (a: rows g, g + 8 x k slots t, t + 4;
+// b: k slots t, t + 4 x column g; d: rows g, g + 8 x columns 2t, 2t + 1).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- asynchronous copies -------------------------------------------------
+
+// 16 bytes from src to dst, or 16 zero bytes when !live (nothing is read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool live) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(live ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+}
+
+// ---- the block's tiles -----------------------------------------------------
+
+// Q[r] = q[r * kD ...] * qscale for the n_rows rows from q; zeros past them.
+__device__ __forceinline__ void load_queries(const Smem& s,
+                                             const float* __restrict__ q,
+                                             int n_rows, float qscale) {
+  for (int e = threadIdx.x; e < kBQ * kD / 4; e += kThreads) {
+    const int r = e / (kD / 4), c = 4 * (e % (kD / 4));
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n_rows)
+      x = __ldg(reinterpret_cast<const float4*>(
+          q + static_cast<size_t>(r) * kD + c));
+    *reinterpret_cast<float4*>(s.Q + r * kLdQK + c) = make_float4(
+        x.x * qscale, x.y * qscale, x.z * qscale, x.w * qscale);
+  }
+}
+
+// Starts the copies of one key tile into ring slot `stage`:
+// rows(c, kr, vr) says whether tile key c is live and, if so, sets the K
+// and V rows it reads; a dead key's rows are zero-filled from `fallback`
+// (a valid address that is not read). One warp copies one 512-byte row.
+template <class Rows>
+__device__ __forceinline__ void issue_keys(const Smem& s, int stage,
+                                           const float* fallback, Rows rows) {
+  float* ks = slot_k(s, stage);
+  float* vs = slot_v(s, stage);
+#pragma unroll
+  for (int i = 0; i < kBK * kD / 4 / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int c = e / (kD / 4), col = 4 * (e % (kD / 4));
+    const float* kr = fallback;
+    const float* vr = fallback;
+    const bool live = rows(c, kr, vr);
+    cp_async16(ks + c * kLdQK + col, live ? kr + col : fallback, live);
+    cp_async16(vs + c * kLdV + col, live ? vr + col : fallback, live);
+  }
+}
+
+// ---- one warp's rows of the running softmax -------------------------------
+
 struct Running {
-  float acc[kRows][8];
-  float m[kRows];
-  float l[kRows];
+  float o[kD / 8][4];   // n-tile n: rows g, g + 8 x columns 8n + 2t, +1
+  float m[2];           // rows g, g + 8: running max (log2 units)
+  float l[2];           // this thread's part of the running sum
 };
 
 __device__ __forceinline__ void init(Running& r) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < 2; ++i) {
     r.m[i] = -CUDART_INF_F;
     r.l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) r.acc[i][j] = 0.f;
   }
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
+  for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+    for (int j = 0; j < 4; ++j) r.o[n][j] = 0.f;
 }
 
-__device__ __forceinline__ void load8(const float* p, float (&r)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
-  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+// True when the warp owns a query row below n_rows (a warp past them
+// skips the products and the store, but not the block's loads and
+// barriers).
+__device__ __forceinline__ bool warp_live(int n_rows) {
+  return 16 * (static_cast<int>(threadIdx.x) / 32) < n_rows;
 }
 
-// Qs[d][r] = q[r * kD + d] for the n_rows rows from q; zeros past them.
-__device__ __forceinline__ void load_queries(const Smem& s, const float* q,
-                                             int n_rows) {
-  for (int e = threadIdx.x; e < kBQ * kD; e += kThreads) {
-    const int r = e / kD, d = e % kD;
-    s.Qs[d * kLdQ + r] = r < n_rows ? q[static_cast<size_t>(r) * kD + d] : 0.f;
-  }
-}
-
-// Key tile: rows(c, k_row, v_row) says whether tile key c is live and, if
-// so, sets the rows of K and V it reads; dead keys load as zeros. The rows
-// are read with __ldg: a row pointer a kernel keeps in shared memory is
-// otherwise a generic pointer that may alias the tile stores, and the
-// loads are then issued one at a time.
-template <class KeyRows>
-__device__ __forceinline__ void load_keys(const Smem& s, KeyRows rows) {
-  for (int e = threadIdx.x; e < kBK * kD; e += kThreads) {
-    const int c = e / kD, d = e % kD;
-    const float* kr = nullptr;
-    const float* vr = nullptr;
-    const bool live = rows(c, kr, vr);
-    s.Ks[d * kLdK + c] = live ? __ldg(kr + d) : 0.f;
-    s.Vs[c * kD + d] = live ? __ldg(vr + d) : 0.f;
-  }
-}
-
-// One key tile through the running softmax. key_bias[j] is the additive
-// logit bias of the thread's key tx*4 + j (-inf: masked for every row);
-// visible(i, j) masks the pair (thread row ty*8 + i, key tx*4 + j).
+// One key tile (ring slot `stage`) through the warp's running softmax.
+// bias[jn][e] is the additive logit bias (log2 units) of the tile's key
+// 8 jn + 2t + e, -inf when that key is masked for every row;
+// visible(i, jn, e) masks the pair (row g + 8 i, that key).
 template <class Visible>
-__device__ __forceinline__ void softmax_step(const Smem& sm, Running& r,
-                                             float scale,
-                                             const float (&key_bias)[4],
+__device__ __forceinline__ void softmax_step(const Smem& sm, int stage,
+                                             Running& r,
+                                             const float (&bias)[kNT][2],
                                              Visible visible) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float s[kRows][4];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int d = 0; d < kD; ++d) {
-    float av[8];
-    load8(sm.Qs + d * kLdQ + ty * kRows, av);
-    const float4 b = *reinterpret_cast<const float4*>(sm.Ks + d * kLdK + tx * 4);
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += av[i] * bv[j];
-  }
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row = 16 * (threadIdx.x / 32) + g;
 
+  // S = Q·Kᵀ: big·big into sb, the two cross terms into sx (two
+  // accumulator chains per n-tile)
+  float sb[kNT][4], sx[kNT][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int jn = 0; jn < kNT; ++jn)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      s[i][j] = visible(i, j) ? s[i][j] * scale + key_bias[j] : -CUDART_INF_F;
-    float mt = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-    mt = half_warp_max(mt);
-    const float m_new = fmaxf(r.m[i], mt);
-    const float alpha = r.m[i] == -CUDART_INF_F ? 0.f : expf(r.m[i] - m_new);
-    float rs = 0.f;
+    for (int j = 0; j < 4; ++j) sb[jn][j] = sx[jn][j] = 0.f;
+  const float* qp = sm.Q + row * kLdQK + 4 * t;
+  const float* kp = slot_k(sm, stage) + g * kLdQK + 4 * t;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float p = s[i][j] == -CUDART_INF_F ? 0.f : expf(s[i][j] - m_new);
-      s[i][j] = p;
-      rs += p;
+  for (int p = 0; p < kD / 16; ++p) {
+    // rows g and g + 8 of the queries, d = 16p + 4t .. + 3
+    const float4 q0 = *reinterpret_cast<const float4*>(qp + 16 * p);
+    const float4 q1 =
+        *reinterpret_cast<const float4*>(qp + 8 * kLdQK + 16 * p);
+    const float qa[2][4] = {{q0.x, q1.x, q0.y, q1.y},
+                            {q0.z, q1.z, q0.w, q1.w}};
+    uint32_t a_big[2][4], a_small[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split(qa[h][j], a_big[h][j], a_small[h][j]);
+#pragma unroll
+    for (int jn = 0; jn < kNT; ++jn) {
+      // key g of n-tile jn, the same four d
+      const float4 kv =
+          *reinterpret_cast<const float4*>(kp + 8 * jn * kLdQK + 16 * p);
+      const float kf[4] = {kv.x, kv.y, kv.z, kv.w};
+      uint32_t b_big[4], b_small[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split(kf[j], b_big[j], b_small[j]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mma(sb[jn], a_big[h], b_big[2 * h], b_big[2 * h + 1]);
+        mma(sx[jn], a_big[h], b_small[2 * h], b_small[2 * h + 1]);
+        mma(sx[jn], a_small[h], b_big[2 * h], b_big[2 * h + 1]);
+      }
     }
-    rs = half_warp_sum(rs);
-    r.l[i] = r.l[i] * alpha + rs;
-    r.m[i] = m_new;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) r.acc[i][j] *= alpha;
   }
 
+  // masks, running max, probabilities (in place of the logits)
+  float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int jn = 0; jn < kNT; ++jn)
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      sm.Ps[(tx * 4 + j) * kLdQ + ty * kRows + i] = s[i][j];
-  __syncthreads();
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& s = sb[jn][2 * i + e];
+        s = visible(i, jn, e) ? s + sx[jn][2 * i + e] + bias[jn][e]
+                              : -CUDART_INF_F;
+        mt[i] = fmaxf(mt[i], s);
+      }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(r.m[i], quad_max(mt[i]));
+    alpha[i] = r.m[i] == -CUDART_INF_F ? 0.f : exp2_approx(r.m[i] - m_new);
+    r.m[i] = m_new;
+    r.l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int jn = 0; jn < kNT; ++jn)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& s = sb[jn][2 * i + e];
+        s = s == -CUDART_INF_F ? 0.f : exp2_approx(s - r.m[i]);
+        r.l[i] += s;
+      }
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    r.o[n][0] *= alpha[0];
+    r.o[n][1] *= alpha[0];
+    r.o[n][2] *= alpha[1];
+    r.o[n][3] *= alpha[1];
+  }
 
-  for (int c = 0; c < kBK; ++c) {
-    float pv[8], vv[8];
-    load8(sm.Ps + c * kLdQ + ty * kRows, pv);
-    load8(sm.Vs + c * kD + tx * 8, vv);
+  // O += P·V: the k-step over keys 8 jn .. 8 jn + 7 takes its A fragment
+  // from the probabilities of n-tile jn (slots t, t + 4: keys 2t, 2t + 1)
+  const float* vp = slot_v(sm, stage) + 2 * t * kLdV + g;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+  for (int jn = 0; jn < kNT; ++jn) {
+    const float pa[4] = {sb[jn][0], sb[jn][2], sb[jn][1], sb[jn][3]};
+    uint32_t a_big[4], a_small[4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) r.acc[i][j] += pv[i] * vv[j];
+    for (int j = 0; j < 4; ++j) split(pa[j], a_big[j], a_small[j]);
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      // keys 8 jn + 2t and + 1, column 8n + g
+      const float* v0 = vp + 8 * jn * kLdV + 8 * n;
+      uint32_t b0_big, b0_small, b1_big, b1_small;
+      split(v0[0], b0_big, b0_small);
+      split(v0[kLdV], b1_big, b1_small);
+      mma(r.o[n], a_small, b0_big, b1_big);
+      mma(r.o[n], a_big, b0_small, b1_small);
+      mma(r.o[n], a_big, b0_big, b1_big);
+    }
   }
 }
 
-// o[r * kD + ...] = acc / l for the n_rows rows from o.
-__device__ __forceinline__ void store(float* o, int n_rows, const Running& r) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+// Streams key tiles first .. first + n_tiles - 1 through the block's
+// running softmax.
+// prepare(tile, slot): bookkeeping a kernel needs before tile `tile`'s
+// copies start (K5's key table for that tile, in table slot `slot`); it
+// runs a whole tile ahead, between one tile's copies and its neighbour's
+// products, so its latency hides behind them. rows(tile, slot, c, kr, vr):
+// the K and V rows of the tile's key c (false: a dead key). step(tile,
+// stage): the tile's softmax step on ring slot `stage`.
+template <class Prepare, class Rows, class Step>
+__device__ __forceinline__ void stream(const Smem& sm, int first,
+                                       int n_tiles, const float* fallback,
+                                       Prepare prepare, Rows rows,
+                                       Step step) {
+  // local index i: tile first + i, ring and table slot i % kStages
+  auto issue = [&](int i) {
+    const int slot = i % kStages;
+    issue_keys(sm, slot, fallback, [&](int c, const float*& kr,
+                                       const float*& vr) {
+      return rows(first + i, slot, c, kr, vr);
+    });
+  };
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = ty * kRows + i;
-    if (row >= n_rows) continue;
-    const float inv = 1.f / r.l[i];
-    float* orow = o + static_cast<size_t>(row) * kD + tx * 8;
+  for (int st = 0; st < kStages - 1; ++st)
+    if (st < n_tiles) prepare(first + st, st);
+  __syncthreads();
 #pragma unroll
-    for (int j = 0; j < 8; ++j) orow[j] = r.acc[i][j] * inv;
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_tiles) issue(st);
+    cp_async_commit();
+  }
+  if (kStages - 1 < n_tiles) prepare(first + kStages - 1, kStages - 1);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int next = j + kStages - 1;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // tile j landed; tile j - 1's slot consumed
+    if (next < n_tiles) issue(next);
+    cp_async_commit();
+    if (next + 1 < n_tiles)
+      prepare(first + next + 1, (next + 1) % kStages);
+    step(first + j, j % kStages);
+  }
+}
+
+// The key tiles [first, first + count) that this block of its cluster
+// streams, of n_tiles.
+__device__ __forceinline__ void split_range(int n_tiles, int& first,
+                                            int& count) {
+  const int h = static_cast<int>(
+      cooperative_groups::this_cluster().block_rank());
+  first = n_tiles * h / kSplit;
+  count = n_tiles * (h + 1) / kSplit - first;
+}
+
+// o[r * kD + ...] = o / l for the warp's rows below n_rows.
+__device__ __forceinline__ void store(float* o, int n_rows, Running& r) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row = 16 * (threadIdx.x / 32) + g;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float inv = 1.f / quad_sum(r.l[i]);
+    if (row + 8 * i >= n_rows) continue;
+    float* orow = o + static_cast<size_t>(row + 8 * i) * kD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(r.o[n][2 * i] * inv, r.o[n][2 * i + 1] * inv);
+  }
+}
+
+// The end of a split-K block pair (see the top): both blocks call it after
+// streaming their halves; block 0 writes the merged rows below n_rows.
+__device__ __forceinline__ void finish_split(const Smem& sm, float* o,
+                                             int n_rows, Running& r) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row = 16 * (threadIdx.x / 32) + g;
+  const float l[2] = {quad_sum(r.l[0]), quad_sum(r.l[1])};
+  float* part = sm.ring;            // [kBQ][kD] o, then [kBQ][2] (m, l)
+  cluster.sync();                   // both blocks done with their rings
+  if (cluster.block_rank() == 1) {
+    float* remote = cluster.map_shared_rank(part, 0);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = row + 8 * i;
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n)
+        *reinterpret_cast<float2*>(remote + rr * kD + 8 * n + 2 * t) =
+            make_float2(r.o[n][2 * i], r.o[n][2 * i + 1]);
+      if (t == 0)
+        *reinterpret_cast<float2*>(remote + kBQ * kD + 2 * rr) =
+            make_float2(r.m[i], l[i]);
+    }
+  }
+  cluster.sync();                   // block 1's part landed in block 0
+  if (cluster.block_rank() != 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rr = row + 8 * i;
+    const float2 ml = *reinterpret_cast<const float2*>(part + kBQ * kD +
+                                                       2 * rr);
+    const float m = fmaxf(r.m[i], ml.x);
+    const float a0 = r.m[i] == -CUDART_INF_F ? 0.f : exp2_approx(r.m[i] - m);
+    const float a1 = ml.x == -CUDART_INF_F ? 0.f : exp2_approx(ml.x - m);
+    const float inv = 1.f / (l[i] * a0 + ml.y * a1);
+    if (rr >= n_rows) continue;
+    float* orow = o + static_cast<size_t>(rr) * kD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const float2 p =
+          *reinterpret_cast<const float2*>(part + rr * kD + 8 * n + 2 * t);
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2((r.o[n][2 * i] * a0 + p.x * a1) * inv,
+                      (r.o[n][2 * i + 1] * a0 + p.y * a1) * inv);
+    }
   }
 }
 
@@ -203,6 +469,22 @@ __host__ int configure(Kernel kernel, bool& configured) {
   if (err != cudaSuccess) return static_cast<int>(err);
   configured = true;
   return 0;
+}
+
+// info = {resident blocks per SM, dynamic shared memory bytes, threads
+// per block, query rows per block, blocks per query tile} of a kernel
+// built on the tile.
+template <class Kernel>
+__host__ int launch_info(Kernel kernel, bool& configured, int split,
+                         int* info) {
+  const int err = configure(kernel, configured);
+  if (err != 0) return err;
+  info[1] = static_cast<int>(kSmemBytes);
+  info[2] = kThreads;
+  info[3] = kBQ;
+  info[4] = split;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      info, kernel, kThreads, kSmemBytes));
 }
 
 }  // namespace attn

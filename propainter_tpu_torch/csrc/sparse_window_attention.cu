@@ -1,4 +1,4 @@
-// K5: mask-guided sparse window attention, fp32 logits and softmax.
+// K5: mask-guided sparse window attention, fp32 in and out.
 //
 // Replaces propainter_tpu/ops/attention.py:_kernel. Semantics:
 // propainter_tpu_torch/ops/attention.py:sparse_window_attention.
@@ -11,28 +11,35 @@
 //
 // Design: the TPU kernel runs one program per (batch*head, window) — 64 at
 // 432x240, under half of the card's 132 SMs — each looping over all frames.
-// Here one block per (batch*head, window, 128-query tile) of the window's
-// T * win query rows (7 tiles of 855 rows) streams 64-key tiles through
-// the online softmax of attention_tile.cuh (shared with K4). Each block
-// reads its window's occupancy and takes its branch:
+// Here a cluster of two blocks per (batch*head, window, 64-query tile) of
+// the window's T * win query rows (14 tiles of 855 rows) streams 32-key
+// tiles through the 3xTF32 tensor-core online softmax of attention_tile.cuh
+// (shared with K4). Each cluster reads its window's occupancy and takes its
+// branch:
 //   dirty (occupancy > 0): one softmax over, for each selected frame, the
 //     window's win keys, the valid keys of the rolled band and the P
-//     pooled keys — a flat list of n_sel * (win + n_valid + P) keys whose
-//     rows the block looks up per tile. The TPU kernel instead masks
-//     unselected frames and invalid rolled keys with -1e9 and starts its
-//     running max at -1e9; their weights then vanish at the first live
-//     frame (exp(-1e9 - m) = 0), so skipping them is exactly equal.
-//     With no selected frame at all the TPU kernel's every logit is -1e9,
-//     every key gets weight 1, and its output is the plain mean of v over
-//     all T frames' win + 4 * win + P keys, invalid rolled keys included;
-//     this kernel writes that mean. (The pipeline never asks for it: the
-//     local frames are always selected.)
-//   clean: each query attends its own frame's win keys; the block streams
-//     the frames its rows span (at most 4), one tile each, masking the
-//     pairs of other frames.
+//     pooled keys — a flat list of n_sel * (win + n_valid + P) keys, half
+//     of its tiles per block, merged as in K4. Two warps build the
+//     selected-frame and valid-rolled lists with ballots; warp 0 then
+//     writes each tile's 32-bit key rows into a table a tile ahead of its
+//     copies, so the loads never wait on it. The TPU kernel instead masks
+//     unselected frames and invalid
+//     rolled keys with -1e9 and starts its running max at -1e9; their
+//     weights then vanish at the first live frame (exp(-1e9 - m) = 0), so
+//     skipping them is exactly equal. With no selected frame at all the
+//     TPU kernel's every logit is -1e9, every key gets weight 1, and its
+//     output is the plain mean of v over all T frames' win + 4 * win + P
+//     keys, invalid rolled keys included; this kernel writes that mean.
+//     (The pipeline never asks for it: the local frames are always
+//     selected.)
+//   clean: each query attends its own frame's win keys; block 0 of the
+//     cluster streams the contiguous keys of the frames its rows span (at
+//     most 3 at win = 45) and masks the pairs of other frames on the mma
+//     fragment; block 1 has nothing to do.
 // Bound: operations — dirty windows 4 * (T * win) * keys * 128 FLOPs per
-// (batch*head), clean ones T * 4 * win^2 * 128 — on CUDA cores; the rolled
-// copies (112 MB each at 432x240) are read once per query tile.
+// (batch*head), clean ones T * 4 * win^2 * 128, three times over on the
+// tensor cores in TF32; the rolled copies (112 MB each at 432x240) are read
+// once per query tile.
 
 #include "attention_tile.cuh"
 
@@ -41,10 +48,32 @@ namespace {
 using namespace attn;
 
 constexpr int kMaxT = 64;          // frames
-constexpr int kMaxRolled = 4 * kBK;  // 4 * win, win <= one key tile
+constexpr int kMaxWin = 64;        // tokens per window
+constexpr int kMaxRolled = 4 * kMaxWin;
+// key table entries: source << kSrcShift | row (from the source's base)
+constexpr int kSrcShift = 28;
+constexpr int kRowMask = (1 << kSrcShift) - 1;
 
-__global__ void __launch_bounds__(kThreads)
-sparse_window_attention_kernel(
+// Appends the indices i < n with on(i) to list, in order, with one warp's
+// ballots; returns the count (every lane).
+template <class On, class Entry>
+__device__ __forceinline__ int warp_compact(int n, On on, Entry entry,
+                                            int* list) {
+  const int lane = threadIdx.x % 32;
+  int count = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    const bool keep = i < n && on(i);
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (keep) list[count + __popc(ballot & ((1u << lane) - 1u))] = entry(i);
+    count += __popc(ballot);
+  }
+  return count;
+}
+
+__global__ void __cluster_dims__(kSplit, 1, 1)
+    __launch_bounds__(kThreads, kBlocksPerSm)
+    sparse_window_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ rk,
     const float* __restrict__ rv, const float* __restrict__ pk,
@@ -52,19 +81,22 @@ sparse_window_attention_kernel(
     const int* __restrict__ occupancy, const int* __restrict__ frame_select,
     float* __restrict__ o, int n_head, int nW, int T, int win, int P,
     float scale) {
-  extern __shared__ float smem[];
-  __shared__ const float* key_k[kBK];
-  __shared__ const float* key_v[kBK];
+  extern __shared__ __align__(16) float smem[];
   __shared__ int sel[kMaxT];
-  __shared__ int rolled[kMaxRolled];
+  __shared__ int rolled[kMaxRolled];   // rolled rows of frame 0
+  __shared__ int key_row[kStages][kBK];
   __shared__ int n_sel_s, n_rolled_s;
   const Smem sm = carve(smem);
 
   const int bh = blockIdx.z, w = blockIdx.y;
   const int b = bh / n_head;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x / kSplit * kBQ;
+  const bool dirty = occupancy[b * nW + w] > 0;
+  const int h = static_cast<int>(
+      cooperative_groups::this_cluster().block_rank());
   const int n_rows = min(kBQ, T * win - q0);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
   const size_t win_base = (static_cast<size_t>(bh) * nW + w) * T * win * kD;
   const float* kw = k + win_base;
   const float* vw = v + win_base;
@@ -75,24 +107,27 @@ sparse_window_attention_kernel(
   const float* pvw = pv + pool_base;
   float* ow = o + win_base + static_cast<size_t>(q0) * kD;
 
-  load_queries(sm, q + win_base + static_cast<size_t>(q0) * kD, n_rows);
+  load_queries(sm, q + win_base + static_cast<size_t>(q0) * kD, n_rows,
+                scale * kLog2e);
   Running run;
   init(run);
 
-  if (occupancy[b * nW + w] > 0) {
-    if (tid == 0) {
-      int n = 0;
-      for (int t = 0; t < T; ++t)
-        if (frame_select[b * T + t] > 0) sel[n++] = t;
-      n_sel_s = n;
-      n = 0;
-      for (int i = 0; i < 4 * win; ++i)
-        if (roll_valid[i]) rolled[n++] = i;
-      n_rolled_s = n;
+  if (dirty) {
+    if (warp == 0) {
+      const int n = warp_compact(
+          T, [&](int i) { return frame_select[b * T + i] > 0; },
+          [](int i) { return i; }, sel);
+      if (lane == 0) n_sel_s = n;
+    } else if (warp == 1) {
+      const int n = warp_compact(
+          4 * win, [&](int i) { return roll_valid[i] != 0; },
+          [&](int i) { return (i / win) * T * win + i % win; }, rolled);
+      if (lane == 0) n_rolled_s = n;
     }
     __syncthreads();
     const int n_sel = n_sel_s, n_valid = n_rolled_s;
     if (n_sel == 0) {
+      if (h != 0) return;
       // every key of every frame with weight 1 (see the note above)
       const int n_keys = T * (5 * win + P);
       for (int d = tid; d < kD; d += kThreads) {
@@ -108,73 +143,88 @@ sparse_window_attention_kernel(
     }
     const int per_frame = win + n_valid + P;
     const int n_keys = n_sel * per_frame;
-    for (int k0 = 0; k0 < n_keys; k0 += kBK) {
-      __syncthreads();  // previous tile and its key table consumed
-      if (tid < kBK) {
-        const int key = k0 + tid;
-        const float* kr = nullptr;
-        const float* vr = nullptr;
-        if (key < n_keys) {
-          const int t = sel[key / per_frame];
-          const int r = key % per_frame;
-          if (r < win) {
-            const size_t off = (static_cast<size_t>(t) * win + r) * kD;
-            kr = kw + off;
-            vr = vw + off;
-          } else if (r < win + n_valid) {
-            const int ri = rolled[r - win];
-            const int shift = ri / win, i = ri % win;
-            const size_t off =
-                ((static_cast<size_t>(shift) * T + t) * win + i) * kD;
-            kr = rkw + off;
-            vr = rvw + off;
-          } else {
-            const size_t off =
-                (static_cast<size_t>(t) * P + (r - win - n_valid)) * kD;
-            kr = pkw + off;
-            vr = pvw + off;
+    int first, n_tiles;
+    split_range((n_keys + kBK - 1) / kBK, first, n_tiles);
+    stream(
+        sm, first, n_tiles, kw,
+        [&](int tile, int slot) {
+          if (warp != 0) return;
+          for (int c = lane; c < kBK; c += 32) {
+            const int key = tile * kBK + c;
+            int entry = -1;
+            if (key < n_keys) {
+              const int f = key / per_frame, r = key - f * per_frame;
+              const int t = sel[f];
+              if (r < win)
+                entry = t * win + r;
+              else if (r < win + n_valid)
+                entry = (1 << kSrcShift) | (rolled[r - win] + t * win);
+              else
+                entry = (2 << kSrcShift) | (t * P + r - win - n_valid);
+            }
+            key_row[slot][c] = entry;
           }
-        }
-        key_k[tid] = kr;
-        key_v[tid] = vr;
-      }
-      __syncthreads();
-      load_keys(sm, [&](int c, const float*& kr, const float*& vr) {
-        kr = key_k[c];
-        vr = key_v[c];
-        return kr != nullptr;
-      });
-      __syncthreads();
-      float kb[4];
+        },
+        [&](int, int slot, int c, const float*& kr, const float*& vr) {
+          const int entry = key_row[slot][c];
+          if (entry < 0) return false;
+          const int src = entry >> kSrcShift;
+          const size_t off = static_cast<size_t>(entry & kRowMask) * kD;
+          kr = (src == 0 ? kw : src == 1 ? rkw : pkw) + off;
+          vr = (src == 0 ? vw : src == 1 ? rvw : pvw) + off;
+          return true;
+        },
+        [&](int tile, int stage) {
+          if (!warp_live(n_rows)) return;
+          float kb[kNT][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = k0 + tx * 4 + j < n_keys ? 0.f : -CUDART_INF_F;
-      softmax_step(sm, run, scale, kb, [](int, int) { return true; });
-    }
+          for (int jn = 0; jn < kNT; ++jn)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              kb[jn][e] = tile * kBK + 8 * jn + 2 * t4 + e < n_keys
+                              ? 0.f : -CUDART_INF_F;
+          softmax_step(sm, stage, run, kb,
+                       [](int, int, int) { return true; });
+        });
+    finish_split(sm, ow, n_rows, run);
   } else {
-    int row_frame[kRows];
+    // block h takes warps 2h, 2h + 1 (rows 32h .. 32h + 31) and the
+    // contiguous keys of their frames f0 .. f1, pairs across frames masked
+    const int r0 = kBQ / kSplit * h;
+    const int r1 = min(n_rows, r0 + kBQ / kSplit);
+    if (r0 >= r1) return;
+    const int f0 = (q0 + r0) / win, f1 = (q0 + r1 - 1) / win;
+    const int key0 = f0 * win, n_keys = (f1 - f0 + 1) * win;
+    const int row = q0 + 16 * warp + g;
+    const int row_frame[2] = {row / win, (row + 8) / win};
+    stream(
+        sm, 0, (n_keys + kBK - 1) / kBK, kw, [](int, int) {},
+        [&](int tile, int, int c, const float*& kr, const float*& vr) {
+          const int key = tile * kBK + c;
+          if (key >= n_keys) return false;
+          const size_t off = static_cast<size_t>(key0 + key) * kD;
+          kr = kw + off;
+          vr = vw + off;
+          return true;
+        },
+        [&](int tile, int stage) {
+          if (warp / (kWarps / kSplit) != h || !warp_live(n_rows)) return;
+          float kb[kNT][2];
+          int key_frame[kNT][2];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) row_frame[i] = (q0 + ty * kRows + i) / win;
-    const int t_last = (q0 + n_rows - 1) / win;
-    for (int t = q0 / win; t <= t_last; ++t) {
-      __syncthreads();
-      load_keys(sm, [&](int c, const float*& kr, const float*& vr) {
-        if (c >= win) return false;
-        const size_t off = (static_cast<size_t>(t) * win + c) * kD;
-        kr = kw + off;
-        vr = vw + off;
-        return true;
-      });
-      __syncthreads();
-      float kb[4];
+          for (int jn = 0; jn < kNT; ++jn)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = tx * 4 + j < win ? 0.f : -CUDART_INF_F;
-      softmax_step(sm, run, scale, kb,
-                   [&](int i, int) { return row_frame[i] == t; });
-    }
+            for (int e = 0; e < 2; ++e) {
+              const int key = tile * kBK + 8 * jn + 2 * t4 + e;
+              kb[jn][e] = key < n_keys ? 0.f : -CUDART_INF_F;
+              key_frame[jn][e] = (key0 + key) / win;
+            }
+          softmax_step(sm, stage, run, kb, [&](int i, int jn, int e) {
+            return key_frame[jn][e] == row_frame[i];
+          });
+        });
+    if (warp / (kWarps / kSplit) == h) store(ow, n_rows, run);
   }
-  store(ow, n_rows, run);
 }
 
 bool configured = false;
@@ -186,11 +236,11 @@ extern "C" int sparse_window_attention(
     const void* rv, const void* pk, const void* pv, const void* roll_valid,
     const void* occupancy, const void* frame_select, void* out, int BH,
     int n_head, int nW, int T, int win, int P, float scale, void* stream) {
-  if (T > kMaxT || win > kBK || win < 1 || P < 0)
+  if (T > kMaxT || win > kMaxWin || win < 1 || P < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = configure(sparse_window_attention_kernel, configured);
   if (err != 0) return err;
-  const dim3 grid((T * win + kBQ - 1) / kBQ, nW, BH);
+  const dim3 grid((T * win + kBQ - 1) / kBQ * kSplit, nW, BH);
   sparse_window_attention_kernel<<<grid, kThreads, kSmemBytes,
                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -201,4 +251,11 @@ extern "C" int sparse_window_attention(
       static_cast<const int*>(occupancy), static_cast<const int*>(frame_select),
       static_cast<float*>(out), n_head, nW, T, win, P, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch facts for chip_smoke.py's build phase (attention_tile.cuh:
+// launch_info).
+extern "C" int sparse_window_attention_launch_info(void* info, void*) {
+  return launch_info(sparse_window_attention_kernel, configured, kSplit,
+                     static_cast<int*>(info));
 }

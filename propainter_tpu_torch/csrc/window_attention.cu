@@ -1,4 +1,4 @@
-// K4: attention with a per-key additive bias, fp32 logits and softmax.
+// K4: attention with a per-key additive bias, fp32 in and out.
 //
 // Replaces propainter_tpu/ops/flash_attention.py:_kernel. Semantics:
 // propainter_tpu_torch/ops/flash_attention.py:flash_window_attention.
@@ -8,11 +8,14 @@
 //
 // Design: a problem's K/V (2380 x 128 at 432x240, 1.2 MB each) does not fit
 // in shared memory, so the TPU kernel's whole-K/V-resident softmax does not
-// carry over. One block of 256 threads per (problem, 128-query tile)
-// streams K/V in 64-key tiles through the online softmax of
-// attention_tile.cuh. Keys at or past Tk are excluded (probability 0); the
-// bias is added per key. Bound: operations (4 * Tq * Tk * 128 fp32 FLOPs
-// per problem on CUDA cores).
+// carry over. One block of 4 warps per (problem, 64-query tile) streams K/V
+// in 32-key tiles through the 3xTF32 tensor-core online softmax of
+// attention_tile.cuh (cp.async ring, two blocks per SM). Keys at or past
+// Tk are excluded (probability 0); the bias is added per key. (Splitting a
+// query tile's keys over a cluster of two blocks, as K5 does, measured no
+// faster here: PERF.md, §6.)
+// Bound: operations, 3 x 4 * Tq * Tk * 128 FLOPs per problem on the
+// tensor cores in TF32.
 
 #include "attention_tile.cuh"
 
@@ -20,42 +23,49 @@ namespace {
 
 using namespace attn;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 window_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v,
                         const float* __restrict__ bias, float* __restrict__ o,
                         int G, int Tq, int Tk, float scale) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Smem sm = carve(smem);
   const int n = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
   const int n_rows = min(kBQ, Tq - q0);
-  const int tx = threadIdx.x % 16;
+  const int t = threadIdx.x % 4;
   const float* kn = k + static_cast<size_t>(n) * Tk * kD;
   const float* vn = v + static_cast<size_t>(n) * Tk * kD;
   const float* bn = bias == nullptr ? nullptr
                                     : bias + static_cast<size_t>(n / G) * Tk;
 
-  load_queries(sm, q + (static_cast<size_t>(n) * Tq + q0) * kD, n_rows);
+  load_queries(sm, q + (static_cast<size_t>(n) * Tq + q0) * kD, n_rows,
+                scale * kLog2e);
   Running run;
   init(run);
-  for (int k0 = 0; k0 < Tk; k0 += kBK) {
-    __syncthreads();  // previous tile's Ks/Vs/Ps consumed
-    load_keys(sm, [&](int c, const float*& kr, const float*& vr) {
-      if (k0 + c >= Tk) return false;
-      kr = kn + static_cast<size_t>(k0 + c) * kD;
-      vr = vn + static_cast<size_t>(k0 + c) * kD;
-      return true;
-    });
-    __syncthreads();
-    float kb[4];
+  stream(
+      sm, 0, (Tk + kBK - 1) / kBK, kn, [](int, int) {},
+      [&](int tile, int, int c, const float*& kr, const float*& vr) {
+        const int key = tile * kBK + c;
+        if (key >= Tk) return false;
+        kr = kn + static_cast<size_t>(key) * kD;
+        vr = vn + static_cast<size_t>(key) * kD;
+        return true;
+      },
+      [&](int tile, int stage) {
+        if (!warp_live(n_rows)) return;
+        float kb[kNT][2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tx * 4 + j;
-      kb[j] = key >= Tk ? -CUDART_INF_F : (bn == nullptr ? 0.f : bn[key]);
-    }
-    softmax_step(sm, run, scale, kb, [](int, int) { return true; });
-  }
+        for (int jn = 0; jn < kNT; ++jn)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = tile * kBK + 8 * jn + 2 * t + e;
+            kb[jn][e] = key >= Tk ? -CUDART_INF_F
+                                  : (bn == nullptr ? 0.f : bn[key] * kLog2e);
+          }
+        softmax_step(sm, stage, run, kb,
+                     [](int, int, int) { return true; });
+      });
   store(o + (static_cast<size_t>(n) * Tq + q0) * kD, n_rows, run);
 }
 
@@ -76,4 +86,11 @@ extern "C" int window_attention(const void* q, const void* k, const void* v,
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<float*>(out), G, Tq, Tk, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch facts for chip_smoke.py's build phase (attention_tile.cuh:
+// launch_info).
+extern "C" int window_attention_launch_info(void* info, void*) {
+  return launch_info(window_attention_kernel, configured, 1,
+                     static_cast<int*>(info));
 }

@@ -83,14 +83,17 @@ def sparse_window_attention(win_q, win_k, win_v, roll_k, roll_v, pool_k,
 
     Kernel K5 (`csrc/sparse_window_attention.cu`) replaces
     `propainter_tpu/ops/attention.py:_kernel`. The TPU kernel runs one
-    program per (batch*head, window), 64 at 432x240; here one block per
-    (batch*head, window, 128-query tile) streams 64-key tiles through an
-    fp32 online softmax (the tile code K4 uses). A dirty window's block walks
-    only the selected frames and the valid rolled keys, which is exactly
-    what the TPU kernel's -1e9 masking gives (their weight underflows to 0);
-    a clean window's block attends per frame. Bound: operations, which
-    scale with the number of dirty windows (4 * T*win * keys * ch FLOPs per
-    dirty (window, head), 4 * T * win^2 * ch per clean one)."""
+    program per (batch*head, window), 64 at 432x240; here a cluster of two
+    blocks per (batch*head, window, 64-query tile) streams 32-key tiles
+    through an online softmax whose products run on the tensor cores in
+    3xTF32 (the tile code K4 uses). A dirty window's pair walks only the
+    selected frames and the valid rolled keys, half each, and merges the
+    halves, which is exactly what the TPU kernel's -1e9 masking gives
+    (their weight underflows to 0); a clean window's pair attends per
+    frame, half the rows each. Bound: operations, which scale with
+    the number of dirty windows (3 x 4 * T*win * keys * ch FLOPs per dirty
+    (window, head), 3 x 4 * T * win^2 * ch per clean one, at the TF32
+    tensor-core rate)."""
     if win_q.device.type == "cpu":
         return _sparse_window_attention_plain(
             win_q, win_k, win_v, roll_k, roll_v, pool_k, pool_v, roll_valid,

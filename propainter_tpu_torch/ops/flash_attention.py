@@ -28,11 +28,12 @@ def flash_window_attention(q, k, v, key_bias, scale: float):
     Kernel K4 (`csrc/window_attention.cu`) replaces
     `propainter_tpu/ops/flash_attention.py:_kernel`. A problem's K/V
     (2380 x 128 fp32, 1.2 MB each at 432x240) does not fit in shared
-    memory, so unlike the TPU kernel it streams K/V in 64-key tiles with an
-    fp32 online softmax, one block per (problem, 128-query tile); the
-    (Tq, Tk) logits never reach device memory. Keys past Tk are excluded;
-    the bias is applied per key. Bound: operations (4 * Tq * Tk * ch fp32
-    FLOPs per problem on CUDA cores)."""
+    memory, so unlike the TPU kernel it streams K/V in 32-key tiles with an
+    online softmax, one block per (problem, 64-query tile); both products
+    run on the tensor cores in 3xTF32 (fp32-level error), the softmax in
+    fp32, and the (Tq, Tk) logits never reach device memory. Keys past Tk
+    are excluded; the bias is applied per key. Bound: operations (3 x 4 *
+    Tq * Tk * ch FLOPs per problem at the TF32 tensor-core rate)."""
     if q.device.type == "cpu":
         return _flash_window_attention_plain(q, k, v, key_bias, scale)
     _build.require_cuda(q, k, v, key_bias)

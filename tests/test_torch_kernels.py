@@ -192,6 +192,57 @@ def test_sparse_window_attention_plain_matches_jax_kernel(case):
                                atol=1e-5)
 
 
+# REL_TOL of chip_smoke.py: a kernel against its plain version, relative to
+# the output scale max(1, max |ref|)
+_REL_TOL = 1e-4
+
+
+def _tf32(x):
+    """Round fp32 to TF32 (10 mantissa bits), nearest with ties away from
+    zero, as cvt.rna.tf32.f32 does."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b from TF32 operands with exact products summed in wide
+    precision and rounded to fp32, as an mma accumulator holds them: one
+    pass (big·big) or three (big·big + big·small + small·big)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    a_big, b_big = _tf32(a), _tf32(b)
+    terms = [(a_big, b_big)]
+    if passes == 3:
+        terms += [(a_big, _tf32(b - b_big)), (_tf32(a - a_big), b_big)]
+    return sum(x.astype(np.float64) @ y.astype(np.float64)
+               for x, y in terms).astype(np.float32)
+
+
+def _tf32_attention(q, k, v, bias, scale, passes):
+    """K4's arithmetic: both products from TF32 operands, fp32 softmax."""
+    s = _tf32_matmul(q, np.swapaxes(k, -1, -2), passes) * np.float32(scale)
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return _tf32_matmul(p, v, passes) / p.sum(-1, keepdims=True)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_3xtf32_attention_within_tolerance_of_jax_kernel(with_bias):
+    """The numerics of the K4/K5 tile: 3xTF32 products stay within the
+    kernels' tolerance of the TPU flash attention kernel (interpret mode),
+    and one pass of TF32 does not."""
+    q, k, v, bias, scale = _attention_inputs()
+    bias = bias if with_bias else None
+    want = np.asarray(jax_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if bias is None else jnp.asarray(bias), scale, interpret=True))
+    tol = _REL_TOL * max(1.0, np.abs(want).max())
+    err3 = np.abs(_tf32_attention(q, k, v, bias, scale, 3) - want).max()
+    err1 = np.abs(_tf32_attention(q, k, v, bias, scale, 1) - want).max()
+    assert err3 <= tol / 10, (err3, tol)
+    assert err1 > tol, (err1, tol)
+
+
 def test_deform_sample_plain_matches_jax_kernel():
     """K6 against the TPU deform sampling kernel (interpret mode)."""
     x, sy, sx, mask, dg = _deform_sample_inputs()
@@ -309,6 +360,43 @@ def test_cuda_attention_kernel(cuda, with_bias):
     got = flash_attention.flash_window_attention(q, k, v, bias, scale)
     want = flash_attention._flash_window_attention_plain(q, k, v, bias,
                                                          scale)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_cuda_attention_kernel_ragged(cuda, with_bias):
+    """A partial query tile (130 rows), a partial key tile (70 keys) and a
+    bias that masks a whole 32-key tile."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_rand(rng, 1, 3, T_, 128) for T_ in (130, 70, 70))
+    bias = np.zeros((1, 70), np.float32)
+    bias[:, 32:64] = -1e9
+    q, k, v, bias = _to(cuda, q, k, v, bias if with_bias else None)
+    scale = 1.0 / math.sqrt(128)
+    got = flash_attention.flash_window_attention(q, k, v, bias, scale)
+    want = flash_attention._flash_window_attention_plain(q, k, v, bias,
+                                                         scale)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_window_attention_kernel_main_path_rows(cuda):
+    """T * win = 855 query rows per window (19 frames of 45 tokens), as on
+    the main path: the last query tile is partial; one dirty and one clean
+    window, every other frame selected."""
+    rng = np.random.default_rng(8)
+    n_head, nW, T, win, P, ch = 2, 2, 19, 45, 8, 128
+    q, k, v = (_rand(rng, n_head, nW, T, win, ch) for _ in range(3))
+    rk, rv = (_rand(rng, n_head, nW, 4, T, win, ch) for _ in range(2))
+    pk, pv = (_rand(rng, n_head, T, P, ch) for _ in range(2))
+    roll_valid = np.zeros(4 * win, np.bool_)
+    roll_valid[_valid_rolled_indices((5, 9), (3, 5))] = True
+    occ = np.asarray([[1.0, 0.0]], np.float32)
+    fsel = (np.arange(T) % 2 == 0)[None]
+    tensors = _to(cuda, q, k, v, rk, rv, pk, pv, roll_valid, occ, fsel)
+    got = attention.sparse_window_attention(*tensors, n_head)
+    want = attention._sparse_window_attention_plain(*tensors, n_head)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
