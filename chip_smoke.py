@@ -7,17 +7,22 @@
 Phases:
   device      card name and `nvidia-smi` name / power limit;
   build       compile every CUDA kernel (one nvcc per source, in parallel);
-              for K4 and K5 print registers, spills and shared memory
-              (`-Xptxas -v`), the HMMA count of their SASS, resident blocks
-              per SM and the waves of the main path's grid; fails if either
-              has no HMMA instruction or spills;
+              for the tensor-core kernels K3, K4 and K5 print registers,
+              spills and shared memory (`-Xptxas -v`), the HMMA count of
+              their SASS, resident blocks per SM and the waves of each
+              main-path grid; fails if one has no HMMA instruction or
+              spills;
   kernels     each kernel at the main path's shapes against its plain
               PyTorch version on the card (max abs error within a stated
               tolerance), timed beside the plain version and a library
-              yardstick; K4 also at ragged shapes (a partial query and key
-              tile, a bias masking a whole key tile); K5 at three
-              occupancies and both temporal-dilation parities, and A/B
-              against K4 plus branch B;
+              yardstick (K3 and K6 by CUDA-graph replay, their calls being
+              shorter than their host-side launch); K3 also beside the
+              unfused K6 + GEMM route and at every cluster split, K3 and
+              K6 at a ragged image with far-off coordinates; K4 also at
+              ragged shapes (a partial query and key tile, a bias masking
+              a whole key tile); K5 at three occupancies and both
+              temporal-dilation parities, and A/B against K4 plus branch
+              B;
   deform_opt  K6's path: the differentiable deform dispatchers
               (`modulated_deform_conv2d_opt` through K6, `_opt2` through
               K3) forward and backward at both call sites' shapes; values
@@ -72,8 +77,8 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # fp32 kernels against their fp32 plain versions: the differences are
 # summation order (up to 2304 terms in K3), the online softmax in K4 and
-# K5, and K4's and K5's 3xTF32 products (~2^-21 of each product), a few ulp
-# of the largest term; 1e-4 of the output scale leaves > 10x room (one
+# K5, and K3's, K4's and K5's 3xTF32 products (~2^-21 of each product), a
+# few ulp of the largest term; 1e-4 of the output scale leaves > 10x room (one
 # pass of TF32 would not: tests/test_torch_kernels.py).
 REL_TOL = 1e-4
 # GPU (kernels) vs CPU (plain) on the small clip, uint8 LSB: the fp32
@@ -114,23 +119,56 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, reps: int = 50) -> float:
+    """Device ms per call of fn: `reps` calls captured in one CUDA graph,
+    replayed between two events, so a call shorter than its host-side
+    launch is not timed as the host's pace (the wrappers allocate, check
+    and launch through ctypes: tens of microseconds)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _attention_bounds(n_bytes: float, product_flops: float,
-                      softmax_ops: float) -> dict:
-    """K4's and K5's bounds: `bound_ms` is "operations (3xTF32)", the
-    larger of the bytes over the memory rate and the operations (the two
-    products three times over at the TF32 tensor-core rate, or the softmax
-    on CUDA cores, whichever takes longer); `fp32_bound_ms` all operations
-    on CUDA cores, the bound of the fp32 tile before it."""
+def _tensor_core_bounds(n_bytes: float, product_flops: float,
+                        cuda_core_ops: float) -> dict:
+    """The bounds of a kernel whose products run in 3xTF32 (K3, K4, K5):
+    `bound_ms` is "operations (3xTF32)", the larger of the bytes over the
+    memory rate and the operations (the products three times over at the
+    TF32 tensor-core rate, or the rest on CUDA cores, whichever takes
+    longer); `fp32_bound_ms` all operations on CUDA cores, the bound of an
+    fp32 kernel."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = max(3 * product_flops / PEAK_TF32_FLOPS,
-                softmax_ops / PEAK_FP32_FLOPS) * 1e3
-    fp32_ms, fp32_by = _bound(n_bytes, product_flops + softmax_ops)
+                cuda_core_ops / PEAK_FP32_FLOPS) * 1e3
+    fp32_ms, fp32_by = _bound(n_bytes, product_flops + cuda_core_ops)
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_basis="operations (3xTF32)", fp32_bound_ms=fp32_ms,
@@ -153,11 +191,34 @@ def _compare(name, got, ref) -> float:
     return err
 
 
-# K4's and K5's library names and the main path's problem: (query rows per
-# problem, problems per launch); K4 16 windows x 4 heads of 855 rows, K5
-# 16 windows x 4 heads of 19 frames x 45 tokens
-ATTENTION_KERNELS = {"window_attention": (855, 64),
-                     "sparse_window_attention": (855, 64)}
+# K3's two call sites: (name, positions B * H * W, C, C / dg)
+DEFORM_SITES = (("generator", 60 * 108, 128, 8),
+                ("flow completion", 2 * 30 * 54, 256, 16))
+
+
+def _tensor_core_launches(n_sm: int) -> list:
+    """The main path's launches of the tensor-core kernels: (library,
+    kernel symbol, site, launch-info symbol and its int arguments,
+    grid(info)), info = {resident blocks per SM, dynamic shared memory
+    bytes, threads per block, rows per block, blocks per row tile}. K4 and
+    K5: 16 windows x 4 heads of 855 query rows; K3: each call site's
+    positions in 64-position tiles, times the cluster split the wrapper
+    picks for this card's resident blocks."""
+    from propainter_tpu_torch.ops import deform
+
+    def attention_grid(info):
+        return -(-855 // info[3]) * info[4] * 64
+
+    launches = [(lib, f"{lib}_kernel", "main path", f"{lib}_launch_info", (),
+                 attention_grid)
+                for lib in ("window_attention", "sparse_window_attention")]
+    for site, n_pos, C, cg in DEFORM_SITES:
+        launches.append((
+            "deform_conv", "deform_conv_kernel", site,
+            "modulated_deform_conv2d_launch_info", (cg,),
+            lambda info, n=n_pos, c=C: -(-n // info[3]) * deform.k3_split(
+                n, c, n_sm * info[0])))
+    return launches
 
 
 def _ptxas_report(log: str) -> dict:
@@ -198,10 +259,11 @@ def _sass_counts(sass: str, opcode: str) -> dict:
 
 
 def phase_build(state: dict) -> None:
-    """Compile every kernel, then report on K4 and K5: registers, spills
-    and shared memory, the tensor-core (HMMA) instructions of their SASS,
-    resident blocks per SM and the waves of the main path's grid on this
-    card's SMs. Fails if either has no HMMA instruction or spills."""
+    """Compile every kernel, then report on the tensor-core kernels (K3,
+    K4, K5): registers, spills and shared memory, the tensor-core (HMMA)
+    instructions of their SASS, resident blocks per SM and the waves of
+    each main-path grid on this card's SMs. Fails if one has no HMMA
+    instruction, spills, or fits no block on an SM."""
     import ctypes
 
     import torch
@@ -212,44 +274,45 @@ def phase_build(state: dict) -> None:
           f"{max(times.values(), default=0.0):.1f} s")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     report, failures = {}, []
-    for lib, (rows, problems) in ATTENTION_KERNELS.items():
-        symbol = f"{lib}_kernel"
-        ptxas = {fn: r
-                 for fn, r in _ptxas_report(_build.build_log(lib)).items()
-                 if symbol in fn}
-        hmma = sum(n
-                   for fn, n in _sass_counts(_build.sass(lib), "HMMA").items()
-                   if symbol in fn)
+    for lib, symbol, site, info_fn, args, grid_of in _tensor_core_launches(
+            n_sm):
+        if symbol not in report:
+            ptxas = {fn: r for fn, r in
+                     _ptxas_report(_build.build_log(lib)).items()
+                     if symbol in fn}
+            hmma = sum(n for fn, n in
+                       _sass_counts(_build.sass(lib), "HMMA").items()
+                       if symbol in fn)
+            report[symbol] = dict(ptxas=ptxas, hmma=hmma, sites={})
+            for fn, r in ptxas.items():
+                print(f"  {fn}: {r.get('registers')} registers, "
+                      f"{r.get('spill_stores')} B spill stores, "
+                      f"{r.get('spill_loads')} B spill loads, "
+                      f"{r.get('static_smem', 0)} B static shared memory")
+            print(f"  {symbol}: {hmma} HMMA instructions")
+            if not ptxas:
+                failures.append(f"{symbol}: no -Xptxas -v report")
+            if hmma == 0:
+                failures.append(f"{symbol}: no HMMA instruction")
+            if any(r.get("spill_stores", 0) for r in ptxas.values()):
+                failures.append(f"{symbol}: spills")
         info = (ctypes.c_int * 5)()
-        _build.check(_build.function(lib, f"{lib}_launch_info", 1, 0)(
-            ctypes.addressof(info), None), f"{lib}_launch_info")
+        fn = _build.function(lib, info_fn, 1, len(args))
+        _build.check(fn(ctypes.addressof(info), *args, None), info_fn)
         blocks_per_sm, smem, threads, block_rows, split = info
-        grid = -(-rows // block_rows) * split * problems
+        grid = grid_of(info)
         waves = grid / (n_sm * blocks_per_sm) if blocks_per_sm else math.inf
-        report[symbol] = dict(ptxas=ptxas, hmma=hmma,
-                              dynamic_smem=smem, threads=threads,
-                              query_rows_per_block=block_rows,
-                              blocks_per_query_tile=split,
-                              blocks_per_sm=blocks_per_sm, grid=grid,
-                              sms=n_sm, waves=waves)
-        for fn, r in ptxas.items():
-            print(f"  {symbol}: {r.get('registers')} registers, "
-                  f"{r.get('spill_stores')} B spill stores, "
-                  f"{r.get('spill_loads')} B spill loads, "
-                  f"{r.get('static_smem', 0)} B static + {smem} B dynamic "
-                  f"shared memory")
-        print(f"  {symbol}: {hmma} HMMA instructions; {threads} threads x "
-              f"{blocks_per_sm} blocks per SM; main path grid {grid} blocks "
-              f"({split} per {block_rows}-row query tile) = {waves:.2f} "
-              f"waves on {n_sm} SMs")
-        if not ptxas:
-            failures.append(f"{symbol}: no -Xptxas -v report")
-        if hmma == 0:
-            failures.append(f"{symbol}: no HMMA instruction")
-        if any(r.get("spill_stores", 0) for r in ptxas.values()):
-            failures.append(f"{symbol}: spills")
+        report[symbol]["sites"][site] = dict(
+            dynamic_smem=smem, threads=threads, rows_per_block=block_rows,
+            blocks_per_sm=blocks_per_sm, grid=grid, sms=n_sm, waves=waves,
+            grid_per_sm=grid / n_sm)
+        print(f"  {symbol} ({site}): {smem} B dynamic shared memory, "
+              f"{threads} threads x {blocks_per_sm} blocks per SM; grid "
+              f"{grid} blocks of {block_rows} rows = {grid / n_sm:.2f} per "
+              f"SM, {waves:.2f} waves of {n_sm * blocks_per_sm} resident "
+              f"blocks on {n_sm} SMs")
         if blocks_per_sm < 1:
-            failures.append(f"{symbol}: no block fits on an SM")
+            failures.append(f"{symbol} ({site}): no block fits on an SM")
     state["build"] = report
     if failures:
         raise AssertionError("; ".join(failures))
@@ -322,81 +385,8 @@ def phase_kernels(records: dict) -> None:
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None)
 
-    # ---- K3 and K6 at both call sites on the same inputs: the generator's
-    # feature propagation (the record) and the flow completion's (an extra
-    # entry in the record)
-    k3, k6 = [], []
-    for Bd, Hd, Wd, C, dg, max_res in ((1, 60, 108, 128, 16, 3.0),
-                                       (2, 30, 54, 256, 16, 5.0)):
-        x = randn(Bd, Hd, Wd, C)
-        off = (max_res * torch.tanh(randn(Bd, Hd, Wd, dg, 9, 2))
-               + randn(Bd, Hd, Wd, 1, 1, 2, std=2.0)).contiguous()
-        msk = torch.sigmoid(randn(Bd, Hd, Wd, dg, 9))
-        wt = randn(3, 3, C, 128, std=0.02)
-        bs = randn(128, std=0.02)
-        shape = f"x {(Bd, Hd, Wd, C)} dg {dg}"
-        got = deform.modulated_deform_conv2d(x, off, msk, wt, bs)
-        want = deform._modulated_deform_conv2d_plain(x, off, msk, wt, bs)
-        err = _compare(f"modulated_deform_conv2d {shape}", got, want)
-        ms = _time_ms(
-            lambda: deform.modulated_deform_conv2d(x, off, msk, wt, bs), 20)
-        plain_ms = _time_ms(
-            lambda: deform._modulated_deform_conv2d_plain(
-                x, off, msk, wt, bs), 5)
-        bound_ms, bound_by = _bound(
-            _nbytes(x, off, msk, wt, bs, got),
-            Bd * Hd * Wd * (2 * 9 * C * 128 + 9 * C * 12))
-        k3.append(dict(shape=shape, max_abs_err=err, ms=ms,
-                       plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=None))
-
-        sy, sx = (c.contiguous() for c in deform._tap_coords(off))
-        s6 = deform.deform_sample(x, sy, sx, msk, dg)
-        err = _compare(f"deform_sample {shape}", s6,
-                       deform._deform_sample_plain(x, sy, sx, msk, dg))
-        _compare(f"modulated_deform_conv2d_fused vs K3 {shape}",
-                 deform.modulated_deform_conv2d_fused(x, off, msk, wt, bs),
-                 got)
-        ms = _time_ms(lambda: deform.deform_sample(x, sy, sx, msk, dg), 20)
-        plain_ms = _time_ms(
-            lambda: deform._deform_sample_plain(x, sy, sx, msk, dg), 5)
-        # yardstick: F.grid_sample per group with the 9 taps along the
-        # width, times the mask (the layouts prepared outside the timing)
-        Cg = C // dg
-        xg = x.reshape(Bd, Hd, Wd, dg, Cg).permute(0, 3, 4, 1, 2)
-        xg = xg.reshape(Bd * dg, Cg, Hd, Wd).contiguous()
-
-        def per_group(a):
-            return a.permute(0, 3, 1, 2, 4).reshape(Bd * dg, Hd, Wd * 9)
-
-        grid = torch.stack([per_group(sx) * (2.0 / (Wd - 1)) - 1.0,
-                            per_group(sy) * (2.0 / (Hd - 1)) - 1.0], -1)
-        mg = per_group(msk)[:, None].contiguous()
-
-        def library():
-            return F.grid_sample(xg, grid, mode="bilinear",
-                                 padding_mode="zeros",
-                                 align_corners=True) * mg
-
-        lib = library().reshape(Bd, dg, Cg, Hd, Wd, 9)
-        _compare(f"grid_sample yardstick vs K6 {shape}",
-                 lib.permute(0, 3, 4, 1, 5, 2), s6)
-        library_ms = _time_ms(library, 20)
-        bound_ms, bound_by = _bound(_nbytes(x, sy, sx, msk, s6),
-                                    12 * s6.numel())
-        k6.append(dict(shape=shape, max_abs_err=err, ms=ms,
-                       plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms))
-    records["modulated_deform_conv2d"] = dict(
-        name="modulated_deform_conv2d", route="cuda",
-        source="propainter_tpu_torch/csrc/deform_conv.cu",
-        replaces="propainter_tpu/ops/deform_pallas.py:173", **k3[0],
-        flow_completion_site=k3[1])
-    records["deform_sample"] = dict(
-        name="deform_sample", route="cuda",
-        source="propainter_tpu_torch/csrc/deform_conv.cu",
-        replaces="propainter_tpu/ops/deform_pallas.py:38", **k6[0],
-        flow_completion_site=k6[1])
+    records["modulated_deform_conv2d"], records["deform_sample"] = (
+        _check_deform(randn))
 
     # ---- K4: one transformer block of one window (16 windows x 4 heads)
     Gp, Tq, Tk, ch = 64, 855, 2380, 128
@@ -438,15 +428,154 @@ def phase_kernels(records: dict) -> None:
         replaces="propainter_tpu/ops/flash_attention.py:36",
         shape=f"q {tuple(q.shape)} k {tuple(k.shape)}", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        **_attention_bounds(_nbytes(q, k, v, kb, got), Gp * 4 * Tq * Tk * ch,
-                            Gp * 5 * Tq * Tk))
+        **_tensor_core_bounds(_nbytes(q, k, v, kb, got),
+                              Gp * 4 * Tq * Tk * ch, Gp * 5 * Tq * Tk))
     records["sparse_window_attention"] = _check_k5(randn)
     for r in records.values():
-        tc = (f" on tensor cores in 3xTF32, fp32 {r['fp32_bound_ms']:.3f}"
-              if "fp32_bound_ms" in r else "")
-        print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
-              f"bound {r['bound_ms']:.3f} by {r['bound_by']}{tc}, library "
-              f"{r['library_ms']})")
+        for site, rr in (("", r), (" (flow completion)",
+                                   r.get("flow_completion_site"))):
+            if rr is None:
+                continue
+            tc = (f" on tensor cores in 3xTF32, fp32 "
+                  f"{rr['fp32_bound_ms']:.4f}" if "fp32_bound_ms" in rr
+                  else "")
+            eager = (f", eager {rr['eager_ms']:.4f} ms" if "eager_ms" in rr
+                     else "")
+            print(f"  {r['name']}{site}: {rr['ms']:.4f} ms{eager} (plain "
+                  f"{rr['plain_ms']:.3f}, bound {rr['bound_ms']:.4f} by "
+                  f"{rr['bound_by']}{tc}, library {rr['library_ms']})")
+
+
+def _deform_inputs(randn, Bd, Hd, Wd, C, dg, max_res):
+    """x, offset (max_res * tanh of noise plus one flow-like shift per
+    position), mask, weight and bias of a deform call site."""
+    import torch
+
+    x = randn(Bd, Hd, Wd, C)
+    off = (max_res * torch.tanh(randn(Bd, Hd, Wd, dg, 9, 2))
+           + randn(Bd, Hd, Wd, 1, 1, 2, std=2.0)).contiguous()
+    msk = torch.sigmoid(randn(Bd, Hd, Wd, dg, 9))
+    return x, off, msk, randn(3, 3, C, 128, std=0.02), randn(128, std=0.02)
+
+
+def _check_deform(randn) -> tuple:
+    """K3 and K6 records at both call sites on the same inputs: the
+    generator's feature propagation (the record) and the flow completion's
+    (`flow_completion_site`). K3 is timed beside its plain version, the
+    unfused route (`modulated_deform_conv2d_fused`: K6 plus one cuBLAS
+    GEMM, context only: two calls the main path never takes) and at every
+    cluster split; K6 beside F.grid_sample x mask (its yardstick). Both are
+    also held to their plain versions at a ragged 5 x 13 image with
+    coordinates far outside it, K3 at every group width."""
+    import torch
+    import torch.nn.functional as F
+    from propainter_tpu_torch.ops import deform
+
+    k3, k6 = [], []
+    for Bd, Hd, Wd, C, dg, max_res in ((1, 60, 108, 128, 16, 3.0),
+                                       (2, 30, 54, 256, 16, 5.0)):
+        x, off, msk, wt, bs = _deform_inputs(randn, Bd, Hd, Wd, C, dg,
+                                             max_res)
+        shape = f"x {(Bd, Hd, Wd, C)} dg {dg}"
+        got = deform.modulated_deform_conv2d(x, off, msk, wt, bs)
+        want = deform._modulated_deform_conv2d_plain(x, off, msk, wt, bs)
+        err = _compare(f"modulated_deform_conv2d {shape}", got, want)
+
+        def run_k3(split=None):
+            return deform.modulated_deform_conv2d(x, off, msk, wt, bs,
+                                                  split=split)
+
+        ms, eager_ms = _graph_ms(run_k3), _time_ms(run_k3, 50)
+        plain_ms = _time_ms(
+            lambda: deform._modulated_deform_conv2d_plain(
+                x, off, msk, wt, bs), 5)
+        unfused_ms = _graph_ms(lambda: deform.modulated_deform_conv2d_fused(
+            x, off, msk, wt, bs))
+        n_chunks = 9 * C // deform.K3_CHUNK
+        split_ms = {s: _graph_ms(lambda: run_k3(s))
+                    for s in range(1, deform.K3_MAX_SPLIT + 1)
+                    if n_chunks % s == 0}
+        n_pos = Bd * Hd * Wd
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        slots = n_sm * deform.k3_launch_info(C // dg)[0]
+        k3.append(dict(
+            shape=shape, max_abs_err=err, ms=ms, eager_ms=eager_ms,
+            plain_ms=plain_ms, library_ms=None, unfused_ms=unfused_ms,
+            split=deform.k3_split(n_pos, C, slots), split_ms=split_ms,
+            **_tensor_core_bounds(_nbytes(x, off, msk, wt, bs, got),
+                                  n_pos * 2 * 9 * C * 128,
+                                  n_pos * 9 * C * 12)))
+        by_split = ", ".join(f"{s}: {t:.4f}" for s, t in split_ms.items())
+        print(f"  modulated_deform_conv2d {shape}: split {k3[-1]['split']}; "
+              f"device ms by split {by_split}; eager {eager_ms:.4f} ms; "
+              f"unfused (K6 + GEMM) {unfused_ms:.4f} ms")
+
+        sy, sx = (c.contiguous() for c in deform._tap_coords(off))
+        s6 = deform.deform_sample(x, sy, sx, msk, dg)
+        err = _compare(f"deform_sample {shape}", s6,
+                       deform._deform_sample_plain(x, sy, sx, msk, dg))
+        _compare(f"modulated_deform_conv2d_fused vs K3 {shape}",
+                 deform.modulated_deform_conv2d_fused(x, off, msk, wt, bs),
+                 got)
+        def run_k6():
+            return deform.deform_sample(x, sy, sx, msk, dg)
+
+        ms, eager_ms = _graph_ms(run_k6), _time_ms(run_k6, 50)
+        plain_ms = _time_ms(
+            lambda: deform._deform_sample_plain(x, sy, sx, msk, dg), 5)
+        # yardstick: F.grid_sample per group with the 9 taps along the
+        # width, times the mask (the layouts prepared outside the timing)
+        Cg = C // dg
+        xg = x.reshape(Bd, Hd, Wd, dg, Cg).permute(0, 3, 4, 1, 2)
+        xg = xg.reshape(Bd * dg, Cg, Hd, Wd).contiguous()
+
+        def per_group(a):
+            return a.permute(0, 3, 1, 2, 4).reshape(Bd * dg, Hd, Wd * 9)
+
+        grid = torch.stack([per_group(sx) * (2.0 / (Wd - 1)) - 1.0,
+                            per_group(sy) * (2.0 / (Hd - 1)) - 1.0], -1)
+        mg = per_group(msk)[:, None].contiguous()
+
+        def library():
+            return F.grid_sample(xg, grid, mode="bilinear",
+                                 padding_mode="zeros",
+                                 align_corners=True) * mg
+
+        lib = library().reshape(Bd, dg, Cg, Hd, Wd, 9)
+        _compare(f"grid_sample yardstick vs K6 {shape}",
+                 lib.permute(0, 3, 4, 1, 5, 2), s6)
+        library_ms = _graph_ms(library)
+        bound_ms, bound_by = _bound(_nbytes(x, sy, sx, msk, s6),
+                                    12 * s6.numel())
+        k6.append(dict(shape=shape, max_abs_err=err, ms=ms,
+                       eager_ms=eager_ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=library_ms))
+
+    # ragged: 65 positions (one full tile and one of a single position),
+    # every group width, coordinates up to 40 pixels outside the image
+    for C, dg in ((128, 32), (128, 16), (256, 16), (128, 4)):
+        x, off, msk, wt, bs = _deform_inputs(randn, 1, 5, 13, C, dg, 3.0)
+        off = (off * 8.0).contiguous()
+        what = f"x (1, 5, 13, {C}) dg {dg}, offsets to 40 px"
+        k3[0]["max_abs_err"] = max(k3[0]["max_abs_err"], _compare(
+            f"modulated_deform_conv2d {what}",
+            deform.modulated_deform_conv2d(x, off, msk, wt, bs),
+            deform._modulated_deform_conv2d_plain(x, off, msk, wt, bs)))
+        if C // dg in (8, 16):
+            sy, sx = (c.contiguous() for c in deform._tap_coords(off))
+            k6[0]["max_abs_err"] = max(k6[0]["max_abs_err"], _compare(
+                f"deform_sample {what}",
+                deform.deform_sample(x, sy, sx, msk, dg),
+                deform._deform_sample_plain(x, sy, sx, msk, dg)))
+    common = dict(route="cuda",
+                  source="propainter_tpu_torch/csrc/deform_conv.cu")
+    return (dict(name="modulated_deform_conv2d", **common,
+                 replaces="propainter_tpu/ops/deform_pallas.py:173",
+                 **k3[0], flow_completion_site=k3[1]),
+            dict(name="deform_sample", **common,
+                 replaces="propainter_tpu/ops/deform_pallas.py:38", **k6[0],
+                 flow_completion_site=k6[1]))
 
 
 def _smoke_occupancy():
@@ -540,7 +669,7 @@ def _check_k5(randn) -> dict:
                      + (2 * Ts * P if dirty else 0))             # pooled k, v
         n_bytes = rows * ch * wq.element_size() + _nbytes(
             occ, fsel, roll_valid)
-        return _attention_bounds(n_bytes, 4 * ch * logits, 5 * logits)
+        return _tensor_core_bounds(n_bytes, 4 * ch * logits, 5 * logits)
 
     # yardstick: the dirty problems' branch A in one library call, over
     # the selected frames' 270 keys each, invalid rolled keys masked out

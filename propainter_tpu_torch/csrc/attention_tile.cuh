@@ -2,19 +2,14 @@
 // (sparse_window_attention.cu): fp32 inputs and outputs, head width 128,
 // both products on the tensor cores in 3xTF32.
 //
-// Numerics. Every product operand x is split as x = big + small, with
-// big = tf32(x) rounded to nearest (the rounding of cvt.rna.tf32.f32) and
-// small = x - big, exact in fp32, which the tensor core reads as TF32 by
-// dropping its low 13 bits; a·b ~ big_a·big_b + big_a·small_b +
-// small_a·big_b is summed by mma.sync.m16n8k8 (tf32 in, fp32
-// accumulators). The dropped small·small term and the truncation leave
-// ~2^-21 of each product: fp32 level, where one pass of TF32 (~2^-11) does
-// not hold 1e-4 of the output scale. The running max, sum and
-// exponentials are fp32; logits are kept in log2 units (the queries are
-// prescaled by scale · log2 e, biases by log2 e) so the exponentials are
-// ex2.approx, a few ulp. A masked key or (query, key) pair gets
-// probability 0 exactly, never the exp of a large negative number, so a
-// row whose keys are all masked so far carries nothing forward.
+// Numerics. Both products run in 3xTF32 (tf32_mma.cuh): each operand
+// split big + small, three mma.sync.m16n8k8 per product. The running max,
+// sum and exponentials are fp32; logits are kept in log2 units (the
+// queries are prescaled by scale · log2 e, biases by log2 e) so the
+// exponentials are ex2.approx, a few ulp. A masked key or (query, key)
+// pair gets probability 0 exactly, never the exp of a large negative
+// number, so a row whose keys are all masked so far carries nothing
+// forward.
 //
 // Work split (FlashAttention-2). A block of kWarps warps holds kBQ = 16 *
 // kWarps query rows; warp w owns rows 16w .. 16w + 15 for the whole key
@@ -61,7 +56,15 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace attn {
+
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::mma;
+using tc::split;
 
 constexpr int kD = 128;             // head width
 constexpr int kWarps = 4;
@@ -98,38 +101,12 @@ __device__ __forceinline__ float* slot_v(const Smem& s, int stage) {
   return slot_k(s, stage) + kBK * kLdQK;
 }
 
-// ---- 3xTF32 pieces -------------------------------------------------------
-
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero: the rounding of cvt.rna.tf32.f32, bit for bit on finite inputs, in
-// two integer instructions; the cvt itself compiles to four on sm_90a
-// (it also screens Inf and NaN, which pass through this unchanged).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small as mma operands: three instructions per value, which
-// each warp spends on every fragment it loads.
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32(x);
-  small = __float_as_uint(x - __uint_as_float(big));
-}
+// ---- softmax pieces ------------------------------------------------------
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// d += a · b for one m16n8k8 tile (a: rows g, g + 8 x k slots t, t + 4;
-// b: k slots t, t + 4 x column g; d: rows g, g + 8 x columns 2t, 2t + 1).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -140,25 +117,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// ---- asynchronous copies -------------------------------------------------
-
-// 16 bytes from src to dst, or 16 zero bytes when !live (nothing is read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool live) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(d), "l"(src), "r"(live ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
 }
 
 // ---- the block's tiles -----------------------------------------------------

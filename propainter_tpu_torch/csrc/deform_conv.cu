@@ -4,189 +4,529 @@
 // K3 replaces propainter_tpu/ops/deform_pallas.py:_kernel_out, K6
 // propainter_tpu/ops/deform_pallas.py:_kernel. Semantics:
 // propainter_tpu_torch/ops/deform.py:modulated_deform_conv2d and
-// deform_sample. Both sample through bilinear_zero (zero-padded bilinear,
-// each corner outside the image weighted 0).
+// deform_sample. Both sample bilinearly with zeros outside the image: each
+// corner outside [0, H-1] x [0, W-1] weighs 0 (its address is clamped into
+// the image), then the sum is scaled by the modulation mask.
 //
 // K3 layout (all fp32, contiguous): x (B, H, W, C); offset (B, H, W, dg, 9,
-// 2) as (dy, dx); mask (B, H, W, dg, 9); weight (9, C, O) = HWIO; bias (O);
-// out (B, H, W, O). O is 128 (both ProPainter call sites).
+// 2) as (dy, dx); mask (B, H, W, dg, 9); weight (9, C, 128) = HWIO; bias
+// (128); out (B, H, W, 128). C % 32 == 0, Cg = C / dg in {4, 8, 16, 32}.
 //
-// K3 design: one block per 32 output positions (the caller's
-// block_positions, the one size compiled), one thread per output channel.
-// For each 64-channel slice the block samples the 9 taps of every position
-// into shared memory (bilinear weight x modulation, zero outside the image;
-// consecutive threads take consecutive channels of one pixel, so the reads
-// of x are coalesced), then each thread contracts the 576 sampled rows with
-// its weight column, accumulating one output per position in registers.
-// The sampled tensor never reaches device memory. Bound: operations
-// (2 * 9 * C * O FLOPs per position).
+// K3 design: a GEMM of M = B*H*W positions, N = 128 outputs and K = 9*C
+// (tap-major: row k*C + c of the weight) on the tensor cores in 3xTF32
+// (tf32_mma.cuh), whose A operand, the modulated bilinear samples, is
+// built in shared memory and never reaches device memory (as in the TPU
+// kernel). A block of 4 warps owns 64 positions x 128 outputs (warp (wm,
+// wn): 32 positions x 64 outputs, 64 fp32 accumulators a thread) and walks
+// K in 32-channel chunks of one tap. Per chunk:
+//   taps     each (position, group) of the chunk gets its four clamped
+//            corner offsets and four bilinear weights x mask, once, into
+//            shared memory (the offset and mask loads are issued a chunk
+//            ahead, under the previous chunk's products);
+//   gather   the 64 x 32 A tile, each thread a 4-channel quad of a
+//            position: four 128-bit corner reads of x's channel-contiguous
+//            row, split big + small once here rather than by every warp;
+//   weights  the 32 x 128 weight slice, through a 2-slot cp.async ring
+//            issued a chunk ahead; no thread loads from device memory
+//            inside the products;
+//   products 4 k-steps of m16n8k8, 3 mma each (big·big, big·small,
+//            small·big), the weight fragments split in registers.
+// Fill. At 64 positions a block the main path has 102 (generator) and 51
+// (flow completion) position tiles, under the card's 132 SMs. So the K
+// chunks of a tile are split over a cluster of n_split blocks (chosen by
+// the wrapper); each keeps its partial 64 x 128 sums in shared memory, and
+// block r of the cluster sums rows [64r/n, 64(r+1)/n) of every
+// block's part, in rank order, through distributed shared memory, adds the
+// bias and stores them: one kernel, no atomics, the same result on every
+// run.
+// Fragment numbering (as in attention_tile.cuh): k-step 2p + h of a chunk
+// has slots t, t + 4 on channels 16p + 4t + 2h and + 1, so one 128-bit
+// load gives a thread its A values of two k-steps; n-tile 4q + r has column
+// g on output 32q + 4g + r (of the warp's 64), so one 128-bit load gives
+// it the B values of four n-tiles, and the accumulators of a row hold 8
+// contiguous outputs. The weight slice lands in shared memory with the
+// channel's 4 x 4 (t, e) block transposed (row 16p + 4e + t holds channel
+// 16p + 4t + e) so those B loads are free of bank conflicts.
+// Bound: operations, 3 x 2 * 9 * C * 128 FLOPs per position on the tensor
+// cores in TF32.
 //
-// K6 layout (fp32, contiguous): x (B, H, W, C); sy, sx, mask (B, Ho, Wo, dg,
-// K) absolute sample coordinates and modulation; out (B, Ho, Wo, dg, K, Cg)
-// with Cg = C / dg. K6 design: one thread per output value, consecutive
-// threads on consecutive channels of one (position, group, tap), so the
-// reads of x and the writes of out are coalesced. The TPU kernel builds a
-// one-hot interpolation matrix per tap and contracts it on the MXU; here
-// each value reads its four corners directly. Bound: bytes (the output, 9x
-// the size of x, dominates).
+// K6 layout (fp32, contiguous): x (B, H, W, C); sy, sx, mask (B, Ho, Wo,
+// dg, K) absolute sample coordinates and modulation; out (B, Ho, Wo, dg, K,
+// Cg), Cg = C / dg in {4, 8, 16, 32}. K6 design: one thread per (position,
+// group, tap, 4-channel quad), consecutive threads on consecutive quads:
+// the Cg / 4 threads of a tap read its coordinates and mask together, each
+// reads its four corners as 128-bit loads and writes one 128-bit store, so
+// the output (9x the size of x) is written coalesced. 32-bit indices; the
+// batch is the grid's y, the quad count a template constant, so a thread
+// divides only by K and dg. The TPU kernel builds a one-hot interpolation
+// matrix per tap and contracts it on the MXU; here each value reads its
+// four corners directly. Bound: bytes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kO = 128;         // output channels = threads
-constexpr int kCC = 64;         // channels per slice
-constexpr int kRows = 9 * kCC;  // sampled rows per slice
-constexpr int kSampleThreads = 256;
+using namespace tc;
 
-// Bilinear sample at (sy, sx) of the channel whose value at pixel (0, 0) is
-// xc[0] (pixels C floats apart); a corner outside [0, H-1] x [0, W-1] adds 0.
-__device__ __forceinline__ float bilinear_zero(const float* __restrict__ xc,
-                                               int H, int W, int C, float sy,
-                                               float sx) {
+// Four corners of a bilinear sample at (sy, sx) in an H x W image: the
+// offsets (pix0 + y * W + x) * C of the corners clamped into the image,
+// and their weights x m, 0 for a corner outside it; corner order (y0, x0),
+// (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1).
+__device__ __forceinline__ void corners(float sy, float sx, float m, int H,
+                                        int W, int C, int pix0, int4& off,
+                                        float4& wt) {
   const float y0 = floorf(sy), x0 = floorf(sx);
   const float fy = sy - y0, fx = sx - x0;
-  float s = 0.f;
+  int o[4];
+  float w[4];
 #pragma unroll
   for (int dy = 0; dy < 2; ++dy) {
 #pragma unroll
     for (int dx = 0; dx < 2; ++dx) {
       const float yy = y0 + dy, xx = x0 + dx;
-      if (yy >= 0.f && yy <= H - 1 && xx >= 0.f && xx <= W - 1) {
-        const float wgt = (dy ? fy : 1.f - fy) * (dx ? fx : 1.f - fx);
-        s += wgt * __ldg(xc + (static_cast<size_t>(yy) * W
-                               + static_cast<size_t>(xx)) * C);
-      }
+      const bool in = yy >= 0.f && yy <= H - 1 && xx >= 0.f && xx <= W - 1;
+      const int yi = static_cast<int>(fminf(fmaxf(yy, 0.f), H - 1.f));
+      const int xi = static_cast<int>(fminf(fmaxf(xx, 0.f), W - 1.f));
+      o[2 * dy + dx] = (pix0 + yi * W + xi) * C;
+      w[2 * dy + dx] =
+          in ? (dy ? fy : 1.f - fy) * (dx ? fx : 1.f - fx) * m : 0.f;
     }
   }
-  return s;
+  off = make_int4(o[0], o[1], o[2], o[3]);
+  wt = make_float4(w[0], w[1], w[2], w[3]);
 }
 
-template <int kPT>              // output positions per block
-constexpr size_t smem_bytes() { return sizeof(float) * kRows * (kPT + 1); }
+// The 4 channels at xq of the four corners, weighted and summed.
+__device__ __forceinline__ float4 sample4(const float* __restrict__ xq,
+                                          const int4& off,
+                                          const float4& wt) {
+  const float4 v0 = __ldg(reinterpret_cast<const float4*>(xq + off.x));
+  const float4 v1 = __ldg(reinterpret_cast<const float4*>(xq + off.y));
+  const float4 v2 = __ldg(reinterpret_cast<const float4*>(xq + off.z));
+  const float4 v3 = __ldg(reinterpret_cast<const float4*>(xq + off.w));
+  return make_float4(
+      wt.x * v0.x + wt.y * v1.x + wt.z * v2.x + wt.w * v3.x,
+      wt.x * v0.y + wt.y * v1.y + wt.z * v2.y + wt.w * v3.y,
+      wt.x * v0.z + wt.y * v1.z + wt.z * v2.z + wt.w * v3.z,
+      wt.x * v0.w + wt.y * v1.w + wt.z * v2.w + wt.w * v3.w);
+}
 
-template <int kPT>
-__global__ void __launch_bounds__(kO)
-deform_conv_kernel(const float* __restrict__ x, const float* __restrict__ offset,
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// ---- K3 ------------------------------------------------------------------
+
+constexpr int kO = 128;             // output channels
+constexpr int kBP = 64;             // positions per block
+constexpr int kCK = 32;             // channels per K chunk
+constexpr int kThreads = 128;
+constexpr int kBlocksPerSm = 2;     // resident blocks asked for: no spills
+constexpr int kMaxSplit = 8;        // blocks per cluster (portable limit)
+constexpr int kLdA = kCK + 16;      // A rows: 128-bit fragment loads
+constexpr int kLdW = kO + 8;        // weight rows: 128-bit B loads
+constexpr int kLdP = kO + 4;        // partial-sum rows
+constexpr int kAFloats = kBP * kLdA;
+constexpr int kWFloats = kCK * kLdW;
+
+template <int kCg>
+constexpr size_t smem_bytes() {
+  // weight ring, A big + small, then the chunk's taps (int4 + float4 per
+  // (position, group)); the partial sums reuse the front at the end
+  return sizeof(float) * (2 * kWFloats + 2 * kAFloats)
+         + 32 * kBP * (kCK / kCg);
+}
+static_assert(kBP * kLdP <= 2 * kWFloats + 2 * kAFloats,
+              "the partial sums fit in the ring and A tiles");
+
+template <int kCg>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+deform_conv_kernel(const float* __restrict__ x,
+                   const float* __restrict__ offset,
                    const float* __restrict__ mask,
                    const float* __restrict__ weight,
                    const float* __restrict__ bias, float* __restrict__ out,
-                   int B, int H, int W, int C, int dg) {
-  constexpr int kLd = kPT + 1;     // padded row: conflict-free writes
-  extern __shared__ float samp[];  // [kRows][kLd]
+                   int n_pos, int H, int W, int C, int n_split) {
+  constexpr int kNG = kCK / kCg;           // groups per chunk
+  constexpr int kPer = (kNG + 1) / 2;      // (position, group)s a thread
+  extern __shared__ __align__(16) float smem[];
+  float* const ring = smem;                            // [2][kCK][kLdW]
+  float* const a_big = ring + 2 * kWFloats;            // [kBP][kLdA]
+  float* const a_small = a_big + kAFloats;
+  int4* const tap_off = reinterpret_cast<int4*>(a_small + kAFloats);
+  float4* const tap_w = reinterpret_cast<float4*>(tap_off + kBP * kNG);
+
   const int tid = threadIdx.x;
-  const int n_pos = B * H * W;
-  const int p0 = blockIdx.x * kPT;
-  const int cg = C / dg;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / 2, wn = warp % 2;
+  const int rank = blockIdx.x % n_split;
+  const int p0 = blockIdx.x / n_split * kBP;
+  const int dg = C / kCg, n_cc = C / kCK, n_chunks = 9 * n_cc;
+  const int j0 = n_chunks * rank / n_split;
+  const int j1 = n_chunks * (rank + 1) / n_split;
 
-  float acc[kPT];
-#pragma unroll
-  for (int q = 0; q < kPT; ++q) acc[q] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += kCC) {
-    for (int e = tid; e < kRows * kPT; e += kO) {
-      const int cc = e % kCC;
-      const int q = (e / kCC) % kPT;
-      const int k = e / (kCC * kPT);
-      const int p = p0 + q;
-      float v = 0.f;
-      if (p < n_pos) {
-        const int b = p / (H * W);
-        const int hw = p - b * H * W;
-        const int h = hw / W, w = hw - (hw / W) * W;
-        const int c = c0 + cc;
-        const size_t om = (static_cast<size_t>(p) * dg + c / cg) * 9 + k;
-        const float sy = static_cast<float>(h + k / 3 - 1) + offset[2 * om];
-        const float sx = static_cast<float>(w + k % 3 - 1) + offset[2 * om + 1];
-        const float* xb = x + static_cast<size_t>(b) * H * W * C + c;
-        v = bilinear_zero(xb, H, W, C, sy, sx) * mask[om];
-      }
-      samp[(k * kCC + cc) * kLd + q] = v;
-    }
-    __syncthreads();
-    for (int k = 0; k < 9; ++k) {
-      const float* wk = weight + (static_cast<size_t>(k) * C + c0) * kO + tid;
-      for (int cc = 0; cc < kCC; ++cc) {
-        const float wv = __ldg(wk + static_cast<size_t>(cc) * kO);
-        const float* row = samp + (k * kCC + cc) * kLd;
-#pragma unroll
-        for (int q = 0; q < kPT; ++q) acc[q] += row[q] * wv;
-      }
-    }
-    __syncthreads();
+  // the position whose taps this thread prepares (groups tid / kBP + 2i)
+  const int pm = tid % kBP;
+  const int p = p0 + pm;
+  const bool live = p < n_pos;
+  int h = 0, w = 0, pix0 = 0;
+  if (live) {
+    const int b = p / (H * W);
+    const int r = p - b * H * W;
+    h = r / W;
+    w = r - h * W;
+    pix0 = b * H * W;
   }
+  float2 raw_off[kPer];
+  float raw_m[kPer];
 
-  const float bv = bias[tid];
+  auto load_taps = [&](int j) {
+    const int k = j / n_cc;
+    const int g0 = (j - k * n_cc) * kNG;
 #pragma unroll
-  for (int q = 0; q < kPT; ++q) {
-    const int p = p0 + q;
-    if (p < n_pos) out[static_cast<size_t>(p) * kO + tid] = acc[q] + bv;
+    for (int i = 0; i < kPer; ++i) {
+      const int gi = tid / kBP + 2 * i;
+      raw_off[i] = make_float2(0.f, 0.f);
+      raw_m[i] = 0.f;
+      if (live && gi < kNG) {
+        const int idx = (p * dg + g0 + gi) * 9 + k;
+        raw_off[i] = __ldg(reinterpret_cast<const float2*>(offset) + idx);
+        raw_m[i] = __ldg(mask + idx);
+      }
+    }
+  };
+  auto store_taps = [&](int j) {
+    const int k = j / n_cc;
+    const float by = static_cast<float>(h + k / 3 - 1);
+    const float bx = static_cast<float>(w + k % 3 - 1);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int gi = tid / kBP + 2 * i;
+      if (gi >= kNG) continue;
+      int4 o;
+      float4 wt;
+      corners(by + raw_off[i].x, bx + raw_off[i].y, raw_m[i], H, W, C, pix0,
+              o, wt);
+      tap_off[pm * kNG + gi] = o;
+      tap_w[pm * kNG + gi] = wt;
+    }
+  };
+  auto issue_weights = [&](int j, int slot) {
+    const float* src = weight + static_cast<size_t>(j) * kCK * kO;
+    float* dst = ring + slot * kWFloats;
+#pragma unroll
+    for (int i = 0; i < kCK * kO / 4 / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int c = e / (kO / 4), col = 4 * (e % (kO / 4));
+      const int row = (c & ~15) | ((c & 3) << 2) | ((c >> 2) & 3);
+      cp_async16(dst + row * kLdW + col, src + c * kO + col, true);
+    }
+  };
+  auto gather = [&](int j) {
+    const int quad = tid % 8;
+    const int gi = 4 * quad / kCg;
+    const float* xq = x + (j % n_cc) * kCK + 4 * quad;
+#pragma unroll
+    for (int i = 0; i < kBP * kCK / 4 / kThreads; ++i) {
+      const int pos = tid / 8 + 16 * i;
+      const float4 s = sample4(xq, tap_off[pos * kNG + gi],
+                               tap_w[pos * kNG + gi]);
+      uint32_t big[4], small[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) split(lane4(s, c), big[c], small[c]);
+      *reinterpret_cast<uint4*>(a_big + pos * kLdA + 4 * quad) =
+          make_uint4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<uint4*>(a_small + pos * kLdA + 4 * quad) =
+          make_uint4(small[0], small[1], small[2], small[3]);
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+
+  auto products = [&](int slot) {
+    const float* ws = ring + slot * kWFloats + 64 * wn + 4 * g;
+#pragma unroll
+    for (int pp = 0; pp < 2; ++pp) {
+      float4 ab[2][2], as[2][2];   // [m-tile][rows g, g + 8]
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = 32 * wm + 16 * mi + 8 * hh + g;
+          ab[mi][hh] = *reinterpret_cast<const float4*>(
+              a_big + row * kLdA + 16 * pp + 4 * t);
+          as[mi][hh] = *reinterpret_cast<const float4*>(
+              a_small + row * kLdA + 16 * pp + 4 * t);
+        }
+#pragma unroll
+      for (int hk = 0; hk < 2; ++hk) {
+        uint32_t fb[2][4], fs[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          fb[mi][0] = __float_as_uint(lane4(ab[mi][0], 2 * hk));
+          fb[mi][1] = __float_as_uint(lane4(ab[mi][1], 2 * hk));
+          fb[mi][2] = __float_as_uint(lane4(ab[mi][0], 2 * hk + 1));
+          fb[mi][3] = __float_as_uint(lane4(ab[mi][1], 2 * hk + 1));
+          fs[mi][0] = __float_as_uint(lane4(as[mi][0], 2 * hk));
+          fs[mi][1] = __float_as_uint(lane4(as[mi][1], 2 * hk));
+          fs[mi][2] = __float_as_uint(lane4(as[mi][0], 2 * hk + 1));
+          fs[mi][3] = __float_as_uint(lane4(as[mi][1], 2 * hk + 1));
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          // slot t: channel 16pp + 4t + 2hk at row 16pp + 8hk + t; slot
+          // t + 4: the next channel, 4 rows on
+          const float* wr = ws + (16 * pp + 8 * hk + t) * kLdW + 32 * q;
+          const float4 w0 = *reinterpret_cast<const float4*>(wr);
+          const float4 w1 = *reinterpret_cast<const float4*>(wr + 4 * kLdW);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            uint32_t b0, b0s, b1, b1s;
+            split(lane4(w0, r), b0, b0s);
+            split(lane4(w1, r), b1, b1s);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              float(&d)[4] = acc[mi][4 * q + r];
+              mma(d, fs[mi], b0, b1);
+              mma(d, fb[mi], b0s, b1s);
+              mma(d, fb[mi], b0, b1);
+            }
+          }
+        }
+      }
+    }
+  };
+
+  // chunk j: weights in ring slot (j - j0) % 2, issued a chunk ahead; its
+  // taps prepared during chunk j - 1's products
+  issue_weights(j0, 0);
+  cp_async_commit();
+  load_taps(j0);
+  store_taps(j0);
+  for (int j = j0; j < j1; ++j) {
+    const int slot = (j - j0) & 1;
+    __syncthreads();   // taps of j visible; A tiles and slot ^ 1 consumed
+    if (j + 1 < j1) issue_weights(j + 1, slot ^ 1);
+    cp_async_commit();
+    gather(j);
+    cp_async_wait<1>();
+    __syncthreads();   // A tiles and weights of j visible; taps consumed
+    if (j + 1 < j1) load_taps(j + 1);
+    products(slot);
+    if (j + 1 < j1) store_taps(j + 1);
   }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this block's partial sums -> shared memory [kBP][kLdP]; each row's
+  // thread holds outputs 64wn + 32q + 8t .. + 7 as n-tiles 4q + r, columns
+  // 2t (+ 0..3) and 2t + 1 (+ 4..7)
+  float* const part = smem;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = 32 * wm + 16 * mi + 8 * hh + g;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float* dst = part + row * kLdP + 64 * wn + 32 * q + 8 * t;
+        *reinterpret_cast<float4*>(dst) = make_float4(
+            acc[mi][4 * q][2 * hh], acc[mi][4 * q + 1][2 * hh],
+            acc[mi][4 * q + 2][2 * hh], acc[mi][4 * q + 3][2 * hh]);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(
+            acc[mi][4 * q][2 * hh + 1], acc[mi][4 * q + 1][2 * hh + 1],
+            acc[mi][4 * q + 2][2 * hh + 1], acc[mi][4 * q + 3][2 * hh + 1]);
+      }
+    }
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  cluster.sync();      // every block's part written
+  const int r0 = kBP * rank / n_split, r1 = kBP * (rank + 1) / n_split;
+  for (int e = tid; e < (r1 - r0) * (kO / 4); e += kThreads) {
+    const int row = r0 + e / (kO / 4), c4 = 4 * (e % (kO / 4));
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int src = 0; src < n_split; ++src) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, src) + row * kLdP + c4);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    if (p0 + row < n_pos) {
+      const float4 bv = __ldg(reinterpret_cast<const float4*>(bias + c4));
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(p0 + row) * kO
+                                 + c4) =
+          make_float4(s.x + bv.x, s.y + bv.y, s.z + bv.z, s.w + bv.w);
+    }
+  }
+  cluster.sync();      // no block leaves while another reads its part
 }
 
-template <int kPT>
-int launch(const void* x, const void* offset, const void* mask,
-           const void* weight, const void* bias, void* out, int B, int H,
-           int W, int C, int dg, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        deform_conv_kernel<kPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes<kPT>()));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const int n_pos = B * H * W;
-  const int blocks = (n_pos + kPT - 1) / kPT;
-  deform_conv_kernel<kPT><<<blocks, kO, smem_bytes<kPT>(), stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(offset),
-      static_cast<const float*>(mask), static_cast<const float*>(weight),
-      static_cast<const float*>(bias), static_cast<float*>(out), B, H, W, C,
-      dg);
+template <int kCg>
+int configure() {
+  static bool done = false;
+  if (done) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      deform_conv_kernel<kCg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes<kCg>()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  done = true;
+  return 0;
+}
+
+template <int kCg>
+int launch_conv(const float* x, const float* offset, const float* mask,
+                const float* weight, const float* bias, float* out,
+                int n_pos, int H, int W, int C, int split,
+                cudaStream_t stream) {
+  const int err = configure<kCg>();
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_pos + kBP - 1) / kBP * split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes<kCg>();
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, deform_conv_kernel<kCg>, x, offset,
+                                     mask, weight, bias, out, n_pos, H, W, C,
+                                     split);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kCg>
+int conv_info(int* info) {
+  const int err = configure<kCg>();
+  if (err != 0) return err;
+  info[1] = static_cast<int>(smem_bytes<kCg>());
+  info[2] = kThreads;
+  info[3] = kBP;
+  info[4] = kMaxSplit;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      info, deform_conv_kernel<kCg>, kThreads, smem_bytes<kCg>()));
+}
+
+// ---- K6 ------------------------------------------------------------------
+
+constexpr int kSampleThreads = 256;
+
+template <int kNq>      // 4-channel quads per group
 __global__ void __launch_bounds__(kSampleThreads)
-deform_sample_kernel(const float* __restrict__ x, const float* __restrict__ sy,
+deform_sample_kernel(const float* __restrict__ x,
+                     const float* __restrict__ sy,
                      const float* __restrict__ sx,
-                     const float* __restrict__ mask, float* __restrict__ out,
-                     int H, int W, int C, int HWo, int dg, int K,
-                     long long n_out) {
-  const long long e =
-      static_cast<long long>(blockIdx.x) * kSampleThreads + threadIdx.x;
-  if (e >= n_out) return;
-  const int cg_n = C / dg;
-  const long long om = e / cg_n;            // (b, ho, wo, g, k)
-  const int c = static_cast<int>((om / K) % dg) * cg_n
-                + static_cast<int>(e % cg_n);
-  const long long b = om / (static_cast<long long>(K) * dg * HWo);
-  const float* xc = x + b * H * W * C + c;
-  out[e] = bilinear_zero(xc, H, W, C, sy[om], sx[om]) * mask[om];
+                     const float* __restrict__ mask,
+                     float* __restrict__ out, int H, int W, int C, int dg,
+                     int K, int quads_per_batch) {
+  const int e = blockIdx.x * kSampleThreads + threadIdx.x;
+  if (e >= quads_per_batch) return;
+  const int b = blockIdx.y;
+  const int om = e / kNq;                 // (ho, wo, g, k) in the batch
+  const int q = e - om * kNq;
+  const int grp = static_cast<unsigned>(om) / K % dg;
+  const int taps = quads_per_batch / kNq;
+  const int i = b * taps + om;
+  int4 off;
+  float4 wt;
+  corners(__ldg(sy + i), __ldg(sx + i), __ldg(mask + i), H, W, C, b * H * W,
+          off, wt);
+  const float4 v = sample4(x + grp * 4 * kNq + 4 * q, off, wt);
+  *reinterpret_cast<float4*>(out + 4 * (b * quads_per_batch + e)) = v;
+}
+
+template <int kNq>
+int launch_sample(const float* x, const float* sy, const float* sx,
+                  const float* mask, float* out, int B, int H, int W, int C,
+                  int dg, int K, int quads_per_batch, cudaStream_t stream) {
+  const dim3 grid((quads_per_batch + kSampleThreads - 1) / kSampleThreads, B);
+  deform_sample_kernel<kNq><<<grid, kSampleThreads, 0, stream>>>(
+      x, sy, sx, mask, out, H, W, C, dg, K, quads_per_batch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Index ranges (x, offset, mask and out element counts below 2^31) are the
+// wrapper's to check; a shape the kernels do not take returns
+// cudaErrorInvalidValue.
 extern "C" int deform_sample(const void* x, const void* sy, const void* sx,
                              const void* mask, void* out, int B, int H, int W,
                              int C, int Ho, int Wo, int dg, int K,
                              void* stream) {
   if (dg < 1 || C % dg != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_out = static_cast<long long>(B) * Ho * Wo * K * C;
-  const long long blocks = (n_out + kSampleThreads - 1) / kSampleThreads;
-  deform_sample_kernel<<<static_cast<unsigned>(blocks), kSampleThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(sy),
-      static_cast<const float*>(sx), static_cast<const float*>(mask),
-      static_cast<float*>(out), H, W, C, Ho * Wo, dg, K, n_out);
-  return static_cast<int>(cudaGetLastError());
+  const int cg = C / dg;
+  const int quads = Ho * Wo * dg * K * (cg / 4);
+  const auto args = [&](auto launch) {
+    return launch(static_cast<const float*>(x), static_cast<const float*>(sy),
+                  static_cast<const float*>(sx),
+                  static_cast<const float*>(mask), static_cast<float*>(out),
+                  B, H, W, C, dg, K, quads,
+                  static_cast<cudaStream_t>(stream));
+  };
+  switch (cg) {
+    case 4: return args(launch_sample<1>);
+    case 8: return args(launch_sample<2>);
+    case 16: return args(launch_sample<4>);
+    case 32: return args(launch_sample<8>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int modulated_deform_conv2d(const void* x, const void* offset,
                                        const void* mask, const void* weight,
                                        const void* bias, void* out, int B,
-                                       int H, int W, int C, int dg,
-                                       int block_positions, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block_positions != 32) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<32>(x, offset, mask, weight, bias, out, B, H, W, C, dg, s);
+                                       int H, int W, int C, int dg, int split,
+                                       void* stream) {
+  if (dg < 1 || C % dg != 0 || C % kCK != 0 || split < 1
+      || split > kMaxSplit || split > 9 * C / kCK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto args = [&](auto launch) {
+    return launch(static_cast<const float*>(x),
+                  static_cast<const float*>(offset),
+                  static_cast<const float*>(mask),
+                  static_cast<const float*>(weight),
+                  static_cast<const float*>(bias), static_cast<float*>(out),
+                  B * H * W, H, W, C, split,
+                  static_cast<cudaStream_t>(stream));
+  };
+  switch (C / dg) {
+    case 4: return args(launch_conv<4>);
+    case 8: return args(launch_conv<8>);
+    case 16: return args(launch_conv<16>);
+    case 32: return args(launch_conv<32>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launch facts for chip_smoke.py's build phase: info = {resident blocks
+// per SM, dynamic shared memory bytes, threads per block, positions per
+// block, most blocks per cluster} of the instance for group width cg.
+extern "C" int modulated_deform_conv2d_launch_info(void* info, int cg,
+                                                   void*) {
+  int* i = static_cast<int*>(info);
+  switch (cg) {
+    case 4: return conv_info<4>(i);
+    case 8: return conv_info<8>(i);
+    case 16: return conv_info<16>(i);
+    case 32: return conv_info<32>(i);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -101,22 +101,73 @@ def _modulated_deform_conv2d_plain(x, offset, mask, weight, bias):
                      weight, bias)
 
 
-BLOCK_POSITIONS = 32   # output positions per K3 block (the one compiled)
+K3_POSITIONS = 64        # output positions per K3 block
+K3_CHUNK = 32            # channels per K3 K-chunk
+K3_MAX_SPLIT = 8         # blocks per K3 cluster (the portable limit)
+GROUP_WIDTHS = (4, 8, 16, 32)    # Cg = C / dg that K3 and K6 take
+_INT32 = 2 ** 31
 
 
-def modulated_deform_conv2d(x, offset, mask, weight, bias=None):
+def k3_split(n_pos: int, C: int, slots: int) -> int:
+    """Blocks per cluster over which K3 splits each 64-position tile's
+    9 * C / 32 channel chunks: the most (up to 8) that divide the chunks
+    evenly and keep the whole grid resident at once in `slots` (SMs x
+    resident blocks per SM); 1 when the tiles alone fill them. A cluster
+    waits for its slowest block, and blocks past the resident slots run in
+    a second round."""
+    tiles = -(-n_pos // K3_POSITIONS)
+    chunks = 9 * C // K3_CHUNK
+    return max((s for s in range(1, K3_MAX_SPLIT + 1)
+                if chunks % s == 0 and tiles * s <= slots), default=1)
+
+
+def k3_launch_info(cg: int, device=None) -> tuple:
+    """K3's launch facts for group width cg on a CUDA device: (resident
+    blocks per SM, dynamic shared memory bytes, threads per block,
+    positions per block, most blocks per cluster)."""
+    import ctypes
+
+    with torch.cuda.device(device):
+        info = (ctypes.c_int * 5)()
+        fn = _build.function("deform_conv",
+                             "modulated_deform_conv2d_launch_info", 1, 1)
+        _build.check(fn(ctypes.addressof(info), cg, None),
+                     "modulated_deform_conv2d_launch_info")
+    return tuple(info)
+
+
+_k3_slots: dict = {}
+
+
+def _resident_k3_blocks(device, cg: int) -> int:
+    key = (device.index, cg)
+    if key not in _k3_slots:
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        _k3_slots[key] = n_sm * k3_launch_info(cg, device)[0]
+    return _k3_slots[key]
+
+
+def _check_kernel_inputs(what, tensors):
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           or t.data_ptr() % 16 or t.numel() >= _INT32 for t in tensors):
+        raise ValueError(f"{what} inputs must be contiguous float32, "
+                         f"16-byte aligned, with fewer than 2^31 elements")
+
+
+def modulated_deform_conv2d(x, offset, mask, weight, bias=None, split=None):
     """DCNv2 3x3 with stride, padding and dilation 1 -> (B, H, W, O).
 
     Kernel K3 (`csrc/deform_conv.cu`) replaces
-    `propainter_tpu/ops/deform_pallas.py:_kernel_out`. One block per
-    BLOCK_POSITIONS output positions and one thread per output
-    channel: the block samples (bilinear weight x modulation, zero outside)
-    the 9 taps of a 64-channel slice into shared memory, contracts them
-    with the matching rows of the (9*C, O) weight in registers, and moves
-    on to the next slice — the sampled (P, 9*C) tensor never reaches device
-    memory. Bias added in the
-    epilogue. Bound: operations (2 * 9 * C * O fp32 FLOPs per position,
-    about 1.9 GFLOP per call at both ProPainter call sites)."""
+    `propainter_tpu/ops/deform_pallas.py:_kernel_out`: a (B*H*W) x 128 x
+    (9*C) GEMM on the tensor cores in 3xTF32 whose A operand, the modulated
+    bilinear samples, is built in shared memory 32 channels of one tap at
+    a time and never reaches device memory; the weight streams through a
+    cp.async ring. Each 64-position tile's chunks are split over a cluster
+    of `split` blocks (default: `k3_split` for this card's resident blocks)
+    whose partial sums meet in distributed shared memory; the bias is added
+    there. Takes C % 32 == 0, C / dg in GROUP_WIDTHS and O = 128. Bound:
+    operations (3 x 2 * 9 * C * 128 FLOPs per position on the tensor cores
+    in TF32)."""
     if x.device.type == "cpu":
         return _modulated_deform_conv2d_plain(x, offset, mask, weight, bias)
     _build.require_cuda(x, offset, mask, weight, bias)
@@ -126,21 +177,25 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None):
     if weight.shape != (3, 3, C, O) or O != 128:
         raise ValueError(f"K3 takes a (3, 3, C, 128) weight, got "
                          f"{tuple(weight.shape)}")
-    if C % 64 or C % dg or 64 % (C // dg):
-        raise ValueError(f"K3 needs C % 64 == 0 and groups that tile 64 "
-                         f"channels (C={C}, dg={dg})")
+    if C % K3_CHUNK or C % dg or C // dg not in GROUP_WIDTHS:
+        raise ValueError(f"K3 needs C % {K3_CHUNK} == 0 and C / dg in "
+                         f"{GROUP_WIDTHS} (C={C}, dg={dg})")
     if offset.shape != (B, H, W, dg, 9, 2) or mask.shape != (B, H, W, dg, 9):
         raise ValueError("offset/mask shapes do not match x")
+    if split is None:
+        split = k3_split(B * H * W, C,
+                         _resident_k3_blocks(x.device, C // dg))
+    if not 1 <= split <= min(K3_MAX_SPLIT, 9 * C // K3_CHUNK):
+        raise ValueError(f"K3 takes 1 to {K3_MAX_SPLIT} blocks per cluster "
+                         f"and at most one per chunk, got {split}")
     if bias is None:
         bias = torch.zeros(O, dtype=x.dtype, device=x.device)
     tensors = (x, offset, mask, weight, bias)
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           for t in tensors):
-        raise ValueError("K3 inputs must be contiguous float32")
+    _check_kernel_inputs("K3", tensors)
     out = torch.empty((B, H, W, O), dtype=torch.float32, device=x.device)
     fn = _build.function("deform_conv", "modulated_deform_conv2d", 6, 6)
     _build.check(fn(*[t.data_ptr() for t in tensors], out.data_ptr(),
-                    B, H, W, C, dg, BLOCK_POSITIONS, _build.stream_of(x)),
+                    B, H, W, C, dg, split, _build.stream_of(x)),
                  "modulated_deform_conv2d")
     modulated_deform_conv2d.launches += 1
     return out
@@ -155,12 +210,13 @@ def deform_sample(x, sy, sx, mask, dg: int):
     mask (B, Ho, Wo, dg, K) -> (B, Ho, Wo, dg, K, C / dg), x's dtype.
 
     Kernel K6 (`deform_sample` in `csrc/deform_conv.cu`) replaces
-    `propainter_tpu/ops/deform_pallas.py:_kernel`. It shares K3's sampling
-    code with the contraction switched off: one thread per output value,
-    consecutive threads on consecutive channels, so reads of x and writes
-    of the output are coalesced. Bound: bytes (the output is K times the
-    size of x). The TPU kernel's position-block choice (`_pick_pos_block`,
-    `DEFORM_PB`) has no counterpart."""
+    `propainter_tpu/ops/deform_pallas.py:_kernel`: one thread per
+    (position, group, tap, 4-channel quad), each reading its four corners
+    and writing its quad as 128-bit accesses, so the output is written
+    coalesced; it shares K3's corner code. Takes C / dg in GROUP_WIDTHS.
+    Bound: bytes (the output is K times the size of x). The TPU kernel's
+    position-block choice (`_pick_pos_block`, `DEFORM_PB`) has no
+    counterpart."""
     if x.device.type == "cpu":
         return _deform_sample_plain(x, sy, sx, mask, dg)
     _build.require_cuda(x, sy, sx, mask)
@@ -168,13 +224,16 @@ def deform_sample(x, sy, sx, mask, dg: int):
     if sy.ndim != 5 or sy.shape[0] != B or sy.shape[3] != dg or C % dg:
         raise ValueError(f"K6 takes sy (B, Ho, Wo, dg, K) with dg dividing "
                          f"C, got {tuple(sy.shape)} for x {tuple(x.shape)}")
+    if C // dg not in GROUP_WIDTHS:
+        raise ValueError(f"K6 takes C / dg in {GROUP_WIDTHS}, got "
+                         f"{C // dg}")
     _, Ho, Wo, _, K = sy.shape
     if sx.shape != sy.shape or mask.shape != sy.shape:
         raise ValueError("sy, sx and mask shapes differ")
+    if sy.numel() * C // dg >= _INT32:
+        raise ValueError("K6 output has 2^31 elements or more")
     tensors = (x, sy, sx, mask)
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           for t in tensors):
-        raise ValueError("K6 inputs must be contiguous float32")
+    _check_kernel_inputs("K6", tensors)
     out = torch.empty((B, Ho, Wo, dg, K, C // dg), dtype=torch.float32,
                       device=x.device)
     fn = _build.function("deform_conv", "deform_sample", 5, 8)

@@ -1,6 +1,6 @@
 """The pieces of `chip_smoke.py` that run without a GPU: the build phase's
-readers of the compiler's and the disassembler's output, and K4's and K5's
-bounds."""
+readers of the compiler's and the disassembler's output and its grids, and
+the tensor-core kernels' bounds."""
 
 import math
 
@@ -51,11 +51,45 @@ def test_attention_bounds_at_the_main_path_shape():
     on CUDA cores alone it would be 1.005 ms."""
     Gp, Tq, Tk, ch = 64, 855, 2380, 128
     n_bytes = 4 * Gp * (2 * Tq * ch + 2 * Tk * ch) + 4 * Tk
-    b = chip_smoke._attention_bounds(n_bytes, Gp * 4 * Tq * Tk * ch,
-                                     Gp * 5 * Tq * Tk)
+    b = chip_smoke._tensor_core_bounds(n_bytes, Gp * 4 * Tq * Tk * ch,
+                                       Gp * 5 * Tq * Tk)
     assert b["bound_by"] == "operations"
     assert b["bound_basis"] == "operations (3xTF32)"
     assert math.isclose(b["bound_ms"], 3 * Gp * 4 * Tq * Tk * ch / 495e9,
                         rel_tol=1e-9)
     assert math.isclose(b["fp32_bound_ms"], 1.0049, rel_tol=1e-3)
     assert b["fp32_bound_by"] == "operations"
+
+
+def test_deform_conv_bounds_at_the_main_path_shapes():
+    """K3 at both call sites: 3 x 2 * 9 * C * 128 FLOPs per position at 495
+    TFLOP/s, 0.0116 ms at both (the generator's 6480 positions at C 128,
+    the flow completion's 3240 at C 256), above the bytes and the
+    sampling's 9 * C * 12 operations on CUDA cores; fp32 0.030 ms."""
+    for n_pos, C in ((60 * 108, 128), (2 * 30 * 54, 256)):
+        dg = 16
+        n_bytes = 4 * (n_pos * (C + dg * 27 + 128) + 9 * C * 128 + 128)
+        b = chip_smoke._tensor_core_bounds(n_bytes, n_pos * 2 * 9 * C * 128,
+                                           n_pos * 9 * C * 12)
+        assert b["bound_by"] == "operations"
+        assert b["bound_basis"] == "operations (3xTF32)"
+        assert math.isclose(b["bound_ms"], 0.011583, rel_tol=1e-4)
+        assert math.isclose(b["fp32_bound_ms"], 0.0299, rel_tol=2e-3)
+
+
+def test_tensor_core_launch_grids():
+    """The build phase's grids on 132 SMs: K4 14 query tiles x 64
+    problems, K5 twice that (two blocks a tile), K3 its position tiles
+    times the wrapper's split for 2 resident blocks per SM at each call
+    site."""
+    info = {"window_attention_kernel": [2, 107520, 128, 64, 1],
+            "sparse_window_attention_kernel": [2, 107520, 128, 64, 2],
+            "deform_conv_kernel": [2, 67584, 128, 64, 8]}
+    grids = {(symbol, site): grid_of(info[symbol])
+             for _, symbol, site, _, _, grid_of
+             in chip_smoke._tensor_core_launches(132)}
+    assert grids == {
+        ("window_attention_kernel", "main path"): 14 * 64,
+        ("sparse_window_attention_kernel", "main path"): 14 * 2 * 64,
+        ("deform_conv_kernel", "generator"): 102 * 2,
+        ("deform_conv_kernel", "flow completion"): 51 * 4}

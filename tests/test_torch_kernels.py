@@ -243,6 +243,51 @@ def test_3xtf32_attention_within_tolerance_of_jax_kernel(with_bias):
     assert err1 > tol, (err1, tol)
 
 
+def test_3xtf32_deform_conv_within_tolerance_of_jax_kernel():
+    """The numerics of K3: fp32 samples x mask, contracted with the weight
+    in 3xTF32 in the kernel's tap-major K order (row k * C + c), stay within
+    a tenth of the kernels' tolerance of the fused TPU deform kernel
+    (interpret mode) at the flow completion's width: C 256, dg 16, 2304
+    terms per output."""
+    rng = np.random.default_rng(9)
+    B, H, W, C, dg = 1, 4, 6, 256, 16
+    x = _rand(rng, B, H, W, C)
+    raw = _rand(rng, B, H, W, 27 * dg)
+    flow = _rand(rng, B, H, W, 2, scale=2.0)
+    weight = _rand(rng, 3, 3, C, 128, scale=0.05)
+    bias = _rand(rng, 128, scale=0.1)
+    j_off, j_mask = jax_split_offset_mask(jnp.asarray(raw), dg, 5.0,
+                                          jnp.asarray(flow))
+    want = np.asarray(modulated_deform_conv2d_fused_out(
+        jnp.asarray(x), j_off, j_mask, jnp.asarray(weight),
+        jnp.asarray(bias), interpret=True)).reshape(-1, 128)
+    off = torch.from_numpy(np.array(j_off))
+    sy, sx = deform._tap_coords(off)
+    samples = deform._deform_sample_plain(
+        torch.from_numpy(x), sy, sx, torch.from_numpy(np.array(j_mask)), dg)
+    # (B, H, W, dg, 9, Cg) -> (positions, 9 * C), column k * C + g * Cg + c
+    a = samples.permute(0, 1, 2, 4, 3, 5).reshape(B * H * W, 9 * C).numpy()
+    got = _tf32_matmul(a, weight.reshape(9 * C, 128), passes=3) + bias
+    tol = _REL_TOL * max(1.0, np.abs(want).max())
+    err = np.abs(got - want).max()
+    assert err <= tol / 10, (err, tol)
+
+
+@pytest.mark.parametrize("n_pos, C, slots, want", [
+    (60 * 108, 128, 264, 2),         # generator: 102 tiles x 36 chunks
+    (2 * 30 * 54, 256, 264, 4),      # flow completion: 51 tiles x 72
+    (60 * 108, 128, 396, 3),         # the two at 3 blocks per SM
+    (2 * 30 * 54, 256, 396, 6),
+    (64 * 300, 128, 264, 1),         # the tiles alone fill the card
+    (10, 32, 264, 3),                # one tile of 9 chunks
+])
+def test_k3_split_keeps_the_grid_resident(n_pos, C, slots, want):
+    split = deform.k3_split(n_pos, C, slots)
+    assert split == want
+    chunks = 9 * C // deform.K3_CHUNK
+    assert chunks % split == 0 and split <= deform.K3_MAX_SPLIT
+
+
 def test_deform_sample_plain_matches_jax_kernel():
     """K6 against the TPU deform sampling kernel (interpret mode)."""
     x, sy, sx, mask, dg = _deform_sample_inputs()
@@ -414,6 +459,47 @@ def test_cuda_sparse_window_attention_kernel(cuda, case):
 def test_cuda_deform_sample_kernel(cuda):
     x, sy, sx, mask, dg = _deform_sample_inputs()
     x, sy, sx, mask = _to(cuda, x, sy, sx, mask)
+    got = deform.deform_sample(x, sy, sx, mask, dg)
+    want = deform._deform_sample_plain(x, sy, sx, mask, dg)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def _ragged_deform_inputs(C, dg, seed=10):
+    """A 5 x 13 image (65 positions: a full 64-position tile and one more)
+    whose offsets reach 40 pixels outside it."""
+    rng = np.random.default_rng(seed)
+    B, H, W = 1, 5, 13
+    x = _rand(rng, B, H, W, C)
+    off = _rand(rng, B, H, W, dg, 9, 2, scale=15.0)
+    off[0, 0, 0, 0, :3] = [[-40.0, 3.0], [2.0, 40.0], [40.0, -40.0]]
+    mask = rng.uniform(0, 1, (B, H, W, dg, 9)).astype(np.float32)
+    weight = _rand(rng, 3, 3, C, 128, scale=0.05)
+    bias = _rand(rng, 128, scale=0.1)
+    return x, off, mask, weight, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C, dg", [(128, 32), (128, 16), (256, 16),
+                                   (64, 2)])
+def test_cuda_deform_kernel_ragged(cuda, C, dg):
+    """K3 at group widths 4, 8, 16 and 32, a ragged position count and
+    coordinates far outside the image, at every cluster split."""
+    x, off, mask, weight, bias = _to(cuda, *_ragged_deform_inputs(C, dg))
+    want = deform._modulated_deform_conv2d_plain(x, off, mask, weight, bias)
+    tol = _REL_TOL * max(1.0, want.abs().max().item())
+    for split in range(1, deform.K3_MAX_SPLIT + 1):
+        got = deform.modulated_deform_conv2d(x, off, mask, weight, bias,
+                                             split=split)
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C, dg", [(128, 16), (256, 16)])
+def test_cuda_deform_sample_kernel_ragged(cuda, C, dg):
+    """K6 at group widths 8 and 16 on the ragged image."""
+    x, off, mask, _, _ = _ragged_deform_inputs(C, dg)
+    x, off, mask = _to(cuda, x, off, mask)
+    sy, sx = (c.contiguous() for c in deform._tap_coords(off))
     got = deform.deform_sample(x, sy, sx, mask, dg)
     want = deform._deform_sample_plain(x, sy, sx, mask, dg)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
