@@ -7,7 +7,7 @@
 Phases:
   device      card name and `nvidia-smi` name / power limit;
   build       compile every CUDA kernel (one nvcc per source, in parallel);
-              for the tensor-core kernels K3, K4 and K5 print registers,
+              for the tensor-core kernels K1, K3, K4 and K5 print registers,
               spills and shared memory (`-Xptxas -v`), the HMMA count of
               their SASS, resident blocks per SM and the waves of each
               main-path grid; fails if one has no HMMA instruction or
@@ -15,8 +15,10 @@ Phases:
   kernels     each kernel at the main path's shapes against its plain
               PyTorch version on the card (max abs error within a stated
               tolerance), timed beside the plain version and a library
-              yardstick (K3 and K6 by CUDA-graph replay, their calls being
-              shorter than their host-side launch); K3 also beside the
+              yardstick (K1, K3 and K6 by CUDA-graph replay, K3's and K6's
+              calls being shorter than their host-side launch); K1 also
+              at a ragged 8 x 13 map with far-off coordinates, beside the
+              reference RAFT's F.grid_sample + addmm route; K3 also beside the
               unfused K6 + GEMM route and at every cluster split, K3 and
               K6 at a ragged image with far-off coordinates; K4 also at
               ragged shapes (a partial query and key tile, a bias masking
@@ -196,11 +198,18 @@ DEFORM_SITES = (("generator", 60 * 108, 128, 8),
                 ("flow completion", 2 * 30 * 54, 256, 16))
 
 
+# K1's queries per RAFT iteration on the main path: 12 frame pairs x 2
+# directions of 30 x 54 (1/8 of 240 x 432)
+K1_QUERIES = 24 * 30 * 54
+
+
 def _tensor_core_launches(n_sm: int) -> list:
     """The main path's launches of the tensor-core kernels: (library,
     kernel symbol, site, launch-info symbol and its int arguments,
     grid(info)), info = {resident blocks per SM, dynamic shared memory
-    bytes, threads per block, rows per block, blocks per row tile}. K4 and
+    bytes, threads per block, rows per block, blocks per row tile}. K1: the
+    32-query tiles of one RAFT iteration (its persistent blocks, one per
+    resident slot, walk them, so its waves are rounds of tiles); K4 and
     K5: 16 windows x 4 heads of 855 query rows; K3: each call site's
     positions in 64-position tiles, times the cluster split the wrapper
     picks for this card's resident blocks."""
@@ -209,9 +218,12 @@ def _tensor_core_launches(n_sm: int) -> list:
     def attention_grid(info):
         return -(-855 // info[3]) * info[4] * 64
 
-    launches = [(lib, f"{lib}_kernel", "main path", f"{lib}_launch_info", (),
-                 attention_grid)
-                for lib in ("window_attention", "sparse_window_attention")]
+    launches = [("corr_lookup_moenc", "corr_lookup_moenc_kernel",
+                 "main path, tiles", "corr_lookup_moenc_launch_info", (),
+                 lambda info: -(-K1_QUERIES // info[3]))]
+    launches += [(lib, f"{lib}_kernel", "main path", f"{lib}_launch_info",
+                  (), attention_grid)
+                 for lib in ("window_attention", "sparse_window_attention")]
     for site, n_pos, C, cg in DEFORM_SITES:
         launches.append((
             "deform_conv", "deform_conv_kernel", site,
@@ -259,8 +271,8 @@ def _sass_counts(sass: str, opcode: str) -> dict:
 
 
 def phase_build(state: dict) -> None:
-    """Compile every kernel, then report on the tensor-core kernels (K3,
-    K4, K5): registers, spills and shared memory, the tensor-core (HMMA)
+    """Compile every kernel, then report on the tensor-core kernels (K1,
+    K3, K4, K5): registers, spills and shared memory, the tensor-core (HMMA)
     instructions of their SASS, resident blocks per SM and the waves of
     each main-path grid on this card's SMs. Fails if one has no HMMA
     instruction, spills, or fits no block on an SM."""
@@ -323,7 +335,6 @@ def phase_kernels(records: dict) -> None:
     import torch
     import torch.nn.functional as F
     from propainter_tpu_torch.ops import corr, deform, flash_attention
-    from propainter_tpu_torch.ops.warp import coords_grid
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -353,37 +364,7 @@ def phase_kernels(records: dict) -> None:
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None)
 
-    coords = (coords_grid(B, H8, W8, device=dev) + randn(B, H8, W8, 2, std=3.0)
-              ).contiguous()
-    w = randn(324, 256, std=0.02)
-    bias = randn(256, std=0.02)
-    got = corr.corr_lookup_moenc(pyr, coords, w, bias)
-    want = corr._corr_lookup_moenc_plain(pyr, coords, w, bias, 4)
-    err = _compare("corr_lookup_moenc", got, want)
-    ms = _time_ms(lambda: corr.corr_lookup_moenc(pyr, coords, w, bias), 20)
-    plain_ms = _time_ms(
-        lambda: corr._corr_lookup_moenc_plain(pyr, coords, w, bias, 4), 5)
-    # bytes this data needs: the in-range integer taps of each query's
-    # 10 x 10 windows (zeros outside are not read), coords, weight, output
-    def in_range(c, size):   # in-range taps of c0-4 .. c0+5
-        c0 = torch.floor(c)
-        return ((c0 + 6).clamp(0, size) - (c0 - 4).clamp(0, size)).clamp(0)
-
-    n_taps = sum(
-        (in_range(coords[..., 0] / 2 ** lvl, p.shape[2])
-         * in_range(coords[..., 1] / 2 ** lvl, p.shape[1])).sum().item()
-        for lvl, p in enumerate(pyr))
-    n_q = coords.shape[0] * H8 * W8
-    bound_ms, bound_by = _bound(
-        4 * n_taps + _nbytes(coords, w, bias, got),
-        n_q * (2 * 324 * 256 + 324 * 7))
-    records["corr_lookup_moenc"] = dict(
-        name="corr_lookup_moenc", route="cuda",
-        source="propainter_tpu_torch/csrc/corr_lookup_moenc.cu",
-        replaces="propainter_tpu/ops/corr_pallas.py:166",
-        shape=f"coords {tuple(coords.shape)}", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None)
+    records["corr_lookup_moenc"] = _check_k1(randn, pyr)
 
     records["modulated_deform_conv2d"], records["deform_sample"] = (
         _check_deform(randn))
@@ -444,6 +425,103 @@ def phase_kernels(records: dict) -> None:
             print(f"  {r['name']}{site}: {rr['ms']:.4f} ms{eager} (plain "
                   f"{rr['plain_ms']:.3f}, bound {rr['bound_ms']:.4f} by "
                   f"{rr['bound_by']}{tc}, library {rr['library_ms']})")
+
+
+def _k1_library(pyr, coords, w, bias):
+    """The reference RAFT's route to K1's function, as one function of no
+    arguments (its sampling grids prepared outside it): `F.grid_sample` of
+    each level (align_corners=True, zeros outside) at the 9 x 9 window,
+    x offset major, then convc1 as one `addmm` and relu."""
+    import torch
+    import torch.nn.functional as F
+
+    N = pyr[0].shape[0]
+    d = torch.arange(-4, 5, device=coords.device, dtype=torch.float32)
+    c = coords.reshape(N, 2)
+    maps, grids = [], []
+    for lvl, p in enumerate(pyr):
+        Hl, Wl = p.shape[1:]
+        gx = (c[:, 0, None, None] / 2 ** lvl + d[:, None]) * (2 / (Wl - 1))
+        gy = (c[:, 1, None, None] / 2 ** lvl + d[None, :]) * (2 / (Hl - 1))
+        grids.append(torch.stack([(gx - 1).expand(N, 9, 9),
+                                  (gy - 1).expand(N, 9, 9)], -1))
+        maps.append(p[:, None])
+
+    def library():
+        win = torch.cat([
+            F.grid_sample(m, gr, mode="bilinear", padding_mode="zeros",
+                          align_corners=True).reshape(N, 81)
+            for m, gr in zip(maps, grids)], 1)
+        return torch.relu(torch.addmm(bias, win, w))
+
+    return library
+
+
+def _check_k1(randn, pyr) -> dict:
+    """K1 at one RAFT iteration of the main path (the pyramid of 24
+    pair-directions at 30 x 54) against its plain version, timed by
+    CUDA-graph replay (`eager_ms` beside) and beside the reference RAFT's
+    route (`_k1_library`, first held to the plain version); also at a
+    ragged 8 x 13 map (104 queries: three full 32-query tiles and a partial
+    one; level 3 is 1 x 1) with coordinates up to 40 pixels outside it."""
+    import torch
+    from propainter_tpu_torch.ops import corr
+    from propainter_tpu_torch.ops.warp import coords_grid
+
+    dev = pyr[0].device
+    N, H8, W8 = pyr[0].shape
+    B = N // (H8 * W8)
+    coords = (coords_grid(B, H8, W8, device=dev)
+              + randn(B, H8, W8, 2, std=3.0)).contiguous()
+    w = randn(324, 256, std=0.02)
+    bias = randn(256, std=0.02)
+
+    def run():
+        return corr.corr_lookup_moenc(pyr, coords, w, bias)
+
+    def plain():
+        return corr._corr_lookup_moenc_plain(pyr, coords, w, bias, 4)
+
+    got, want = run(), plain()
+    err = _compare("corr_lookup_moenc", got, want)
+    library = _k1_library(pyr, coords, w, bias)
+    _compare("grid_sample + addmm yardstick vs plain corr_lookup_moenc",
+             library().reshape(want.shape), want)
+    ms, eager_ms = _graph_ms(run), _time_ms(run, 50)
+    plain_ms = _time_ms(plain, 5)
+    library_ms = _graph_ms(library)
+
+    # ragged, far off: 8 x 13 maps, coordinates to 40 pixels outside
+    f1, f2 = randn(1, 8, 13, 256), randn(1, 8, 13, 256)
+    small = corr.corr_pyramid(f1, f2, 4)
+    far = coords_grid(1, 8, 13, device=dev) + randn(1, 8, 13, 2, std=15.0)
+    far[0, 0, :3] = torch.tensor([[-40.0, 3.0], [52.0, 47.0], [6.5, -40.0]],
+                                 device=dev)
+    far = far.contiguous()
+    err = max(err, _compare(
+        "corr_lookup_moenc maps 8 x 13, coordinates to 40 px outside",
+        corr.corr_lookup_moenc(small, far, w, bias),
+        corr._corr_lookup_moenc_plain(small, far, w, bias, 4)))
+
+    # bytes this data needs: the in-range integer taps of each query's
+    # 10 x 10 windows (zeros outside are not read), coords, weight, output
+    def in_range(c, size):   # in-range taps of c0-4 .. c0+5
+        c0 = torch.floor(c)
+        return ((c0 + 6).clamp(0, size) - (c0 - 4).clamp(0, size)).clamp(0)
+
+    n_taps = sum(
+        (in_range(coords[..., 0] / 2 ** lvl, p.shape[2])
+         * in_range(coords[..., 1] / 2 ** lvl, p.shape[1])).sum().item()
+        for lvl, p in enumerate(pyr))
+    n_q = coords.shape[0] * H8 * W8
+    return dict(
+        name="corr_lookup_moenc", route="cuda",
+        source="propainter_tpu_torch/csrc/corr_lookup_moenc.cu",
+        replaces="propainter_tpu/ops/corr_pallas.py:166",
+        shape=f"coords {tuple(coords.shape)}", max_abs_err=err, ms=ms,
+        eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
+        **_tensor_core_bounds(4 * n_taps + _nbytes(coords, w, bias, got),
+                              n_q * 2 * 324 * 256, n_q * 324 * 7))
 
 
 def _deform_inputs(randn, Bd, Hd, Wd, C, dg, max_res):

@@ -64,6 +64,7 @@ using tc::cp_async16;
 using tc::cp_async_commit;
 using tc::cp_async_wait;
 using tc::mma;
+using tc::mma3;
 using tc::split;
 
 constexpr int kD = 128;             // head width
@@ -291,9 +292,7 @@ __device__ __forceinline__ void softmax_step(const Smem& sm, int stage,
       uint32_t b0_big, b0_small, b1_big, b1_small;
       split(v0[0], b0_big, b0_small);
       split(v0[kLdV], b1_big, b1_small);
-      mma(r.o[n], a_small, b0_big, b1_big);
-      mma(r.o[n], a_big, b0_small, b1_small);
-      mma(r.o[n], a_big, b0_big, b1_big);
+      mma3(r.o[n], a_big, a_small, b0_big, b0_small, b1_big, b1_small);
     }
   }
 }

@@ -9,28 +9,83 @@
 // (324, 256) row-major with row c = l*81 + i*9 + j (window sample at
 // (x + i - 4, y + j - 4) / 2^l); out (N, 256).
 //
-// Design: one block per 32 queries, one thread per output channel.
-// Phase 1 fills shared memory with the 32 x 324 window values (each a
-// bilinear mix of four integer neighbours of the query's own map, zero
-// outside). Phase 2 multiplies them by the weight, staged in shared memory
-// in 36-row tiles, accumulating 32 outputs per thread in registers. The
-// (N, 324) window tensor never reaches device memory. Bound: operations
-// (2 * 324 * 256 fp32 FLOPs per query on CUDA cores).
+// Design: a GEMM of M = N queries, N = 256 outputs and K = 324 window
+// values (zero-padded to 336) on the tensor cores in 3xTF32 (tf32_mma.cuh),
+// whose A operand, the window values, is built in shared memory and never
+// reaches device memory. Persistent blocks of 4 warps, two per SM, walk
+// 32-query tiles (warp wn: the 32 queries x outputs 64wn .. 64wn + 63, 64
+// fp32 accumulators a thread). A tile's A rows stay in shared memory in
+// fp32 (32 x 336, channel order), each value split big + small as it is
+// loaded into a fragment. (Measured on an H100, PERF.md: 64-query tiles of
+// 8 or 16 warps at one block per SM, 8 warps of 32 x 32 outputs, and A
+// split once into big + small arrays were slower.)
+//   gather   one warp per (query, level): lane (r, c) = (lane / 10, lane %
+//            10) reads window row r + 3k, column c, of the 10 x 10 integer
+//            window (zero outside the map), so each neighbour is read once
+//            and a load touches one query's rows; shuffles then lerp rows
+//            first, then columns, in the plain version's order and
+//            rounding, into the level's 81 values of the A row. Offsets,
+//            floors and fractions are computed once per (query, level).
+//   overlap  the K walk is cut at the level boundaries into 4 steps of
+//            16-channel groups (0-4, 5-9, 10-14, 15-20; a group of step s
+//            reads levels <= s only). Step s issues the loads of level s + 1
+//            (at s = 3, level 0 of the block's next tile) before its
+//            products and lerps them into A after, so the gather's latency
+//            hides behind the tensor cores; A columns are rewritten only
+//            after the groups that read them.
+//   weights  16-row chunks through a 3-slot cp.async ring issued two
+//            groups ahead, continuing from tile to tile; each 4 x 4 (t, e)
+//            block of rows lands transposed (row 4e + t holds channel 4t +
+//            e) so the 128-bit B loads are free of bank conflicts (as K3).
+//   epilogue bias + relu from the accumulators, 128-bit stores.
+// Fragment numbering (as K3): k-step 2p + h of group p has slots t, t + 4
+// on channels 16p + 4t + 2h and + 1, so one 128-bit load gives a thread its
+// A values of two k-steps (row stride 336 = 16 mod 32: conflict-free); n-tile
+// 4q + r has column g on output 32q + 4g + r (of the warp's 64), so the
+// accumulators of a row hold 8 contiguous outputs.
+// Bound: operations, 3 x 2 * 324 * 256 FLOPs per query on the tensor cores
+// in TF32.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
+using namespace tc;
+
 constexpr int kRadius = 4;
 constexpr int kTaps = 2 * kRadius + 1;          // 9
+constexpr int kWin = kTaps + 1;                 // 10 integer taps a side
 constexpr int kLevels = 4;
-constexpr int kC = kLevels * kTaps * kTaps;     // 324
-constexpr int kF = 256;                          // convc1 outputs
-constexpr int kQT = 32;                          // queries per block
-constexpr int kCT = 36;                          // weight rows per tile
-constexpr int kThreads = kF;
-constexpr size_t kSmemBytes = sizeof(float) * (kC * kQT + kCT * kF);
-static_assert(kC % kCT == 0, "weight tiles must cover 324 rows");
+constexpr int kLevelC = kTaps * kTaps;          // 81
+constexpr int kC = kLevels * kLevelC;           // 324
+constexpr int kCP = 336;                        // K padded to 16-channel groups
+constexpr int kGroups = kCP / 16;               // 21
+constexpr int kF = 256;                         // convc1 outputs
+constexpr int kBQ = 32;                         // queries per tile
+constexpr int kThreads = 128;
+constexpr int kBlocksPerSm = 2;                 // resident blocks asked for
+constexpr int kWarps = kThreads / 32;
+constexpr int kWarpsN = kWarps / (kBQ / 32);    // warps along the outputs
+constexpr int kNQ = kF / kWarpsN / 32;          // 32-output blocks a warp
+constexpr int kQW = kBQ / kWarps;               // queries a warp gathers
+constexpr int kSlots = 3;                       // weight ring
+constexpr int kLdA = kCP;                       // = 16 mod 32
+constexpr int kLdW = kF + 8;                    // = 8 mod 32
+constexpr int kAFloats = kBQ * kLdA;
+constexpr int kWFloats = 16 * kLdW;
+constexpr size_t kSmemBytes = sizeof(float) * (kAFloats + kSlots * kWFloats);
+// step s walks groups 5s .. 5s + 4 (the last step to the end), which read
+// only channels below 81 (s + 1): the levels gathered before it
+constexpr int kStepGroups = 5;
+static_assert(16 * kStepGroups <= kLevelC && kC <= kCP,
+              "a step's groups read only the levels gathered before it");
+static_assert(kLdA % 32 == 16 && kLdW % 32 == 8, "conflict-free fragments");
+static_assert(kBQ % 32 == 0 && kWarps % (kBQ / 32) == 0 && kNQ >= 1
+                  && kBQ % kWarps == 0 && 16 * kF % (4 * kThreads) == 0,
+              "warps tile the block's queries x outputs");
 
 struct Levels {
   const float* ptr[kLevels];
@@ -38,100 +93,242 @@ struct Levels {
   int w[kLevels];
 };
 
-__device__ __forceinline__ float tap(const float* m, int H, int W, float y,
-                                     float x) {
-  if (x < 0.f || x > W - 1 || y < 0.f || y > H - 1) return 0.f;
-  return __ldg(m + static_cast<int>(y) * W + static_cast<int>(x));
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 corr_lookup_moenc_kernel(Levels lv, const float* __restrict__ coords,
                          const float* __restrict__ weight,
                          const float* __restrict__ bias,
-                         float* __restrict__ out, int n_query) {
-  extern __shared__ float smem[];
-  float* corr_s = smem;               // [kC][kQT]
-  float* w_s = smem + kC * kQT;       // [kCT][kF]
+                         float* __restrict__ out, int n_query, int n_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  float* const a = smem;                        // [kBQ][kLdA]
+  float* const ring = smem + kAFloats;          // [kSlots][16][kLdW]
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kQT;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int r = lane / kWin, c = lane % kWin;   // gather: window row, column
+  const bool glane = lane < 3 * kWin;
 
-  for (int e = tid; e < kC * kQT; e += kThreads) {
-    const int q = e % kQT;
-    const int c = e / kQT;
-    const int n = q0 + q;
-    float val = 0.f;
-    if (n < n_query) {
-      const int l = c / (kTaps * kTaps);
-      const int i = (c / kTaps) % kTaps;   // x offset (major)
-      const int j = c % kTaps;             // y offset
-      const float scale = 1.f / static_cast<float>(1 << l);
-      const float x = coords[2 * n] * scale;
-      const float y = coords[2 * n + 1] * scale;
-      const float x0 = floorf(x), y0 = floorf(y);
-      const float fx = x - x0, fy = y - y0;
-      const int H = lv.h[l], W = lv.w[l];
-      const float* m = lv.ptr[l] + static_cast<size_t>(n) * H * W;
-      const float xa = x0 + static_cast<float>(i - kRadius);
-      const float ya = y0 + static_cast<float>(j - kRadius);
-      const float left = tap(m, H, W, ya, xa) * (1.f - fy)
-                         + tap(m, H, W, ya + 1.f, xa) * fy;
-      const float right = tap(m, H, W, ya, xa + 1.f) * (1.f - fy)
-                          + tap(m, H, W, ya + 1.f, xa + 1.f) * fy;
-      val = left * (1.f - fx) + right * fx;
+  // query (tile, kQW warp + i) at level l: whether it exists, and its
+  // coordinates at the level
+  auto query = [&](int tile, int l, int i, float& x, float& y) {
+    const int n = tile * kBQ + kQW * warp + i;
+    const bool live = n < n_query;
+    const float scale = 1.f / static_cast<float>(1 << l);
+    x = live ? __ldg(coords + 2 * static_cast<size_t>(n)) * scale : 0.f;
+    y = live ? __ldg(coords + 2 * static_cast<size_t>(n) + 1) * scale : 0.f;
+    return live;
+  };
+  // lane (r, c)'s integer taps of the window, loads k = 0..3: rows r + 3k
+  auto load_level = [&](int tile, int l, float (&gv)[kQW][4]) {
+    const int H = lv.h[l], W = lv.w[l];
+#pragma unroll
+    for (int i = 0; i < kQW; ++i) {
+      float x, y;
+      const bool live = query(tile, l, i, x, y) && glane;
+      // a window wholly outside the map stays wholly outside after the
+      // clamp, which keeps the integer taps small
+      const int xs = static_cast<int>(fminf(fmaxf(floorf(x), -6.f), W + 4.f))
+                     - kRadius + c;
+      const int ys = static_cast<int>(fminf(fmaxf(floorf(y), -6.f), H + 4.f))
+                     - kRadius + r;
+      const size_t n = static_cast<size_t>(tile) * kBQ + kQW * warp + i;
+      const float* m = lv.ptr[l] + (live ? n * H * W : 0);
+      const bool col_in = live && xs >= 0 && xs < W;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int yy = ys + 3 * k;
+        const bool in = col_in && r + 3 * k < kWin && yy >= 0 && yy < H;
+        gv[i][k] = in ? __ldg(m + yy * W + xs) : 0.f;
+      }
     }
-    corr_s[c * kQT + q] = val;
-  }
-
-  float acc[kQT];
+  };
+  // the level's 81 A values of each query: rows lerped by fy (row below
+  // from lane + 10, or from the next load's lane c - 20), then columns by
+  // fx (the column right from lane + 1); channel l*81 + c*9 + row
+  auto store_level = [&](int tile, int l, const float (&gv)[kQW][4]) {
 #pragma unroll
-  for (int q = 0; q < kQT; ++q) acc[q] = 0.f;
-
-  for (int c0 = 0; c0 < kC; c0 += kCT) {
-    __syncthreads();  // corr_s complete / previous weight tile consumed
-    for (int e = tid; e < kCT * kF; e += kThreads)
-      w_s[e] = __ldg(weight + static_cast<size_t>(c0) * kF + e);
-    __syncthreads();
-    for (int cc = 0; cc < kCT; ++cc) {
-      const float wv = w_s[cc * kF + tid];
-      const float4* row =
-          reinterpret_cast<const float4*>(corr_s + (c0 + cc) * kQT);
+    for (int i = 0; i < kQW; ++i) {
+      float x, y;
+      query(tile, l, i, x, y);
+      const float fx = x - floorf(x), fy = y - floorf(y);
+      float* row = a + (kQW * warp + i) * kLdA + l * kLevelC;
 #pragma unroll
-      for (int q4 = 0; q4 < kQT / 4; ++q4) {
-        const float4 v = row[q4];
-        acc[4 * q4 + 0] += v.x * wv;
-        acc[4 * q4 + 1] += v.y * wv;
-        acc[4 * q4 + 2] += v.z * wv;
-        acc[4 * q4 + 3] += v.w * wv;
+      for (int k = 0; k < 3; ++k) {
+        const float up = __shfl_down_sync(0xffffffffu, gv[i][k], kWin);
+        const float wrap = __shfl_up_sync(0xffffffffu, gv[i][k + 1],
+                                          2 * kWin);
+        const float below = r < 2 ? up : wrap;
+        const float gy = __fadd_rn(__fmul_rn(gv[i][k], 1.f - fy),
+                                   __fmul_rn(below, fy));
+        const float right = __shfl_down_sync(0xffffffffu, gy, 1);
+        const float v = __fadd_rn(__fmul_rn(gy, 1.f - fx),
+                                  __fmul_rn(right, fx));
+        if (glane && c < kTaps) row[c * kTaps + 3 * k + r] = v;
+      }
+    }
+  };
+  auto issue_weights = [&](int p, int slot) {
+    float* dst = ring + slot * kWFloats;
+#pragma unroll
+    for (int i = 0; i < 16 * kF / 4 / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int cc = e / (kF / 4), col = 4 * (e % (kF / 4));
+      const int ch = 16 * p + cc;
+      const bool live = ch < kC;
+      cp_async16(dst + (((cc & 3) << 2) | (cc >> 2)) * kLdW + col,
+                 weight + (live ? ch * kF + col : 0), live);
+    }
+  };
+
+  float acc[2][4 * kNQ][4];
+  auto zero_acc = [&]() {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int n = 0; n < 4 * kNQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+  };
+  auto products = [&](int p, int slot) {
+    const float* ws = ring + slot * kWFloats + 32 * kNQ * wn + 4 * g;
+    float4 av[2][2];   // [m-tile][rows g, g + 8]: channels 16p + 4t .. + 3
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        av[mi][hh] = *reinterpret_cast<const float4*>(
+            a + (32 * wm + 16 * mi + 8 * hh + g) * kLdA + 16 * p + 4 * t);
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk) {
+      uint32_t fb[2][4], fs[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        split(lane4(av[mi][0], 2 * hk), fb[mi][0], fs[mi][0]);
+        split(lane4(av[mi][1], 2 * hk), fb[mi][1], fs[mi][1]);
+        split(lane4(av[mi][0], 2 * hk + 1), fb[mi][2], fs[mi][2]);
+        split(lane4(av[mi][1], 2 * hk + 1), fb[mi][3], fs[mi][3]);
+      }
+#pragma unroll
+      for (int q = 0; q < kNQ; ++q) {
+        // slot t: channel 16p + 4t + 2hk at row 8hk + t; slot t + 4: the
+        // next channel, 4 rows on
+        const float* wr = ws + (8 * hk + t) * kLdW + 32 * q;
+        const float4 w0 = *reinterpret_cast<const float4*>(wr);
+        const float4 w1 = *reinterpret_cast<const float4*>(wr + 4 * kLdW);
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          uint32_t b0, b0s, b1, b1s;
+          split(lane4(w0, rr), b0, b0s);
+          split(lane4(w1, rr), b1, b1s);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma3(acc[mi][4 * q + rr], fb[mi], fs[mi], b0, b0s, b1, b1s);
+          }
+        }
+      }
+    }
+  };
+  // rows g, g + 8 of each m-tile: outputs 32 kNQ wn + 32q + 8t .. + 7
+  auto epilogue = [&](int tile) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int n = tile * kBQ + 32 * wm + 16 * mi + 8 * hh + g;
+        if (n >= n_query) continue;
+#pragma unroll
+        for (int q = 0; q < kNQ; ++q) {
+          const int col = 32 * kNQ * wn + 32 * q + 8 * t;
+          const float4 b0 = __ldg(reinterpret_cast<const float4*>(bias + col));
+          const float4 b1 =
+              __ldg(reinterpret_cast<const float4*>(bias + col + 4));
+          float* dst = out + static_cast<size_t>(n) * kF + col;
+          const auto& sums = acc[mi];
+          *reinterpret_cast<float4*>(dst) = make_float4(
+              fmaxf(sums[4 * q][2 * hh] + b0.x, 0.f),
+              fmaxf(sums[4 * q + 1][2 * hh] + b0.y, 0.f),
+              fmaxf(sums[4 * q + 2][2 * hh] + b0.z, 0.f),
+              fmaxf(sums[4 * q + 3][2 * hh] + b0.w, 0.f));
+          *reinterpret_cast<float4*>(dst + 4) = make_float4(
+              fmaxf(sums[4 * q][2 * hh + 1] + b1.x, 0.f),
+              fmaxf(sums[4 * q + 1][2 * hh + 1] + b1.y, 0.f),
+              fmaxf(sums[4 * q + 2][2 * hh + 1] + b1.z, 0.f),
+              fmaxf(sums[4 * q + 3][2 * hh + 1] + b1.w, 0.f));
+        }
+      }
+  };
+
+  // the padding channels stay zero; the weight ring starts two groups
+  // ahead; the first tile's level 0 is gathered before any product
+  for (int e = tid; e < kBQ * (kCP - kC); e += kThreads)
+    a[e / (kCP - kC) * kLdA + kC + e % (kCP - kC)] = 0.f;
+  issue_weights(0, 0);
+  cp_async_commit();
+  issue_weights(1, 1);
+  cp_async_commit();
+  float gv[kQW][4];
+  load_level(blockIdx.x, 0, gv);
+  store_level(blockIdx.x, 0, gv);
+  zero_acc();
+
+  int j = 0;   // groups walked by this block: weights in slot j % kSlots
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    for (int s = 0; s < kLevels; ++s) {
+      const int next_tile = s + 1 < kLevels ? tile : tile + gridDim.x;
+      const int next_l = (s + 1) % kLevels;
+      const bool more = next_tile < n_tiles;
+      if (more) load_level(next_tile, next_l, gv);
+      const int p1 = s + 1 < kLevels ? kStepGroups * (s + 1) : kGroups;
+      for (int p = kStepGroups * s; p < p1; ++p, ++j) {
+        cp_async_wait<1>();
+        __syncthreads();   // group p's weights and A columns visible; the
+                           // slot of group j - 1 consumed
+        issue_weights((p + 2) % kGroups, (j + 2) % kSlots);
+        cp_async_commit();
+        products(p, j % kSlots);
+      }
+      if (more) store_level(next_tile, next_l, gv);
+      if (s + 1 == kLevels) {
+        epilogue(tile);
+        zero_acc();
       }
     }
   }
+  cp_async_wait<0>();
+}
 
-  const float b = bias[tid];
-#pragma unroll
-  for (int q = 0; q < kQT; ++q) {
-    const int n = q0 + q;
-    if (n < n_query)
-      out[static_cast<size_t>(n) * kF + tid] = fmaxf(acc[q] + b, 0.f);
-  }
+bool configured = false;
+int resident = 0;   // blocks the card holds at once: the persistent grid
+
+int configure() {
+  if (configured) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      corr_lookup_moenc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, corr_lookup_moenc_kernel, kThreads, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  resident = n_sm * per_sm;
+  configured = true;
+  return 0;
 }
 
 }  // namespace
 
+// weight, bias and out 16-byte aligned (the wrapper checks).
 extern "C" int corr_lookup_moenc(const void* l0, const void* l1,
                                  const void* l2, const void* l3,
                                  const void* coords, const void* weight,
                                  const void* bias, void* out, int n_query,
                                  int h0, int w0, int h1, int w1, int h2,
                                  int w2, int h3, int w3, void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        corr_lookup_moenc_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  const int err = configure();
+  if (err != 0) return err;
   Levels lv;
   lv.ptr[0] = static_cast<const float*>(l0);
   lv.ptr[1] = static_cast<const float*>(l1);
@@ -141,11 +338,29 @@ extern "C" int corr_lookup_moenc(const void* l0, const void* l1,
   lv.h[1] = h1; lv.w[1] = w1;
   lv.h[2] = h2; lv.w[2] = w2;
   lv.h[3] = h3; lv.w[3] = w3;
-  const int blocks = (n_query + kQT - 1) / kQT;
+  const int n_tiles = (n_query + kBQ - 1) / kBQ;
+  const int blocks = n_tiles < resident ? n_tiles : resident;
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   corr_lookup_moenc_kernel<<<blocks, kThreads, kSmemBytes,
                              static_cast<cudaStream_t>(stream)>>>(
       lv, static_cast<const float*>(coords),
       static_cast<const float*>(weight), static_cast<const float*>(bias),
-      static_cast<float*>(out), n_query);
+      static_cast<float*>(out), n_query, n_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch facts for chip_smoke.py's build phase: info = {resident blocks
+// per SM, dynamic shared memory bytes, threads per block, queries per
+// tile, 1}; min(tiles, SMs x resident blocks per SM) persistent blocks
+// walk the tiles.
+extern "C" int corr_lookup_moenc_launch_info(void* info, void*) {
+  const int err = configure();
+  if (err != 0) return err;
+  int* i = static_cast<int*>(info);
+  i[1] = static_cast<int>(kSmemBytes);
+  i[2] = kThreads;
+  i[3] = kBQ;
+  i[4] = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      i, corr_lookup_moenc_kernel, kThreads, kSmemBytes));
 }

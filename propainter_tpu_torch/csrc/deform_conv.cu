@@ -115,10 +115,6 @@ __device__ __forceinline__ float4 sample4(const float* __restrict__ xq,
       wt.x * v0.w + wt.y * v1.w + wt.z * v2.w + wt.w * v3.w);
 }
 
-__device__ __forceinline__ float lane4(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 // ---- K3 ------------------------------------------------------------------
 
 constexpr int kO = 128;             // output channels
@@ -297,10 +293,7 @@ deform_conv_kernel(const float* __restrict__ x,
             split(lane4(w1, r), b1, b1s);
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi) {
-              float(&d)[4] = acc[mi][4 * q + r];
-              mma(d, fs[mi], b0, b1);
-              mma(d, fb[mi], b0s, b1s);
-              mma(d, fb[mi], b0, b1);
+              mma3(acc[mi][4 * q + r], fb[mi], fs[mi], b0, b0s, b1, b1s);
             }
           }
         }

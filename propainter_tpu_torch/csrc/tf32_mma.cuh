@@ -1,5 +1,6 @@
 // Tensor-core and copy pieces shared by the 3xTF32 kernels: K4 and K5
-// (through attention_tile.cuh) and K3 (deform_conv.cu).
+// (through attention_tile.cuh), K3 (deform_conv.cu) and K1
+// (corr_lookup_moenc.cu).
 //
 // 3xTF32. A product operand x is split as x = big + small, with big =
 // tf32(x) rounded to nearest (the rounding of cvt.rna.tf32.f32) and small =
@@ -41,6 +42,22 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a · b in 3xTF32 (a = a_big + a_small, b's fragment b0, b1 likewise):
+// small·big, big·small, then big·big.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_big)[4],
+                                     const uint32_t (&a_small)[4],
+                                     uint32_t b0_big, uint32_t b0_small,
+                                     uint32_t b1_big, uint32_t b1_small) {
+  mma(d, a_small, b0_big, b1_big);
+  mma(d, a_big, b0_small, b1_small);
+  mma(d, a_big, b0_big, b1_big);
+}
+
+// Element i of v (i a constant once the caller's loops are unrolled).
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 // 16 bytes from src to dst, or 16 zero bytes when !live (nothing is read).

@@ -129,14 +129,17 @@ def corr_lookup_moenc(pyramid, coords, weight, bias, radius: int = 4):
     Returns (B, H, W, F) fp32.
 
     Kernel K1 (`csrc/corr_lookup_moenc.cu`) replaces
-    `propainter_tpu/ops/corr_pallas.py:_lookup_kernel` (moenc epilogue).
-    One block per 32 queries gathers each query's 4 x 10 x 10 integer
-    neighbours from its own maps, lerps them into the 324 window values in
-    shared memory, and multiplies by the weight staged in shared memory in
-    36-row tiles, so the (N, 324) tensor never reaches device memory. Bound
-    by operations: 2*324*256 fp32 FLOPs per query (6.5 GFLOP per RAFT
-    iteration at 432x240), on CUDA cores in fp32 — unlike the TPU epilogue
-    it does not round its operands to bf16."""
+    `propainter_tpu/ops/corr_pallas.py:_lookup_kernel` (moenc epilogue): a
+    GEMM of N queries x 256 outputs x 324 window values on the tensor cores
+    in 3xTF32, whose A rows are built in shared memory and never reach
+    device memory. Persistent blocks walk 32-query tiles; one warp per
+    (query, level) reads the 10 x 10 integer window once and lerps it
+    (rows, then columns, as here) into the level's 81 values, the next
+    level's loads in flight under the current level's products; the
+    weight streams through a `cp.async` ring. Bound by operations: 3 x
+    2*324*256 TF32 FLOPs per query (19.4 GFLOP per RAFT iteration at
+    432x240). Unlike the TPU epilogue it does not round its operands to
+    bf16."""
     if coords.device.type == "cpu":
         return _corr_lookup_moenc_plain(pyramid, coords, weight, bias, radius)
     _build.require_cuda(coords, weight, bias, *pyramid)
@@ -147,8 +150,9 @@ def corr_lookup_moenc(pyramid, coords, weight, bias, radius: int = 4):
         raise ValueError("K1 takes radius 4, 4 levels, a (324, 256) weight")
     tensors = (*pyramid, coords, weight, bias)
     if any(t.dtype != torch.float32 or not t.is_contiguous()
-           for t in tensors):
-        raise ValueError("K1 inputs must be contiguous float32")
+           for t in tensors) or weight.data_ptr() % 16 or bias.data_ptr() % 16:
+        raise ValueError("K1 inputs must be contiguous float32, the weight "
+                         "and bias 16-byte aligned")
     if any(p.shape[0] != N for p in pyramid):
         raise ValueError("pyramid rows must equal the number of queries")
     out = torch.empty((B, H, W, Fo), dtype=torch.float32, device=coords.device)

@@ -77,18 +77,37 @@ def test_deform_conv_bounds_at_the_main_path_shapes():
         assert math.isclose(b["fp32_bound_ms"], 0.0299, rel_tol=2e-3)
 
 
+def test_corr_lookup_moenc_bounds_at_the_main_path_shape():
+    """K1 at one RAFT iteration (24 pair-directions of 30 x 54 queries): 3 x
+    2 * 324 * 256 FLOPs per query at 495 TFLOP/s (0.0391 ms) bound it, above
+    its bytes (the output alone is 40 MB, 0.012 ms); the fp32 CUDA-core
+    bound, with the lerps' 324 * 7 operations, is 0.0976 ms."""
+    n_q = chip_smoke.K1_QUERIES
+    assert n_q == 38880
+    n_bytes = 4 * (n_q * (4 * 100 + 2 + 256) + 324 * 256 + 256)
+    b = chip_smoke._tensor_core_bounds(n_bytes, n_q * 2 * 324 * 256,
+                                       n_q * 324 * 7)
+    assert b["bound_by"] == "operations"
+    assert b["bound_basis"] == "operations (3xTF32)"
+    assert math.isclose(b["bound_ms"], 0.0391, rel_tol=1e-3)
+    assert math.isclose(b["fp32_bound_ms"], 0.0976, rel_tol=1e-3)
+    assert b["fp32_bound_by"] == "operations"
+
+
 def test_tensor_core_launch_grids():
-    """The build phase's grids on 132 SMs: K4 14 query tiles x 64
-    problems, K5 twice that (two blocks a tile), K3 its position tiles
-    times the wrapper's split for 2 resident blocks per SM at each call
-    site."""
-    info = {"window_attention_kernel": [2, 107520, 128, 64, 1],
+    """The build phase's grids on 132 SMs: K1 1215 32-query tiles (walked by
+    its persistent blocks), K4 14 query tiles x 64 problems, K5 twice that
+    (two blocks a tile), K3 its position tiles times the wrapper's split
+    for 2 resident blocks per SM at each call site."""
+    info = {"corr_lookup_moenc_kernel": [2, 93696, 128, 32, 1],
+            "window_attention_kernel": [2, 107520, 128, 64, 1],
             "sparse_window_attention_kernel": [2, 107520, 128, 64, 2],
             "deform_conv_kernel": [2, 67584, 128, 64, 8]}
     grids = {(symbol, site): grid_of(info[symbol])
              for _, symbol, site, _, _, grid_of
              in chip_smoke._tensor_core_launches(132)}
     assert grids == {
+        ("corr_lookup_moenc_kernel", "main path, tiles"): 1215,
         ("window_attention_kernel", "main path"): 14 * 64,
         ("sparse_window_attention_kernel", "main path"): 14 * 2 * 64,
         ("deform_conv_kernel", "generator"): 102 * 2,

@@ -273,6 +273,37 @@ def test_3xtf32_deform_conv_within_tolerance_of_jax_kernel():
     assert err <= tol / 10, (err, tol)
 
 
+def _k1_k_order():
+    """K1's K order: k-step 2p + h of 16-channel group p takes channel 16p +
+    4t + 2h in slot t and the next channel in slot t + 4; 336 channels, the
+    last 12 zero padding."""
+    return np.asarray([16 * p + 4 * (s % 4) + 2 * h + s // 4
+                       for p in range(21) for h in range(2)
+                       for s in range(8)])
+
+
+def test_3xtf32_corr_lookup_moenc_within_tolerance_of_jax_kernel():
+    """The numerics of K1: the TPU lookup kernel's windows (interpret mode),
+    contracted with convc1's weight in 3xTF32 in the kernel's K order (324
+    terms zero-padded to 336), stay within a tenth of the kernels'
+    tolerance of convc1 in fp32; one pass of TF32 does not."""
+    f1, f2, coords, w, b = _corr_inputs()
+    pyr = corr_pyramid_flat(jnp.asarray(f1), jnp.asarray(f2), 4,
+                            interpret=True)
+    window = np.asarray(corr_lookup_flat(pyr, jnp.asarray(coords),
+                                         interpret=True)).reshape(-1, 324)
+    want = np.maximum(window @ w + b, 0.0)
+    order = _k1_k_order()
+    a = np.pad(window, ((0, 0), (0, 12)))[:, order]
+    wk = np.pad(w, ((0, 12), (0, 0)))[order]
+    tol = _REL_TOL * max(1.0, np.abs(want).max())
+    err3 = np.abs(np.maximum(_tf32_matmul(a, wk, 3) + b, 0.0) - want).max()
+    err1 = np.abs(np.maximum(_tf32_matmul(a, wk, 1) + b, 0.0) - want).max()
+    assert sorted(order) == list(range(336))
+    assert err3 <= tol / 10, (err3, tol)
+    assert err1 > tol, (err1, tol)
+
+
 @pytest.mark.parametrize("n_pos, C, slots, want", [
     (60 * 108, 128, 264, 2),         # generator: 102 tiles x 36 chunks
     (2 * 30 * 54, 256, 264, 4),      # flow completion: 51 tiles x 72
@@ -384,6 +415,34 @@ def test_cuda_corr_kernels(cuda):
     got = corr.corr_lookup_moenc(pyr, coords, w, b)
     want = corr._corr_lookup_moenc_plain(pyr, coords, w, b, 4)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+def _k1_case(case, seed=11):
+    """K1's inputs on the card: 'ragged' 8 x 13 maps (104 queries: three
+    full 32-query tiles and a partial one; level 3 is 1 x 1), 'far' the same
+    with coordinates to 40 pixels outside, 'main_path' one RAFT iteration of
+    the main path (24 pair-directions at 30 x 54: 1215 tiles, more than the
+    card's persistent blocks)."""
+    rng = np.random.default_rng(seed)
+    B, H, W = (24, 30, 54) if case == "main_path" else (1, 8, 13)
+    f1, f2 = _rand(rng, B, H, W, 64), _rand(rng, B, H, W, 64)
+    coords = np.asarray(coords_grid(B, H, W)) + _rand(
+        rng, B, H, W, 2, scale=15.0 if case == "far" else 3.0)
+    if case == "far":
+        coords[0, 0, :3] = [[-40.0, 3.0], [52.0, 47.0], [6.5, -40.0]]
+    return (f1, f2, coords.astype(np.float32),
+            _rand(rng, 324, 256, scale=0.05), _rand(rng, 256, scale=0.05))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "far", "main_path"])
+def test_cuda_corr_lookup_moenc_kernel(cuda, case):
+    f1, f2, coords, w, b = _to(cuda, *_k1_case(case))
+    pyr = corr.corr_pyramid(f1, f2, 4)
+    got = corr.corr_lookup_moenc(pyr, coords, w, b)
+    want = corr._corr_lookup_moenc_plain(pyr, coords, w, b, 4)
+    tol = _REL_TOL * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
 @pytest.mark.cuda
