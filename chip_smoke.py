@@ -10,15 +10,17 @@ Phases:
               for the tensor-core kernels K1, K3, K4 and K5 print registers,
               spills and shared memory (`-Xptxas -v`), the HMMA count of
               their SASS, resident blocks per SM and the waves of each
-              main-path grid; fails if one has no HMMA instruction or
-              spills;
+              main-path grid, for K7 (CUDA cores) registers, spills and
+              shared memory; fails if a tensor-core kernel has no HMMA
+              instruction, or any kernel spills;
   kernels     each kernel at the main path's shapes against its plain
               PyTorch version on the card (max abs error within a stated
               tolerance), timed beside the plain version and a library
-              yardstick (K1, K3 and K6 by CUDA-graph replay, K3's and K6's
-              calls being shorter than their host-side launch); K1 also
-              at a ragged 8 x 13 map with far-off coordinates, beside the
-              reference RAFT's F.grid_sample + addmm route; K3 also beside the
+              yardstick (K1, K3, K6 and K7 by CUDA-graph replay, K3's, K6's
+              and K7's calls being shorter than their host-side launch); K1
+              and K7 also at a ragged 8 x 13 map with far-off coordinates,
+              beside the reference RAFT's F.grid_sample route (+ addmm for
+              K1); K3 also beside the
               unfused K6 + GEMM route and at every cluster split, K3 and
               K6 at a ragged image with far-off coordinates; K4 also at
               ragged shapes (a partial query and key tile, a bias masking
@@ -30,14 +32,17 @@ Phases:
               K3) forward and backward at both call sites' shapes; values
               and gradients against autograd of the plain version;
   pipeline    `ProPainterPipeline.inpaint_video` at 80 frames of 432x240,
-              fp32, full-width models with seeded random weights, in both
-              attention configurations ('flash', then 'pallas' on the same
-              weights and clip): output shape/dtype, unmasked pixels
-              unchanged, every kernel of each path launched (K5 once per
-              transformer block and K4 never under 'pallas'), the two
-              outputs within 12 max / 0.5 mean LSB;
+              fp32, full-width models with seeded random weights, in three
+              configurations on the same weights and clip: 'flash',
+              'pallas', and shard_inference with window_batch 4 on the
+              card's one-device mesh; output shape/dtype, unmasked pixels
+              unchanged, every kernel of each path launched (K1 once per
+              RAFT iteration and K7 never, except under shard_inference,
+              the reverse; K5 once per transformer block and K4 never under
+              'pallas'), the outputs within 12 max / 0.5 mean LSB of
+              'flash';
   small       a 6-frame 144x160 clip on the GPU (kernels) and on the CPU
-              (plain versions), fan-in scaled weights, in both attention
+              (plain versions), fan-in scaled weights, in the three
               configurations ('flash' through `ProInpainter`): uint8
               outputs within 12 max / 0.5 mean LSB, a std of at least 10
               LSB inside the hole, and the float outputs of RAFT, flow
@@ -274,8 +279,10 @@ def phase_build(state: dict) -> None:
     """Compile every kernel, then report on the tensor-core kernels (K1,
     K3, K4, K5): registers, spills and shared memory, the tensor-core (HMMA)
     instructions of their SASS, resident blocks per SM and the waves of
-    each main-path grid on this card's SMs. Fails if one has no HMMA
-    instruction, spills, or fits no block on an SM."""
+    each main-path grid on this card's SMs; and on K7 (CUDA cores only)
+    registers, spills and shared memory. Fails if a tensor-core kernel has
+    no HMMA instruction, or fits no block on an SM, or any of them
+    spills."""
     import ctypes
 
     import torch
@@ -325,6 +332,20 @@ def phase_build(state: dict) -> None:
               f"blocks on {n_sm} SMs")
         if blocks_per_sm < 1:
             failures.append(f"{symbol} ({site}): no block fits on an SM")
+    # K7 runs on CUDA cores: registers, spills and shared memory only
+    ptxas = {fn: r for fn, r in
+             _ptxas_report(_build.build_log("corr_lookup")).items()
+             if "corr_lookup_kernel" in fn}
+    report["corr_lookup_kernel"] = dict(ptxas=ptxas)
+    for fn, r in ptxas.items():
+        print(f"  {fn}: {r.get('registers')} registers, "
+              f"{r.get('spill_stores')} B spill stores, "
+              f"{r.get('spill_loads')} B spill loads, "
+              f"{r.get('static_smem', 0)} B static shared memory")
+    if not ptxas:
+        failures.append("corr_lookup_kernel: no -Xptxas -v report")
+    if any(r.get("spill_stores", 0) for r in ptxas.values()):
+        failures.append("corr_lookup_kernel: spills")
     state["build"] = report
     if failures:
         raise AssertionError("; ".join(failures))
@@ -365,6 +386,7 @@ def phase_kernels(records: dict) -> None:
         library_ms=None)
 
     records["corr_lookup_moenc"] = _check_k1(randn, pyr)
+    records["corr_lookup"] = _check_k7(randn, pyr)
 
     records["modulated_deform_conv2d"], records["deform_sample"] = (
         _check_deform(randn))
@@ -427,11 +449,11 @@ def phase_kernels(records: dict) -> None:
                   f"{rr['bound_by']}{tc}, library {rr['library_ms']})")
 
 
-def _k1_library(pyr, coords, w, bias):
-    """The reference RAFT's route to K1's function, as one function of no
-    arguments (its sampling grids prepared outside it): `F.grid_sample` of
-    each level (align_corners=True, zeros outside) at the 9 x 9 window,
-    x offset major, then convc1 as one `addmm` and relu."""
+def _lookup_library(pyr, coords):
+    """The reference RAFT's route to K7's function (its `bilinear_sampler`),
+    as one function of no arguments (its sampling grids prepared outside
+    it): `F.grid_sample` of each level (align_corners=True, zeros outside)
+    at the 9 x 9 window, x offset major -> (N, 324)."""
     import torch
     import torch.nn.functional as F
 
@@ -448,13 +470,98 @@ def _k1_library(pyr, coords, w, bias):
         maps.append(p[:, None])
 
     def library():
-        win = torch.cat([
+        return torch.cat([
             F.grid_sample(m, gr, mode="bilinear", padding_mode="zeros",
                           align_corners=True).reshape(N, 81)
             for m, gr in zip(maps, grids)], 1)
-        return torch.relu(torch.addmm(bias, win, w))
 
     return library
+
+
+def _k1_library(pyr, coords, w, bias):
+    """The reference RAFT's route to K1's function: `_lookup_library`, then
+    convc1 as one `addmm` and relu."""
+    import torch
+
+    windows = _lookup_library(pyr, coords)
+    return lambda: torch.relu(torch.addmm(bias, windows(), w))
+
+
+def _in_range_taps(pyr, coords) -> int:
+    """The integer taps of every query's 10 x 10 windows that lie inside
+    its maps: the bytes a lookup must read (zeros outside are not read)."""
+    import torch
+
+    def in_range(c, size):   # in-range taps of c0-4 .. c0+5
+        c0 = torch.floor(c)
+        return ((c0 + 6).clamp(0, size) - (c0 - 4).clamp(0, size)).clamp(0)
+
+    return int(sum(
+        (in_range(coords[..., 0] / 2 ** lvl, p.shape[2])
+         * in_range(coords[..., 1] / 2 ** lvl, p.shape[1])).sum().item()
+        for lvl, p in enumerate(pyr)))
+
+
+def _far_off_case(randn):
+    """A ragged 8 x 13 map (104 queries; level 3 is 1 x 1) with
+    coordinates up to 40 pixels outside it: (pyramid, coords)."""
+    import torch
+    from propainter_tpu_torch.ops import corr
+    from propainter_tpu_torch.ops.warp import coords_grid
+
+    dev = torch.device("cuda")
+    f1, f2 = randn(1, 8, 13, 256), randn(1, 8, 13, 256)
+    small = corr.corr_pyramid(f1, f2, 4)
+    far = coords_grid(1, 8, 13, device=dev) + randn(1, 8, 13, 2, std=15.0)
+    far[0, 0, :3] = torch.tensor([[-40.0, 3.0], [52.0, 47.0], [6.5, -40.0]],
+                                 device=dev)
+    return small, far.contiguous()
+
+
+def _check_k7(randn, pyr) -> dict:
+    """K7 at one RAFT iteration of the main path (the pyramid of 24
+    pair-directions at 30 x 54) against its plain version, timed by
+    CUDA-graph replay (`eager_ms` beside) and beside the reference RAFT's
+    four `F.grid_sample` calls (`_lookup_library`, first held to the plain
+    version); also at the ragged, far-off 8 x 13 map."""
+    from propainter_tpu_torch.ops import corr
+    from propainter_tpu_torch.ops.warp import coords_grid
+
+    dev = pyr[0].device
+    N, H8, W8 = pyr[0].shape
+    B = N // (H8 * W8)
+    coords = (coords_grid(B, H8, W8, device=dev)
+              + randn(B, H8, W8, 2, std=3.0)).contiguous()
+
+    def run():
+        return corr.corr_lookup(pyr, coords)
+
+    def plain():
+        return corr._corr_lookup_plain(pyr, coords)
+
+    got, want = run(), plain()
+    err = _compare("corr_lookup", got, want)
+    library = _lookup_library(pyr, coords)
+    _compare("grid_sample yardstick vs plain corr_lookup",
+             library().reshape(want.shape), want)
+    ms, eager_ms = _graph_ms(run), _time_ms(run, 50)
+    plain_ms = _time_ms(plain, 5)
+    library_ms = _graph_ms(library)
+    small, far = _far_off_case(randn)
+    err = max(err, _compare(
+        "corr_lookup maps 8 x 13, coordinates to 40 px outside",
+        corr.corr_lookup(small, far), corr._corr_lookup_plain(small, far)))
+    n_q = coords.shape[0] * H8 * W8
+    bound_ms, bound_by = _bound(
+        4 * _in_range_taps(pyr, coords) + _nbytes(coords, got),
+        n_q * 324 * 7)
+    return dict(
+        name="corr_lookup", route="cuda",
+        source="propainter_tpu_torch/csrc/corr_lookup.cu",
+        replaces="propainter_tpu/ops/corr_pallas.py:363",
+        shape=f"coords {tuple(coords.shape)}", max_abs_err=err, ms=ms,
+        eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _check_k1(randn, pyr) -> dict:
@@ -464,7 +571,6 @@ def _check_k1(randn, pyr) -> dict:
     route (`_k1_library`, first held to the plain version); also at a
     ragged 8 x 13 map (104 queries: three full 32-query tiles and a partial
     one; level 3 is 1 x 1) with coordinates up to 40 pixels outside it."""
-    import torch
     from propainter_tpu_torch.ops import corr
     from propainter_tpu_torch.ops.warp import coords_grid
 
@@ -491,28 +597,11 @@ def _check_k1(randn, pyr) -> dict:
     plain_ms = _time_ms(plain, 5)
     library_ms = _graph_ms(library)
 
-    # ragged, far off: 8 x 13 maps, coordinates to 40 pixels outside
-    f1, f2 = randn(1, 8, 13, 256), randn(1, 8, 13, 256)
-    small = corr.corr_pyramid(f1, f2, 4)
-    far = coords_grid(1, 8, 13, device=dev) + randn(1, 8, 13, 2, std=15.0)
-    far[0, 0, :3] = torch.tensor([[-40.0, 3.0], [52.0, 47.0], [6.5, -40.0]],
-                                 device=dev)
-    far = far.contiguous()
+    small, far = _far_off_case(randn)
     err = max(err, _compare(
         "corr_lookup_moenc maps 8 x 13, coordinates to 40 px outside",
         corr.corr_lookup_moenc(small, far, w, bias),
         corr._corr_lookup_moenc_plain(small, far, w, bias, 4)))
-
-    # bytes this data needs: the in-range integer taps of each query's
-    # 10 x 10 windows (zeros outside are not read), coords, weight, output
-    def in_range(c, size):   # in-range taps of c0-4 .. c0+5
-        c0 = torch.floor(c)
-        return ((c0 + 6).clamp(0, size) - (c0 - 4).clamp(0, size)).clamp(0)
-
-    n_taps = sum(
-        (in_range(coords[..., 0] / 2 ** lvl, p.shape[2])
-         * in_range(coords[..., 1] / 2 ** lvl, p.shape[1])).sum().item()
-        for lvl, p in enumerate(pyr))
     n_q = coords.shape[0] * H8 * W8
     return dict(
         name="corr_lookup_moenc", route="cuda",
@@ -520,7 +609,8 @@ def _check_k1(randn, pyr) -> dict:
         replaces="propainter_tpu/ops/corr_pallas.py:166",
         shape=f"coords {tuple(coords.shape)}", max_abs_err=err, ms=ms,
         eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
-        **_tensor_core_bounds(4 * n_taps + _nbytes(coords, w, bias, got),
+        **_tensor_core_bounds(4 * _in_range_taps(pyr, coords)
+                              + _nbytes(coords, w, bias, got),
                               n_q * 2 * 324 * 256, n_q * 324 * 7))
 
 
@@ -837,6 +927,7 @@ def _launch_counters():
     return {
         "corr_pyramid_build": corr.corr_pyramid_build,
         "corr_lookup_moenc": corr.corr_lookup_moenc,
+        "corr_lookup": corr.corr_lookup,
         "modulated_deform_conv2d": deform.modulated_deform_conv2d,
         "flash_window_attention": flash_attention.flash_window_attention,
         "sparse_window_attention": attention.sparse_window_attention,
@@ -845,8 +936,10 @@ def _launch_counters():
 
 
 # the driven run whose launches each kernel's record reports: the main
-# path in its two attention configurations, and the deform dispatchers
+# path in its three configurations ('flash', 'pallas' and 'shard', the
+# shard_inference layout), and the deform dispatchers
 KERNEL_PATH = {"corr_pyramid_build": "flash", "corr_lookup_moenc": "flash",
+               "corr_lookup": "shard",
                "modulated_deform_conv2d": "flash",
                "flash_window_attention": "flash",
                "sparse_window_attention": "pallas",
@@ -923,6 +1016,24 @@ def _pallas_pipeline(pipe):
                               device="cuda")
 
 
+def _shard_pipeline(pipe):
+    """`pipe` in the shard_inference configuration with window_batch 4 on
+    the card's one-device mesh (RAFT's lookup through K7, then convc1 as
+    one addmm; stage 4 four windows a call): copies of its RAFT and
+    generator (the same weights), so each pipeline keeps its own forms, and
+    its flow completion."""
+    import copy
+
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+
+    return ProPainterPipeline(copy.deepcopy(pipe.raft), pipe.flowcomp,
+                              copy.deepcopy(pipe.inpaint),
+                              PipelineConfig(shard_inference=True,
+                                             window_batch=4),
+                              device="cuda")
+
+
 def phase_deform_opt(state: dict) -> None:
     """K6's path: the differentiable deform dispatchers, forward and
     backward, at both call sites' shapes, as a training step calls them;
@@ -986,7 +1097,10 @@ def _measured_run(pipe, frames, flow_masks, smi: str):
                                       timings=timings))
     total = time.perf_counter() - t0
     launches = _read_launches()
-    impl = pipe.config.attention_impl
+    cfg = pipe.config
+    impl = (f"shard_inference, window_batch {cfg.window_batch}, mesh of "
+            f"{len(pipe.mesh)}" if cfg.shard_inference
+            else f"attention_impl={cfg.attention_impl!r}")
     print(f"  launches ({impl}): {launches}")
     if out.shape != (T, H, W, 3) or out.dtype != np.uint8:
         raise AssertionError(f"output {out.shape} {out.dtype}")
@@ -994,19 +1108,30 @@ def _measured_run(pipe, frames, flow_masks, smi: str):
     if not np.array_equal(out[keep], frames[keep]):
         raise AssertionError("unmasked pixels changed")
     stages = ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
-    print(f"  pipeline {T}x{W}x{H} fp32, attention_impl={impl!r}: "
+    print(f"  pipeline {T}x{W}x{H} fp32, {impl}: "
           f"{total:.3f} s, {T / total:.3f} fps ({stages}) on {smi}")
     return out, launches, dict(seconds=total, fps=T / total, stages=timings)
 
 
+def _raft_launches(pipe, frames) -> int:
+    """RAFT lookups of one run: one per iteration of each clip chunk."""
+    from propainter_tpu_torch.pipeline import get_short_clip_len
+
+    T, W = frames.shape[0], frames.shape[2]
+    return len(range(0, T, get_short_clip_len(W))) * pipe.config.raft_iter
+
+
 def phase_pipeline(state: dict, smi: str) -> None:
-    """The main path at full size in its two attention configurations on
-    the same weights and clip, each once to warm up (cuDNN plans, lazy
-    module loading), then measured; every kernel of each path must launch
-    in its measured run."""
+    """The main path at full size in its three configurations on the same
+    weights and clip ('flash', 'pallas', and shard_inference with
+    window_batch 4 on the card's one-device mesh), each once to warm up
+    (cuDNN plans, lazy module loading), then measured; every kernel of each
+    path must launch in its measured run, K1 under 'flash' and 'pallas' and
+    K7 under shard_inference once per RAFT iteration, the other never."""
     import numpy as np
 
     pipe, frames, flow_masks = _main_path_inputs()
+    want_lookups = _raft_launches(pipe, frames)
     state["main_path"] = (pipe, frames, flow_masks)
     t0 = time.perf_counter()
     pipe.inpaint_video(frames, flow_masks, flow_masks)
@@ -1019,6 +1144,10 @@ def phase_pipeline(state: dict, smi: str) -> None:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    if (launches["corr_lookup_moenc"] != want_lookups
+            or launches["corr_lookup"] != 0):
+        raise AssertionError(f"'flash' must launch K1 {want_lookups} times "
+                             f"and K7 never: {launches}")
 
     sparse = _pallas_pipeline(pipe)
     state["main_path_pallas"] = sparse
@@ -1038,13 +1167,58 @@ def phase_pipeline(state: dict, smi: str) -> None:
           f"{launches['flash_window_attention']} (want 0)")
     state["pipeline_pallas"].update(max_lsb_vs_flash=int(diff.max()),
                                     mean_lsb_vs_flash=float(diff.mean()))
-    missing = [k for k in ("corr_pyramid_build", "corr_lookup_moenc",
-                           "modulated_deform_conv2d") if launches[k] == 0]
+    missing = [k for k in ("corr_pyramid_build", "modulated_deform_conv2d")
+               if launches[k] == 0]
     if (missing or launches["sparse_window_attention"] != want_k5
-            or launches["flash_window_attention"] != 0):
+            or launches["flash_window_attention"] != 0
+            or launches["corr_lookup_moenc"] != want_lookups
+            or launches["corr_lookup"] != 0):
         raise AssertionError(f"the 'pallas' path launched {launches}")
     if diff.max() > SMALL_MAX_LSB or diff.mean() > SMALL_MEAN_LSB:
         raise AssertionError("'pallas' and 'flash' outputs disagree")
+
+    shard = _shard_pipeline(pipe)
+    state["main_path_shard"] = shard
+    shard.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
+    out_s, launches, state["pipeline_shard"] = _measured_run(
+        shard, frames, flow_masks, smi)
+    state["launches"]["shard"] = launches
+    # one K4 launch per transformer block of every window batch
+    want_k4 = (_window_batches(frames.shape[0], shard)
+               * len(shard.inpaint.transformers.transformer))
+    diff = np.abs(out_s.astype(int) - out.astype(int))
+    print(f"  shard_inference vs 'flash' output: max {diff.max()} LSB, mean "
+          f"{diff.mean():.4f} LSB (limits {SMALL_MAX_LSB} / "
+          f"{SMALL_MEAN_LSB}); K7 launches {launches['corr_lookup']} (want "
+          f"{want_lookups}), K1 launches {launches['corr_lookup_moenc']} "
+          f"(want 0), K4 launches {launches['flash_window_attention']} (want "
+          f"{want_k4})")
+    state["pipeline_shard"].update(max_lsb_vs_flash=int(diff.max()),
+                                   mean_lsb_vs_flash=float(diff.mean()))
+    missing = [k for k in ("corr_pyramid_build", "modulated_deform_conv2d")
+               if launches[k] == 0]
+    if (missing or launches["corr_lookup"] != want_lookups
+            or launches["corr_lookup_moenc"] != 0
+            or launches["flash_window_attention"] != want_k4
+            or launches["sparse_window_attention"] != 0):
+        raise AssertionError(f"the shard_inference path launched {launches}")
+    if diff.max() > SMALL_MAX_LSB or diff.mean() > SMALL_MEAN_LSB:
+        raise AssertionError("shard_inference and 'flash' outputs disagree")
+
+
+def _window_batches(T: int, pipe) -> int:
+    """Stage 4's generator calls: batches of up to window_batch consecutive
+    windows of equal length."""
+    stride = pipe.config.neighbor_length // 2
+    lengths = [min(T, f + stride + 1) - max(0, f - stride)
+               for f in range(0, T, stride)]
+    runs = [1]
+    for a, b in zip(lengths, lengths[1:]):
+        if a == b:
+            runs[-1] += 1
+        else:
+            runs.append(1)
+    return sum(-(-n // pipe._window_batch) for n in runs)
 
 
 def phase_profile(state: dict) -> None:
@@ -1075,9 +1249,9 @@ def phase_profile(state: dict) -> None:
     # "sparse_window_attention_kernel"
     ours = {k: sum(r[1] for r in kern
                    if re.search(rf"\b{k}_kernel\b", r[0]))
-            for k in ("corr_lookup_moenc", "corr_pyramid_build",
-                      "deform_conv", "deform_sample", "window_attention",
-                      "sparse_window_attention")}
+            for k in ("corr_lookup_moenc", "corr_lookup",
+                      "corr_pyramid_build", "deform_conv", "deform_sample",
+                      "window_attention", "sparse_window_attention")}
     lines = [f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
              f"({100 * busy / (wall * 1e3):.1f}%), stages (s): " + ", ".join(
                  f"{k} {v:.3f}" for k, v in timings.items())]
@@ -1167,9 +1341,10 @@ def _stage_outputs(pipe, frames, mask, given=None) -> dict:
 
 
 def phase_small(state: dict) -> None:
-    """The same small clip and weights on the GPU and on the CPU, in both
-    attention configurations ('flash' through the `ProInpainter` facade,
-    'pallas' through the pipeline). The weights are fan-in scaled so the
+    """The same small clip and weights on the GPU and on the CPU, in the
+    three configurations ('flash' through the `ProInpainter` facade,
+    'pallas' and shard_inference with window_batch 4 through the
+    pipeline). The weights are fan-in scaled so the
     inpainted region varies (its spread must reach SMALL_MIN_HOLE_STD).
     The uint8 outputs are held to the golden check's limits, and the float
     outputs of RAFT, flow completion and one generator window to
@@ -1183,14 +1358,17 @@ def phase_small(state: dict) -> None:
     frames, mask = _synthetic_clip(6, 144, 160, seed=2)
     flow_masks = np.stack([binary_dilation_cross(m, 4) for m in mask])
     failures = []
-    for impl in ("flash", "pallas"):
+    configs = {"flash": dict(attention_impl="flash"),
+               "pallas": dict(attention_impl="pallas"),
+               "shard": dict(shard_inference=True, window_batch=4)}
+    for impl, options in configs.items():
         outs, stages = {}, {}
         for device in ("cpu", "cuda"):
             mods = _models(seed=5, fan_in_scaled=True)
             pipe = ProPainterPipeline(
                 mods["raft"], mods["flowcomp"], mods["inpaint"],
                 PipelineConfig(raft_iter=3, neighbor_length=4, ref_stride=3,
-                               attention_impl=impl), device=device)
+                               **options), device=device)
             if impl == "flash":
                 outs[device] = ProInpainter(mods, device=device).inpaint(
                     frames, mask, raft_iter=3, neighbor_length=4,
@@ -1292,8 +1470,8 @@ def main(argv=None) -> int:
     for key, r in records.items():
         kernels.append(dict(r, launches=launches.get(KERNEL_PATH[key], {})
                             .get(key)))
-    state.pop("main_path", None)
-    state.pop("main_path_pallas", None)
+    for key in ("main_path", "main_path_pallas", "main_path_shard"):
+        state.pop(key, None)
     if args.out_dir:
         out = Path(args.out_dir)
         out.mkdir(parents=True, exist_ok=True)

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("corr_lookup_moenc", "corr_pyramid_build",
+KERNEL_SOURCES = ("corr_lookup", "corr_lookup_moenc", "corr_pyramid_build",
                   "deform_conv", "sparse_window_attention", "window_attention")
 
 _lock = threading.Lock()
@@ -132,11 +132,17 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def stream_of(t) -> int:
-    """The current PyTorch stream on the tensor's device, as an int."""
+def launch(fn, what: str, like, *args) -> None:
+    """Call the C entry `fn(*args, stream)` with the device of the tensor
+    `like` current and that device's current PyTorch stream, and raise if
+    it reports a CUDA error. Each C entry configures and launches its
+    kernel on the runtime's current device, so on a host with several GPUs
+    a tensor on the second one must not be launched on the first."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    with torch.cuda.device(like.device):
+        check(fn(*args, torch.cuda.current_stream(like.device).cuda_stream),
+              what)
 
 
 def require_cuda(*tensors) -> None:

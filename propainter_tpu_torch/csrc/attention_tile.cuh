@@ -415,16 +415,26 @@ __device__ __forceinline__ void finish_split(const Smem& sm, float* o,
   }
 }
 
-// Launch configuration every kernel built on the tile needs once: more
-// than 48 KB of dynamic shared memory.
+// Launch configuration every kernel built on the tile needs once per
+// device: more than 48 KB of dynamic shared memory, an attribute of the
+// kernel on one device. `configured` holds a flag per device; the setup is
+// done for the device current at the call (the wrapper makes the tensors'
+// device current).
+constexpr int kMaxDevices = 64;
+
 template <class Kernel>
-__host__ int configure(Kernel kernel, bool& configured) {
-  if (configured) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+__host__ int configure(Kernel kernel, bool (&configured)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  configured = true;
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (configured[dev]) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  configured[dev] = true;
   return 0;
 }
 
@@ -432,8 +442,8 @@ __host__ int configure(Kernel kernel, bool& configured) {
 // per block, query rows per block, blocks per query tile} of a kernel
 // built on the tile.
 template <class Kernel>
-__host__ int launch_info(Kernel kernel, bool& configured, int split,
-                         int* info) {
+__host__ int launch_info(Kernel kernel, bool (&configured)[kMaxDevices],
+                         int split, int* info) {
   const int err = configure(kernel, configured);
   if (err != 0) return err;
   info[1] = static_cast<int>(kSmemBytes);

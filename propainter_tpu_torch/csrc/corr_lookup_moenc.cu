@@ -297,24 +297,33 @@ corr_lookup_moenc_kernel(Levels lv, const float* __restrict__ coords,
   cp_async_wait<0>();
 }
 
-bool configured = false;
-int resident = 0;   // blocks the card holds at once: the persistent grid
+// The shared-memory limit is an attribute of the kernel on one device and
+// the persistent grid depends on that device's SMs, so both are set up
+// once per device, for the device current at the call (the wrapper makes
+// the tensors' device current).
+constexpr int kMaxDevices = 64;
+bool configured[kMaxDevices] = {};
+int resident[kMaxDevices] = {};   // blocks the device holds at once
 
-int configure() {
-  if (configured) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
+// the current device's index in `dev`, its setup done
+int configure(int& dev) {
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (configured[dev]) return 0;
+  err = cudaFuncSetAttribute(
       corr_lookup_moenc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  int n_sm = 0, per_sm = 0;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, corr_lookup_moenc_kernel, kThreads, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  resident = n_sm * per_sm;
-  configured = true;
+  resident[dev] = n_sm * per_sm;
+  configured[dev] = true;
   return 0;
 }
 
@@ -327,7 +336,8 @@ extern "C" int corr_lookup_moenc(const void* l0, const void* l1,
                                  const void* bias, void* out, int n_query,
                                  int h0, int w0, int h1, int w1, int h2,
                                  int w2, int h3, int w3, void* stream) {
-  const int err = configure();
+  int dev = 0;
+  const int err = configure(dev);
   if (err != 0) return err;
   Levels lv;
   lv.ptr[0] = static_cast<const float*>(l0);
@@ -339,7 +349,7 @@ extern "C" int corr_lookup_moenc(const void* l0, const void* l1,
   lv.h[2] = h2; lv.w[2] = w2;
   lv.h[3] = h3; lv.w[3] = w3;
   const int n_tiles = (n_query + kBQ - 1) / kBQ;
-  const int blocks = n_tiles < resident ? n_tiles : resident;
+  const int blocks = n_tiles < resident[dev] ? n_tiles : resident[dev];
   if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   corr_lookup_moenc_kernel<<<blocks, kThreads, kSmemBytes,
                              static_cast<cudaStream_t>(stream)>>>(
@@ -354,7 +364,8 @@ extern "C" int corr_lookup_moenc(const void* l0, const void* l1,
 // tile, 1}; min(tiles, SMs x resident blocks per SM) persistent blocks
 // walk the tiles.
 extern "C" int corr_lookup_moenc_launch_info(void* info, void*) {
-  const int err = configure();
+  int dev = 0;
+  const int err = configure(dev);
   if (err != 0) return err;
   int* i = static_cast<int*>(info);
   i[1] = static_cast<int>(kSmemBytes);

@@ -367,15 +367,25 @@ deform_conv_kernel(const float* __restrict__ x,
   cluster.sync();      // no block leaves while another reads its part
 }
 
+// The shared-memory limit is an attribute of the kernel on one device: set
+// once per device, for the device current at the call (the wrapper makes
+// the tensors' device current).
+constexpr int kMaxDevices = 64;
+
 template <int kCg>
 int configure() {
-  static bool done = false;
-  if (done) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (done[dev]) return 0;
+  err = cudaFuncSetAttribute(
       deform_conv_kernel<kCg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes<kCg>()));
   if (err != cudaSuccess) return static_cast<int>(err);
-  done = true;
+  done[dev] = true;
   return 0;
 }
 

@@ -227,7 +227,7 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
   }
 }
 
-bool configured = false;
+bool configured[kMaxDevices] = {};   // per device (attention_tile.cuh)
 
 }  // namespace
 

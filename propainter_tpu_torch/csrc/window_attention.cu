@@ -69,7 +69,7 @@ window_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   store(o + (static_cast<size_t>(n) * Tq + q0) * kD, n_rows, run);
 }
 
-bool configured = false;
+bool configured[kMaxDevices] = {};   // per device (attention_tile.cuh)
 
 }  // namespace
 

@@ -278,8 +278,9 @@ class SparseWindowAttention(nn.Module):
     def forward(self, x, mask, static_sel, frame_valid=None):
         """x (B, T, H, W, C) tokens; mask (B, l_t, H, W, 1) pooled local
         masks; static_sel (T,) numpy bool — frames visible to branch A (the
-        temporal dilation); frame_valid (T,) bool tensor or None — False
-        masks padded reference frames' keys."""
+        temporal dilation); frame_valid (T,) or (B, T) bool tensor or None
+        — False masks padded reference frames' keys (per batch row when
+        (B, T): stage 4 batches windows with their own padding)."""
         B, T, H, W, C = x.shape
         wh, ww = self.window_size
         nh = self.n_head
@@ -355,11 +356,10 @@ class SparseWindowAttention(nn.Module):
                            pool_windows(pool_v)], dim=4)
         k_tok = k_all.shape[4]
         bias = None
-        if frame_valid is not None:
-            fv = frame_valid.to(q.device).index_select(0, sel)
+        if frame_valid is not None:     # K4's (B, Ts * k_tok) key bias
+            fv = frame_valid.to(q.device).expand(B, T).index_select(1, sel)
             bias = torch.where(fv, 0.0, NEG_INF).to(torch.float32)
-            bias = bias.repeat_interleave(k_tok)[None].expand(B, -1)
-            bias = bias.contiguous()
+            bias = bias.repeat_interleave(k_tok, dim=1).contiguous()
         out_a = flash_window_attention(
             win_q.reshape(B, nW * nh, T * win, ch).contiguous(),
             k_all.reshape(B, nW * nh, Ts * k_tok, ch).contiguous(),
@@ -399,13 +399,15 @@ class SparseWindowAttention(nn.Module):
             p = p.reshape(B, T, p.shape[2], nh, ch).permute(0, 3, 1, 2, 4)
             return p.reshape(B * nh, T, -1, ch).contiguous()
 
-        frame_select = torch.as_tensor(static_sel, device=q.device)[None]
+        frame_select = torch.as_tensor(static_sel, device=q.device)
+        frame_select = frame_select.expand(B, T)          # K5's (B, T)
         if frame_valid is not None:
-            frame_select = frame_select & frame_valid.to(q.device)[None]
+            frame_select = frame_select & frame_valid.to(q.device).expand(
+                B, T)
         out = sparse_window_attention(
             bh(windows(q)), bh(windows(k)), bh(windows(v)), rolled(k),
             rolled(v), pool_bh(pool_k), pool_bh(pool_v), self.roll_valid,
-            occ, frame_select.expand(B, T), nh)
+            occ, frame_select, nh)
         return out.reshape(B, nh, *out.shape[1:]).transpose(1, 2)
 
 
@@ -610,8 +612,9 @@ class InpaintGenerator(nn.Module):
                 num_local_frames: int, t_dilation: int = 2, frame_valid=None):
         """masked_frames (B, T, H, W, 3) in [-1, 1]; completed_flows
         (flows_f, flows_b) each (B, l_t-1, H, W, 2); masks_in / masks_updated
-        (B, T, H, W, 1); frame_valid (T,) bool or None (False = padded
-        reference frame). Returns (B, l_t, H, W, 3) in [-1, 1]."""
+        (B, T, H, W, 1); frame_valid (T,) or (B, T) bool or None (False =
+        padded reference frame, per batch row when (B, T)). Returns (B,
+        l_t, H, W, 3) in [-1, 1]."""
         l_t = num_local_frames
         B, T, H, W, _ = masked_frames.shape
         enc_in = torch.cat([masked_frames, masks_in, masks_updated], dim=-1)

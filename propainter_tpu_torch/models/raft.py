@@ -9,8 +9,8 @@ as (dx, dy).
 Numerics follow the JAX package: one-pass InstanceNorm in the feature
 encoder, the convex-upsample mask head applied once to the final hidden
 state (the reference computes it every iteration and uses only the last),
-and the correlation lookup fused with convc1 (kernel K1, over a pyramid
-built by K2).
+and, in the default `corr_layout="flat"`, the correlation lookup fused
+with convc1 (kernel K1, over a pyramid built by K2).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import torch.nn.functional as F
 
 from propainter_tpu_torch.models.layers import (
     FrozenBatchNorm, GemmConv2d, InstanceNorm, conv2d)
-from propainter_tpu_torch.ops.corr import corr_lookup_moenc, corr_pyramid
+from propainter_tpu_torch.ops.corr import (
+    corr_lookup, corr_lookup_moenc, corr_pyramid)
 from propainter_tpu_torch.ops.warp import coords_grid
 
 
@@ -83,8 +84,10 @@ class BasicEncoder(nn.Module):
 
 
 class BasicMotionEncoder(nn.Module):
-    """Reference RAFT/update.py:79-97, with the correlation lookup and
-    convc1 + relu fused (K1): the (N, 324) window tensor is never stored."""
+    """Reference RAFT/update.py:79-97. Given the pyramid and coords, the
+    correlation lookup and convc1 + relu run fused (K1) and the (N, 324)
+    window tensor is never stored; given precomputed windows (K7's), convc1
+    is one `addmm` over them, then relu."""
 
     def __init__(self, corr_levels: int = 4, corr_radius: int = 4):
         super().__init__()
@@ -96,11 +99,18 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = conv2d(128, 64, 3, 1, 1)
         self.conv = GemmConv2d(64 + 192, 128 - 2, 3, 1)
 
-    def forward(self, flow, pyramid, coords):
-        """flow (B, 2, h, w); pyramid levels (B*h*w, ., .); coords NHWC."""
+    def forward(self, flow, pyramid=None, coords=None, windows=None):
+        """flow (B, 2, h, w); pyramid levels (B*h*w, ., .) and coords NHWC,
+        or windows (B, h, w, 324) NHWC."""
         w = self.convc1.weight.view(self.convc1.out_channels, -1)
-        cor = corr_lookup_moenc(pyramid, coords, w.t().contiguous(),
-                                self.convc1.bias, self.radius)
+        if windows is None:
+            cor = corr_lookup_moenc(pyramid, coords, w.t().contiguous(),
+                                    self.convc1.bias, self.radius)
+        else:
+            B, h, w_, C = windows.shape
+            cor = torch.relu(torch.addmm(self.convc1.bias,
+                                         windows.reshape(-1, C), w.t()))
+            cor = cor.reshape(B, h, w_, -1)
         cor = F.relu(self.convc2(cor.permute(0, 3, 1, 2)))
         flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
         out = F.relu(self.conv(torch.cat([cor, flo], dim=1)))
@@ -154,8 +164,9 @@ class BasicUpdateBlock(nn.Module):
                                   nn.ReLU(inplace=True),
                                   conv2d(256, 64 * 9, 1, 1, 0))
 
-    def forward(self, net, inp, flow, pyramid, coords):
-        motion = self.encoder(flow, pyramid, coords)
+    def forward(self, net, inp, flow, pyramid=None, coords=None,
+                windows=None):
+        motion = self.encoder(flow, pyramid, coords, windows)
         net = self.gru(net, torch.cat([inp, motion], dim=1))
         return net, self.flow_head(net)
 
@@ -174,10 +185,22 @@ def upsample_flow_convex(flow, mask):
 
 
 class RAFT(nn.Module):
-    """RAFT-big: hidden = context = 128, 4 levels, radius 4."""
+    """RAFT-big: hidden = context = 128, 4 levels, radius 4.
 
-    def __init__(self):
+    corr_layout: the form of the correlation lookup in each iteration.
+      'flat'    (default) — the lookup with convc1 + relu fused (K1).
+      'batched' — the (B, h, w, 324) windows (K7), then convc1 as one
+                  `addmm` and relu: the JAX RAFT's `corr_layout="batched"`
+                  (`propainter_tpu/models/raft.py:273-278`), which its
+                  pipeline picks under `shard_inference`. Here the name
+                  selects the lookup's form only: both read the same
+                  pyramid. Not part of the state dict."""
+
+    CORR_LAYOUTS = ("flat", "batched")
+
+    def __init__(self, corr_layout: str = "flat"):
         super().__init__()
+        self.corr_layout = corr_layout
         self.hidden_dim = 128
         self.context_dim = 128
         self.corr_levels = 4
@@ -202,10 +225,18 @@ class RAFT(nn.Module):
         B, _, h, w = net.shape
         coords0 = coords_grid(B, h, w, device=net.device)
         coords1 = coords0.clone()
+        if self.corr_layout not in self.CORR_LAYOUTS:
+            raise ValueError(f"corr_layout must be one of "
+                             f"{self.CORR_LAYOUTS}, got {self.corr_layout!r}")
         for _ in range(iters):
             flow = (coords1 - coords0).permute(0, 3, 1, 2)
-            net, delta = self.update_block(net, inp, flow, pyramid,
-                                           coords1.contiguous())
+            coords = coords1.contiguous()
+            if self.corr_layout == "batched":
+                net, delta = self.update_block(
+                    net, inp, flow, windows=corr_lookup(pyramid, coords))
+            else:
+                net, delta = self.update_block(net, inp, flow, pyramid,
+                                               coords)
             coords1 = coords1 + delta.permute(0, 2, 3, 1)
         up_mask = 0.25 * self.update_block.mask(net)
         flow_low = (coords1 - coords0).permute(0, 3, 1, 2)

@@ -123,10 +123,10 @@ def sparse_window_attention(win_q, win_k, win_v, roll_k, roll_v, pool_k,
     out = torch.empty_like(win_q)
     fn = _build.function("sparse_window_attention", "sparse_window_attention",
                          11, 6, 1)
-    _build.check(fn(*[t.data_ptr() for t in tensors], valid.data_ptr(),
-                    occ.data_ptr(), fsel.data_ptr(), out.data_ptr(), BH,
-                    n_head, nW, T, win, P, 1.0 / math.sqrt(ch),
-                    _build.stream_of(win_q)), "sparse_window_attention")
+    _build.launch(fn, "sparse_window_attention", win_q,
+                  *[t.data_ptr() for t in tensors], valid.data_ptr(),
+                  occ.data_ptr(), fsel.data_ptr(), out.data_ptr(), BH,
+                  n_head, nW, T, win, P, 1.0 / math.sqrt(ch))
     sparse_window_attention.launches += 1
     return out
 

@@ -1,5 +1,6 @@
-"""RAFT all-pairs correlation: pyramid build (kernel K2) and the radius-r
-window lookup fused with the motion encoder's convc1 (kernel K1).
+"""RAFT all-pairs correlation: pyramid build (kernel K2), the radius-r
+window lookup (kernel K7) and the same lookup fused with the motion
+encoder's convc1 (kernel K1).
 
 Counterpart of `propainter_tpu/ops/corr.py` + `ops/corr_pallas.py`.
 Pyramid levels are stored per query row: level l is (B*H*W, H/2^l, W/2^l)
@@ -67,9 +68,8 @@ def corr_pyramid_build(level0, num_levels: int = 4):
     outs = [torch.empty((N, h, w), dtype=torch.float32, device=level0.device)
             for h, w in sizes[1:]]
     fn = _build.function("corr_pyramid_build", "corr_pyramid_build", 4, 3)
-    _build.check(fn(level0.data_ptr(), *[o.data_ptr() for o in outs],
-                    N, H, W, _build.stream_of(level0)),
-                 "corr_pyramid_build")
+    _build.launch(fn, "corr_pyramid_build", level0, level0.data_ptr(),
+                  *[o.data_ptr() for o in outs], N, H, W)
     corr_pyramid_build.launches += 1
     return [level0] + outs
 
@@ -77,11 +77,7 @@ def corr_pyramid_build(level0, num_levels: int = 4):
 corr_pyramid_build.launches = 0
 
 
-def corr_lookup(pyramid, coords, radius: int = 4):
-    """Bilinear (2r+1)^2 window lookup at each level, zeros outside.
-
-    pyramid: levels (B*H*W, Hl, Wl); coords (B, H, W, 2) pixel (x, y).
-    Returns (B, H, W, levels*(2r+1)^2) fp32, x-major window channels."""
+def _corr_lookup_plain(pyramid, coords, radius: int = 4):
     B, H, W, _ = coords.shape
     N = B * H * W
     r = radius
@@ -114,8 +110,49 @@ def corr_lookup(pyramid, coords, radius: int = 4):
     return torch.cat(outs, dim=-1).reshape(B, H, W, -1)
 
 
+def corr_lookup(pyramid, coords, radius: int = 4):
+    """Bilinear (2r+1)^2 window lookup at each level, zeros outside.
+
+    pyramid: levels (B*H*W, Hl, Wl); coords (B, H, W, 2) pixel (x, y).
+    Returns (B, H, W, levels*(2r+1)^2) fp32, x-major window channels.
+
+    Kernel K7 (`csrc/corr_lookup.cu`) replaces
+    `propainter_tpu/ops/corr_pallas.py:_lookup_kernel` as
+    `corr_lookup_fused` calls it without the convc1 epilogue (the JAX
+    RAFT's `corr_layout="batched"`). One warp per query gathers each
+    level's 10 x 10 integer window once and lerps it (rows, then columns,
+    as here, with no FMA contraction) into the level's 81 values, which
+    leave as contiguous 128-bit stores. Bound: bytes (the 324 outputs of
+    each query, 50 MB per RAFT iteration at 432x240, and the in-range
+    taps it reads)."""
+    if coords.device.type == "cpu":
+        return _corr_lookup_plain(pyramid, coords, radius)
+    _build.require_cuda(coords, *pyramid)
+    B, H, W, _ = coords.shape
+    N = B * H * W
+    if radius != 4 or len(pyramid) != 4:
+        raise ValueError("K7 takes radius 4 and 4 levels")
+    tensors = (*pyramid, coords)
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           for t in tensors):
+        raise ValueError("K7 inputs must be contiguous float32")
+    if any(p.shape[0] != N for p in pyramid):
+        raise ValueError("pyramid rows must equal the number of queries")
+    out = torch.empty((B, H, W, 324), dtype=torch.float32,
+                      device=coords.device)
+    dims = [d for p in pyramid for d in p.shape[1:]]
+    fn = _build.function("corr_lookup", "corr_lookup", 6, 9)
+    _build.launch(fn, "corr_lookup", coords,
+                  *[t.data_ptr() for t in tensors], out.data_ptr(), N, *dims)
+    corr_lookup.launches += 1
+    return out
+
+
+corr_lookup.launches = 0
+
+
 def _corr_lookup_moenc_plain(pyramid, coords, weight, bias, radius):
-    corr = corr_lookup(pyramid, coords, radius)
+    corr = _corr_lookup_plain(pyramid, coords, radius)
     B, H, W, C = corr.shape
     out = torch.addmm(bias, corr.reshape(-1, C), weight)
     return torch.relu(out).reshape(B, H, W, -1)
@@ -158,8 +195,8 @@ def corr_lookup_moenc(pyramid, coords, weight, bias, radius: int = 4):
     out = torch.empty((B, H, W, Fo), dtype=torch.float32, device=coords.device)
     dims = [d for p in pyramid for d in p.shape[1:]]
     fn = _build.function("corr_lookup_moenc", "corr_lookup_moenc", 8, 9)
-    _build.check(fn(*[t.data_ptr() for t in tensors], out.data_ptr(), N,
-                    *dims, _build.stream_of(coords)), "corr_lookup_moenc")
+    _build.launch(fn, "corr_lookup_moenc", coords,
+                  *[t.data_ptr() for t in tensors], out.data_ptr(), N, *dims)
     corr_lookup_moenc.launches += 1
     return out
 

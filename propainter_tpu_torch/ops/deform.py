@@ -194,9 +194,9 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None, split=None):
     _check_kernel_inputs("K3", tensors)
     out = torch.empty((B, H, W, O), dtype=torch.float32, device=x.device)
     fn = _build.function("deform_conv", "modulated_deform_conv2d", 6, 6)
-    _build.check(fn(*[t.data_ptr() for t in tensors], out.data_ptr(),
-                    B, H, W, C, dg, split, _build.stream_of(x)),
-                 "modulated_deform_conv2d")
+    _build.launch(fn, "modulated_deform_conv2d", x,
+                  *[t.data_ptr() for t in tensors], out.data_ptr(), B, H, W,
+                  C, dg, split)
     modulated_deform_conv2d.launches += 1
     return out
 
@@ -237,9 +237,8 @@ def deform_sample(x, sy, sx, mask, dg: int):
     out = torch.empty((B, Ho, Wo, dg, K, C // dg), dtype=torch.float32,
                       device=x.device)
     fn = _build.function("deform_conv", "deform_sample", 5, 8)
-    _build.check(fn(*[t.data_ptr() for t in tensors], out.data_ptr(),
-                    B, H, W, C, Ho, Wo, dg, K, _build.stream_of(x)),
-                 "deform_sample")
+    _build.launch(fn, "deform_sample", x, *[t.data_ptr() for t in tensors],
+                  out.data_ptr(), B, H, W, C, Ho, Wo, dg, K)
     deform_sample.launches += 1
     return out
 

@@ -53,9 +53,9 @@ def flash_window_attention(q, k, v, key_bias, scale: float):
     out = torch.empty_like(q)
     fn = _build.function("window_attention", "window_attention", 5, 4, 1)
     bias_ptr = None if key_bias is None else key_bias.data_ptr()
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-                    out.data_ptr(), B * G, G, Tq, Tk, float(scale),
-                    _build.stream_of(q)), "window_attention")
+    _build.launch(fn, "window_attention", q, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), bias_ptr, out.data_ptr(), B * G, G, Tq, Tk,
+                  float(scale))
     flash_window_attention.launches += 1
     return out
 

@@ -5,12 +5,18 @@ Counterpart of `propainter_tpu/pipeline.py`.
   stage 2  flow completion, chunked by subvideo_length with 5-frame overlap;
   stage 3  image propagation, chunked with 10-frame overlap;
   stage 4  sliding-window generation with capped, padded global reference
-           frames and sequential uint8 compositing.
+           frames and sequential uint8 compositing; consecutive windows of
+           equal length run `window_batch` at a time.
+
+`shard_inference` is the JAX package's multi-device layout: RAFT in the
+'batched' corr layout and, over a mesh of more than one device
+(`parallel.make_mesh`), RAFT's frames and pairs, stage 2-3 chunks and
+stage-4 window batches split across it.
 
 The JAX package's TPU scheduling tricks (occupancy bucketing, encoder
-overlap carry, reference-token precompute, last-block query shrink, window
-batching) are not ported: its tests pin each bit-exact to the plain
-schedule, which is what runs here.
+overlap carry, reference-token precompute, last-block query shrink) are
+not ported: its tests pin each bit-exact to the plain schedule, which is
+what runs here.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from propainter_tpu_torch.device import resolve_device
 from propainter_tpu_torch.models.flow_completion import (
     combine_flow, forward_bidirect_flow)
 from propainter_tpu_torch.models.propainter import image_propagation
+from propainter_tpu_torch.parallel import (
+    canonical_device, make_mesh, map_shards, replicate)
 
 
 def get_short_clip_len(width: int) -> int:
@@ -93,6 +101,19 @@ class PipelineConfig:
     # takes each window's branch); the pipeline sets it on its generator
     # when it is built
     attention_impl: str = "flash"
+    # stage-4 windows of equal length run this many at a time as one
+    # batched generator call; a tail batch is padded by repeating its
+    # windows with weight 0, which the compositing skips. The JAX package
+    # measured it slower than one window at a time on one chip; it is the
+    # unit of multi-device splitting (over a mesh of more than one device,
+    # 1 means the mesh size)
+    window_batch: int = 1
+    # the JAX package's multi-device inference layout: RAFT's lookup in the
+    # 'batched' form (kernel K7, then convc1 as one matrix product) and,
+    # over a mesh of more than one device, RAFT's frames and pairs, stage
+    # 2-3 chunks (equal_chunk_schedule) and stage-4 window batches split
+    # across it
+    shard_inference: bool = False
 
 
 @contextlib.contextmanager
@@ -116,24 +137,60 @@ class ProPainterPipeline:
     raft / flowcomp / inpaint: `RAFT`, `RecurrentFlowCompleteNet`,
     `InpaintGenerator` modules with their weights loaded. They are moved to
     `device` (None = the GPU; without one this raises) and set to eval;
-    the generator is switched to the config's `attention_impl` (a
-    generator shared by two pipelines runs the later one's form)."""
+    the generator is switched to the config's `attention_impl` and RAFT to
+    the corr layout of `shard_inference` (a module shared by two pipelines
+    runs the later one's form).
+
+    mesh: the devices `shard_inference` splits over (`parallel.make_mesh`;
+    None = every visible GPU, or the CPU once when `device` is the CPU).
+    Each distinct device holds a replica of the models; with one device
+    nothing is split."""
 
     def __init__(self, raft, flowcomp, inpaint,
-                 config: PipelineConfig | None = None, *, device=None):
+                 config: PipelineConfig | None = None, *, device=None,
+                 mesh=None):
         self.config = config or PipelineConfig()
         if self.config.precision != "fp32":
             raise NotImplementedError(
                 f"precision={self.config.precision!r}: only fp32 is ported")
         inpaint.set_attention_impl(self.config.attention_impl)
-        self.device = resolve_device(device)
+        raft.corr_layout = ("batched" if self.config.shard_inference
+                            else "flat")
+        self.device = canonical_device(resolve_device(device))
+        if not self.config.shard_inference:
+            if mesh is not None:
+                raise ValueError("a mesh is used only with shard_inference")
+            mesh = [self.device]
+        elif mesh is None:
+            mesh = make_mesh(device=self.device)
+        self.mesh = [canonical_device(d) for d in mesh]
+        if any(d.type != self.device.type for d in self.mesh):
+            raise ValueError(f"mesh {self.mesh} is not on {self.device.type}")
+        self._window_batch = max(1, self.config.window_batch)
+        if len(self.mesh) > 1 and self.config.window_batch == 1:
+            # windows are the unit of multi-device splitting: one a device
+            self._window_batch = len(self.mesh)
         self.raft = raft.to(self.device).eval()
         self.flowcomp = flowcomp.to(self.device).eval()
         self.inpaint = inpaint.to(self.device).eval()
+        self._replicas = {name: replicate(getattr(self, name), self.mesh)
+                          for name in ("raft", "flowcomp", "inpaint")}
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self.mesh) | {self.device}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _sharded(self, model, fn, *tensors):
+        """fn(replica of `model` (a name) or None, *tensors) -> a tuple of
+        tensors, with the tensors' leading axis split over the mesh when it
+        has more than one device (`parallel.map_shards`, gathered on the
+        pipeline's device), else one call on the pipeline's own module."""
+        if len(self.mesh) == 1:
+            return fn(None if model is None else getattr(self, model),
+                      *tensors)
+        return map_shards(fn, self.mesh, tensors, self.device,
+                          None if model is None else self._replicas[model])
 
     # ---- stages ----------------------------------------------------------
 
@@ -143,16 +200,18 @@ class ProPainterPipeline:
         (t, t+1) and backward pairs (t+1, t) refine in one batch."""
         B, T, H, W, C = frames.shape
         flat = frames.reshape(B * T, H, W, C).permute(0, 3, 1, 2)
-        fmap, net, inp = self.raft.encode(flat)
+        fmap, net, inp = self._sharded("raft", lambda m, x: m.encode(x),
+                                       flat)
 
         def pairs(x):
             x = x.reshape(B, T, *x.shape[1:])
             return (x[:, :-1].flatten(0, 1), x[:, 1:].flatten(0, 1))
 
         (f1, f2), (n1, n2), (i1, i2) = pairs(fmap), pairs(net), pairs(inp)
-        _, flow = self.raft.refine(torch.cat([f1, f2]), torch.cat([f2, f1]),
-                                   torch.cat([n1, n2]), torch.cat([i1, i2]),
-                                   iters)
+        (flow,) = self._sharded(
+            "raft", lambda m, *a: m.refine(*a, iters)[1:],
+            torch.cat([f1, f2]), torch.cat([f2, f1]), torch.cat([n1, n2]),
+            torch.cat([i1, i2]))
         flow = flow.permute(0, 2, 3, 1)
         n = B * (T - 1)
         return (flow[:n].reshape(B, T - 1, H, W, 2),
@@ -174,17 +233,59 @@ class ProPainterPipeline:
             bs.append(fb)
         return torch.cat(fs, dim=1), torch.cat(bs, dim=1)
 
-    def _complete_flow(self, flows_f, flows_b, flow_masks):
+    def _complete_flow(self, flows_f, flows_b, flow_masks, flowcomp=None):
         flows = (flows_f, flows_b)
-        pred = forward_bidirect_flow(self.flowcomp, flows, flow_masks)
+        pred = forward_bidirect_flow(flowcomp or self.flowcomp, flows,
+                                     flow_masks)
         return combine_flow(flows, pred, flow_masks)
+
+    # ---- multi-device chunk splitting (stages 2 and 3) -------------------
+
+    def _complete_flow_batched(self, chunks):
+        cat = [torch.cat([c[i] for c in chunks]) for i in range(3)]
+        return self._sharded(
+            "flowcomp", lambda m, *a: self._complete_flow(*a, m), *cat)
+
+    def _img_prop_batched(self, chunks):
+        cat = [torch.cat([c[i] for c in chunks]) for i in range(4)]
+        return self._sharded(None, lambda _, *a: self._img_prop(*a), *cat)
+
+    def _sharded_chunks(self, batched_call, length: int, pad: int,
+                        slice_fn):
+        """Run a chunked stage as one batched call over equal-length chunks
+        (`equal_chunk_schedule`), the chunk axis split over the mesh; the
+        chunks are independent up to the pad-frame overlap trim (reference
+        inference_propainter.py:341-404). Returns None when the video is
+        too short to split, and the caller runs the sequential schedule.
+
+        Quality guard: every chunk keeps at least subvideo_length frames
+        of context (the recurrent nets degrade on shorter clips), so the
+        video must hold that many chunks, in multiples of the mesh size."""
+        n_dev = len(self.mesh)
+        n_chunks = (length // self.config.subvideo_length) // n_dev * n_dev
+        sched = equal_chunk_schedule(length, n_chunks, pad)
+        if sched is None:
+            return None
+        outs = batched_call([slice_fn(s, e) for s, e, _, _ in sched])
+        pieces = [tuple(x[i:i + 1, os - s:oe - s] for x in outs)
+                  for i, (s, e, os, oe) in enumerate(sched) if oe > os]
+        return tuple(torch.cat(xs, dim=1) for xs in zip(*pieces))
 
     def complete_flows(self, gt_flows_bi, flow_masks):
         """Stage 2: chunked flow completion with 5-frame overlap trim.
-        Reference inference_propainter.py:341-368."""
+        Reference inference_propainter.py:341-368. Over a mesh of more than
+        one device, equal chunks split across it when the video is long
+        enough (`_sharded_chunks`)."""
         flows_f, flows_b = gt_flows_bi
         n = flows_f.shape[1]
         sub = self.config.subvideo_length
+        if len(self.mesh) > 1:
+            out = self._sharded_chunks(
+                self._complete_flow_batched, n, 5,
+                lambda s, e: (flows_f[:, s:e], flows_b[:, s:e],
+                              flow_masks[:, s:e + 1]))
+            if out is not None:
+                return out
         if n <= sub:
             return self._complete_flow(flows_f, flows_b, flow_masks)
         pred_f, pred_b = [], []
@@ -205,10 +306,18 @@ class ProPainterPipeline:
 
     def propagate_images(self, frames, pred_flows_bi, masks_dilated):
         """Stage 3: chunked image propagation with 10-frame overlap trim.
-        Reference inference_propainter.py:371-404."""
+        Reference inference_propainter.py:371-404. Split over a mesh as
+        stage 2 is."""
         T = frames.shape[1]
         sub = min(100, self.config.subvideo_length)
         flows_f, flows_b = pred_flows_bi
+        if len(self.mesh) > 1:
+            out = self._sharded_chunks(
+                self._img_prop_batched, T, 10,
+                lambda s, e: (frames[:, s:e], flows_f[:, s:e - 1],
+                              flows_b[:, s:e - 1], masks_dilated[:, s:e]))
+            if out is not None:
+                return out
         if T <= sub:
             return self._img_prop(frames, flows_f, flows_b, masks_dilated)
         upd_frames, upd_masks = [], []
@@ -234,6 +343,11 @@ class ProPainterPipeline:
             comp = img                     on a frame's first visit
             comp = floor(comp/2 + img/2)   on each revisit
 
+        Consecutive windows of equal length run `window_batch` at a time
+        as one generator call with a (batch, frames) frame_valid, the batch
+        split over the mesh; a tail batch is padded by repeating its
+        windows with weight 0, and the compositing skips them.
+
         ori_frames: (T, H, W, 3) uint8 tensor on the device. Returns
         (T, H, W, 3) uint8 on the device."""
         cfg = self.config
@@ -244,34 +358,51 @@ class ProPainterPipeline:
         # every window gets the same number of reference slots; unused ones
         # repeat a real reference and are masked out by frame_valid
         ref_pad = max(1, -(-min(T, cfg.subvideo_length) // cfg.ref_stride))
-        flows_f, flows_b = pred_flows_bi
+        runs = []   # consecutive windows of equal length: [(nb, ids, valid)]
+        for f in range(0, T, stride):
+            nb = list(range(max(0, f - stride), min(T, f + stride + 1)))
+            refs = get_ref_index(f, nb, T, cfg.ref_stride, ref_num)[:ref_pad]
+            pad_id = refs[0] if refs else nb[0]
+            window = (nb, nb + refs + [pad_id] * (ref_pad - len(refs)),
+                      [True] * (len(nb) + len(refs))
+                      + [False] * (ref_pad - len(refs)))
+            if runs and len(runs[-1][0][0]) == len(nb):
+                runs[-1].append(window)
+            else:
+                runs.append([window])
+        uf, md, um = (x[0] for x in (updated_frames, masks_dilated,
+                                     updated_masks))
+        ff, fb = (x[0] for x in pred_flows_bi)
         comp = torch.zeros((T, H, W, 3), dtype=torch.float32,
                            device=self.device)
         visited = torch.zeros(T, dtype=torch.bool)
         ori = ori_frames.float()
-        masks_bin = masks_dilated[0]
-        for f in range(0, T, stride):
-            nb = list(range(max(0, f - stride), min(T, f + stride + 1)))
-            refs = get_ref_index(f, nb, T, cfg.ref_stride, ref_num)[:ref_pad]
-            l_t = len(nb)
-            pad_id = refs[0] if refs else nb[0]
-            ids = nb + refs + [pad_id] * (ref_pad - len(refs))
-            valid = torch.zeros(l_t + ref_pad, dtype=torch.bool)
-            valid[:l_t + len(refs)] = True
-            idx = torch.as_tensor(ids, device=self.device)
-            pred = self.inpaint(
-                updated_frames[:, idx], (flows_f[:, nb[:-1]],
-                                         flows_b[:, nb[:-1]]),
-                masks_dilated[:, idx], updated_masks[:, idx], l_t,
-                frame_valid=valid.to(self.device))[0]
-            img8 = torch.floor((pred + 1.0) / 2.0 * 255.0).clamp(0.0, 255.0)
-            for j, t in enumerate(nb):
-                m = masks_bin[t]
-                img = img8[j] * m + ori[t] * (1.0 - m)
-                if visited[t]:
-                    img = torch.floor(0.5 * comp[t] + 0.5 * img)
-                comp[t] = img
-                visited[t] = True
+        wb = self._window_batch
+        for run in runs:
+            l_t = len(run[0][0])
+            for start in range(0, len(run), wb):
+                batch = run[start:start + wb]
+                n_real = len(batch)
+                batch = (batch * wb)[:wb]   # tail: repeats of weight 0
+                idx = torch.as_tensor([w[1] for w in batch],
+                                      device=self.device)
+                valid = torch.as_tensor([w[2] for w in batch],
+                                        device=self.device)
+                (pred,) = self._sharded(
+                    "inpaint", lambda m, x, f_, b_, mi, mu, fv: (m(
+                        x, (f_, b_), mi, mu, l_t, frame_valid=fv),),
+                    uf[idx], ff[idx[:, :l_t - 1]], fb[idx[:, :l_t - 1]],
+                    md[idx], um[idx], valid)
+                img8 = torch.floor((pred + 1.0) / 2.0 * 255.0).clamp(0.0,
+                                                                     255.0)
+                for w in range(n_real):
+                    for j, t in enumerate(batch[w][0]):
+                        m = md[t]
+                        img = img8[w, j] * m + ori[t] * (1.0 - m)
+                        if visited[t]:
+                            img = torch.floor(0.5 * comp[t] + 0.5 * img)
+                        comp[t] = img
+                        visited[t] = True
         return comp.to(torch.uint8)
 
     # ---- whole pipeline --------------------------------------------------

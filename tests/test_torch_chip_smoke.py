@@ -1,10 +1,12 @@
 """The pieces of `chip_smoke.py` that run without a GPU: the build phase's
-readers of the compiler's and the disassembler's output and its grids, and
-the tensor-core kernels' bounds."""
+readers of the compiler's and the disassembler's output and its grids, the
+kernels' bounds, and the main path's expected launch counts."""
 
 import math
+from types import SimpleNamespace
 
 import chip_smoke
+from propainter_tpu_torch.pipeline import PipelineConfig
 
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
@@ -112,3 +114,25 @@ def test_tensor_core_launch_grids():
         ("sparse_window_attention_kernel", "main path"): 14 * 2 * 64,
         ("deform_conv_kernel", "generator"): 102 * 2,
         ("deform_conv_kernel", "flow completion"): 51 * 4}
+
+
+def test_corr_lookup_bound_at_the_main_path_shape():
+    """K7 at one RAFT iteration with every tap in range: 324 outputs, 400
+    taps and 2 coordinates of 4 bytes per query, 112.9 MB at 3.35 TB/s
+    (0.0337 ms), above its lerps on CUDA cores."""
+    n_q = chip_smoke.K1_QUERIES
+    ms, by = chip_smoke._bound(4 * n_q * (324 + 400 + 2), n_q * 324 * 7)
+    assert by == "bytes"
+    assert math.isclose(ms, 0.0337, rel_tol=1e-3)
+
+
+def test_main_path_launch_counts():
+    """80 frames of 432 x 240: 7 RAFT chunks of 20 iterations (140 lookups,
+    K1's or K7's); 16 generator windows (lengths 6, 11 x 14, 10), in 6
+    batches at window_batch 4 (1 + 4 + 1) and 16 at 1."""
+    frames = SimpleNamespace(shape=(80, 240, 432, 3))
+    pipe = SimpleNamespace(config=PipelineConfig(), _window_batch=1)
+    assert chip_smoke._raft_launches(pipe, frames) == 140
+    assert chip_smoke._window_batches(80, pipe) == 16
+    pipe._window_batch = 4
+    assert chip_smoke._window_batches(80, pipe) == 6

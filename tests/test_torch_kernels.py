@@ -16,7 +16,8 @@ import jax
 
 from propainter_tpu.ops.attention import sparse_window_attention_pallas
 from propainter_tpu.ops.corr import corr_pyramid as jax_corr_pyramid
-from propainter_tpu.ops.corr_pallas import corr_lookup_flat, corr_pyramid_flat
+from propainter_tpu.ops.corr_pallas import (
+    corr_lookup_flat, corr_lookup_fused, corr_pyramid_flat, corr_pyramid_t)
 from propainter_tpu.ops.deform import (
     split_offset_mask_channels as jax_split_offset_mask)
 from propainter_tpu.ops import deform_pallas
@@ -139,6 +140,22 @@ def test_corr_lookup_moenc_plain_matches_jax_kernel():
         rtol=0, atol=3e-5)
     np.testing.assert_allclose(got.numpy().reshape(-1, 256), want, rtol=0,
                                atol=5e-5)
+
+
+def test_corr_lookup_plain_matches_jax_kernel():
+    """K7 against the TPU lookup kernel without the convc1 epilogue
+    (`corr_lookup_fused` over `corr_pyramid_t`, the pallas_call at
+    corr_pallas.py:363, in interpret mode) on a ragged 8 x 13 map (level 3
+    is 1 x 1) with coordinates up to 40 pixels outside it."""
+    f1, f2, coords, _, _ = _k1_case("far")
+    want = corr_lookup_fused(
+        corr_pyramid_t(jnp.asarray(f1), jnp.asarray(f2), 4),
+        jnp.asarray(coords), interpret=True)
+    pyr = corr.corr_pyramid(torch.from_numpy(f1), torch.from_numpy(f2), 4)
+    got = corr.corr_lookup(pyr, torch.from_numpy(coords))
+    assert got.shape == (1, 8, 13, 324)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=3e-5)
 
 
 def test_modulated_deform_conv2d_plain_matches_jax_kernel():
@@ -377,6 +394,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         corr.corr_lookup_moenc([t] * 4, t, t, t)
     with pytest.raises(ValueError):
+        corr.corr_lookup([t] * 4, t)
+    with pytest.raises(ValueError):
         corr.corr_pyramid_build(torch.empty((4, 8, 8), device="meta"))
     with pytest.raises(ValueError):
         deform.modulated_deform_conv2d(t, t, t, t, None)
@@ -441,6 +460,18 @@ def test_cuda_corr_lookup_moenc_kernel(cuda, case):
     pyr = corr.corr_pyramid(f1, f2, 4)
     got = corr.corr_lookup_moenc(pyr, coords, w, b)
     want = corr._corr_lookup_moenc_plain(pyr, coords, w, b, 4)
+    tol = _REL_TOL * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "far", "main_path"])
+def test_cuda_corr_lookup_kernel(cuda, case):
+    """K7 against its plain version on K1's cases."""
+    f1, f2, coords, _, _ = _to(cuda, *_k1_case(case))
+    pyr = corr.corr_pyramid(f1, f2, 4)
+    got = corr.corr_lookup(pyr, coords)
+    want = corr._corr_lookup_plain(pyr, coords)
     tol = _REL_TOL * max(1.0, want.abs().max().item())
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
 

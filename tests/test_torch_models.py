@@ -95,6 +95,25 @@ def test_raft_matches_jax():
                                atol=2e-5)
 
 
+def test_raft_batched_layout_matches_jax():
+    """corr_layout='batched': the windows (K7's plain version), then convc1
+    as one addmm, against the JAX RAFT built with corr_layout='batched'."""
+    tree = _fill(_raft_tree(), 0)
+    model = _load(RAFT(corr_layout="batched"), tree, RAFT_RENAMES)
+    rng = np.random.default_rng(6)
+    im1 = rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)
+    im2 = np.roll(im1, -2, axis=1)
+    j_low, j_up = JaxRAFT(corr_layout="batched").apply(
+        {"params": tree}, im1, im2, iters=3)
+    with torch.no_grad():
+        t_low, t_up = model(torch.from_numpy(im1), torch.from_numpy(im2),
+                            iters=3)
+    np.testing.assert_allclose(t_low.numpy(), np.asarray(j_low), rtol=0,
+                               atol=2e-5)
+    np.testing.assert_allclose(t_up.numpy(), np.asarray(j_up), rtol=0,
+                               atol=2e-5)
+
+
 def test_flow_completion_matches_jax():
     tree = _fill(_flowcomp_tree(), 2)
     model = _load(RecurrentFlowCompleteNet(), tree, FLOWCOMP_RENAMES)
@@ -127,6 +146,38 @@ def test_generator_matches_jax(attention_impl):
     m_upd = m_in.copy()
     m_upd[:, :, 25:35] = 0
     valid = np.array([True] * (T - 1) + [False])
+    want = JaxGenerator(depths=2, attention_impl=attention_impl).apply(
+        {"params": tree}, frames, (ff, fb), m_in, m_upd, l_t,
+        frame_valid=jnp.asarray(valid))
+    with torch.no_grad():
+        got = model(torch.from_numpy(frames),
+                    (torch.from_numpy(ff), torch.from_numpy(fb)),
+                    torch.from_numpy(m_in), torch.from_numpy(m_upd), l_t,
+                    frame_valid=torch.from_numpy(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("attention_impl", ["flash", "pallas"])
+def test_generator_batched_frame_valid_matches_jax(attention_impl):
+    """Two windows in one batch, as stage 4's window batching runs them,
+    each with its own (B, T) frame_valid row (one and two padded
+    reference frames) and its own masks."""
+    tree = _fill(_generator_tree(), 4)
+    model = _load(InpaintGenerator(depths=2, attention_impl=attention_impl),
+                  tree, INPAINT_RENAMES)
+    rng = np.random.default_rng(12)
+    B, T, l_t, H, W = 2, 5, 3, 64, 96
+    frames = rng.uniform(-1, 1, (B, T, H, W, 3)).astype(np.float32)
+    ff = rng.normal(0, 2, (B, l_t - 1, H, W, 2)).astype(np.float32)
+    fb = rng.normal(0, 2, (B, l_t - 1, H, W, 2)).astype(np.float32)
+    m_in = np.zeros((B, T, H, W, 1), np.float32)
+    m_in[0, :, 20:40, 30:60] = 1
+    m_in[1, :, 10:30, 50:90] = 1
+    m_upd = m_in.copy()
+    m_upd[:, :, 25:35] = 0
+    valid = np.array([[True] * (T - 1) + [False],
+                      [True] * (T - 2) + [False] * 2])
     want = JaxGenerator(depths=2, attention_impl=attention_impl).apply(
         {"params": tree}, frames, (ff, fb), m_in, m_upd, l_t,
         frame_valid=jnp.asarray(valid))

@@ -129,8 +129,8 @@ def test_mask_helpers_match():
 
 
 def test_port_imports_without_jax():
-    """The port and every module in it import with jax and the JAX package
-    unavailable."""
+    """The port and every module in it (`parallel/` among them) import with
+    jax and the JAX package unavailable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "propainter_tpu"):
@@ -144,6 +144,10 @@ def test_port_imports_without_jax():
                                       "propainter_tpu")
                and sys.modules[n] is not None]
         assert not bad, bad
+        # the multi-device helpers and the pipeline that uses them
+        for name in ("propainter_tpu_torch.parallel.mesh",
+                     "propainter_tpu_torch.pipeline"):
+            assert name in sys.modules, name
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -26,6 +26,7 @@ from propainter_tpu_torch.models.flow_completion import (
     RecurrentFlowCompleteNet)
 from propainter_tpu_torch.models.propainter import InpaintGenerator
 from propainter_tpu_torch.models.raft import RAFT
+from propainter_tpu_torch.parallel import make_mesh
 from propainter_tpu_torch.utils.masks import binary_dilation_cross
 from propainter_tpu_torch.weights import (
     FLOWCOMP_RENAMES, INPAINT_RENAMES, RAFT_RENAMES, state_dict_from_flax)
@@ -103,6 +104,37 @@ def test_golden_pipeline_output(attention_impl):
     assert diff.max() <= 2, (
         f"max|diff|={diff.max()} mean={diff.mean():.4f} at "
         f"{np.unravel_index(diff.argmax(), diff.shape)}")
+
+
+def test_golden_with_shard_inference():
+    """The golden reproduced by the shard_inference configuration with
+    window_batch 4 over a 2-device CPU mesh (`make_mesh(2, device="cpu")`).
+    Each of the golden's three windows has its own length, so every batch
+    is one real window and three of weight 0 (composited, they would move
+    the output), each batch split into two shards of two windows."""
+    mods = _golden_modules()
+    pipe = torch_pipeline.ProPainterPipeline(
+        mods["raft"], mods["flowcomp"], mods["inpaint"],
+        torch_pipeline.PipelineConfig(ref_stride=3, neighbor_length=4,
+                                      raft_iter=3, shard_inference=True,
+                                      window_batch=4),
+        device="cpu", mesh=make_mesh(2, device="cpu"))
+    batches = []
+    pipe.inpaint.register_forward_pre_hook(
+        lambda _, args, kw: batches.append((args[0].shape[0],
+                                            tuple(kw["frame_valid"].shape))),
+        with_kwargs=True)
+    frames, mask = _golden_inputs()
+    out = np.stack(pipe.inpaint_video(frames, mask, mask))
+    golden = np.load(GOLDEN)["out"]
+    assert out.shape == golden.shape and out.dtype == np.uint8
+    assert [b for b, _ in batches] == [2] * 6
+    assert [fv[0] for _, fv in batches] == [2] * 6
+    keep = mask == 0
+    np.testing.assert_array_equal(out[keep], frames[keep])
+    diff = np.abs(out.astype(int) - golden.astype(int))
+    assert diff.max() <= 2, (
+        f"max|diff|={diff.max()} mean={diff.mean():.4f}")
 
 
 def test_schedule_helpers_match_jax():
