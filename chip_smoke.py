@@ -26,32 +26,40 @@ Phases:
               ragged shapes (a partial query and key tile, a bias masking
               a whole key tile); K5 at three occupancies and both
               temporal-dilation parities, and A/B against K4 plus branch
-              B;
+              B; the bf16 forms of K1-K4 against their bf16 plain versions
+              (two bf16 steps of the output scale), beside the bf16
+              library routes (F.grid_sample + addmm for K1, SDPA for K4);
   deform_opt  K6's path: the differentiable deform dispatchers
               (`modulated_deform_conv2d_opt` through K6, `_opt2` through
               K3) forward and backward at both call sites' shapes; values
               and gradients against autograd of the plain version;
   pipeline    `ProPainterPipeline.inpaint_video` at 80 frames of 432x240,
-              fp32, full-width models with seeded random weights, in three
-              configurations on the same weights and clip: 'flash',
+              full-width models with seeded random weights, in four
+              configurations on the same weights and clip: fp32 'flash',
               'pallas', and shard_inference with window_batch 4 on the
-              card's one-device mesh; output shape/dtype, unmasked pixels
-              unchanged, every kernel of each path launched (K1 once per
-              RAFT iteration and K7 never, except under shard_inference,
-              the reverse; K5 once per transformer block and K4 never under
-              'pallas'), the outputs within 12 max / 0.5 mean LSB of
-              'flash';
+              card's one-device mesh, and bf16 'flash'; output
+              shape/dtype, unmasked pixels unchanged, every kernel of each
+              path launched (K1 once per RAFT iteration and K7 never,
+              except under shard_inference, the reverse; K5 once per
+              transformer block and K4 never under 'pallas'; in bf16 the
+              bf16 forms of K1-K4 as often as fp32 'flash' launches K1-K4,
+              and no fp32 form), the fp32 outputs within 12 max / 0.5 mean
+              LSB of 'flash' (bf16's difference reported, not gated);
   small       a 6-frame 144x160 clip on the GPU (kernels) and on the CPU
               (plain versions), fan-in scaled weights, in the three
               configurations ('flash' through `ProInpainter`): uint8
               outputs within 12 max / 0.5 mean LSB, a std of at least 10
               LSB inside the hole, and the float outputs of RAFT, flow
               completion and one generator window within 1e-3 of their
-              scale;
-  profile     (only when named) one main-path run under torch.profiler:
-              device time by kernel, the device's busy share, and host and
-              device time by op shape for one RAFT chunk and one generator
-              window.
+              scale; and the golden fixture's clip and schedule in bf16
+              on the GPU within 24 max / 1.0 mean LSB of fp32 on the CPU;
+  cli         the port's CLI on the fixture clip on the GPU, --weights
+              random --bf16 --save_frames (the CLI's I/O needs cv2);
+  profile     (only when named) the main path under torch.profiler in fp32
+              and bf16: device time by kernel, the device's busy share, and
+              host and device time by op shape for one RAFT chunk and one
+              generator window; the GemmConv2d layers against cuDNN in fp32
+              and bf16.
 
 Prints one line per kernel, then the `{"kernels": [...]}` JSON line, the
 `nvidia-smi` line, and as the last line
@@ -74,13 +82,15 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-PHASES = ("device", "build", "kernels", "deform_opt", "pipeline", "small")
+PHASES = ("device", "build", "kernels", "deform_opt", "pipeline", "small",
+          "cli")
 EXTRA_PHASES = ("profile",)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
 # dense TF32 on the tensor cores and HBM3 bandwidth — the denominators of
 # every bound_ms below.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # fp32 kernels against their fp32 plain versions: the differences are
 # summation order (up to 2304 terms in K3), the online softmax in K4 and
@@ -88,9 +98,19 @@ PEAK_BYTES_PER_S = 3.35e12
 # few ulp of the largest term; 1e-4 of the output scale leaves > 10x room (one
 # pass of TF32 would not: tests/test_torch_kernels.py).
 REL_TOL = 1e-4
+# bf16 kernels against their bf16 plain versions: both round at the same
+# points, so what differs is fp32 summation order, which can move a value
+# across a bf16 rounding boundary (one bf16 step, up to 2^-7 of a value),
+# twice where the output is rounded again (K3's bias add), and K4's
+# rounding of unnormalised probabilities: two bf16 steps of the output
+# scale.
+BF16_REL_TOL = 2.0 ** -6
 # GPU (kernels) vs CPU (plain) on the small clip, uint8 LSB: the fp32
 # tolerance of the JAX package's on-chip golden check.
 SMALL_MAX_LSB, SMALL_MEAN_LSB = 12, 0.5
+# bf16 against fp32 on the golden fixture's clip: the JAX package's bf16
+# golden gate (tools/tpu_golden_check.py:17-20)
+GOLDEN_BF16_MAX_LSB, GOLDEN_BF16_MEAN_LSB = 24, 1.0
 # least std (uint8 LSB) of the small clip's output inside the hole; the
 # fan-in scaled weights give ~30 on the CPU
 SMALL_MIN_HOLE_STD = 10.0
@@ -182,17 +202,31 @@ def _tensor_core_bounds(n_bytes: float, product_flops: float,
                 fp32_bound_by=fp32_by)
 
 
+def _bf16_bounds(n_bytes: float, product_flops: float,
+                 cuda_core_ops: float) -> dict:
+    """The bounds of a bf16 kernel: the larger of the bytes over the
+    memory rate and the operations (the products once at the bf16
+    tensor-core rate, or the rest on CUDA cores, whichever takes
+    longer)."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(product_flops / PEAK_BF16_FLOPS,
+                cuda_core_ops / PEAK_FP32_FLOPS) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_basis="bf16 tensor cores")
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
 
 
-def _compare(name, got, ref) -> float:
-    err = (got - ref).abs().max().item()
-    scale = max(1.0, ref.abs().max().item())
-    ok = err <= REL_TOL * scale
+def _compare(name, got, ref, rel_tol=REL_TOL) -> float:
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = max(1.0, ref.float().abs().max().item())
+    ok = err <= rel_tol * scale
     print(f"  {name}: max_abs_err={err:.3e} (tolerance "
-          f"{REL_TOL * scale:.3e}) {'ok' if ok else 'FAIL'}")
+          f"{rel_tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return err
@@ -235,6 +269,19 @@ def _tensor_core_launches(n_sm: int) -> list:
             "modulated_deform_conv2d_launch_info", (cg,),
             lambda info, n=n_pos, c=C: -(-n // info[3]) * deform.k3_split(
                 n, c, n_sm * info[0])))
+    # the bf16 forms: one block per row tile
+    launches += [
+        ("corr_lookup_moenc", "corr_lookup_moenc_bf16_kernel",
+         "bf16 main path", "corr_lookup_moenc_bf16_launch_info", (),
+         lambda info: -(-K1_QUERIES // info[3])),
+        ("window_attention", "window_attention_bf16_kernel",
+         "bf16 main path", "window_attention_bf16_launch_info", (),
+         attention_grid)]
+    for site, n_pos, C, cg in DEFORM_SITES:
+        launches.append((
+            "deform_conv", "deform_conv_bf16_kernel", f"{site}, bf16",
+            "modulated_deform_conv2d_bf16_launch_info", (cg,),
+            lambda info, n=n_pos: -(-n // info[3])))
     return launches
 
 
@@ -434,6 +481,7 @@ def phase_kernels(records: dict) -> None:
         **_tensor_core_bounds(_nbytes(q, k, v, kb, got),
                               Gp * 4 * Tq * Tk * ch, Gp * 5 * Tq * Tk))
     records["sparse_window_attention"] = _check_k5(randn)
+    records.update(_check_bf16(randn, level0))
     for r in records.values():
         for site, rr in (("", r), (" (flow completion)",
                                    r.get("flow_completion_site"))):
@@ -441,7 +489,8 @@ def phase_kernels(records: dict) -> None:
                 continue
             tc = (f" on tensor cores in 3xTF32, fp32 "
                   f"{rr['fp32_bound_ms']:.4f}" if "fp32_bound_ms" in rr
-                  else "")
+                  else " on bf16 tensor cores"
+                  if rr.get("bound_basis") == "bf16 tensor cores" else "")
             eager = (f", eager {rr['eager_ms']:.4f} ms" if "eager_ms" in rr
                      else "")
             print(f"  {r['name']}{site}: {rr['ms']:.4f} ms{eager} (plain "
@@ -453,7 +502,9 @@ def _lookup_library(pyr, coords):
     """The reference RAFT's route to K7's function (its `bilinear_sampler`),
     as one function of no arguments (its sampling grids prepared outside
     it): `F.grid_sample` of each level (align_corners=True, zeros outside)
-    at the 9 x 9 window, x offset major -> (N, 324)."""
+    at the 9 x 9 window, x offset major -> (N, 324). Over bf16 levels the
+    grids are bf16 too (`F.grid_sample` takes one dtype), so they sample
+    at other points than the lookup: a yardstick of time only."""
     import torch
     import torch.nn.functional as F
 
@@ -466,7 +517,7 @@ def _lookup_library(pyr, coords):
         gx = (c[:, 0, None, None] / 2 ** lvl + d[:, None]) * (2 / (Wl - 1))
         gy = (c[:, 1, None, None] / 2 ** lvl + d[None, :]) * (2 / (Hl - 1))
         grids.append(torch.stack([(gx - 1).expand(N, 9, 9),
-                                  (gy - 1).expand(N, 9, 9)], -1))
+                                  (gy - 1).expand(N, 9, 9)], -1).to(p.dtype))
         maps.append(p[:, None])
 
     def library():
@@ -480,7 +531,7 @@ def _lookup_library(pyr, coords):
 
 def _k1_library(pyr, coords, w, bias):
     """The reference RAFT's route to K1's function: `_lookup_library`, then
-    convc1 as one `addmm` and relu."""
+    convc1 as one `addmm` and relu (in bf16 over bf16 levels)."""
     import torch
 
     windows = _lookup_library(pyr, coords)
@@ -921,6 +972,159 @@ def _check_k5(randn) -> dict:
         max_abs_err=err, plain_ms=plain_ms, **smoke, occupancies=timing)
 
 
+def _check_bf16(randn, level0) -> dict:
+    """The bf16 forms of K2, K1, K3 and K4 at the main path's shapes
+    against their bf16 plain versions (BF16_REL_TOL), timed beside the
+    plain version and the bf16 library route (`_k1_library` over the bf16
+    levels for K1, F.scaled_dot_product_attention for K4); K1, K3 also at ragged,
+    far-off cases and K4 at ragged shapes, K3 at every group width."""
+    import torch
+    import torch.nn.functional as F
+    from propainter_tpu_torch.ops import corr, deform, flash_attention
+    from propainter_tpu_torch.ops.warp import coords_grid
+
+    bf = torch.bfloat16
+    records = {}
+    # ---- K2: one RAFT chunk's volume, every level stored in bf16
+    pyr = corr.corr_pyramid_build_bf16(level0, 4)
+    ref = corr._corr_pyramid_build_bf16_plain(level0, 4)
+    err = max(_compare(f"corr_pyramid_build_bf16 L{i}", a, b, BF16_REL_TOL)
+              for i, (a, b) in enumerate(zip(pyr, ref)))
+    ms = _time_ms(lambda: corr.corr_pyramid_build_bf16(level0, 4), 20)
+    plain_ms = _time_ms(
+        lambda: corr._corr_pyramid_build_bf16_plain(level0, 4), 20)
+    n_pool = sum(p.numel() for p in pyr[1:])
+    records["corr_pyramid_build_bf16"] = dict(
+        name="corr_pyramid_build_bf16", route="cuda",
+        source="propainter_tpu_torch/csrc/corr_pyramid_build.cu",
+        replaces="propainter_tpu/ops/corr_pallas.py:63",
+        shape=f"level0 {tuple(level0.shape)} -> bf16", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, library_ms=None,
+        **_bf16_bounds(_nbytes(level0, *pyr), 0, 4 * n_pool))
+
+    # ---- K1: one RAFT iteration over that pyramid
+    N, H8, W8 = pyr[0].shape
+    B = N // (H8 * W8)
+    coords = (coords_grid(B, H8, W8, device=level0.device)
+              + randn(B, H8, W8, 2, std=3.0)).contiguous()
+    w = randn(324, 256, std=0.02).to(bf)
+    bias = randn(256, std=0.02).to(bf)
+
+    def run_k1():
+        return corr.corr_lookup_moenc_bf16(pyr, coords, w, bias)
+
+    def plain_k1():
+        return corr._corr_lookup_moenc_bf16_plain(pyr, coords, w, bias, 4)
+
+    got = run_k1()
+    err = _compare("corr_lookup_moenc_bf16", got, plain_k1(), BF16_REL_TOL)
+    small, far = _far_off_case(randn)
+    small = [p.to(bf).contiguous() for p in small]
+    err = max(err, _compare(
+        "corr_lookup_moenc_bf16 maps 8 x 13, coordinates to 40 px outside",
+        corr.corr_lookup_moenc_bf16(small, far, w, bias),
+        corr._corr_lookup_moenc_bf16_plain(small, far, w, bias, 4),
+        BF16_REL_TOL))
+    library = _k1_library(pyr, coords, w, bias)
+    n_q = B * H8 * W8
+    records["corr_lookup_moenc_bf16"] = dict(
+        name="corr_lookup_moenc_bf16", route="cuda",
+        source="propainter_tpu_torch/csrc/corr_lookup_moenc.cu",
+        replaces="propainter_tpu/ops/corr_pallas.py:166",
+        shape=f"coords {tuple(coords.shape)}, bf16 levels", max_abs_err=err,
+        ms=_graph_ms(run_k1), eager_ms=_time_ms(run_k1, 50),
+        plain_ms=_time_ms(plain_k1, 5), library_ms=_graph_ms(library),
+        **_bf16_bounds(2 * _in_range_taps(pyr, coords)
+                       + _nbytes(coords, w, bias, got),
+                       n_q * 2 * 324 * 256, n_q * 324 * 10))
+
+    # ---- K3: both call sites, then ragged images at every group width
+    k3 = []
+    for Bd, Hd, Wd, C, dg, max_res in ((1, 60, 108, 128, 16, 3.0),
+                                       (2, 30, 54, 256, 16, 5.0)):
+        x, off, msk, wt, bs = (t.to(bf).contiguous() for t in _deform_inputs(
+            randn, Bd, Hd, Wd, C, dg, max_res))
+        shape = f"x {(Bd, Hd, Wd, C)} dg {dg}, bf16"
+
+        def run_k3():
+            return deform.modulated_deform_conv2d_bf16(x, off, msk, wt, bs)
+
+        def plain_k3():
+            return deform._modulated_deform_conv2d_bf16_plain(x, off, msk,
+                                                              wt, bs)
+
+        got = run_k3()
+        err = _compare(f"modulated_deform_conv2d_bf16 {shape}", got,
+                       plain_k3(), BF16_REL_TOL)
+        n_pos = Bd * Hd * Wd
+        k3.append(dict(shape=shape, max_abs_err=err, ms=_graph_ms(run_k3),
+                       eager_ms=_time_ms(run_k3, 50),
+                       plain_ms=_time_ms(plain_k3, 5), library_ms=None,
+                       **_bf16_bounds(_nbytes(x, off, msk, wt, bs, got),
+                                      n_pos * 2 * 9 * C * 128,
+                                      n_pos * 9 * C * 12)))
+    for C, dg in ((128, 32), (128, 16), (256, 16), (128, 4)):
+        x, off, msk, wt, bs = _deform_inputs(randn, 1, 5, 13, C, dg, 3.0)
+        x, off, msk, wt, bs = (t.to(bf).contiguous()
+                               for t in (x, off * 8.0, msk, wt, bs))
+        k3[0]["max_abs_err"] = max(k3[0]["max_abs_err"], _compare(
+            f"modulated_deform_conv2d_bf16 x (1, 5, 13, {C}) dg {dg}, "
+            f"offsets to 40 px",
+            deform.modulated_deform_conv2d_bf16(x, off, msk, wt, bs),
+            deform._modulated_deform_conv2d_bf16_plain(x, off, msk, wt, bs),
+            BF16_REL_TOL))
+    records["modulated_deform_conv2d_bf16"] = dict(
+        name="modulated_deform_conv2d_bf16", route="cuda",
+        source="propainter_tpu_torch/csrc/deform_conv.cu",
+        replaces="propainter_tpu/ops/deform_pallas.py:173", **k3[0],
+        flow_completion_site=k3[1])
+
+    # ---- K4: one transformer block of one window, bf16 q, k, v
+    Gp, Tq, Tk, ch = 64, 855, 2380, 128
+    q, k, v = (randn(1, Gp, T_, ch).to(bf) for T_ in (Tq, Tk, Tk))
+    kb = torch.zeros(1, Tk, device=level0.device)
+    kb[:, -238:] = flash_attention.NEG_INF
+    scale = 1.0 / math.sqrt(ch)
+    got = flash_attention.flash_window_attention_bf16(q, k, v, kb, scale)
+    err = _compare("flash_window_attention_bf16", got,
+                   flash_attention._flash_window_attention_bf16_plain(
+                       q, k, v, kb, scale), BF16_REL_TOL)
+    err = max(err, _compare(
+        "flash_window_attention_bf16 (no bias)",
+        flash_attention.flash_window_attention_bf16(q, k, v, None, scale),
+        flash_attention._flash_window_attention_bf16_plain(q, k, v, None,
+                                                           scale),
+        BF16_REL_TOL))
+    qr, kr, vr = (randn(1, 3, T_, ch).to(bf) for T_ in (130, 70, 70))
+    kbr = torch.zeros(1, 70, device=level0.device)
+    kbr[:, 32:64] = flash_attention.NEG_INF
+    for b_, what in ((kbr, "bias"), (None, "no bias")):
+        err = max(err, _compare(
+            f"flash_window_attention_bf16 Tq 130 Tk 70 ({what})",
+            flash_attention.flash_window_attention_bf16(qr, kr, vr, b_,
+                                                        scale),
+            flash_attention._flash_window_attention_bf16_plain(
+                qr, kr, vr, b_, scale), BF16_REL_TOL))
+    mask4 = kb[:, None, None, :].to(bf)
+    records["flash_window_attention_bf16"] = dict(
+        name="flash_window_attention_bf16", route="cuda",
+        source="propainter_tpu_torch/csrc/window_attention.cu",
+        replaces="propainter_tpu/ops/flash_attention.py:36",
+        shape=f"q {tuple(q.shape)} k {tuple(k.shape)}, bf16",
+        max_abs_err=err,
+        ms=_time_ms(lambda: flash_attention.flash_window_attention_bf16(
+            q, k, v, kb, scale), 10),
+        plain_ms=_time_ms(
+            lambda: flash_attention._flash_window_attention_bf16_plain(
+                q, k, v, kb, scale), 5),
+        library_ms=_time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask4, scale=scale), 10),
+        **_bf16_bounds(_nbytes(q, k, v, kb, got), Gp * 4 * Tq * Tk * ch,
+                       Gp * 5 * Tq * Tk))
+    return records
+
+
 def _launch_counters():
     from propainter_tpu_torch.ops import attention, corr, deform, flash_attention
 
@@ -932,18 +1136,28 @@ def _launch_counters():
         "flash_window_attention": flash_attention.flash_window_attention,
         "sparse_window_attention": attention.sparse_window_attention,
         "deform_sample": deform.deform_sample,
+        "corr_pyramid_build_bf16": corr.corr_pyramid_build_bf16,
+        "corr_lookup_moenc_bf16": corr.corr_lookup_moenc_bf16,
+        "modulated_deform_conv2d_bf16": deform.modulated_deform_conv2d_bf16,
+        "flash_window_attention_bf16":
+            flash_attention.flash_window_attention_bf16,
     }
 
 
 # the driven run whose launches each kernel's record reports: the main
-# path in its three configurations ('flash', 'pallas' and 'shard', the
-# shard_inference layout), and the deform dispatchers
+# path in its four configurations ('flash', 'pallas', 'shard', the
+# shard_inference layout, and 'bf16', precision='bf16' under 'flash'),
+# and the deform dispatchers
 KERNEL_PATH = {"corr_pyramid_build": "flash", "corr_lookup_moenc": "flash",
                "corr_lookup": "shard",
                "modulated_deform_conv2d": "flash",
                "flash_window_attention": "flash",
                "sparse_window_attention": "pallas",
-               "deform_sample": "deform_opt"}
+               "deform_sample": "deform_opt",
+               "corr_pyramid_build_bf16": "bf16",
+               "corr_lookup_moenc_bf16": "bf16",
+               "modulated_deform_conv2d_bf16": "bf16",
+               "flash_window_attention_bf16": "bf16"}
 
 
 def _zero_launches() -> None:
@@ -1034,6 +1248,18 @@ def _shard_pipeline(pipe):
                               device="cuda")
 
 
+def _bf16_pipeline(pipe):
+    """`pipe` with precision='bf16' ('flash'): the same modules, of which
+    the pipeline makes its bf16 copies (RAFT's, the flow completion's and
+    the generator's), so the fp32 pipelines keep theirs."""
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+
+    return ProPainterPipeline(pipe.raft, pipe.flowcomp, pipe.inpaint,
+                              PipelineConfig(precision="bf16"),
+                              device="cuda")
+
+
 def phase_deform_opt(state: dict) -> None:
     """K6's path: the differentiable deform dispatchers, forward and
     backward, at both call sites' shapes, as a training step calls them;
@@ -1108,7 +1334,7 @@ def _measured_run(pipe, frames, flow_masks, smi: str):
     if not np.array_equal(out[keep], frames[keep]):
         raise AssertionError("unmasked pixels changed")
     stages = ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
-    print(f"  pipeline {T}x{W}x{H} fp32, {impl}: "
+    print(f"  pipeline {T}x{W}x{H} {cfg.precision}, {impl}: "
           f"{total:.3f} s, {T / total:.3f} fps ({stages}) on {smi}")
     return out, launches, dict(seconds=total, fps=T / total, stages=timings)
 
@@ -1205,6 +1431,31 @@ def phase_pipeline(state: dict, smi: str) -> None:
     if diff.max() > SMALL_MAX_LSB or diff.mean() > SMALL_MEAN_LSB:
         raise AssertionError("shard_inference and 'flash' outputs disagree")
 
+    bf16 = _bf16_pipeline(pipe)
+    state["main_path_bf16"] = bf16
+    bf16.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
+    out_b, launches, state["pipeline_bf16"] = _measured_run(
+        bf16, frames, flow_masks, smi)
+    state["launches"]["bf16"] = launches
+    # the bf16 forms launch as often as the fp32 ones under 'flash'; no
+    # fp32 form of them launches
+    flash = state["launches"]["flash"]
+    pairs = {k + "_bf16": k for k in ("corr_pyramid_build",
+                                      "corr_lookup_moenc",
+                                      "modulated_deform_conv2d",
+                                      "flash_window_attention")}
+    diff = np.abs(out_b.astype(int) - out.astype(int))
+    print(f"  bf16 vs fp32 'flash' output (reported, not gated): max "
+          f"{diff.max()} LSB, mean {diff.mean():.4f} LSB; launches "
+          + ", ".join(f"{k} {launches[k]} (fp32 'flash': {flash[v]})"
+                      for k, v in pairs.items()))
+    state["pipeline_bf16"].update(max_lsb_vs_flash=int(diff.max()),
+                                  mean_lsb_vs_flash=float(diff.mean()))
+    wrong = [k for k, v in pairs.items()
+             if launches[k] != flash[v] or launches[v] != 0]
+    if wrong or launches["corr_lookup"] or launches["sparse_window_attention"]:
+        raise AssertionError(f"the bf16 path launched {launches}")
+
 
 def _window_batches(T: int, pipe) -> int:
     """Stage 4's generator calls: batches of up to window_batch consecutive
@@ -1221,28 +1472,21 @@ def _window_batches(T: int, pipe) -> int:
     return sum(-(-n // pipe._window_batch) for n in runs)
 
 
-def phase_profile(state: dict) -> None:
-    """One main-path run under torch.profiler: device time by kernel and
-    the device's busy share of the wall time (the full tables go to
-    `profile.txt` in --out-dir, when given)."""
+def _profile_run(pipe, frames, flow_masks, label: str):
+    """One main-path run of `pipe` under torch.profiler: (report lines,
+    device ms of the port's kernels, wall ms, device busy ms)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if "main_path" not in state:
-        pipe, frames, flow_masks = _main_path_inputs()
-        pipe.inpaint_video(frames, flow_masks, flow_masks)   # warm-up
-    else:
-        pipe, frames, flow_masks = state["main_path"]
     timings: dict = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pipe.inpaint_video(frames, flow_masks, flow_masks, timings=timings)
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
-    events = prof.key_averages()
     kern = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in events if e.device_type == DeviceType.CUDA),
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in kern)
     # whole-symbol match: "window_attention_kernel" must not count
@@ -1251,36 +1495,104 @@ def phase_profile(state: dict) -> None:
                    if re.search(rf"\b{k}_kernel\b", r[0]))
             for k in ("corr_lookup_moenc", "corr_lookup",
                       "corr_pyramid_build", "deform_conv", "deform_sample",
-                      "window_attention", "sparse_window_attention")}
-    lines = [f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+                      "window_attention", "sparse_window_attention",
+                      "corr_lookup_moenc_bf16", "corr_pyramid_build_bf16",
+                      "deform_conv_bf16", "window_attention_bf16")}
+    lines = [f"{label}: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
              f"({100 * busy / (wall * 1e3):.1f}%), stages (s): " + ", ".join(
                  f"{k} {v:.3f}" for k, v in timings.items())]
     lines += [f"{ms:10.2f} ms {100 * ms / busy:5.1f}% x{n:<7d} {name[:100]}"
               for name, ms, n in kern]
-    report = list(lines)
     for line in lines[:21]:
         print("  " + line)
-    print(f"  port kernels (ms): {ours}")
+    print(f"  {label} port kernels (ms): {ours}")
+    return lines, ours, wall * 1e3, busy
+
+
+def _gemm_conv_ab() -> list:
+    """The GemmConv2d layers of the main path at their main-path input
+    shapes, in fp32 and bf16: device ms of the layer's im2col GEMM
+    (GemmConv2d.gemm, its fp32 form) against one cuDNN convolution
+    (F.conv2d, its bf16 form) on the same input and weights, cuDNN's TF32
+    off as in the pipeline."""
+    import torch
+    import torch.nn.functional as F
+    from propainter_tpu_torch.models.layers import GemmConv2d
+
+    layers = (  # (site, batch, C_in, C_out, groups, H, W)
+        ("RAFT convc2", 24, 256, 192, 1, 30, 54),
+        ("RAFT motion conv", 24, 256, 126, 1, 30, 54),
+        ("encoder group conv g2", 19, 640, 512, 2, 60, 108),
+        ("encoder group conv g4", 19, 768, 384, 4, 60, 108),
+        ("encoder group conv g8", 19, 640, 256, 8, 60, 108),
+        ("encoder group conv g1", 19, 512, 128, 1, 60, 108))
+    rows = []
+    with torch.inference_mode():
+        for site, n, cin, cout, g, h, w in layers:
+            for dt in (torch.float32, torch.bfloat16):
+                conv = GemmConv2d(cin, cout, 3, 1, groups=g).cuda().to(dt)
+                x = torch.randn(n, cin, h, w, device="cuda").to(dt)
+                gemm_ms = _time_ms(lambda: conv.gemm(x), 5)
+                cudnn_ms = _time_ms(lambda: F.conv2d(
+                    x, conv.weight, conv.bias, padding=1, groups=g), 5)
+                rows.append(dict(site=site, dtype=str(dt).split(".")[1],
+                                 gemm_ms=gemm_ms, cudnn_ms=cudnn_ms))
+                print(f"  GemmConv2d {site} {rows[-1]['dtype']}: GEMM "
+                      f"{gemm_ms:.3f} ms, cuDNN {cudnn_ms:.3f} ms")
+                del conv, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_profile(state: dict) -> None:
+    """The main path under torch.profiler in fp32 ('flash') and bf16:
+    device time by kernel and the device's busy share of the wall time;
+    one RAFT chunk and one generator window in each attention form and in
+    bf16, host and device ms by op shape; and the GemmConv2d layers against
+    cuDNN in both precisions (the full tables go to `profile.txt` in
+    --out-dir, when given)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if "main_path" not in state:
+        pipe, frames, flow_masks = _main_path_inputs()
+        pipe.inpaint_video(frames, flow_masks, flow_masks)   # warm-up
+    else:
+        pipe, frames, flow_masks = state["main_path"]
+    bf16 = state.get("main_path_bf16")
+    if bf16 is None:
+        bf16 = _bf16_pipeline(pipe)
+        bf16.inpaint_video(frames, flow_masks, flow_masks)   # warm-up
+    report = []
+    runs = {}
+    for label, p in (("fp32 'flash'", pipe), ("bf16 'flash'", bf16)):
+        lines, ours, wall, busy = _profile_run(p, frames, flow_masks, label)
+        report += lines
+        runs[label] = dict(wall_ms=wall, device_busy_ms=busy,
+                           kernels_ms=ours)
 
     # one RAFT chunk (13 frames) and one generator window (11 local + 8
-    # reference frames) in both attention forms, after a warm-up call: host
-    # and device ms per op shape, and device ms by kernel
-    import torch
-
+    # reference frames) in both attention forms and in bf16, after a
+    # warm-up call: host and device ms per op shape, and device ms by
+    # kernel
     T, H, W = 19, frames.shape[1], frames.shape[2]
     x = (torch.from_numpy(frames[:T]).cuda().float() / 127.5 - 1)[None]
     m = torch.from_numpy(flow_masks[:T]).cuda().float()[None, ..., None]
     zero_flow = torch.zeros((1, 10, H, W, 2), device="cuda")
     valid = torch.ones(T, dtype=torch.bool, device="cuda")
 
-    def window(generator):
-        return lambda: generator(x, (zero_flow, zero_flow), m, m, 11,
+    def window(generator, dt=torch.float32):
+        xd, fd, md = x.to(dt), zero_flow.to(dt), m.to(dt)
+        return lambda: generator(xd, (fd, fd), md, md, 11,
                                  frame_valid=valid)
 
     sparse = state.get("main_path_pallas") or _pallas_pipeline(pipe)
     work = {"RAFT chunk": lambda: pipe.compute_flows(x[:, :13]),
             "generator window": window(pipe.inpaint),
-            "generator window ('pallas')": window(sparse.inpaint)}
+            "generator window ('pallas')": window(sparse.inpaint),
+            "RAFT chunk (bf16)": lambda: bf16.compute_flows(x[:, :13]),
+            "generator window (bf16)": window(bf16.inpaint, torch.bfloat16)}
     ops = ("aten::convolution", "aten::linear", "aten::matmul", "aten::bmm",
            "aten::col2im", "aten::im2col")
     for what, fn in work.items():
@@ -1309,8 +1621,11 @@ def phase_profile(state: dict) -> None:
         report += lines
         for line in lines[:14] + lines[len(lines) - len(kern) - 1:][:13]:
             print("  " + line)
-    state["profile"] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
-                            kernels_ms=ours, report=report)
+    gemm = _gemm_conv_ab()
+    report += [f"GemmConv2d {r['site']} {r['dtype']}: GEMM "
+               f"{r['gemm_ms']:.3f} ms, cuDNN {r['cudnn_ms']:.3f} ms"
+               for r in gemm]
+    state["profile"] = dict(runs=runs, gemm_conv=gemm, report=report)
 
 
 def _stage_outputs(pipe, frames, mask, given=None) -> dict:
@@ -1370,7 +1685,8 @@ def phase_small(state: dict) -> None:
                 PipelineConfig(raft_iter=3, neighbor_length=4, ref_stride=3,
                                **options), device=device)
             if impl == "flash":
-                outs[device] = ProInpainter(mods, device=device).inpaint(
+                outs[device] = ProInpainter(mods, precision="fp32",
+                                            device=device).inpaint(
                     frames, mask, raft_iter=3, neighbor_length=4,
                     ref_stride=3)
             else:
@@ -1403,8 +1719,91 @@ def phase_small(state: dict) -> None:
         bad = [k for k, e in stage_err.items() if e > STAGE_REL_TOL]
         if bad:
             failures.append(f"{impl}: GPU and CPU stages disagree: {bad}")
+    failures += _golden_clip_bf16(state)
     if failures:
         raise AssertionError("; ".join(failures))
+
+
+def _golden_clip():
+    """The golden fixture's clip and mask (tests/test_golden_e2e.py): 6
+    frames of 144 x 160, a textured frame panning right, a hole moving
+    right."""
+    import numpy as np
+
+    T, H, W = 6, 144, 160
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 255, (H // 8, W // 8, 3), np.uint8)
+    frames = np.stack([
+        np.roll(np.kron(base, np.ones((8, 8, 1), np.uint8)), 3 * t, axis=1)
+        for t in range(T)])
+    mask = np.zeros((T, H, W), np.uint8)
+    for t in range(T):
+        mask[t, 50:90, 40 + 4 * t:100 + 4 * t] = 1
+    return frames, mask
+
+
+def _golden_clip_bf16(state: dict) -> list:
+    """The golden fixture's run (its clip, schedule and weight scale) in
+    bf16 on the GPU against the fp32 run on the CPU (the plain versions,
+    which the CPU tests hold to the golden within 2 LSB), within the bf16
+    golden gate (GOLDEN_BF16_MAX_LSB / GOLDEN_BF16_MEAN_LSB). The golden's
+    own weights come from jax.random, which this machine does not have:
+    the port's seeded weights of the same scale (N(0, 0.02^2)) stand in."""
+    import numpy as np
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+
+    frames, mask = _golden_clip()
+    outs = {}
+    for device, precision in (("cpu", "fp32"), ("cuda", "bf16")):
+        mods = _models(seed=11)
+        pipe = ProPainterPipeline(
+            mods["raft"], mods["flowcomp"], mods["inpaint"],
+            PipelineConfig(ref_stride=3, neighbor_length=4, raft_iter=3,
+                           precision=precision), device=device)
+        outs[precision] = np.stack(pipe.inpaint_video(frames, mask, mask))
+    diff = np.abs(outs["bf16"].astype(int) - outs["fp32"].astype(int))
+    print(f"  golden clip: GPU bf16 vs CPU fp32: max {diff.max()} LSB, mean "
+          f"{diff.mean():.4f} LSB (limits {GOLDEN_BF16_MAX_LSB} / "
+          f"{GOLDEN_BF16_MEAN_LSB})")
+    state.setdefault("small", {})["golden_clip_bf16"] = dict(
+        max_lsb=int(diff.max()), mean_lsb=float(diff.mean()))
+    if (diff.max() > GOLDEN_BF16_MAX_LSB
+            or diff.mean() > GOLDEN_BF16_MEAN_LSB):
+        return ["golden clip: bf16 on the GPU and fp32 disagree"]
+    return []
+
+
+def phase_cli(state: dict, out_dir) -> None:
+    """The port's CLI as a user runs it on the GPU: `main()` on the
+    fixture clip (12 frames of 120 x 216) with --weights random --bf16
+    --save_frames; both videos and 12 frames of 120 x 216 must appear. The
+    CLI's video I/O needs cv2 (imageio optional)."""
+    import tempfile
+
+    import cv2
+    from propainter_tpu_torch.cli.inference import main as cli_main
+
+    root = Path(__file__).resolve().parent
+    clip = root / "assets" / "demo_clip"
+    base = Path(out_dir) if out_dir else root / "build"
+    base.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=base) as tmp:
+        t0 = time.perf_counter()
+        cli_main(["--video", str(clip / "frames"), "--mask",
+                  str(clip / "masks"), "--output", tmp, "--weights",
+                  "random", "--bf16", "--save_frames"])
+        seconds = time.perf_counter() - t0
+        root = Path(tmp) / "frames"
+        pngs = sorted((root / "frames").glob("*.png"))
+        shapes = {cv2.imread(str(p)).shape for p in pngs}
+        videos = [(root / n).exists() for n in ("masked_in.mp4",
+                                                "inpaint_out.mp4")]
+    print(f"  cli --bf16 on the fixture clip: {seconds:.3f} s, "
+          f"{len(pngs)} frames of {shapes}, videos {videos}")
+    state["cli"] = dict(seconds=seconds, frames=len(pngs))
+    if len(pngs) != 12 or shapes != {(120, 216, 3)} or not all(videos):
+        raise AssertionError("the CLI's outputs are missing or misshapen")
 
 
 def main(argv=None) -> int:
@@ -1458,6 +1857,8 @@ def main(argv=None) -> int:
                 phase_pipeline(state, smi)
             elif phase == "small":
                 phase_small(state)
+            elif phase == "cli":
+                phase_cli(state, args.out_dir)
             elif phase == "profile":
                 phase_profile(state)
         except Exception:  # every phase runs; any failure fails the run
@@ -1470,7 +1871,8 @@ def main(argv=None) -> int:
     for key, r in records.items():
         kernels.append(dict(r, launches=launches.get(KERNEL_PATH[key], {})
                             .get(key)))
-    for key in ("main_path", "main_path_pallas", "main_path_shard"):
+    for key in ("main_path", "main_path_pallas", "main_path_shard",
+                "main_path_bf16"):
         state.pop(key, None)
     if args.out_dir:
         out = Path(args.out_dir)

@@ -12,10 +12,11 @@ from propainter_tpu_torch.utils.masks import binary_dilation_cross
 
 
 class ProInpainter:
-    def __init__(self, models: dict, precision: str = "fp32", device=None):
+    def __init__(self, models: dict, precision: str = "bf16", device=None):
         """models: {'raft': RAFT, 'flowcomp': RecurrentFlowCompleteNet,
-        'inpaint': InpaintGenerator} with weights loaded. device: None = the
-        GPU (raises without one); 'cpu' runs the plain PyTorch versions."""
+        'inpaint': InpaintGenerator} with weights loaded. precision: 'bf16'
+        (the JAX package's default) or 'fp32'. device: None = the GPU
+        (raises without one); 'cpu' runs the plain PyTorch versions."""
         self.models = models
         self.precision = precision
         self.device = device

@@ -45,10 +45,30 @@
 // accumulators of a row hold 8 contiguous outputs.
 // Bound: operations, 3 x 2 * 324 * 256 FLOPs per query on the tensor cores
 // in TF32.
+//
+// The bf16 form (corr_lookup_moenc_bf16; the TPU kernel as the JAX bf16
+// pipeline runs it, over a bf16 pyramid). Semantics:
+// propainter_tpu_torch/ops/corr.py:corr_lookup_moenc_bf16. Levels are (N,
+// H_l, W_l) bf16; the weight is convc1's own (256, 324) layout, row f =
+// output f; bias bf16; out (N, 256) fp32. Each window value rounds where
+// the TPU kernel rounds it: the row lerp in bf16 (fy rounded to bf16, each
+// product and the sum rounded, corr_pallas.py:189-196), the column lerp in
+// fp32 (:264-265), the value rounded to bf16 as the A operand; the weight
+// is the B operand; one m16n8k16 bf16 pass with fp32 accumulators
+// (:299-303, bf16_mma.cuh); bias + relu in fp32. A first, simple design:
+// blocks of 8 warps own 64 queries x 256 outputs; the warps gather each
+// (query, level)'s 10 x 10 window with the fp32 form's lane layout into
+// a bf16 A tile in shared memory (64 x 336, padded channels zero), then
+// warp (wm, wn) multiplies its 32 queries x 64 outputs, reading B
+// fragments straight from the weight (L1-resident, 166 KB). No overlap of
+// the gather with the products. Bound: bytes (the in-range taps read, in
+// bf16, and the fp32 output).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -297,6 +317,144 @@ corr_lookup_moenc_kernel(Levels lv, const float* __restrict__ coords,
   cp_async_wait<0>();
 }
 
+// ---- the bf16 form -------------------------------------------------------
+
+constexpr int kBQb = 64;                        // queries per block
+constexpr int kThreadsB = 256;                  // 8 warps
+constexpr int kLdAb = 344;                      // bf16 per A row: 172 words
+                                                // = 12 mod 32, conflict-free
+static_assert(kLdAb >= kCP && (kLdAb / 2) % 32 == 12, "A tile layout");
+
+struct LevelsBf16 {
+  const __nv_bfloat16* ptr[kLevels];
+  int h[kLevels];
+  int w[kLevels];
+};
+
+__global__ void __launch_bounds__(kThreadsB)
+corr_lookup_moenc_bf16_kernel(LevelsBf16 lv, const float* __restrict__ coords,
+                              const __nv_bfloat16* __restrict__ weight,
+                              const __nv_bfloat16* __restrict__ bias,
+                              float* __restrict__ out, int n_query) {
+  __shared__ __align__(16) __nv_bfloat16 a[kBQb * kLdAb];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r = lane / kWin, c = lane % kWin;   // gather: window row, column
+  const bool glane = lane < 3 * kWin;
+  const int q0 = blockIdx.x * kBQb;
+
+  for (int e = tid; e < kBQb * (kCP - kC); e += kThreadsB)
+    a[e / (kCP - kC) * kLdAb + kC + e % (kCP - kC)] = __float2bfloat16(0.f);
+
+  // gather: warp w takes queries 8w .. 8w + 7 at every level
+#pragma unroll
+  for (int l = 0; l < kLevels; ++l) {
+    const int H = lv.h[l], W = lv.w[l];
+    const float scale = 1.f / static_cast<float>(1 << l);
+    for (int i = 0; i < kBQb / 8; ++i) {
+      const int qi = 8 * warp + i;
+      const int n = q0 + qi;
+      const bool live = n < n_query;
+      const float x =
+          live ? __ldg(coords + 2 * static_cast<size_t>(n)) * scale : 0.f;
+      const float y =
+          live ? __ldg(coords + 2 * static_cast<size_t>(n) + 1) * scale : 0.f;
+      const float x0 = floorf(x), y0 = floorf(y);
+      const int xs = static_cast<int>(fminf(fmaxf(x0, -6.f), W + 4.f))
+                     - kRadius + c;
+      const int ys = static_cast<int>(fminf(fmaxf(y0, -6.f), H + 4.f))
+                     - kRadius + r;
+      const __nv_bfloat16* m =
+          lv.ptr[l] + (live ? static_cast<size_t>(n) * H * W : 0);
+      const bool col_in = live && glane && xs >= 0 && xs < W;
+      float gv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int yy = ys + 3 * k;
+        const bool in = col_in && r + 3 * k < kWin && yy >= 0 && yy < H;
+        gv[k] = in ? __bfloat162float(m[yy * W + xs]) : 0.f;
+      }
+      // row lerp in bf16, column lerp in fp32, the value rounded to bf16
+      const float fyb = bf::round_bf16(y - y0);
+      const float omfy = bf::round_bf16(1.f - fyb);
+      const float fx = x - x0;
+      __nv_bfloat16* row = a + qi * kLdAb + l * kLevelC;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float up = __shfl_down_sync(0xffffffffu, gv[k], kWin);
+        const float wrap = __shfl_up_sync(0xffffffffu, gv[k + 1], 2 * kWin);
+        const float below = r < 2 ? up : wrap;
+        const float gy = bf::round_bf16(
+            __fadd_rn(bf::round_bf16(__fmul_rn(gv[k], omfy)),
+                      bf::round_bf16(__fmul_rn(below, fyb))));
+        const float right = __shfl_down_sync(0xffffffffu, gy, 1);
+        const float v = __fadd_rn(__fmul_rn(gy, 1.f - fx),
+                                  __fmul_rn(right, fx));
+        if (glane && c < kTaps)
+          row[c * kTaps + 3 * k + r] = __float2bfloat16_rn(v);
+      }
+    }
+  }
+  __syncthreads();
+
+  // products: warp (wm, wn) = 32 queries x 64 outputs
+  const int wm = warp / 4, wn = warp % 4;
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  const uint32_t* aw = reinterpret_cast<const uint32_t*>(a);
+  for (int s = 0; s < kCP / 16; ++s) {
+    uint32_t fa[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int row = 32 * wm + 16 * mi + g;
+      const int w0 = (row * kLdAb + 16 * s) / 2 + t;
+      fa[mi][0] = aw[w0];
+      fa[mi][1] = aw[w0 + 4 * kLdAb];
+      fa[mi][2] = aw[w0 + 4];
+      fa[mi][3] = aw[w0 + 4 * kLdAb + 4];
+    }
+    const int k0 = 16 * s + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // column f's k pairs; channels past 324 read as zero
+      const __nv_bfloat16* wr =
+          weight + static_cast<size_t>(64 * wn + 8 * j + g) * kC;
+      const uint32_t b0 =
+          k0 < kC ? __ldg(reinterpret_cast<const unsigned int*>(wr + k0)) : 0u;
+      const uint32_t b1 =
+          k0 + 8 < kC
+              ? __ldg(reinterpret_cast<const unsigned int*>(wr + k0 + 8))
+              : 0u;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) bf::mma(acc[mi][j], fa[mi], b0, b1);
+    }
+  }
+
+  // bias + relu: rows g, g + 8 of each m-tile, columns 2t, 2t + 1
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n = q0 + 32 * wm + 16 * mi + 8 * hh + g;
+      if (n >= n_query) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * wn + 8 * j + 2 * t;
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(bias + col));
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(n) * kF + col) =
+            make_float2(fmaxf(acc[mi][j][2 * hh] + b.x, 0.f),
+                        fmaxf(acc[mi][j][2 * hh + 1] + b.y, 0.f));
+      }
+    }
+}
+
 // The shared-memory limit is an attribute of the kernel on one device and
 // the persistent grid depends on that device's SMs, so both are set up
 // once per device, for the device current at the call (the wrapper makes
@@ -374,4 +532,45 @@ extern "C" int corr_lookup_moenc_launch_info(void* info, void*) {
   i[4] = 1;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       i, corr_lookup_moenc_kernel, kThreads, kSmemBytes));
+}
+
+// The bf16 form: levels bf16, coords fp32, weight (256, 324) bf16, bias
+// (256) bf16, out (N, 256) fp32; all contiguous (the wrapper checks).
+extern "C" int corr_lookup_moenc_bf16(const void* l0, const void* l1,
+                                      const void* l2, const void* l3,
+                                      const void* coords, const void* weight,
+                                      const void* bias, void* out,
+                                      int n_query, int h0, int w0, int h1,
+                                      int w1, int h2, int w2, int h3, int w3,
+                                      void* stream) {
+  LevelsBf16 lv;
+  lv.ptr[0] = static_cast<const __nv_bfloat16*>(l0);
+  lv.ptr[1] = static_cast<const __nv_bfloat16*>(l1);
+  lv.ptr[2] = static_cast<const __nv_bfloat16*>(l2);
+  lv.ptr[3] = static_cast<const __nv_bfloat16*>(l3);
+  lv.h[0] = h0; lv.w[0] = w0;
+  lv.h[1] = h1; lv.w[1] = w1;
+  lv.h[2] = h2; lv.w[2] = w2;
+  lv.h[3] = h3; lv.w[3] = w3;
+  const int blocks = (n_query + kBQb - 1) / kBQb;
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  corr_lookup_moenc_bf16_kernel<<<blocks, kThreadsB, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      lv, static_cast<const float*>(coords),
+      static_cast<const __nv_bfloat16*>(weight),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<float*>(out),
+      n_query);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch facts of the bf16 form (as corr_lookup_moenc_launch_info; one
+// block per 64-query tile, static shared memory).
+extern "C" int corr_lookup_moenc_bf16_launch_info(void* info, void*) {
+  int* i = static_cast<int*>(info);
+  i[1] = 0;
+  i[2] = kThreadsB;
+  i[3] = kBQb;
+  i[4] = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      i, corr_lookup_moenc_bf16_kernel, kThreadsB, 0));
 }

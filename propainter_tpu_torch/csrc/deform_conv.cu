@@ -61,11 +61,31 @@
 // divides only by K and dg. The TPU kernel builds a one-hot interpolation
 // matrix per tap and contracts it on the MXU; here each value reads its
 // four corners directly. Bound: bytes.
+//
+// The bf16 form of K3 (modulated_deform_conv2d_bf16; the TPU kernel as the
+// JAX bf16 pipeline runs it). Semantics:
+// propainter_tpu_torch/ops/deform.py:modulated_deform_conv2d_bf16. x,
+// offset, mask, weight, bias and out are bf16, in K3's layouts. It rounds
+// where the TPU kernel rounds (deform_pallas.py:192-204, 256-258, 276-280):
+// each sample position (h + i - 1 + dy in fp32) to bf16; the column weights
+// max(1 - |sx - col|, 0) to bf16, the row weights fp32; the value (its
+// column lerp, row lerp and mask product, fp32, no FMA contraction) to
+// bf16 as the A operand; the contraction one m16n8k16 bf16 pass with fp32
+// accumulators over every group and tap; the sum to bf16, then + bias in
+// bf16. A first, simple design: one block of 4 warps per 32 positions x
+// 128 outputs (warp w: outputs 32w .. 32w + 31), K walked in 32-channel
+// chunks of one tap; per chunk the taps' corners and weights, the weight
+// chunk (transposed into k pairs) and the A tile are built in shared
+// memory between barriers, then 2 k-steps of products. No cluster split
+// and no overlap. Bound: operations (2 * 9 * C * 128 FLOPs per position
+// at the bf16 tensor-core rate) or bytes, whichever is larger.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -427,6 +447,202 @@ int conv_info(int* info) {
       info, deform_conv_kernel<kCg>, kThreads, smem_bytes<kCg>()));
 }
 
+// ---- K3, bf16 form --------------------------------------------------------
+
+constexpr int kBPb = 32;            // positions per block
+constexpr int kLdAb = kCK + 8;      // bf16 per A row: 20 words, conflict-free
+constexpr int kLdWb = kCK + 8;      // bf16 per transposed weight row (one o)
+
+template <int kCg>
+__global__ void __launch_bounds__(kThreads)
+deform_conv_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ offset,
+                        const __nv_bfloat16* __restrict__ mask,
+                        const __nv_bfloat16* __restrict__ weight,
+                        const __nv_bfloat16* __restrict__ bias,
+                        __nv_bfloat16* __restrict__ out, int n_pos, int H,
+                        int W, int C) {
+  constexpr int kNG = kCK / kCg;           // groups per chunk
+  __shared__ __align__(16) __nv_bfloat16 a[kBPb * kLdAb];
+  __shared__ __align__(16) __nv_bfloat16 wt[kO * kLdWb];
+  __shared__ int4 tap_off[kBPb * kNG];
+  __shared__ float4 tap_w[kBPb * kNG];     // wx0, wx1 (bf16), wy0, wy1
+  __shared__ float tap_m[kBPb * kNG];
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int p0 = blockIdx.x * kBPb;
+  const int dg = C / kCg, n_cc = C / kCK, n_chunks = 9 * n_cc;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+  for (int j = 0; j < n_chunks; ++j) {
+    const int k = j / n_cc;
+    const int c0 = (j - k * n_cc) * kCK;
+    __syncthreads();   // the previous chunk's products are done
+    // taps of (position, group): corners clamped into the image, weights
+    // zero for a corner outside it
+    for (int e = tid; e < kBPb * kNG; e += kThreads) {
+      const int pm = e / kNG, gi = e % kNG;
+      const int p = p0 + pm;
+      int4 o = make_int4(0, 0, 0, 0);
+      float4 wv = make_float4(0.f, 0.f, 0.f, 0.f);
+      float m = 0.f;
+      if (p < n_pos) {
+        const int b = p / (H * W);
+        const int rr = p - b * H * W;
+        const int h = rr / W, w = rr - h * W;
+        const int idx = (p * dg + c0 / kCg + gi) * 9 + k;
+        const float2 d = __bfloat1622float2(
+            reinterpret_cast<const __nv_bfloat162*>(offset)[idx]);
+        m = __bfloat162float(mask[idx]);
+        const float sy = bf::round_bf16(
+            __fadd_rn(static_cast<float>(h + k / 3 - 1), d.x));
+        const float sx = bf::round_bf16(
+            __fadd_rn(static_cast<float>(w + k % 3 - 1), d.y));
+        const float y0 = floorf(sy), x0 = floorf(sx);
+        const bool yin0 = y0 >= 0.f && y0 <= H - 1;
+        const bool yin1 = y0 + 1.f >= 0.f && y0 + 1.f <= H - 1;
+        const bool xin0 = x0 >= 0.f && x0 <= W - 1;
+        const bool xin1 = x0 + 1.f >= 0.f && x0 + 1.f <= W - 1;
+        wv.x = xin0 ? bf::round_bf16(fmaxf(1.f - fabsf(sx - x0), 0.f)) : 0.f;
+        wv.y = xin1 ? bf::round_bf16(fmaxf(1.f - fabsf(sx - (x0 + 1.f)), 0.f))
+                    : 0.f;
+        wv.z = yin0 ? fmaxf(1.f - fabsf(sy - y0), 0.f) : 0.f;
+        wv.w = yin1 ? fmaxf(1.f - fabsf(sy - (y0 + 1.f)), 0.f) : 0.f;
+        const int ya = static_cast<int>(fminf(fmaxf(y0, 0.f), H - 1.f));
+        const int yb = static_cast<int>(fminf(fmaxf(y0 + 1.f, 0.f), H - 1.f));
+        const int xa = static_cast<int>(fminf(fmaxf(x0, 0.f), W - 1.f));
+        const int xb = static_cast<int>(fminf(fmaxf(x0 + 1.f, 0.f), W - 1.f));
+        const int pix0 = b * H * W;
+        o = make_int4((pix0 + ya * W + xa) * C, (pix0 + ya * W + xb) * C,
+                      (pix0 + yb * W + xa) * C, (pix0 + yb * W + xb) * C);
+      }
+      tap_off[e] = o;
+      tap_w[e] = wv;
+      tap_m[e] = m;
+    }
+    // weight rows k*C + c0 .. + 31, transposed: wt[o][kk] (pairs of k)
+    const __nv_bfloat16* wsrc =
+        weight + (static_cast<size_t>(k) * C + c0) * kO;
+#pragma unroll
+    for (int i = 0; i < kCK / 2; ++i) {
+      const __nv_bfloat16 lo = wsrc[(2 * i) * kO + tid];
+      const __nv_bfloat16 hi = wsrc[(2 * i + 1) * kO + tid];
+      __nv_bfloat162 pr;
+      pr.x = lo;
+      pr.y = hi;
+      *reinterpret_cast<__nv_bfloat162*>(wt + tid * kLdWb + 2 * i) = pr;
+    }
+    __syncthreads();   // taps visible
+    // A tile: thread (position, 4-channel quad)
+#pragma unroll
+    for (int i = 0; i < kBPb * kCK / 4 / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int pm = e / (kCK / 4), quad = e % (kCK / 4);
+      const int tap = pm * kNG + 4 * quad / kCg;
+      const int4 o = tap_off[tap];
+      const float4 wv = tap_w[tap];
+      const float m = tap_m[tap];
+      const __nv_bfloat16* xq = x + c0 + 4 * quad;
+      const uint2 r00 = __ldg(reinterpret_cast<const uint2*>(xq + o.x));
+      const uint2 r01 = __ldg(reinterpret_cast<const uint2*>(xq + o.y));
+      const uint2 r10 = __ldg(reinterpret_cast<const uint2*>(xq + o.z));
+      const uint2 r11 = __ldg(reinterpret_cast<const uint2*>(xq + o.w));
+      const uint32_t v00[2] = {r00.x, r00.y}, v01[2] = {r01.x, r01.y};
+      const uint32_t v10[2] = {r10.x, r10.y}, v11[2] = {r11.x, r11.y};
+      float v[4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const float a00 = e2 ? bf::hi(v00[hh]) : bf::lo(v00[hh]);
+          const float a01 = e2 ? bf::hi(v01[hh]) : bf::lo(v01[hh]);
+          const float a10 = e2 ? bf::hi(v10[hh]) : bf::lo(v10[hh]);
+          const float a11 = e2 ? bf::hi(v11[hh]) : bf::lo(v11[hh]);
+          const float t0 = __fadd_rn(__fmul_rn(a00, wv.x), __fmul_rn(a01, wv.y));
+          const float t1 = __fadd_rn(__fmul_rn(a10, wv.x), __fmul_rn(a11, wv.y));
+          v[2 * hh + e2] = __fmul_rn(
+              __fadd_rn(__fmul_rn(t0, wv.z), __fmul_rn(t1, wv.w)), m);
+        }
+      }
+      *reinterpret_cast<uint2*>(a + pm * kLdAb + 4 * quad) =
+          make_uint2(bf::pack(v[0], v[1]), bf::pack(v[2], v[3]));
+    }
+    __syncthreads();   // A tile and weights visible
+    const uint32_t* aw = reinterpret_cast<const uint32_t*>(a);
+    const uint32_t* ww = reinterpret_cast<const uint32_t*>(wt);
+#pragma unroll
+    for (int s = 0; s < kCK / 16; ++s) {
+      uint32_t fa[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int w0 = ((16 * mi + g) * kLdAb + 16 * s) / 2 + t;
+        fa[mi][0] = aw[w0];
+        fa[mi][1] = aw[w0 + 4 * kLdAb];
+        fa[mi][2] = aw[w0 + 4];
+        fa[mi][3] = aw[w0 + 4 * kLdAb + 4];
+      }
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        const int wb = ((32 * warp + 8 * jn + g) * kLdWb + 16 * s) / 2 + t;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          bf::mma(acc[mi][jn], fa[mi], ww[wb], ww[wb + 4]);
+      }
+    }
+  }
+
+  // the sum rounded to bf16, then + bias in bf16
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = p0 + 16 * mi + 8 * hh + g;
+      if (p >= n_pos) continue;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        const int col = 32 * warp + 8 * jn + 2 * t;
+        const float2 bv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(bias + col));
+        const float s0 = __fadd_rn(bf::round_bf16(acc[mi][jn][2 * hh]), bv.x);
+        const float s1 =
+            __fadd_rn(bf::round_bf16(acc[mi][jn][2 * hh + 1]), bv.y);
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + static_cast<size_t>(p) * kO + col) =
+            __floats2bfloat162_rn(s0, s1);
+      }
+    }
+}
+
+template <int kCg>
+int launch_conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* offset,
+                     const __nv_bfloat16* mask, const __nv_bfloat16* weight,
+                     const __nv_bfloat16* bias, __nv_bfloat16* out, int n_pos,
+                     int H, int W, int C, cudaStream_t stream) {
+  deform_conv_bf16_kernel<kCg><<<(n_pos + kBPb - 1) / kBPb, kThreads, 0,
+                                 stream>>>(x, offset, mask, weight, bias, out,
+                                           n_pos, H, W, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kCg>
+int conv_bf16_info(int* info) {
+  info[1] = 0;
+  info[2] = kThreads;
+  info[3] = kBPb;
+  info[4] = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      info, deform_conv_bf16_kernel<kCg>, kThreads, 0));
+}
+
 // ---- K6 ------------------------------------------------------------------
 
 constexpr int kSampleThreads = 256;
@@ -530,6 +746,48 @@ extern "C" int modulated_deform_conv2d_launch_info(void* info, int cg,
     case 8: return conv_info<8>(i);
     case 16: return conv_info<16>(i);
     case 32: return conv_info<32>(i);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16 form of K3: every tensor bf16, in K3's layouts; no cluster
+// split.
+extern "C" int modulated_deform_conv2d_bf16(const void* x, const void* offset,
+                                            const void* mask,
+                                            const void* weight,
+                                            const void* bias, void* out,
+                                            int B, int H, int W, int C,
+                                            int dg, void* stream) {
+  if (dg < 1 || C % dg != 0 || C % kCK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto args = [&](auto launch) {
+    return launch(static_cast<const __nv_bfloat16*>(x),
+                  static_cast<const __nv_bfloat16*>(offset),
+                  static_cast<const __nv_bfloat16*>(mask),
+                  static_cast<const __nv_bfloat16*>(weight),
+                  static_cast<const __nv_bfloat16*>(bias),
+                  static_cast<__nv_bfloat16*>(out), B * H * W, H, W, C,
+                  static_cast<cudaStream_t>(stream));
+  };
+  switch (C / dg) {
+    case 4: return args(launch_conv_bf16<4>);
+    case 8: return args(launch_conv_bf16<8>);
+    case 16: return args(launch_conv_bf16<16>);
+    case 32: return args(launch_conv_bf16<32>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launch facts of K3's bf16 form for group width cg (as
+// modulated_deform_conv2d_launch_info).
+extern "C" int modulated_deform_conv2d_bf16_launch_info(void* info, int cg,
+                                                        void*) {
+  int* i = static_cast<int*>(info);
+  switch (cg) {
+    case 4: return conv_bf16_info<4>(i);
+    case 8: return conv_bf16_info<8>(i);
+    case 16: return conv_bf16_info<16>(i);
+    case 32: return conv_bf16_info<32>(i);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -49,8 +49,12 @@ class GemmConv2d(nn.Conv2d):
     is processed in slices that keep the unfolded input under 2^28 floats.
 
     Which layers use it is fixed by hand from fp32 end-to-end runs at
-    432x240 only; the choice must be measured again for the bf16 path and
-    for other resolutions. On the CPU it computes the same function."""
+    432x240 only; the choice must be measured again for other
+    resolutions. In bf16 every such layer runs as one cuDNN convolution:
+    there cuDNN's bf16 implicit GEMM on the tensor cores took 0.11-0.98
+    ms a call where the unfold + matmul took 0.60-3.61 ms (H100, PERF.md,
+    Findings; `chip_smoke.py --phases ...,profile`). On the CPU it
+    computes the same function."""
 
     MAX_COLS = 1 << 28
 
@@ -60,6 +64,12 @@ class GemmConv2d(nn.Conv2d):
                          groups=groups)
 
     def forward(self, x):
+        if x.dtype != torch.float32:
+            return super().forward(x)
+        return self.gemm(x)
+
+    def gemm(self, x):
+        """The convolution as unfold + one (grouped) matmul, in x's dtype."""
         B, C, H, W = x.shape
         (kh, kw), (ph, pw) = self.kernel_size, self.padding
         Ho, Wo = H + 2 * ph - kh + 1, W + 2 * pw - kw + 1

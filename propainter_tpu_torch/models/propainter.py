@@ -25,7 +25,7 @@ from propainter_tpu_torch.models.layers import (
     Deconv, SplitGroupConv2d, conv2d, deform_align)
 from propainter_tpu_torch.ops.attention import sparse_window_attention
 from propainter_tpu_torch.ops.flash_attention import (
-    NEG_INF, flash_window_attention)
+    NEG_INF, flash_window_attention, flash_window_attention_bf16)
 from propainter_tpu_torch.ops.interp import max_pool2d, resize
 from propainter_tpu_torch.ops.patches import unfold_output_size
 from propainter_tpu_torch.ops.warp import (
@@ -360,14 +360,17 @@ class SparseWindowAttention(nn.Module):
             fv = frame_valid.to(q.device).expand(B, T).index_select(1, sel)
             bias = torch.where(fv, 0.0, NEG_INF).to(torch.float32)
             bias = bias.repeat_interleave(k_tok, dim=1).contiguous()
-        out_a = flash_window_attention(
+        attend = (flash_window_attention_bf16 if q.dtype == torch.bfloat16
+                  else flash_window_attention)
+        out_a = attend(
             win_q.reshape(B, nW * nh, T * win, ch).contiguous(),
             k_all.reshape(B, nW * nh, Ts * k_tok, ch).contiguous(),
             v_all.reshape(B, nW * nh, Ts * k_tok, ch).contiguous(),
             bias, scale)
         out_a = out_a.reshape(B, nW, nh, T, win, ch)
 
-        # branch B: within window, same frame
+        # branch B: within window, same frame (bf16 logits in bf16, as the
+        # JAX module's, `propainter.py:583, 612-619`)
         att_b = torch.softmax(win_q @ win_k.transpose(-1, -2) * scale, dim=-1)
         out_b = att_b @ win_v
 
@@ -378,6 +381,10 @@ class SparseWindowAttention(nn.Module):
                         frame_valid):
         """'pallas': each window's branch inside kernel K5 -> (B, nW,
         head, T, win, ch)."""
+        if q.dtype != torch.float32:
+            raise NotImplementedError(
+                "attention_impl='pallas' runs fp32 only: kernel K5 has no "
+                "bf16 form yet")
         B, T, _, _, C = q.shape
         nh = self.n_head
         ch = C // nh

@@ -11,6 +11,15 @@ encoder, the convex-upsample mask head applied once to the final hidden
 state (the reference computes it every iteration and uses only the last),
 and, in the default `corr_layout="flat"`, the correlation lookup fused
 with convc1 (kernel K1, over a pyramid built by K2).
+
+bf16 (the JAX bf16 pipeline's RAFT): a copy of the module cast to bf16
+encodes with `compute_dtype=torch.bfloat16` (InstanceNorm statistics stay
+fp32) and refines bf16 features; the coordinate carry and the convex
+upsample's products stay fp32. The correlation volume is fp32 from the
+bf16 maps; on a GPU it is stored in the dtype RAFT computes in (bf16:
+K2's and K1's bf16 forms), on the CPU it stays fp32 and the lookup runs
+in fp32 (`propainter_tpu/models/raft.py:319-331`), as the JAX package's
+CPU and TPU paths differ.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ import torch.nn.functional as F
 from propainter_tpu_torch.models.layers import (
     FrozenBatchNorm, GemmConv2d, InstanceNorm, conv2d)
 from propainter_tpu_torch.ops.corr import (
-    corr_lookup, corr_lookup_moenc, corr_pyramid)
+    corr_lookup, corr_lookup_moenc, corr_lookup_moenc_bf16, corr_pyramid)
 from propainter_tpu_torch.ops.warp import coords_grid
 
 
@@ -101,11 +110,20 @@ class BasicMotionEncoder(nn.Module):
 
     def forward(self, flow, pyramid=None, coords=None, windows=None):
         """flow (B, 2, h, w); pyramid levels (B*h*w, ., .) and coords NHWC,
-        or windows (B, h, w, 324) NHWC."""
+        or windows (B, h, w, 324) NHWC. The fused lookup's fp32 output is
+        cast to flow's dtype (a no-op in fp32): over a bf16 pyramid through
+        K1's bf16 form, over an fp32 one through K1 with convc1's
+        parameters in fp32."""
         w = self.convc1.weight.view(self.convc1.out_channels, -1)
         if windows is None:
-            cor = corr_lookup_moenc(pyramid, coords, w.t().contiguous(),
-                                    self.convc1.bias, self.radius)
+            if pyramid[0].dtype == torch.bfloat16:
+                cor = corr_lookup_moenc_bf16(pyramid, coords, w.t(),
+                                             self.convc1.bias, self.radius)
+            else:
+                cor = corr_lookup_moenc(
+                    pyramid, coords, w.t().float().contiguous(),
+                    self.convc1.bias.float(), self.radius)
+            cor = cor.to(flow.dtype)
         else:
             B, h, w_, C = windows.shape
             cor = torch.relu(torch.addmm(self.convc1.bias,
@@ -208,9 +226,12 @@ class RAFT(nn.Module):
         self.cnet = BasicEncoder(self.hidden_dim + self.context_dim, "batch")
         self.update_block = BasicUpdateBlock(self.hidden_dim)
 
-    def encode(self, images):
+    def encode(self, images, compute_dtype=None):
         """images (N, 3, H, W) -> fmap (N, 256, h, w), net, inp (N, 128, h,
-        w). Callers encode each unique frame once and pair the features."""
+        w). Callers encode each unique frame once and pair the features.
+        compute_dtype: the images' dtype for the encoders (default fp32);
+        bfloat16 with the module's parameters in bf16."""
+        images = images.to(compute_dtype or torch.float32)
         fmap = self.fnet(images)
         c = self.cnet(images)
         net = torch.tanh(c[:, :self.hidden_dim])
@@ -218,18 +239,26 @@ class RAFT(nn.Module):
         return fmap, net, inp
 
     def refine(self, fmap1, fmap2, net, inp, iters: int = 20):
-        """Iterative GRU refinement from encoded features (NCHW). Returns
-        (flow_low (B, 2, h, w), flow_up (B, 2, 8h, 8w))."""
-        pyramid = corr_pyramid(fmap1.permute(0, 2, 3, 1),
-                               fmap2.permute(0, 2, 3, 1), self.corr_levels)
-        B, _, h, w = net.shape
-        coords0 = coords_grid(B, h, w, device=net.device)
-        coords1 = coords0.clone()
+        """Iterative GRU refinement from encoded features (NCHW) in the
+        dtype of net and of the module's parameters; the coordinates stay
+        fp32. Returns (flow_low (B, 2, h, w), flow_up (B, 2, 8h, 8w)), fp32."""
         if self.corr_layout not in self.CORR_LAYOUTS:
             raise ValueError(f"corr_layout must be one of "
                              f"{self.CORR_LAYOUTS}, got {self.corr_layout!r}")
+        if self.corr_layout == "batched" and net.dtype != torch.float32:
+            raise NotImplementedError(
+                "corr_layout='batched' in bf16 needs K7's bf16 form, which "
+                "is not ported yet")
+        volume_dtype = (torch.float32 if net.device.type == "cpu"
+                        else net.dtype)
+        pyramid = corr_pyramid(fmap1.permute(0, 2, 3, 1),
+                               fmap2.permute(0, 2, 3, 1), self.corr_levels,
+                               volume_dtype)
+        B, _, h, w = net.shape
+        coords0 = coords_grid(B, h, w, device=net.device)
+        coords1 = coords0.clone()
         for _ in range(iters):
-            flow = (coords1 - coords0).permute(0, 3, 1, 2)
+            flow = (coords1 - coords0).permute(0, 3, 1, 2).to(net.dtype)
             coords = coords1.contiguous()
             if self.corr_layout == "batched":
                 net, delta = self.update_block(

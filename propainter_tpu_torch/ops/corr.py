@@ -22,16 +22,26 @@ import torch.nn.functional as F
 from propainter_tpu_torch import _build
 
 
-def corr_pyramid(fmap1, fmap2, num_levels: int = 4):
+def corr_pyramid(fmap1, fmap2, num_levels: int = 4,
+                 out_dtype=torch.float32):
     """All-pairs correlation pyramid of NHWC feature maps (B, H, W, D).
 
-    The level-0 volume fmap1·fmap2ᵀ/√D is one batched GEMM (`torch.bmm`);
-    the 1/√D scale is applied to fmap1 first, which is exact for D = 256
-    (a power of two). Levels 1.. come from `corr_pyramid_build` (K2)."""
+    The level-0 volume fmap1·fmap2ᵀ/√D is one batched fp32 GEMM
+    (`torch.bmm`) of the maps cast to fp32, whatever their dtype (bf16
+    maps multiply exactly in fp32); the 1/√D scale is applied to fmap1
+    first, which is exact for D = 256 (a power of two). Levels 1.. come
+    from `corr_pyramid_build` (K2), or with out_dtype=bfloat16 every level
+    from `corr_pyramid_build_bf16` (K2's bf16 form: pooled in fp32, stored
+    in bf16), as the JAX package's `corr_pyramid_flat(out_dtype=...)`."""
     B, H, W, D = fmap1.shape
     f1 = fmap1.reshape(B, H * W, D).float() * (1.0 / math.sqrt(D))
     f2 = fmap2.reshape(B, H * W, D).float()
     level0 = torch.bmm(f1, f2.transpose(1, 2)).view(B * H * W, H, W)
+    if out_dtype == torch.bfloat16:
+        return corr_pyramid_build_bf16(level0, num_levels)
+    if out_dtype != torch.float32:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got "
+                         f"{out_dtype}")
     return corr_pyramid_build(level0, num_levels)
 
 
@@ -55,16 +65,8 @@ def corr_pyramid_build(level0, num_levels: int = 4):
     if level0.device.type == "cpu":
         return _corr_pyramid_build_plain(level0, num_levels)
     _build.require_cuda(level0)
-    if num_levels != 4:
-        raise ValueError("the K2 kernel builds exactly 4 levels")
-    if level0.dtype != torch.float32 or not level0.is_contiguous():
-        raise ValueError("level0 must be contiguous float32")
+    sizes = _pyramid_sizes(level0, num_levels)
     N, H, W = level0.shape
-    sizes = [(H, W)]
-    for _ in range(3):
-        sizes.append((sizes[-1][0] // 2, sizes[-1][1] // 2))
-    if min(min(s) for s in sizes) < 1:
-        raise ValueError(f"volume {H}x{W} too small for 4 levels")
     outs = [torch.empty((N, h, w), dtype=torch.float32, device=level0.device)
             for h, w in sizes[1:]]
     fn = _build.function("corr_pyramid_build", "corr_pyramid_build", 4, 3)
@@ -75,6 +77,53 @@ def corr_pyramid_build(level0, num_levels: int = 4):
 
 
 corr_pyramid_build.launches = 0
+
+
+def _pyramid_sizes(level0, num_levels):
+    if num_levels != 4:
+        raise ValueError("the K2 kernel builds exactly 4 levels")
+    if level0.dtype != torch.float32 or not level0.is_contiguous():
+        raise ValueError("level0 must be contiguous float32")
+    N, H, W = level0.shape
+    sizes = [(H, W)]
+    for _ in range(3):
+        sizes.append((sizes[-1][0] // 2, sizes[-1][1] // 2))
+    if min(min(s) for s in sizes) < 1:
+        raise ValueError(f"volume {H}x{W} too small for 4 levels")
+    return sizes
+
+
+def _corr_pyramid_build_bf16_plain(level0, num_levels: int):
+    return [lvl.to(torch.bfloat16)
+            for lvl in _corr_pyramid_build_plain(level0, num_levels)]
+
+
+def corr_pyramid_build_bf16(level0, num_levels: int = 4):
+    """`corr_pyramid_build` with every level, level 0 included, stored as
+    bf16: the pools run in fp32 on the fp32 level 0 and each level is
+    rounded once (`corr_pallas.py:64`, `out_dtype=bfloat16`). Returns
+    [level0, level1, ...] in bf16.
+
+    Kernel K2's bf16 form (`corr_pyramid_build_bf16` in
+    `csrc/corr_pyramid_build.cu`): the fp32 kernel's block per query row,
+    also writing level 0 rounded. Bound: bytes (the fp32 level 0 read
+    once, the bf16 levels written once)."""
+    if level0.device.type == "cpu":
+        return _corr_pyramid_build_bf16_plain(level0, num_levels)
+    _build.require_cuda(level0)
+    sizes = _pyramid_sizes(level0, num_levels)
+    N = level0.shape[0]
+    outs = [torch.empty((N, h, w), dtype=torch.bfloat16,
+                        device=level0.device) for h, w in sizes]
+    fn = _build.function("corr_pyramid_build", "corr_pyramid_build_bf16",
+                         5, 3)
+    _build.launch(fn, "corr_pyramid_build_bf16", level0, level0.data_ptr(),
+                  *[o.data_ptr() for o in outs], N, *sizes[0])
+    corr_pyramid_build_bf16.launches += 1
+    return outs
+
+
+corr_pyramid_build_bf16.launches = 0
 
 
 def _corr_lookup_plain(pyramid, coords, radius: int = 4):
@@ -202,3 +251,91 @@ def corr_lookup_moenc(pyramid, coords, weight, bias, radius: int = 4):
 
 
 corr_lookup_moenc.launches = 0
+
+
+def _corr_windows_bf16_plain(pyramid, coords, radius: int = 4):
+    """The (N, levels*(2r+1)^2) bf16 window values K1's bf16 form
+    multiplies: `_corr_lookup_plain` over bf16 levels with the row lerp in
+    bf16 (fy rounded to bf16, each product and the sum rounded) and the
+    column lerp in fp32, each value then rounded to bf16 (the TPU kernel's
+    rounding points, `corr_pallas.py:189-196, 264-265, 299-303`)."""
+    B, H, W, _ = coords.shape
+    N = B * H * W
+    r = radius
+    n = 2 * r + 1
+    cx = coords[..., 0].reshape(N).float()
+    cy = coords[..., 1].reshape(N).float()
+    s = torch.arange(n + 1, device=coords.device) - r
+    outs = []
+    for lvl, corr in enumerate(pyramid):
+        Hl, Wl = corr.shape[1:]
+        x = cx / (2.0 ** lvl)
+        y = cy / (2.0 ** lvl)
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = (x - x0)[:, None, None]
+        fyb = (y - y0)[:, None, None].to(torch.bfloat16)
+        xs = x0.clamp(-(r + 2), Wl + r).long()[:, None] + s
+        ys = y0.clamp(-(r + 2), Hl + r).long()[:, None] + s
+        valid = (((ys >= 0) & (ys < Hl))[:, :, None]
+                 & ((xs >= 0) & (xs < Wl))[:, None, :])
+        idx = (ys.clamp(0, Hl - 1)[:, :, None] * Wl
+               + xs.clamp(0, Wl - 1)[:, None, :])
+        g = torch.gather(corr.reshape(N, Hl * Wl), 1, idx.reshape(N, -1))
+        g = g.reshape(N, n + 1, n + 1) * valid                 # bf16 [y, x]
+        gy = (g[:, :-1] * (1.0 - fyb) + g[:, 1:] * fyb).float()
+        v = gy[:, :, :-1] * (1.0 - fx) + gy[:, :, 1:] * fx     # fp32
+        outs.append(v.transpose(1, 2).reshape(N, n * n))
+    return torch.cat(outs, dim=-1).to(torch.bfloat16)
+
+
+def _corr_lookup_moenc_bf16_plain(pyramid, coords, weight, bias, radius):
+    a = _corr_windows_bf16_plain(pyramid, coords, radius)
+    out = torch.addmm(bias.float(), a.float(), weight.float())
+    B, H, W, _ = coords.shape
+    return torch.relu(out).reshape(B, H, W, -1)
+
+
+def corr_lookup_moenc_bf16(pyramid, coords, weight, bias, radius: int = 4):
+    """`corr_lookup_moenc` over a bf16 pyramid (`corr_pyramid(...,
+    out_dtype=torch.bfloat16)`), as the TPU kernel computes it in the JAX
+    bf16 pipeline: the window values rounded as `_corr_windows_bf16_plain`
+    says, then relu(values @ weight + bias) with bf16 operands and fp32
+    sums. pyramid levels bf16; coords (B, H, W, 2) fp32; weight (324, 256)
+    bf16 (convc1's kernel as rows, any strides); bias (256,) bf16. Returns
+    (B, H, W, 256) fp32.
+
+    Kernel K1's bf16 form (`corr_lookup_moenc_bf16` in
+    `csrc/corr_lookup_moenc.cu`): a 64-query x 256-output tile per block
+    whose bf16 A rows are gathered into shared memory, then one
+    m16n8k16 bf16 pass on the tensor cores, B fragments read straight from
+    the weight. Bound: bytes (the in-range bf16 taps, the fp32 output)."""
+    if coords.device.type == "cpu":
+        return _corr_lookup_moenc_bf16_plain(pyramid, coords, weight, bias,
+                                             radius)
+    _build.require_cuda(coords, weight, bias, *pyramid)
+    B, H, W, _ = coords.shape
+    N = B * H * W
+    C, Fo = weight.shape
+    if radius != 4 or len(pyramid) != 4 or C != 324 or Fo != 256:
+        raise ValueError("K1 takes radius 4, 4 levels, a (324, 256) weight")
+    if (any(t.dtype != torch.bfloat16 for t in (*pyramid, weight, bias))
+            or coords.dtype != torch.float32):
+        raise ValueError("K1's bf16 form takes bf16 levels, weight and bias "
+                         "and float32 coords")
+    if any(p.shape[0] != N for p in pyramid):
+        raise ValueError("pyramid rows must equal the number of queries")
+    wt = weight.t().contiguous()
+    tensors = (*pyramid, coords.contiguous(), wt, bias.contiguous())
+    if any(not t.is_contiguous() for t in pyramid):
+        raise ValueError("K1's pyramid levels must be contiguous")
+    out = torch.empty((B, H, W, Fo), dtype=torch.float32, device=coords.device)
+    dims = [d for p in pyramid for d in p.shape[1:]]
+    fn = _build.function("corr_lookup_moenc", "corr_lookup_moenc_bf16", 8, 9)
+    _build.launch(fn, "corr_lookup_moenc_bf16", coords,
+                  *[t.data_ptr() for t in tensors], out.data_ptr(), N, *dims)
+    corr_lookup_moenc_bf16.launches += 1
+    return out
+
+
+corr_lookup_moenc_bf16.launches = 0

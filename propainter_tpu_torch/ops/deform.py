@@ -204,6 +204,95 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None, split=None):
 modulated_deform_conv2d.launches = 0
 
 
+def _modulated_deform_conv2d_bf16_plain(x, offset, mask, weight, bias):
+    """The TPU kernel's bf16 rounding points (`deform_pallas.py:173-204`,
+    `:256-258`, `:276-280`), in fp32 arithmetic between them."""
+    B, H, W, C = x.shape
+    dg = offset.shape[3]
+    Cg = C // dg
+    sy, sx = _tap_coords(offset.float())
+    sy = sy.to(torch.bfloat16).float()             # (B, H, W, dg, 9)
+    sx = sx.to(torch.bfloat16).float()
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+
+    def weight_of(s, c, size):          # max(1 - |s - c|, 0), 0 outside
+        w = (1.0 - (s - c).abs()).clamp_min(0.0)
+        return w * ((c >= 0) & (c <= size - 1))
+
+    wx0 = weight_of(sx, x0, W).to(torch.bfloat16).float()
+    wx1 = weight_of(sx, x0 + 1.0, W).to(torch.bfloat16).float()
+    wy0, wy1 = weight_of(sy, y0, H), weight_of(sy, y0 + 1.0, H)
+    xg = x.float().reshape(B, H, W, dg, Cg).permute(0, 3, 1, 2, 4)
+    xg = xg.reshape(B * dg, H, W, Cg)
+
+    def per_group(a):                   # (B, H, W, dg, 9) -> (B*dg, H, W*9)
+        return a.permute(0, 3, 1, 2, 4).reshape(B * dg, H, W * 9)
+
+    def at(yc, xc):
+        return _gather2d(xg, per_group(yc).long().clamp(0, H - 1),
+                         per_group(xc).long().clamp(0, W - 1))
+
+    def g_(a):
+        return per_group(a)[..., None]
+
+    t0 = at(y0, x0) * g_(wx0) + at(y0, x0 + 1.0) * g_(wx1)
+    t1 = at(y0 + 1.0, x0) * g_(wx0) + at(y0 + 1.0, x0 + 1.0) * g_(wx1)
+    val = (t0 * g_(wy0) + t1 * g_(wy1)) * g_(mask.float())
+    val = val.reshape(B, dg, H, W, 9, Cg).permute(0, 2, 3, 1, 4, 5)
+    out = _contract(val.to(torch.bfloat16).float(), weight.float(), None)
+    out = out.to(torch.bfloat16)
+    return out if bias is None else out + bias
+
+
+def modulated_deform_conv2d_bf16(x, offset, mask, weight, bias=None):
+    """`modulated_deform_conv2d` in bf16, as the TPU kernel computes it in
+    the JAX bf16 pipeline: every tensor bf16; each tap position (h + i - 1
+    + dy, in fp32) rounded to bf16, the column weights rounded to bf16,
+    the modulated samples rounded to bf16, a bf16 x bf16 contraction with
+    fp32 sums over every group and tap, the sum rounded to bf16, then the
+    bias added in bf16. Returns (B, H, W, O) bf16.
+
+    Kernel K3's bf16 form (`modulated_deform_conv2d_bf16` in
+    `csrc/deform_conv.cu`): one block per 32 positions x 128 outputs, K
+    walked in 32-channel chunks of one tap whose samples are built in
+    shared memory, one m16n8k16 bf16 pass on the tensor cores; no cluster
+    split. Takes C % 32 == 0, C / dg in GROUP_WIDTHS and O = 128. Bound:
+    operations (2 * 9 * C * 128 FLOPs per position at the bf16
+    tensor-core rate)."""
+    if x.device.type == "cpu":
+        return _modulated_deform_conv2d_bf16_plain(x, offset, mask, weight,
+                                                   bias)
+    _build.require_cuda(x, offset, mask, weight, bias)
+    B, H, W, C = x.shape
+    dg = offset.shape[3]
+    O = weight.shape[-1]
+    if weight.shape != (3, 3, C, O) or O != 128:
+        raise ValueError(f"K3 takes a (3, 3, C, 128) weight, got "
+                         f"{tuple(weight.shape)}")
+    if C % K3_CHUNK or C % dg or C // dg not in GROUP_WIDTHS:
+        raise ValueError(f"K3 needs C % {K3_CHUNK} == 0 and C / dg in "
+                         f"{GROUP_WIDTHS} (C={C}, dg={dg})")
+    if offset.shape != (B, H, W, dg, 9, 2) or mask.shape != (B, H, W, dg, 9):
+        raise ValueError("offset/mask shapes do not match x")
+    if bias is None:
+        bias = torch.zeros(O, dtype=x.dtype, device=x.device)
+    tensors = (x, offset, mask, weight, bias)
+    if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
+           or t.data_ptr() % 16 or t.numel() >= _INT32 for t in tensors):
+        raise ValueError("K3's bf16 form takes contiguous bfloat16 inputs, "
+                         "16-byte aligned, with fewer than 2^31 elements")
+    out = torch.empty((B, H, W, O), dtype=torch.bfloat16, device=x.device)
+    fn = _build.function("deform_conv", "modulated_deform_conv2d_bf16", 6, 5)
+    _build.launch(fn, "modulated_deform_conv2d_bf16", x,
+                  *[t.data_ptr() for t in tensors], out.data_ptr(), B, H, W,
+                  C, dg)
+    modulated_deform_conv2d_bf16.launches += 1
+    return out
+
+
+modulated_deform_conv2d_bf16.launches = 0
+
+
 def deform_sample(x, sy, sx, mask, dg: int):
     """Bilinear samples of x (B, H, W, C) at the absolute coordinates sy, sx
     (B, Ho, Wo, dg, K) of each group's taps, zero outside the image, times
@@ -287,9 +376,11 @@ def modulated_deform_conv2d_opt(x, offset, mask, weight, bias=None):
 
 
 def modulated_deform_conv2d_opt2(x, offset, mask, weight, bias=None):
-    """Differentiable DCNv2 through K3 (`modulated_deform_conv2d`); the
-    plain version on the CPU. Backward: autograd of the plain version. The
-    JAX dispatcher's `row_chunk` only bounds the memory of its XLA
-    formulation and has no counterpart here."""
-    return _DeformConv.apply(modulated_deform_conv2d, x, offset, mask,
-                             weight, bias)
+    """Differentiable DCNv2 through K3 (`modulated_deform_conv2d`, or its
+    bf16 form `modulated_deform_conv2d_bf16` for bf16 x); the plain version
+    on the CPU. Backward: autograd of the fp32 plain version. The JAX
+    dispatcher's `row_chunk` only bounds the memory of its XLA formulation
+    and has no counterpart here."""
+    forward_fn = (modulated_deform_conv2d_bf16 if x.dtype == torch.bfloat16
+                  else modulated_deform_conv2d)
+    return _DeformConv.apply(forward_fn, x, offset, mask, weight, bias)

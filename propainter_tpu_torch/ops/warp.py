@@ -1,8 +1,11 @@
 """Bilinear/nearest sampling and flow warping (NHWC public layout).
 
-Counterpart of `propainter_tpu/ops/warp.py`. Bilinear warps go through
+Counterpart of `propainter_tpu/ops/warp.py`. fp32 bilinear warps go through
 `F.grid_sample` (align_corners=True, zeros padding — the reference's
-`flow_warp`). Nearest mode ports the JAX rule, `floor(x + 0.5)`, because
+`flow_warp`). In bf16 they take the JAX package's four-corner arithmetic
+in the tensors' dtype (`_bilinear_corners`): its sample positions are
+rounded to bf16 as it rounds them, where `F.grid_sample` would compute
+them in fp32. Nearest mode ports the JAX rule, `floor(x + 0.5)`, because
 `F.grid_sample(mode="nearest")` rounds half to even and would pick the other
 pixel on a .5 tie.
 """
@@ -27,9 +30,38 @@ def _gather2d(img, yi, xi):
     return out.reshape(*yi.shape, C)
 
 
+def _bilinear_corners(img, x, y):
+    """Bilinear samples of img (B, H, W, C) at pixel coordinates x, y (B,
+    ...), zeros outside, in the JAX package's arithmetic and order
+    (`propainter_tpu/ops/warp.py:grid_sample`): corners x0 = floor(x) and
+    x0 + 1, fractions cast to img's dtype, corner weights wy * wx * valid,
+    the four weighted corners summed in img's dtype."""
+    B, H, W, _ = img.shape
+    x0, y0 = torch.floor(x), torch.floor(y)
+    x1, y1 = x0 + 1.0, y0 + 1.0
+    wx1, wy1 = (x - x0).to(img.dtype), (y - y0).to(img.dtype)
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+
+    def corner(yc, xc, wy, wx):
+        valid = ((xc >= 0) & (xc <= W - 1) & (yc >= 0)
+                 & (yc <= H - 1)).to(img.dtype)
+        g = _gather2d(img, yc.long().clamp(0, H - 1),
+                      xc.long().clamp(0, W - 1))
+        return g * (wy * wx * valid)[..., None]
+
+    return (corner(y0, x0, wy0, wx0) + corner(y0, x1, wy0, wx1)
+            + corner(y1, x0, wy1, wx0) + corner(y1, x1, wy1, wx1))
+
+
 def grid_sample(img, grid, mode: str = "bilinear",
                 padding_mode: str = "zeros", align_corners: bool = True):
     """Sample img (B, H, W, C) at normalized grid (B, Ho, Wo, 2) (x, y)."""
+    if (mode == "bilinear" and padding_mode == "zeros"
+            and img.dtype != torch.float32):
+        B, H, W, _ = img.shape
+        return _bilinear_corners(
+            img, _unnormalize(grid[..., 0], W, align_corners),
+            _unnormalize(grid[..., 1], H, align_corners))
     if mode == "bilinear":
         out = F.grid_sample(img.permute(0, 3, 1, 2), grid, mode="bilinear",
                             padding_mode=padding_mode,
@@ -66,6 +98,9 @@ def _flow_grid(flow):
 
 def flow_warp_nchw(x, flow):
     """Bilinear backward warp of x (B, C, H, W) by flow (B, H, W, 2)."""
+    if x.dtype != torch.float32:
+        return grid_sample(x.permute(0, 2, 3, 1),
+                           _flow_grid(flow)).permute(0, 3, 1, 2)
     return F.grid_sample(x, _flow_grid(flow), mode="bilinear",
                          padding_mode="zeros", align_corners=True)
 

@@ -1,5 +1,5 @@
-"""End-to-end video inpainting (the reference's 4-stage schedule), fp32.
-Counterpart of `propainter_tpu/pipeline.py`.
+"""End-to-end video inpainting (the reference's 4-stage schedule), in fp32
+or bf16. Counterpart of `propainter_tpu/pipeline.py`.
 
   stage 1  bidirectional RAFT flow, chunked by clip length (by width);
   stage 2  flow completion, chunked by subvideo_length with 5-frame overlap;
@@ -13,15 +13,30 @@ Counterpart of `propainter_tpu/pipeline.py`.
 (`parallel.make_mesh`), RAFT's frames and pairs, stage 2-3 chunks and
 stage-4 window batches split across it.
 
+precision='bf16' is the JAX package's bf16 pipeline: the flow completion
+and the generator run with their parameters cast to bf16 once and their
+inputs cast to bf16 (`propainter_tpu/pipeline.py:237-248, 347-442`);
+RAFT's parameters stay fp32 and, off the CPU, RAFT encodes and refines
+with a bf16 copy of them (`raft_bf16_encode`, `raft_bf16_refine`, the JAX
+rule `use_bf16 = ... and backend != "cpu"`, here `device.type != "cpu"`:
+the JAX package's own semantics, under which a CPU run keeps RAFT fp32),
+its correlation volume then stored in bf16. With raft_bf16_refine=False
+RAFT runs wholly in fp32, its volume too, where the JAX package would
+store that volume in bf16.
+bf16 runs only with attention_impl='flash' and without shard_inference:
+kernels K5 and K7 have no bf16 form yet.
+
 The JAX package's TPU scheduling tricks (occupancy bucketing, encoder
 overlap carry, reference-token precompute, last-block query shrink) are
 not ported: its tests pin each bit-exact to the plain schedule, which is
-what runs here.
+what runs here. Their `PipelineConfig` fields are accepted and change
+nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import time
 
@@ -91,11 +106,20 @@ def get_ref_index(mid_neighbor_id, neighbor_ids, length, ref_stride=10,
 
 @dataclasses.dataclass
 class PipelineConfig:
+    """Every field of the JAX package's `PipelineConfig`, with its
+    defaults."""
+
     ref_stride: int = 10
     neighbor_length: int = 10
     subvideo_length: int = 80
     raft_iter: int = 20
-    precision: str = "fp32"
+    precision: str = "fp32"   # 'fp32' | 'bf16'
+    # the JAX package's fixed RAFT chunk length (its evaluation protocol);
+    # only None (the width-based length) until evaluation is ported
+    raft_clip_len: int | None = None
+    # the JAX package's whole-video evaluation protocol; only False until
+    # evaluation is ported
+    unchunked: bool = False
     # the generator's sparse window attention: 'flash' (kernel K4 over
     # every window, then the occupancy selects) or 'pallas' (kernel K5
     # takes each window's branch); the pipeline sets it on its generator
@@ -114,6 +138,24 @@ class PipelineConfig:
     # 2-3 chunks (equal_chunk_schedule) and stage-4 window batches split
     # across it
     shard_inference: bool = False
+    # the JAX package's stage-4 occupancy bucketing and encoder overlap
+    # carry: scheduling choices its tests pin output-identical to the dense
+    # schedule, which is what runs here whatever these say
+    occupancy_bucketing: bool = True
+    encoder_carry: bool = True
+    # bf16 only, off the CPU: RAFT's refinement, and with it its encoders,
+    # in bf16 (see the module docstring); fp32 otherwise
+    raft_bf16_refine: bool = True
+    raft_bf16_encode: bool = True
+
+    def __post_init__(self):
+        if self.precision not in ("fp32", "bf16"):
+            raise ValueError(f"precision must be 'fp32' or 'bf16', got "
+                             f"{self.precision!r}")
+        if self.raft_clip_len is not None or self.unchunked:
+            raise NotImplementedError(
+                "raft_clip_len and unchunked are the JAX package's "
+                "evaluation protocol, which is not ported yet")
 
 
 @contextlib.contextmanager
@@ -150,9 +192,16 @@ class ProPainterPipeline:
                  config: PipelineConfig | None = None, *, device=None,
                  mesh=None):
         self.config = config or PipelineConfig()
-        if self.config.precision != "fp32":
+        bf16 = self.config.precision == "bf16"
+        if bf16 and self.config.attention_impl != "flash":
             raise NotImplementedError(
-                f"precision={self.config.precision!r}: only fp32 is ported")
+                "precision='bf16' runs attention_impl='flash' only: kernel "
+                "K5 has no bf16 form yet")
+        if bf16 and self.config.shard_inference:
+            raise NotImplementedError(
+                "precision='bf16' with shard_inference needs K7's bf16 "
+                "form, which is not ported yet")
+        self._dtype = torch.bfloat16 if bf16 else torch.float32
         inpaint.set_attention_impl(self.config.attention_impl)
         raft.corr_layout = ("batched" if self.config.shard_inference
                             else "flat")
@@ -173,6 +222,15 @@ class ProPainterPipeline:
         self.raft = raft.to(self.device).eval()
         self.flowcomp = flowcomp.to(self.device).eval()
         self.inpaint = inpaint.to(self.device).eval()
+        # bf16: the flow completion and the generator run on copies of
+        # their parameters cast once (the caller's modules stay fp32); off
+        # the CPU RAFT refines, and encodes, on a bf16 copy
+        self._raft_bf16 = None
+        if bf16:
+            self.flowcomp = copy.deepcopy(self.flowcomp).to(torch.bfloat16)
+            self.inpaint = copy.deepcopy(self.inpaint).to(torch.bfloat16)
+            if self.device.type != "cpu" and self.config.raft_bf16_refine:
+                self._raft_bf16 = copy.deepcopy(self.raft).to(torch.bfloat16)
         self._replicas = {name: replicate(getattr(self, name), self.mesh)
                           for name in ("raft", "flowcomp", "inpaint")}
 
@@ -200,18 +258,26 @@ class ProPainterPipeline:
         (t, t+1) and backward pairs (t+1, t) refine in one batch."""
         B, T, H, W, C = frames.shape
         flat = frames.reshape(B * T, H, W, C).permute(0, 3, 1, 2)
-        fmap, net, inp = self._sharded("raft", lambda m, x: m.encode(x),
-                                       flat)
+        raft_bf16 = self._raft_bf16
+        if raft_bf16 is not None and self.config.raft_bf16_encode:
+            fmap, net, inp = raft_bf16.encode(flat, torch.bfloat16)
+        else:
+            fmap, net, inp = self._sharded(
+                "raft", lambda m, x: m.encode(x), flat)
 
         def pairs(x):
             x = x.reshape(B, T, *x.shape[1:])
             return (x[:, :-1].flatten(0, 1), x[:, 1:].flatten(0, 1))
 
         (f1, f2), (n1, n2), (i1, i2) = pairs(fmap), pairs(net), pairs(inp)
-        (flow,) = self._sharded(
-            "raft", lambda m, *a: m.refine(*a, iters)[1:],
-            torch.cat([f1, f2]), torch.cat([f2, f1]), torch.cat([n1, n2]),
-            torch.cat([i1, i2]))
+        features = (torch.cat([f1, f2]), torch.cat([f2, f1]),
+                    torch.cat([n1, n2]), torch.cat([i1, i2]))
+        if raft_bf16 is not None:
+            features = tuple(f.to(torch.bfloat16) for f in features)
+            (flow,) = raft_bf16.refine(*features, iters)[1:]
+        else:
+            (flow,) = self._sharded(
+                "raft", lambda m, *a: m.refine(*a, iters)[1:], *features)
         flow = flow.permute(0, 2, 3, 1)
         n = B * (T - 1)
         return (flow[:n].reshape(B, T - 1, H, W, 2),
@@ -234,10 +300,11 @@ class ProPainterPipeline:
         return torch.cat(fs, dim=1), torch.cat(bs, dim=1)
 
     def _complete_flow(self, flows_f, flows_b, flow_masks, flowcomp=None):
-        flows = (flows_f, flows_b)
-        pred = forward_bidirect_flow(flowcomp or self.flowcomp, flows,
-                                     flow_masks)
-        return combine_flow(flows, pred, flow_masks)
+        dt = self._dtype
+        flows = (flows_f.to(dt), flows_b.to(dt))
+        masks = flow_masks.to(dt)
+        pred = forward_bidirect_flow(flowcomp or self.flowcomp, flows, masks)
+        return combine_flow(flows, pred, masks)
 
     # ---- multi-device chunk splitting (stages 2 and 3) -------------------
 
@@ -300,6 +367,9 @@ class ProPainterPipeline:
         return torch.cat(pred_f, dim=1), torch.cat(pred_b, dim=1)
 
     def _img_prop(self, frames, flows_f, flows_b, masks):
+        dt = self._dtype
+        frames, flows_f, flows_b, masks = (
+            t.to(dt) for t in (frames, flows_f, flows_b, masks))
         masked = frames * (1 - masks)
         prop, updated = image_propagation(masked, flows_f, flows_b, masks)
         return masked + prop * masks, updated
@@ -370,9 +440,11 @@ class ProPainterPipeline:
                 runs[-1].append(window)
             else:
                 runs.append([window])
-        uf, md, um = (x[0] for x in (updated_frames, masks_dilated,
-                                     updated_masks))
-        ff, fb = (x[0] for x in pred_flows_bi)
+        dt = self._dtype
+        uf, md, um = (x[0].to(dt) for x in (updated_frames, masks_dilated,
+                                            updated_masks))
+        ff, fb = (x[0].to(dt) for x in pred_flows_bi)
+        masks_bin = masks_dilated[0]
         comp = torch.zeros((T, H, W, 3), dtype=torch.float32,
                            device=self.device)
         visited = torch.zeros(T, dtype=torch.bool)
@@ -393,11 +465,11 @@ class ProPainterPipeline:
                         x, (f_, b_), mi, mu, l_t, frame_valid=fv),),
                     uf[idx], ff[idx[:, :l_t - 1]], fb[idx[:, :l_t - 1]],
                     md[idx], um[idx], valid)
-                img8 = torch.floor((pred + 1.0) / 2.0 * 255.0).clamp(0.0,
-                                                                     255.0)
+                img8 = torch.floor((pred.float() + 1.0) / 2.0 * 255.0).clamp(
+                    0.0, 255.0)
                 for w in range(n_real):
                     for j, t in enumerate(batch[w][0]):
-                        m = md[t]
+                        m = masks_bin[t]
                         img = img8[w, j] * m + ori[t] * (1.0 - m)
                         if visited[t]:
                             img = torch.floor(0.5 * comp[t] + 0.5 * img)

@@ -100,11 +100,16 @@ def test_tensor_core_launch_grids():
     """The build phase's grids on 132 SMs: K1 1215 32-query tiles (walked by
     its persistent blocks), K4 14 query tiles x 64 problems, K5 twice that
     (two blocks a tile), K3 its position tiles times the wrapper's split
-    for 2 resident blocks per SM at each call site."""
+    for 2 resident blocks per SM at each call site; the bf16 forms one
+    block per tile: K1's 608 64-query tiles, K4's as K4's, K3's 32-position
+    tiles (the launch facts the card reported)."""
     info = {"corr_lookup_moenc_kernel": [2, 93696, 128, 32, 1],
             "window_attention_kernel": [2, 107520, 128, 64, 1],
             "sparse_window_attention_kernel": [2, 107520, 128, 64, 2],
-            "deform_conv_kernel": [2, 67584, 128, 64, 8]}
+            "deform_conv_kernel": [2, 67584, 128, 64, 8],
+            "corr_lookup_moenc_bf16_kernel": [2, 0, 256, 64, 1],
+            "window_attention_bf16_kernel": [3, 0, 128, 64, 1],
+            "deform_conv_bf16_kernel": [8, 0, 128, 32, 1]}
     grids = {(symbol, site): grid_of(info[symbol])
              for _, symbol, site, _, _, grid_of
              in chip_smoke._tensor_core_launches(132)}
@@ -113,7 +118,11 @@ def test_tensor_core_launch_grids():
         ("window_attention_kernel", "main path"): 14 * 64,
         ("sparse_window_attention_kernel", "main path"): 14 * 2 * 64,
         ("deform_conv_kernel", "generator"): 102 * 2,
-        ("deform_conv_kernel", "flow completion"): 51 * 4}
+        ("deform_conv_kernel", "flow completion"): 51 * 4,
+        ("corr_lookup_moenc_bf16_kernel", "bf16 main path"): 608,
+        ("window_attention_bf16_kernel", "bf16 main path"): 14 * 64,
+        ("deform_conv_bf16_kernel", "generator, bf16"): 203,
+        ("deform_conv_bf16_kernel", "flow completion, bf16"): 102}
 
 
 def test_corr_lookup_bound_at_the_main_path_shape():

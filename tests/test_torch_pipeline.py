@@ -162,10 +162,16 @@ def test_schedule_helpers_match_jax():
 def test_precision_and_device_guards():
     mods = {"raft": RAFT(), "flowcomp": RecurrentFlowCompleteNet(),
             "inpaint": InpaintGenerator(depths=2)}
-    with pytest.raises(NotImplementedError):
-        torch_pipeline.ProPainterPipeline(
-            *mods.values(), torch_pipeline.PipelineConfig(precision="bf16"),
-            device="cpu")
+    # bf16 runs 'flash' without shard_inference: K5 and K7 have no bf16
+    # form yet
+    for options in (dict(attention_impl="pallas"),
+                    dict(shard_inference=True)):
+        with pytest.raises(NotImplementedError):
+            torch_pipeline.ProPainterPipeline(
+                *mods.values(), torch_pipeline.PipelineConfig(
+                    precision="bf16", **options), device="cpu")
+    with pytest.raises(ValueError):
+        torch_pipeline.PipelineConfig(precision="fp16")
     # the dense differentiable form comes with training
     with pytest.raises(NotImplementedError):
         torch_pipeline.ProPainterPipeline(
