@@ -26,33 +26,43 @@ Phases:
               ragged shapes (a partial query and key tile, a bias masking
               a whole key tile); K5 at three occupancies and both
               temporal-dilation parities, and A/B against K4 plus branch
-              B; the bf16 forms of K1-K4 against their bf16 plain versions
-              (two bf16 steps of the output scale), beside the bf16
-              library routes (F.grid_sample + addmm for K1, SDPA for K4);
+              B; the bf16 forms of K1-K5 and K7, and K1 over a bf16
+              volume with fp32 parameters, against their bf16 plain
+              versions (two bf16 steps of the output scale; K7's fp32
+              output within 1e-6), beside the bf16 library routes
+              (F.grid_sample + addmm for K1, F.grid_sample for K7, SDPA
+              for K4 and K5) and, for K5, the fp32 K5;
   deform_opt  K6's path: the differentiable deform dispatchers
               (`modulated_deform_conv2d_opt` through K6, `_opt2` through
               K3) forward and backward at both call sites' shapes; values
               and gradients against autograd of the plain version;
   pipeline    `ProPainterPipeline.inpaint_video` at 80 frames of 432x240,
-              full-width models with seeded random weights, in four
+              full-width models with seeded random weights, in seven
               configurations on the same weights and clip: fp32 'flash',
               'pallas', and shard_inference with window_batch 4 on the
-              card's one-device mesh, and bf16 'flash'; output
+              card's one-device mesh, the same three in bf16
+              (shard_inference with raft_bf16_refine=False), and bf16
+              'flash' with raft_bf16_refine=False; output
               shape/dtype, unmasked pixels unchanged, every kernel of each
               path launched (K1 once per RAFT iteration and K7 never,
               except under shard_inference, the reverse; K5 once per
               transformer block and K4 never under 'pallas'; in bf16 the
-              bf16 forms of K1-K4 as often as fp32 'flash' launches K1-K4,
-              and no fp32 form), the fp32 outputs within 12 max / 0.5 mean
-              LSB of 'flash' (bf16's difference reported, not gated);
+              bf16 forms as often as the fp32 run of the configuration
+              launches the fp32 ones, and no fp32 form), the fp32 outputs
+              within 12 max / 0.5 mean LSB of 'flash' (bf16's differences
+              reported, not gated);
   small       a 6-frame 144x160 clip on the GPU (kernels) and on the CPU
               (plain versions), fan-in scaled weights, in the three
               configurations ('flash' through `ProInpainter`): uint8
               outputs within 12 max / 0.5 mean LSB, a std of at least 10
               LSB inside the hole, and the float outputs of RAFT, flow
               completion and one generator window within 1e-3 of their
-              scale; and the golden fixture's clip and schedule in bf16
-              on the GPU within 24 max / 1.0 mean LSB of fp32 on the CPU;
+              scale; the golden fixture's clip and schedule in bf16
+              ('flash' and 'pallas') on the GPU within 24 max / 1.0 mean
+              LSB of fp32 on the CPU; one RAFT chunk with
+              raft_bf16_refine=False in both corr layouts (K1 over a bf16
+              volume, K7's bf16 form), its flow drift from the fp32 refine
+              reported;
   cli         the port's CLI on the fixture clip on the GPU, --weights
               random --bf16 --save_frames (the CLI's I/O needs cv2);
   profile     (only when named) the main path under torch.profiler in fp32
@@ -185,21 +195,22 @@ def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def _tensor_core_bounds(n_bytes: float, product_flops: float,
-                        cuda_core_ops: float) -> dict:
-    """The bounds of a kernel whose products run in 3xTF32 (K3, K4, K5):
-    `bound_ms` is "operations (3xTF32)", the larger of the bytes over the
-    memory rate and the operations (the products three times over at the
-    TF32 tensor-core rate, or the rest on CUDA cores, whichever takes
-    longer); `fp32_bound_ms` all operations on CUDA cores, the bound of an
-    fp32 kernel."""
+                        cuda_core_ops: float, passes: int = 3) -> dict:
+    """The bounds of a kernel whose products run in 3xTF32 (K1, K3, K4,
+    K5), or in `passes` TF32 passes (K5's bf16 form: 2): `bound_ms` is
+    "operations (3xTF32)", the larger of the bytes over the memory rate
+    and the operations (the products `passes` times over at the TF32
+    tensor-core rate, or the rest on CUDA cores, whichever takes longer);
+    `fp32_bound_ms` all operations on CUDA cores, the bound of an fp32
+    kernel."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(3 * product_flops / PEAK_TF32_FLOPS,
+    t_ops = max(passes * product_flops / PEAK_TF32_FLOPS,
                 cuda_core_ops / PEAK_FP32_FLOPS) * 1e3
     fp32_ms, fp32_by = _bound(n_bytes, product_flops + cuda_core_ops)
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_basis="operations (3xTF32)", fp32_bound_ms=fp32_ms,
-                fp32_bound_by=fp32_by)
+                bound_basis=f"operations ({passes}xTF32)",
+                fp32_bound_ms=fp32_ms, fp32_bound_by=fp32_by)
 
 
 def _bf16_bounds(n_bytes: float, product_flops: float,
@@ -276,6 +287,9 @@ def _tensor_core_launches(n_sm: int) -> list:
          lambda info: -(-K1_QUERIES // info[3])),
         ("window_attention", "window_attention_bf16_kernel",
          "bf16 main path", "window_attention_bf16_launch_info", (),
+         attention_grid),
+        ("sparse_window_attention", "sparse_window_attention_bf16_kernel",
+         "bf16 main path", "sparse_window_attention_bf16_launch_info", (),
          attention_grid)]
     for site, n_pos, C, cg in DEFORM_SITES:
         launches.append((
@@ -324,10 +338,11 @@ def _sass_counts(sass: str, opcode: str) -> dict:
 
 def phase_build(state: dict) -> None:
     """Compile every kernel, then report on the tensor-core kernels (K1,
-    K3, K4, K5): registers, spills and shared memory, the tensor-core (HMMA)
-    instructions of their SASS, resident blocks per SM and the waves of
-    each main-path grid on this card's SMs; and on K7 (CUDA cores only)
-    registers, spills and shared memory. Fails if a tensor-core kernel has
+    K3, K4, K5 and their bf16 forms): registers, spills and shared memory,
+    the tensor-core (HMMA) instructions of their SASS, resident blocks per
+    SM and the waves of each main-path grid on this card's SMs; and on K7
+    and its bf16 form (CUDA cores only) registers, spills and shared
+    memory. Fails if a tensor-core kernel has
     no HMMA instruction, or fits no block on an SM, or any of them
     spills."""
     import ctypes
@@ -379,20 +394,22 @@ def phase_build(state: dict) -> None:
               f"blocks on {n_sm} SMs")
         if blocks_per_sm < 1:
             failures.append(f"{symbol} ({site}): no block fits on an SM")
-    # K7 runs on CUDA cores: registers, spills and shared memory only
-    ptxas = {fn: r for fn, r in
-             _ptxas_report(_build.build_log("corr_lookup")).items()
-             if "corr_lookup_kernel" in fn}
-    report["corr_lookup_kernel"] = dict(ptxas=ptxas)
-    for fn, r in ptxas.items():
-        print(f"  {fn}: {r.get('registers')} registers, "
-              f"{r.get('spill_stores')} B spill stores, "
-              f"{r.get('spill_loads')} B spill loads, "
-              f"{r.get('static_smem', 0)} B static shared memory")
-    if not ptxas:
-        failures.append("corr_lookup_kernel: no -Xptxas -v report")
-    if any(r.get("spill_stores", 0) for r in ptxas.values()):
-        failures.append("corr_lookup_kernel: spills")
+    # K7 and its bf16 form run on CUDA cores: registers, spills and shared
+    # memory only
+    for symbol in ("corr_lookup_kernel", "corr_lookup_bf16_kernel"):
+        ptxas = {fn: r for fn, r in
+                 _ptxas_report(_build.build_log("corr_lookup")).items()
+                 if symbol in fn}
+        report[symbol] = dict(ptxas=ptxas)
+        for fn, r in ptxas.items():
+            print(f"  {fn}: {r.get('registers')} registers, "
+                  f"{r.get('spill_stores')} B spill stores, "
+                  f"{r.get('spill_loads')} B spill loads, "
+                  f"{r.get('static_smem', 0)} B static shared memory")
+        if not ptxas:
+            failures.append(f"{symbol}: no -Xptxas -v report")
+        if any(r.get("spill_stores", 0) for r in ptxas.values()):
+            failures.append(f"{symbol}: spills")
     state["build"] = report
     if failures:
         raise AssertionError("; ".join(failures))
@@ -487,7 +504,7 @@ def phase_kernels(records: dict) -> None:
                                    r.get("flow_completion_site"))):
             if rr is None:
                 continue
-            tc = (f" on tensor cores in 3xTF32, fp32 "
+            tc = (f", {rr['bound_basis']}; fp32 "
                   f"{rr['fp32_bound_ms']:.4f}" if "fp32_bound_ms" in rr
                   else " on bf16 tensor cores"
                   if rr.get("bound_basis") == "bf16 tensor cores" else "")
@@ -820,25 +837,33 @@ def _smoke_occupancy():
     return window_occupancy(token_masks(feat), (5, 9))
 
 
-def _check_k5(randn) -> dict:
+def _check_k5(randn, dtype=None) -> dict:
     """K5 at one transformer block of one generator window of the 'pallas'
     path: 16 windows x 4 heads, 19 frames (11 local, 8 reference, the last
     one padded), 45 tokens per window, 45 pooled tokens. Against its plain
     version at the smoke clip's occupancy, all clean and all dirty, for
-    both temporal-dilation parities; timed beside its plain version,
-    F.scaled_dot_product_attention over the dirty problems (the yardstick)
-    and the 'flash' path's K4 plus branch B on the same inputs (the A/B)."""
+    both temporal-dilation parities; timed beside its plain version and
+    F.scaled_dot_product_attention over the dirty problems (the
+    yardstick). In fp32 also beside the 'flash' path's K4 plus branch B on
+    the same inputs (the A/B); with dtype=bfloat16 K5's bf16 form on bf16
+    windows (BF16_REL_TOL, SDPA in bf16), beside the fp32 K5 on the same
+    values."""
     import torch
     import torch.nn.functional as F
     from propainter_tpu_torch.models.propainter import _valid_rolled_indices
     from propainter_tpu_torch.ops import attention, flash_attention
 
     dev = torch.device("cuda")
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    attend = (attention.sparse_window_attention_bf16 if bf16
+              else attention.sparse_window_attention)
+    tol = BF16_REL_TOL if bf16 else REL_TOL
     n_head, nW, T, win, P, ch = 4, 16, 19, 45, 45, 128
     BH = n_head
-    wq, wk, wv = (randn(BH, nW, T, win, ch) for _ in range(3))
-    rk, rv = (randn(BH, nW, 4, T, win, ch) for _ in range(2))
-    pk, pv = (randn(BH, T, P, ch) for _ in range(2))
+    wq, wk, wv = (randn(BH, nW, T, win, ch).to(dtype) for _ in range(3))
+    rk, rv = (randn(BH, nW, 4, T, win, ch).to(dtype) for _ in range(2))
+    pk, pv = (randn(BH, T, P, ch).to(dtype) for _ in range(2))
     valid_idx = torch.as_tensor(_valid_rolled_indices((5, 9), (3, 5)),
                                 device=dev)
     roll_valid = torch.zeros(4 * win, dtype=torch.bool, device=dev)
@@ -855,18 +880,19 @@ def _check_k5(randn) -> dict:
             "all clean": torch.zeros(1, nW, device=dev),
             "all dirty": torch.ones(1, nW, device=dev)}
     inputs = (wq, wk, wv, rk, rv, pk, pv, roll_valid)
+    name = "sparse_window_attention" + ("_bf16" if bf16 else "")
 
     def k5(occ, fsel):
-        return attention.sparse_window_attention(*inputs, occ, fsel, n_head)
+        return attend(*inputs, occ, fsel, n_head)
 
     err = 0.0
-    for name, occ in occs.items():
+    for occ_name, occ in occs.items():
         for parity in (0, 1):
             fsel = (static_sel(parity) & frame_valid)[None]
             err = max(err, _compare(
-                f"sparse_window_attention {name}, parity {parity}",
+                f"{name} {occ_name}, parity {parity}",
                 k5(occ, fsel), attention._sparse_window_attention_plain(
-                    *inputs, occ, fsel, n_head)))
+                    *inputs, occ, fsel, n_head), tol))
     fsel = (static_sel(0) & frame_valid)[None]
     scale = 1.0 / math.sqrt(ch)
 
@@ -888,7 +914,8 @@ def _check_k5(randn) -> dict:
                      + (2 * Ts * P if dirty else 0))             # pooled k, v
         n_bytes = rows * ch * wq.element_size() + _nbytes(
             occ, fsel, roll_valid)
-        return _tensor_core_bounds(n_bytes, 4 * ch * logits, 5 * logits)
+        return _tensor_core_bounds(n_bytes, 4 * ch * logits, 5 * logits,
+                                   2 if bf16 else 3)
 
     # yardstick: the dirty problems' branch A in one library call, over
     # the selected frames' 270 keys each, invalid rolled keys masked out
@@ -913,9 +940,9 @@ def _check_k5(randn) -> dict:
             return F.scaled_dot_product_attention(
                 q_d, k_d, v_d, attn_mask=key_ok, scale=scale)
 
-        _compare(f"SDPA yardstick vs K5, {int(dirty.numel())} dirty "
+        _compare(f"SDPA yardstick vs {name}, {int(dirty.numel())} dirty "
                  f"windows", library(),
-                 k5(occ, fsel)[:, dirty].reshape(q_d.shape))
+                 k5(occ, fsel)[:, dirty].reshape(q_d.shape), tol)
         return _time_ms(library, 10)
 
     # A/B: the 'flash' form on the same inputs — K4 over every window on
@@ -944,40 +971,55 @@ def _check_k5(randn) -> dict:
         dirty = (occ > 0).expand(BH, nW)[:, :, None, None, None]
         return torch.where(dirty, out_a.reshape(out_b.shape), out_b)
 
+    fp32_inputs = tuple(t.float() for t in inputs[:7]) + (roll_valid,)
+
+    def fp32_k5(occ):
+        return attention.sparse_window_attention(*fp32_inputs, occ, fsel,
+                                                 n_head)
+
     timing = {}
-    for name, occ in occs.items():
-        _compare(f"K4 + branch B vs K5, {name}", flash_form(occ),
-                 k5(occ, fsel))
-        timing[name] = dict(
-            ms=_time_ms(lambda: k5(occ, fsel), 10),
-            k4_plus_branch_b_ms=_time_ms(lambda: flash_form(occ), 10),
+    for occ_name, occ in occs.items():
+        if bf16:
+            other = dict(fp32_k5_ms=_time_ms(lambda: fp32_k5(occ), 10))
+        else:
+            _compare(f"K4 + branch B vs K5, {occ_name}", flash_form(occ),
+                     k5(occ, fsel))
+            other = dict(k4_plus_branch_b_ms=_time_ms(
+                lambda: flash_form(occ), 10))
+        timing[occ_name] = dict(
+            ms=_time_ms(lambda: k5(occ, fsel), 10), **other,
             library_ms=(sdpa_ms(occ) if occ.max() > 0 else None),
             dirty_windows=int((occ > 0).sum()), **bound(occ))
-        r = timing[name]
-        print(f"  sparse_window_attention {name} "
-              f"({r['dirty_windows']}/{nW} dirty): K5 {r['ms']:.3f} ms, K4 "
-              f"+ branch B {r['k4_plus_branch_b_ms']:.3f} ms, SDPA over the "
-              f"dirty windows {r['library_ms']}, bound {r['bound_ms']:.3f} "
-              f"by {r['bound_by']} (3xTF32; fp32 {r['fp32_bound_ms']:.3f})")
+        r = timing[occ_name]
+        other_text = (f"fp32 K5 {r['fp32_k5_ms']:.3f} ms" if bf16 else
+                      f"K4 + branch B {r['k4_plus_branch_b_ms']:.3f} ms")
+        print(f"  {name} {occ_name} ({r['dirty_windows']}/{nW} dirty): "
+              f"{r['ms']:.3f} ms, {other_text}, SDPA over the dirty windows "
+              f"{r['library_ms']}, bound {r['bound_ms']:.3f} by "
+              f"{r['bound_by']} ({r['bound_basis']}; fp32 "
+              f"{r['fp32_bound_ms']:.3f})")
     plain_ms = _time_ms(lambda: attention._sparse_window_attention_plain(
         *inputs, occs["smoke"], fsel, n_head), 3)
     smoke = timing.pop("smoke")
     return dict(
-        name="sparse_window_attention", route="cuda",
+        name=name, route="cuda",
         source="propainter_tpu_torch/csrc/sparse_window_attention.cu",
         replaces="propainter_tpu/ops/attention.py:42",
         shape=f"windows {tuple(wq.shape)} rolled {tuple(rk.shape)} pooled "
-              f"{tuple(pk.shape)}, smoke occupancy "
-              f"{smoke['dirty_windows']}/{nW} dirty",
+              f"{tuple(pk.shape)}{', bf16' if bf16 else ''}, smoke "
+              f"occupancy {smoke['dirty_windows']}/{nW} dirty",
         max_abs_err=err, plain_ms=plain_ms, **smoke, occupancies=timing)
 
 
 def _check_bf16(randn, level0) -> dict:
-    """The bf16 forms of K2, K1, K3 and K4 at the main path's shapes
-    against their bf16 plain versions (BF16_REL_TOL), timed beside the
-    plain version and the bf16 library route (`_k1_library` over the bf16
-    levels for K1, F.scaled_dot_product_attention for K4); K1, K3 also at ragged,
-    far-off cases and K4 at ragged shapes, K3 at every group width."""
+    """The bf16 forms of K2, K1, K3, K4, K5 and K7, and K1 over a bf16
+    volume with fp32 parameters, at the main path's shapes against their
+    bf16 plain versions (BF16_REL_TOL; K7's fp32 output from the same bf16
+    taps within 1e-6), timed beside the plain version and the bf16
+    library route (`_k1_library` over the bf16 levels for K1,
+    `_lookup_library` for K7, F.scaled_dot_product_attention for K4 and
+    K5); K1, K3 and K7 also at ragged, far-off cases and K4 at ragged
+    shapes, K3 at every group width, K5 at three occupancies."""
     import torch
     import torch.nn.functional as F
     from propainter_tpu_torch.ops import corr, deform, flash_attention
@@ -1122,7 +1164,99 @@ def _check_bf16(randn, level0) -> dict:
                 q, k, v, attn_mask=mask4, scale=scale), 10),
         **_bf16_bounds(_nbytes(q, k, v, kb, got), Gp * 4 * Tq * Tk * ch,
                        Gp * 5 * Tq * Tk))
+
+    records["sparse_window_attention_bf16"] = _check_k5(randn, bf)
+    records["corr_lookup_bf16"] = _check_k7_bf16(randn, pyr, coords)
+    records["corr_lookup_moenc_bf16_volume"] = _check_k1_bf16_volume(
+        randn, pyr, coords)
     return records
+
+
+# K7's bf16 form against its plain version: the same bf16 taps and the
+# same rounding, fp32 out, so equal but for an fp32 ulp of summation order
+K7_BF16_ABS_TOL = 1e-6
+
+
+def _check_k7_bf16(randn, pyr, coords) -> dict:
+    """K7's bf16 form over the bf16 pyramid of one RAFT chunk at one
+    iteration's coordinates, and at the ragged, far-off 8 x 13 map,
+    against its plain version (K7_BF16_ABS_TOL), timed by CUDA-graph
+    replay beside four bf16 `F.grid_sample` calls (`_lookup_library`)."""
+    from propainter_tpu_torch.ops import corr
+
+    def run():
+        return corr.corr_lookup_bf16(pyr, coords)
+
+    def plain():
+        return corr._corr_lookup_plain(pyr, coords)
+
+    got = run()
+    err = (got - plain()).abs().max().item()
+    small, far = _far_off_case(randn)
+    small = [p.to(pyr[0].dtype).contiguous() for p in small]
+    err = max(err, (corr.corr_lookup_bf16(small, far)
+                    - corr._corr_lookup_plain(small, far)
+                    ).abs().max().item())
+    print(f"  corr_lookup_bf16 (main path and 8 x 13 far off): "
+          f"max_abs_err={err:.3e} (tolerance {K7_BF16_ABS_TOL:.0e})")
+    if err > K7_BF16_ABS_TOL:
+        raise AssertionError("corr_lookup_bf16 disagrees with its plain "
+                             "version")
+    n_q = coords.shape[0] * coords.shape[1] * coords.shape[2]
+    bound_ms, bound_by = _bound(
+        2 * _in_range_taps(pyr, coords) + _nbytes(coords, got),
+        n_q * 324 * 10)
+    return dict(
+        name="corr_lookup_bf16", route="cuda",
+        source="propainter_tpu_torch/csrc/corr_lookup.cu",
+        replaces="propainter_tpu/ops/corr_pallas.py:363",
+        shape=f"coords {tuple(coords.shape)}, bf16 levels", max_abs_err=err,
+        ms=_graph_ms(run), eager_ms=_time_ms(run, 50),
+        plain_ms=_time_ms(plain, 5),
+        library_ms=_graph_ms(_lookup_library(pyr, coords)),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _check_k1_bf16_volume(randn, pyr, coords) -> dict:
+    """K1 over the bf16 pyramid of one RAFT chunk with convc1's parameters
+    in fp32 (RAFT's fp32 refinement over a bf16 volume), and at the ragged,
+    far-off 8 x 13 map, against its plain version (BF16_REL_TOL), timed
+    by CUDA-graph replay beside the bf16 library route (`_k1_library` with
+    the parameters in bf16)."""
+    from propainter_tpu_torch.ops import corr
+
+    w = randn(324, 256, std=0.02)
+    bias = randn(256, std=0.02)
+
+    def run():
+        return corr.corr_lookup_moenc_bf16_volume(pyr, coords, w, bias)
+
+    def plain():
+        return corr._corr_lookup_moenc_bf16_plain(pyr, coords, w, bias, 4)
+
+    got = run()
+    err = _compare("corr_lookup_moenc_bf16_volume", got, plain(),
+                   BF16_REL_TOL)
+    small, far = _far_off_case(randn)
+    small = [p.to(pyr[0].dtype).contiguous() for p in small]
+    err = max(err, _compare(
+        "corr_lookup_moenc_bf16_volume maps 8 x 13, coordinates to 40 px "
+        "outside", corr.corr_lookup_moenc_bf16_volume(small, far, w, bias),
+        corr._corr_lookup_moenc_bf16_plain(small, far, w, bias, 4),
+        BF16_REL_TOL))
+    n_q = coords.shape[0] * coords.shape[1] * coords.shape[2]
+    library = _k1_library(pyr, coords, w.to(pyr[0].dtype),
+                          bias.to(pyr[0].dtype))
+    return dict(
+        name="corr_lookup_moenc_bf16_volume", route="cuda",
+        source="propainter_tpu_torch/csrc/corr_lookup_moenc.cu",
+        replaces="propainter_tpu/ops/corr_pallas.py:166",
+        shape=f"coords {tuple(coords.shape)}, bf16 levels, fp32 weight",
+        max_abs_err=err, ms=_graph_ms(run), eager_ms=_time_ms(run, 50),
+        plain_ms=_time_ms(plain, 5), library_ms=_graph_ms(library),
+        **_bf16_bounds(2 * _in_range_taps(pyr, coords)
+                       + _nbytes(coords, w, bias, got),
+                       n_q * 2 * 324 * 256, n_q * 324 * 10))
 
 
 def _launch_counters():
@@ -1141,13 +1275,19 @@ def _launch_counters():
         "modulated_deform_conv2d_bf16": deform.modulated_deform_conv2d_bf16,
         "flash_window_attention_bf16":
             flash_attention.flash_window_attention_bf16,
+        "sparse_window_attention_bf16":
+            attention.sparse_window_attention_bf16,
+        "corr_lookup_bf16": corr.corr_lookup_bf16,
+        "corr_lookup_moenc_bf16_volume": corr.corr_lookup_moenc_bf16_volume,
     }
 
 
 # the driven run whose launches each kernel's record reports: the main
-# path in its four configurations ('flash', 'pallas', 'shard', the
-# shard_inference layout, and 'bf16', precision='bf16' under 'flash'),
-# and the deform dispatchers
+# path in its seven configurations ('flash', 'pallas', 'shard', the
+# shard_inference layout, 'bf16', precision='bf16' under 'flash',
+# 'bf16_pallas', 'bf16_shard', bf16 shard_inference with an fp32 RAFT
+# refinement, and 'bf16_fp32_refine', bf16 'flash' with an fp32 RAFT
+# refinement), and the deform dispatchers
 KERNEL_PATH = {"corr_pyramid_build": "flash", "corr_lookup_moenc": "flash",
                "corr_lookup": "shard",
                "modulated_deform_conv2d": "flash",
@@ -1157,7 +1297,10 @@ KERNEL_PATH = {"corr_pyramid_build": "flash", "corr_lookup_moenc": "flash",
                "corr_pyramid_build_bf16": "bf16",
                "corr_lookup_moenc_bf16": "bf16",
                "modulated_deform_conv2d_bf16": "bf16",
-               "flash_window_attention_bf16": "bf16"}
+               "flash_window_attention_bf16": "bf16",
+               "sparse_window_attention_bf16": "bf16_pallas",
+               "corr_lookup_bf16": "bf16_shard",
+               "corr_lookup_moenc_bf16_volume": "bf16_fp32_refine"}
 
 
 def _zero_launches() -> None:
@@ -1260,6 +1403,66 @@ def _bf16_pipeline(pipe):
                               device="cuda")
 
 
+def _bf16_pallas_pipeline(pipe):
+    """`pipe` with precision='bf16' under 'pallas': its RAFT and flow
+    completion (the pipeline makes its bf16 copies of them) and a copy of
+    its generator, so `pipe`'s generator keeps its attention form."""
+    import copy
+
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+
+    return ProPainterPipeline(pipe.raft, pipe.flowcomp,
+                              copy.deepcopy(pipe.inpaint),
+                              PipelineConfig(precision="bf16",
+                                             attention_impl="pallas"),
+                              device="cuda")
+
+
+def _bf16_shard_pipeline(pipe):
+    """`pipe` with precision='bf16' in the shard_inference configuration,
+    window_batch 4 and raft_bf16_refine=False (the JAX package's only bf16
+    form of it: RAFT refines in fp32 over a bf16 volume, through K7's bf16
+    form): copies of its RAFT and generator, so each pipeline keeps its
+    own forms, and its flow completion."""
+    import copy
+
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+
+    return ProPainterPipeline(copy.deepcopy(pipe.raft), pipe.flowcomp,
+                              copy.deepcopy(pipe.inpaint),
+                              PipelineConfig(precision="bf16",
+                                             shard_inference=True,
+                                             window_batch=4,
+                                             raft_bf16_refine=False),
+                              device="cuda")
+
+
+def _bf16_fp32_refine_pipeline(pipe):
+    """`pipe` with precision='bf16' under 'flash' and
+    raft_bf16_refine=False: RAFT encodes and refines in fp32 over a bf16
+    volume (K1 over a bf16 volume). Copies of its RAFT and generator, so
+    `pipe` keeps its forms, and its flow completion."""
+    import copy
+
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+
+    return ProPainterPipeline(copy.deepcopy(pipe.raft), pipe.flowcomp,
+                              copy.deepcopy(pipe.inpaint),
+                              PipelineConfig(precision="bf16",
+                                             raft_bf16_refine=False),
+                              device="cuda")
+
+
+# kernel forms of each precision; a bf16 run launches none of the fp32
+# ones (RAFT's fp32 refinement over a bf16 volume runs bf16 forms)
+FP32_FORMS = ("corr_pyramid_build", "corr_lookup_moenc", "corr_lookup",
+              "modulated_deform_conv2d", "flash_window_attention",
+              "sparse_window_attention")
+
+
 def phase_deform_opt(state: dict) -> None:
     """K6's path: the differentiable deform dispatchers, forward and
     backward, at both call sites' shapes, as a training step calls them;
@@ -1348,12 +1551,14 @@ def _raft_launches(pipe, frames) -> int:
 
 
 def phase_pipeline(state: dict, smi: str) -> None:
-    """The main path at full size in its three configurations on the same
+    """The main path at full size in its fp32 configurations on the same
     weights and clip ('flash', 'pallas', and shard_inference with
-    window_batch 4 on the card's one-device mesh), each once to warm up
-    (cuDNN plans, lazy module loading), then measured; every kernel of each
-    path must launch in its measured run, K1 under 'flash' and 'pallas' and
-    K7 under shard_inference once per RAFT iteration, the other never."""
+    window_batch 4 on the card's one-device mesh), then bf16 'flash' and
+    the other bf16 configurations (`_bf16_other_configs`), each once to
+    warm up (cuDNN plans, lazy module loading), then measured; every
+    kernel of each path must launch in its measured run, K1 under 'flash'
+    and 'pallas' and K7 under shard_inference once per RAFT iteration, the
+    other never."""
     import numpy as np
 
     pipe, frames, flow_masks = _main_path_inputs()
@@ -1455,6 +1660,84 @@ def phase_pipeline(state: dict, smi: str) -> None:
              if launches[k] != flash[v] or launches[v] != 0]
     if wrong or launches["corr_lookup"] or launches["sparse_window_attention"]:
         raise AssertionError(f"the bf16 path launched {launches}")
+
+    _bf16_other_configs(state, frames, flow_masks, out, out_b, smi)
+
+
+def _bf16_other_configs(state, frames, flow_masks, out, out_b,
+                        smi) -> None:
+    """The other bf16 configurations of the pipeline phase, each once to
+    warm up, then measured: 'pallas' (K5's bf16 form once per transformer
+    block, K4 in neither form; RAFT, flow completion and K3 as bf16
+    'flash'), shard_inference with window_batch 4 and
+    raft_bf16_refine=False (K7's bf16 form once per RAFT iteration, K1 in
+    no form, K4's bf16 form once per block of each window batch, K3's bf16
+    form as fp32 shard_inference launches K3), and 'flash' with
+    raft_bf16_refine=False (K1 over a bf16 volume once per RAFT iteration,
+    in place of K1's bf16 form); none launches an fp32 kernel form. Their
+    outputs' differences from bf16 'flash' and from fp32 'flash' are
+    reported, not gated."""
+    import numpy as np
+
+    pipe = state["main_path"][0]
+    flash, bf16 = state["launches"]["flash"], state["launches"]["bf16"]
+    want_lookups = _raft_launches(pipe, frames)
+    runs = (("bf16_pallas", _bf16_pallas_pipeline),
+            ("bf16_shard", _bf16_shard_pipeline),
+            ("bf16_fp32_refine", _bf16_fp32_refine_pipeline))
+    for name, make in runs:
+        p = make(pipe)
+        state[f"main_path_{name}"] = p
+        p.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
+        out_x, launches, state[f"pipeline_{name}"] = _measured_run(
+            p, frames, flow_masks, smi)
+        state["launches"][name] = launches
+        n_blocks = len(p.inpaint.transformers.transformer)
+        if name == "bf16_pallas":
+            n_windows = len(range(0, frames.shape[0],
+                                  p.config.neighbor_length // 2))
+            want = dict(sparse_window_attention_bf16=n_windows * n_blocks,
+                        flash_window_attention_bf16=0,
+                        corr_lookup_moenc_bf16=want_lookups,
+                        corr_lookup_bf16=0,
+                        corr_pyramid_build_bf16=bf16[
+                            "corr_pyramid_build_bf16"],
+                        modulated_deform_conv2d_bf16=bf16[
+                            "modulated_deform_conv2d_bf16"])
+        elif name == "bf16_fp32_refine":
+            want = {k: bf16[k] for k in ("corr_pyramid_build_bf16",
+                                         "modulated_deform_conv2d_bf16",
+                                         "flash_window_attention_bf16")}
+            want.update(corr_lookup_moenc_bf16_volume=want_lookups,
+                        corr_lookup_moenc_bf16=0, corr_lookup_bf16=0,
+                        sparse_window_attention_bf16=0)
+        else:
+            want = dict(corr_lookup_bf16=want_lookups,
+                        corr_lookup_moenc_bf16=0,
+                        corr_lookup_moenc_bf16_volume=0,
+                        corr_pyramid_build_bf16=flash["corr_pyramid_build"],
+                        flash_window_attention_bf16=(
+                            _window_batches(frames.shape[0], p) * n_blocks),
+                        sparse_window_attention_bf16=0,
+                        modulated_deform_conv2d_bf16=state["launches"][
+                            "shard"]["modulated_deform_conv2d"])
+        want.update({k: 0 for k in FP32_FORMS})
+        wrong = {k: (launches[k], v) for k, v in want.items()
+                 if launches[k] != v}
+        d_b = np.abs(out_x.astype(int) - out_b.astype(int))
+        d_f = np.abs(out_x.astype(int) - out.astype(int))
+        print(f"  {name} vs bf16 'flash' output (reported, not gated): max "
+              f"{d_b.max()} LSB, mean {d_b.mean():.4f} LSB; vs fp32 "
+              f"'flash': max {d_f.max()} LSB, mean {d_f.mean():.4f} LSB; "
+              f"launches as wanted: {not wrong}")
+        state[f"pipeline_{name}"].update(
+            max_lsb_vs_bf16_flash=int(d_b.max()),
+            mean_lsb_vs_bf16_flash=float(d_b.mean()),
+            max_lsb_vs_flash=int(d_f.max()),
+            mean_lsb_vs_flash=float(d_f.mean()))
+        if wrong:
+            raise AssertionError(f"the {name} path launched (got, want) "
+                                 f"{wrong}")
 
 
 def _window_batches(T: int, pipe) -> int:
@@ -1720,8 +2003,65 @@ def phase_small(state: dict) -> None:
         if bad:
             failures.append(f"{impl}: GPU and CPU stages disagree: {bad}")
     failures += _golden_clip_bf16(state)
+    failures += _raft_bf16_volume(state)
     if failures:
         raise AssertionError("; ".join(failures))
+
+
+def _raft_bf16_volume(state: dict) -> list:
+    """One RAFT chunk of the main path (12 frames of 432x240, fan-in
+    scaled weights) on the GPU through `compute_flows` with
+    precision='bf16' and raft_bf16_refine=False, in both corr layouts:
+    RAFT refines in fp32 over a bf16 volume, through K1 over a bf16 volume
+    ('flat') or K7's bf16 form ('batched', shard_inference), once per
+    iteration; launches counted from zero over each run. The flows'
+    drift from the fp32 pipeline's on the same weights is reported in px
+    and relative to the flow scale (not gated)."""
+    import torch
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+
+    frames, _ = _synthetic_clip(12, 240, 432, seed=0)
+    x = (torch.from_numpy(frames).float() / 127.5 - 1.0)[None].cuda()
+    mods = _models(seed=5, fan_in_scaled=True)
+    configs = {"fp32": dict(),
+               "flat": dict(precision="bf16", raft_bf16_refine=False),
+               "batched": dict(precision="bf16", raft_bf16_refine=False,
+                               shard_inference=True)}
+    kernel = {"flat": "corr_lookup_moenc_bf16_volume",
+              "batched": "corr_lookup_bf16"}
+    flows, report, failures = {}, {}, []
+    for name, options in configs.items():
+        pipe = ProPainterPipeline(mods["raft"], mods["flowcomp"],
+                                  mods["inpaint"], PipelineConfig(**options),
+                                  device="cuda")
+        _zero_launches()
+        with torch.inference_mode():
+            flows[name] = torch.cat(pipe.compute_flows(x), 1)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        if name == "fp32":
+            continue
+        iters = pipe.config.raft_iter
+        others = {k: v for k, v in launches.items()
+                  if k not in (kernel[name], "corr_pyramid_build_bf16") and v}
+        diff = (flows[name] - flows["fp32"]).abs()
+        scale = flows["fp32"].abs().max().item()
+        report[name] = dict(max_px=diff.max().item(),
+                            mean_px=diff.mean().item(), flow_scale_px=scale,
+                            launches={k: v for k, v in launches.items() if v})
+        print(f"  RAFT chunk ({name}, fp32 refine over a bf16 volume) vs "
+              f"the fp32 refine: max {report[name]['max_px']:.4f} px, mean "
+              f"{report[name]['mean_px']:.5f} px, flows up to {scale:.2f} "
+              f"px ({report[name]['max_px'] / max(scale, 1e-6):.2e} of "
+              f"them); {kernel[name]} {launches[kernel[name]]} launches "
+              f"(want {iters}), others {others}")
+        if launches[kernel[name]] != iters or others:
+            failures.append(f"RAFT chunk ({name}): launched {launches}")
+        if not torch.isfinite(flows[name]).all():
+            failures.append(f"RAFT chunk ({name}): flows not finite")
+    state.setdefault("small", {})["raft_bf16_volume"] = report
+    return failures
 
 
 def _golden_clip():
@@ -1744,7 +2084,8 @@ def _golden_clip():
 
 def _golden_clip_bf16(state: dict) -> list:
     """The golden fixture's run (its clip, schedule and weight scale) in
-    bf16 on the GPU against the fp32 run on the CPU (the plain versions,
+    bf16 on the GPU, under 'flash' and under 'pallas', against the fp32
+    run on the CPU (the plain versions,
     which the CPU tests hold to the golden within 2 LSB), within the bf16
     golden gate (GOLDEN_BF16_MAX_LSB / GOLDEN_BF16_MEAN_LSB). The golden's
     own weights come from jax.random, which this machine does not have:
@@ -1755,23 +2096,32 @@ def _golden_clip_bf16(state: dict) -> list:
 
     frames, mask = _golden_clip()
     outs = {}
-    for device, precision in (("cpu", "fp32"), ("cuda", "bf16")):
+    for device, precision, impl in (("cpu", "fp32", "flash"),
+                                    ("cuda", "bf16", "flash"),
+                                    ("cuda", "bf16", "pallas")):
         mods = _models(seed=11)
         pipe = ProPainterPipeline(
             mods["raft"], mods["flowcomp"], mods["inpaint"],
             PipelineConfig(ref_stride=3, neighbor_length=4, raft_iter=3,
-                           precision=precision), device=device)
-        outs[precision] = np.stack(pipe.inpaint_video(frames, mask, mask))
-    diff = np.abs(outs["bf16"].astype(int) - outs["fp32"].astype(int))
-    print(f"  golden clip: GPU bf16 vs CPU fp32: max {diff.max()} LSB, mean "
-          f"{diff.mean():.4f} LSB (limits {GOLDEN_BF16_MAX_LSB} / "
-          f"{GOLDEN_BF16_MEAN_LSB})")
-    state.setdefault("small", {})["golden_clip_bf16"] = dict(
-        max_lsb=int(diff.max()), mean_lsb=float(diff.mean()))
-    if (diff.max() > GOLDEN_BF16_MAX_LSB
-            or diff.mean() > GOLDEN_BF16_MEAN_LSB):
-        return ["golden clip: bf16 on the GPU and fp32 disagree"]
-    return []
+                           precision=precision, attention_impl=impl),
+            device=device)
+        outs[precision, impl] = np.stack(pipe.inpaint_video(frames, mask,
+                                                             mask))
+    failures = []
+    for impl in ("flash", "pallas"):
+        diff = np.abs(outs["bf16", impl].astype(int)
+                      - outs["fp32", "flash"].astype(int))
+        print(f"  golden clip: GPU bf16 '{impl}' vs CPU fp32: max "
+              f"{diff.max()} LSB, mean {diff.mean():.4f} LSB (limits "
+              f"{GOLDEN_BF16_MAX_LSB} / {GOLDEN_BF16_MEAN_LSB})")
+        key = "golden_clip_bf16" + ("" if impl == "flash" else f"_{impl}")
+        state.setdefault("small", {})[key] = dict(
+            max_lsb=int(diff.max()), mean_lsb=float(diff.mean()))
+        if (diff.max() > GOLDEN_BF16_MAX_LSB
+                or diff.mean() > GOLDEN_BF16_MEAN_LSB):
+            failures.append(f"golden clip: bf16 '{impl}' on the GPU and "
+                            f"fp32 disagree")
+    return failures
 
 
 def phase_cli(state: dict, out_dir) -> None:
@@ -1872,7 +2222,8 @@ def main(argv=None) -> int:
         kernels.append(dict(r, launches=launches.get(KERNEL_PATH[key], {})
                             .get(key)))
     for key in ("main_path", "main_path_pallas", "main_path_shard",
-                "main_path_bf16"):
+                "main_path_bf16", "main_path_bf16_pallas",
+                "main_path_bf16_shard", "main_path_bf16_fp32_refine"):
         state.pop(key, None)
     if args.out_dir:
         out = Path(args.out_dir)

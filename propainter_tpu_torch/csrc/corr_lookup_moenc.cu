@@ -63,6 +63,14 @@
 // fragments straight from the weight (L1-resident, 166 KB). No overlap of
 // the gather with the products. Bound: bytes (the in-range taps read, in
 // bf16, and the fp32 output).
+//
+// Over a bf16 volume with fp32 parameters (corr_lookup_moenc_bf16_volume;
+// the JAX RAFT refining in fp32 over its bf16 volume). Semantics:
+// propainter_tpu_torch/ops/corr.py:corr_lookup_moenc_bf16_volume. The TPU
+// kernel casts convc1's parameters to fp32 and rounds the weight to bf16
+// for the product (corr_pallas.py:296-303, 393-394), so this is the bf16
+// form's kernel with the weight rounded by the wrapper and an fp32 bias
+// (the kernel's bias type is a template parameter).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -331,10 +339,20 @@ struct LevelsBf16 {
   int w[kLevels];
 };
 
+// Bias columns col, col + 1 in fp32: a bf16 bias (the bf16 form) or an
+// fp32 one (over a bf16 volume with fp32 parameters).
+__device__ __forceinline__ float2 bias_pair(const __nv_bfloat16* b, int col) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + col));
+}
+__device__ __forceinline__ float2 bias_pair(const float* b, int col) {
+  return *reinterpret_cast<const float2*>(b + col);
+}
+
+template <class Bias>
 __global__ void __launch_bounds__(kThreadsB)
 corr_lookup_moenc_bf16_kernel(LevelsBf16 lv, const float* __restrict__ coords,
                               const __nv_bfloat16* __restrict__ weight,
-                              const __nv_bfloat16* __restrict__ bias,
+                              const Bias* __restrict__ bias,
                               float* __restrict__ out, int n_query) {
   __shared__ __align__(16) __nv_bfloat16 a[kBQb * kLdAb];
   const int tid = threadIdx.x;
@@ -446,8 +464,7 @@ corr_lookup_moenc_bf16_kernel(LevelsBf16 lv, const float* __restrict__ coords,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * wn + 8 * j + 2 * t;
-        const float2 b = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(bias + col));
+        const float2 b = bias_pair(bias, col);
         *reinterpret_cast<float2*>(out + static_cast<size_t>(n) * kF + col) =
             make_float2(fmaxf(acc[mi][j][2 * hh] + b.x, 0.f),
                         fmaxf(acc[mi][j][2 * hh + 1] + b.y, 0.f));
@@ -534,15 +551,15 @@ extern "C" int corr_lookup_moenc_launch_info(void* info, void*) {
       i, corr_lookup_moenc_kernel, kThreads, kSmemBytes));
 }
 
-// The bf16 form: levels bf16, coords fp32, weight (256, 324) bf16, bias
-// (256) bf16, out (N, 256) fp32; all contiguous (the wrapper checks).
-extern "C" int corr_lookup_moenc_bf16(const void* l0, const void* l1,
-                                      const void* l2, const void* l3,
-                                      const void* coords, const void* weight,
-                                      const void* bias, void* out,
-                                      int n_query, int h0, int w0, int h1,
-                                      int w1, int h2, int w2, int h3, int w3,
-                                      void* stream) {
+namespace {
+
+// Launches K1's bf16 kernel with a bias of type Bias.
+template <class Bias>
+int launch_bf16(const void* l0, const void* l1, const void* l2,
+                const void* l3, const void* coords, const void* weight,
+                const void* bias, void* out, int n_query, int h0, int w0,
+                int h1, int w1, int h2, int w2, int h3, int w3,
+                void* stream) {
   LevelsBf16 lv;
   lv.ptr[0] = static_cast<const __nv_bfloat16*>(l0);
   lv.ptr[1] = static_cast<const __nv_bfloat16*>(l1);
@@ -554,13 +571,41 @@ extern "C" int corr_lookup_moenc_bf16(const void* l0, const void* l1,
   lv.h[3] = h3; lv.w[3] = w3;
   const int blocks = (n_query + kBQb - 1) / kBQb;
   if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  corr_lookup_moenc_bf16_kernel<<<blocks, kThreadsB, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  corr_lookup_moenc_bf16_kernel<Bias><<<blocks, kThreadsB, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
       lv, static_cast<const float*>(coords),
       static_cast<const __nv_bfloat16*>(weight),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<float*>(out),
-      n_query);
+      static_cast<const Bias*>(bias), static_cast<float*>(out), n_query);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The bf16 form: levels bf16, coords fp32, weight (256, 324) bf16, bias
+// (256) bf16, out (N, 256) fp32; all contiguous (the wrapper checks).
+extern "C" int corr_lookup_moenc_bf16(const void* l0, const void* l1,
+                                      const void* l2, const void* l3,
+                                      const void* coords, const void* weight,
+                                      const void* bias, void* out,
+                                      int n_query, int h0, int w0, int h1,
+                                      int w1, int h2, int w2, int h3, int w3,
+                                      void* stream) {
+  return launch_bf16<__nv_bfloat16>(l0, l1, l2, l3, coords, weight, bias,
+                                    out, n_query, h0, w0, h1, w1, h2, w2, h3,
+                                    w3, stream);
+}
+
+// Over a bf16 volume with fp32 parameters (the JAX RAFT's fp32 refine over
+// its bf16 volume): as the bf16 form, the weight rounded to bf16 by the
+// wrapper, the bias (256) fp32 and added in fp32, as the TPU kernel's
+// epilogue does (corr_pallas.py:296-303, 393-394).
+extern "C" int corr_lookup_moenc_bf16_volume(
+    const void* l0, const void* l1, const void* l2, const void* l3,
+    const void* coords, const void* weight, const void* bias, void* out,
+    int n_query, int h0, int w0, int h1, int w1, int h2, int w2, int h3,
+    int w3, void* stream) {
+  return launch_bf16<float>(l0, l1, l2, l3, coords, weight, bias, out,
+                            n_query, h0, w0, h1, w1, h2, w2, h3, w3, stream);
 }
 
 // Launch facts of the bf16 form (as corr_lookup_moenc_launch_info; one
@@ -572,5 +617,5 @@ extern "C" int corr_lookup_moenc_bf16_launch_info(void* info, void*) {
   i[3] = kBQb;
   i[4] = 1;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      i, corr_lookup_moenc_bf16_kernel, kThreadsB, 0));
+      i, corr_lookup_moenc_bf16_kernel<__nv_bfloat16>, kThreadsB, 0));
 }

@@ -40,6 +40,18 @@
 // (batch*head), clean ones T * 4 * win^2 * 128, three times over on the
 // tensor cores in TF32; the rolled copies (112 MB each at 432x240) are read
 // once per query tile.
+//
+// The bf16 form (sparse_window_attention_bf16; the TPU kernel on the bf16
+// windows of the JAX bf16 pipeline, which upcasts q, k and v to fp32 and
+// writes its output in bf16, attention.py:51, 62-68, 98-99, 197).
+// Semantics: propainter_tpu_torch/ops/attention.py:
+// sparse_window_attention_bf16. q, k, v, rolled and pooled windows and
+// the output bf16; roll_valid, occupancy and frame_select as above. The
+// same kernel on attention_tile.cuh's bf16 tile: the rows come through the
+// same cp.async ring at half the bytes, K and V are exact in TF32, so each
+// product takes two passes in place of three (the bound's operations
+// term: 2 x the product FLOPs at the TF32 rate); every sum, the softmax
+// and the final division are fp32, and the output is rounded once.
 
 #include "attention_tile.cuh"
 
@@ -71,22 +83,32 @@ __device__ __forceinline__ int warp_compact(int n, On on, Entry entry,
   return count;
 }
 
-__global__ void __cluster_dims__(kSplit, 1, 1)
-    __launch_bounds__(kThreads, kBlocksPerSm)
-    sparse_window_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ rk,
-    const float* __restrict__ rv, const float* __restrict__ pk,
-    const float* __restrict__ pv, const unsigned char* __restrict__ roll_valid,
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store1(float* o, float x) { *o = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* o, float x) {
+  *o = __float2bfloat16_rn(x);
+}
+
+// The kernel's body for elements of type E (float or __nv_bfloat16); the
+// two kernels below instantiate it.
+template <class E>
+__device__ __forceinline__ void sparse_window_attention_body(
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const E* __restrict__ rk,
+    const E* __restrict__ rv, const E* __restrict__ pk,
+    const E* __restrict__ pv, const unsigned char* __restrict__ roll_valid,
     const int* __restrict__ occupancy, const int* __restrict__ frame_select,
-    float* __restrict__ o, int n_head, int nW, int T, int win, int P,
+    E* __restrict__ o, int n_head, int nW, int T, int win, int P,
     float scale) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int sel[kMaxT];
   __shared__ int rolled[kMaxRolled];   // rolled rows of frame 0
   __shared__ int key_row[kStages][kBK];
   __shared__ int n_sel_s, n_rolled_s;
-  const Smem sm = carve(smem);
+  const TileSmem<E> sm = carve<E>(smem);
 
   const int bh = blockIdx.z, w = blockIdx.y;
   const int b = bh / n_head;
@@ -98,14 +120,14 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   const size_t win_base = (static_cast<size_t>(bh) * nW + w) * T * win * kD;
-  const float* kw = k + win_base;
-  const float* vw = v + win_base;
-  const float* rkw = rk + 4 * win_base;
-  const float* rvw = rv + 4 * win_base;
+  const E* kw = k + win_base;
+  const E* vw = v + win_base;
+  const E* rkw = rk + 4 * win_base;
+  const E* rvw = rv + 4 * win_base;
   const size_t pool_base = static_cast<size_t>(bh) * T * P * kD;
-  const float* pkw = pk + pool_base;
-  const float* pvw = pv + pool_base;
-  float* ow = o + win_base + static_cast<size_t>(q0) * kD;
+  const E* pkw = pk + pool_base;
+  const E* pvw = pv + pool_base;
+  E* ow = o + win_base + static_cast<size_t>(q0) * kD;
 
   load_queries(sm, q + win_base + static_cast<size_t>(q0) * kD, n_rows,
                 scale * kLog2e);
@@ -132,12 +154,15 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
       const int n_keys = T * (5 * win + P);
       for (int d = tid; d < kD; d += kThreads) {
         float s = 0.f;
-        for (int r = 0; r < T * win; ++r) s += vw[static_cast<size_t>(r) * kD + d];
+        for (int r = 0; r < T * win; ++r)
+          s += to_float(vw[static_cast<size_t>(r) * kD + d]);
         for (int r = 0; r < 4 * T * win; ++r)
-          s += rvw[static_cast<size_t>(r) * kD + d];
-        for (int r = 0; r < T * P; ++r) s += pvw[static_cast<size_t>(r) * kD + d];
+          s += to_float(rvw[static_cast<size_t>(r) * kD + d]);
+        for (int r = 0; r < T * P; ++r)
+          s += to_float(pvw[static_cast<size_t>(r) * kD + d]);
         const float mean = s / static_cast<float>(n_keys);
-        for (int r = 0; r < n_rows; ++r) ow[static_cast<size_t>(r) * kD + d] = mean;
+        for (int r = 0; r < n_rows; ++r)
+          store1(ow + static_cast<size_t>(r) * kD + d, mean);
       }
       return;
     }
@@ -165,7 +190,7 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
             key_row[slot][c] = entry;
           }
         },
-        [&](int, int slot, int c, const float*& kr, const float*& vr) {
+        [&](int, int slot, int c, const E*& kr, const E*& vr) {
           const int entry = key_row[slot][c];
           if (entry < 0) return false;
           const int src = entry >> kSrcShift;
@@ -199,7 +224,7 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
     const int row_frame[2] = {row / win, (row + 8) / win};
     stream(
         sm, 0, (n_keys + kBK - 1) / kBK, kw, [](int, int) {},
-        [&](int tile, int, int c, const float*& kr, const float*& vr) {
+        [&](int tile, int, int c, const E*& kr, const E*& vr) {
           const int key = tile * kBK + c;
           if (key >= n_keys) return false;
           const size_t off = static_cast<size_t>(key0 + key) * kD;
@@ -227,7 +252,66 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
   }
 }
 
-bool configured[kMaxDevices] = {};   // per device (attention_tile.cuh)
+__global__ void __cluster_dims__(kSplit, 1, 1)
+    __launch_bounds__(kThreads, kBlocksPerSm)
+    sparse_window_attention_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ rk,
+    const float* __restrict__ rv, const float* __restrict__ pk,
+    const float* __restrict__ pv, const unsigned char* __restrict__ roll_valid,
+    const int* __restrict__ occupancy, const int* __restrict__ frame_select,
+    float* __restrict__ o, int n_head, int nW, int T, int win, int P,
+    float scale) {
+  sparse_window_attention_body(q, k, v, rk, rv, pk, pv, roll_valid,
+                               occupancy, frame_select, o, n_head, nW, T,
+                               win, P, scale);
+}
+
+__global__ void __cluster_dims__(kSplit, 1, 1)
+    __launch_bounds__(kThreads, kBlocksPerSm)
+    sparse_window_attention_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ rk,
+    const __nv_bfloat16* __restrict__ rv,
+    const __nv_bfloat16* __restrict__ pk,
+    const __nv_bfloat16* __restrict__ pv,
+    const unsigned char* __restrict__ roll_valid,
+    const int* __restrict__ occupancy, const int* __restrict__ frame_select,
+    __nv_bfloat16* __restrict__ o, int n_head, int nW, int T, int win, int P,
+    float scale) {
+  sparse_window_attention_body(q, k, v, rk, rv, pk, pv, roll_valid,
+                               occupancy, frame_select, o, n_head, nW, T,
+                               win, P, scale);
+}
+
+// per device (attention_tile.cuh), one flag array per kernel
+bool configured[kMaxDevices] = {};
+bool configured_bf16[kMaxDevices] = {};
+
+template <class E, class Kernel>
+int launch(Kernel kernel, bool (&flags)[kMaxDevices], const void* q,
+           const void* k, const void* v, const void* rk, const void* rv,
+           const void* pk, const void* pv, const void* roll_valid,
+           const void* occupancy, const void* frame_select, void* out,
+           int BH, int n_head, int nW, int T, int win, int P, float scale,
+           void* stream) {
+  if (T > kMaxT || win > kMaxWin || win < 1 || P < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = configure<E>(kernel, flags);
+  if (err != 0) return err;
+  const dim3 grid((T * win + kBQ - 1) / kBQ * kSplit, nW, BH);
+  kernel<<<grid, kThreads, kSmemBytesOf<E>,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const E*>(rk),
+      static_cast<const E*>(rv), static_cast<const E*>(pk),
+      static_cast<const E*>(pv),
+      static_cast<const unsigned char*>(roll_valid),
+      static_cast<const int*>(occupancy), static_cast<const int*>(frame_select),
+      static_cast<E*>(out), n_head, nW, T, win, P, scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -236,21 +320,21 @@ extern "C" int sparse_window_attention(
     const void* rv, const void* pk, const void* pv, const void* roll_valid,
     const void* occupancy, const void* frame_select, void* out, int BH,
     int n_head, int nW, int T, int win, int P, float scale, void* stream) {
-  if (T > kMaxT || win > kMaxWin || win < 1 || P < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int err = configure(sparse_window_attention_kernel, configured);
-  if (err != 0) return err;
-  const dim3 grid((T * win + kBQ - 1) / kBQ * kSplit, nW, BH);
-  sparse_window_attention_kernel<<<grid, kThreads, kSmemBytes,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(rk),
-      static_cast<const float*>(rv), static_cast<const float*>(pk),
-      static_cast<const float*>(pv),
-      static_cast<const unsigned char*>(roll_valid),
-      static_cast<const int*>(occupancy), static_cast<const int*>(frame_select),
-      static_cast<float*>(out), n_head, nW, T, win, P, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(sparse_window_attention_kernel, configured, q, k, v,
+                       rk, rv, pk, pv, roll_valid, occupancy, frame_select,
+                       out, BH, n_head, nW, T, win, P, scale, stream);
+}
+
+// The bf16 form: q, k, v, rolled and pooled windows and out bf16.
+extern "C" int sparse_window_attention_bf16(
+    const void* q, const void* k, const void* v, const void* rk,
+    const void* rv, const void* pk, const void* pv, const void* roll_valid,
+    const void* occupancy, const void* frame_select, void* out, int BH,
+    int n_head, int nW, int T, int win, int P, float scale, void* stream) {
+  return launch<__nv_bfloat16>(sparse_window_attention_bf16_kernel,
+                               configured_bf16, q, k, v, rk, rv, pk, pv,
+                               roll_valid, occupancy, frame_select, out, BH,
+                               n_head, nW, T, win, P, scale, stream);
 }
 
 // Launch facts for chip_smoke.py's build phase (attention_tile.cuh:
@@ -258,4 +342,10 @@ extern "C" int sparse_window_attention(
 extern "C" int sparse_window_attention_launch_info(void* info, void*) {
   return launch_info(sparse_window_attention_kernel, configured, kSplit,
                      static_cast<int*>(info));
+}
+
+extern "C" int sparse_window_attention_bf16_launch_info(void* info, void*) {
+  return launch_info<__nv_bfloat16>(sparse_window_attention_bf16_kernel,
+                                    configured_bf16, kSplit,
+                                    static_cast<int*>(info));
 }

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from propainter_tpu_torch.models.layers import (
     Deconv, SplitGroupConv2d, conv2d, deform_align)
-from propainter_tpu_torch.ops.attention import sparse_window_attention
+from propainter_tpu_torch.ops.attention import (
+    sparse_window_attention, sparse_window_attention_bf16)
 from propainter_tpu_torch.ops.flash_attention import (
     NEG_INF, flash_window_attention, flash_window_attention_bf16)
 from propainter_tpu_torch.ops.interp import max_pool2d, resize
@@ -379,12 +380,8 @@ class SparseWindowAttention(nn.Module):
 
     def _sparse_windows(self, q, k, v, pool_k, pool_v, occ, static_sel,
                         frame_valid):
-        """'pallas': each window's branch inside kernel K5 -> (B, nW,
-        head, T, win, ch)."""
-        if q.dtype != torch.float32:
-            raise NotImplementedError(
-                "attention_impl='pallas' runs fp32 only: kernel K5 has no "
-                "bf16 form yet")
+        """'pallas': each window's branch inside kernel K5 (its bf16 form
+        on bf16 windows) -> (B, nW, head, T, win, ch)."""
         B, T, _, _, C = q.shape
         nh = self.n_head
         ch = C // nh
@@ -411,7 +408,9 @@ class SparseWindowAttention(nn.Module):
         if frame_valid is not None:
             frame_select = frame_select & frame_valid.to(q.device).expand(
                 B, T)
-        out = sparse_window_attention(
+        attend = (sparse_window_attention_bf16 if q.dtype == torch.bfloat16
+                  else sparse_window_attention)
+        out = attend(
             bh(windows(q)), bh(windows(k)), bh(windows(v)), rolled(k),
             rolled(v), pool_bh(pool_k), pool_bh(pool_v), self.roll_valid,
             occ, frame_select, nh)

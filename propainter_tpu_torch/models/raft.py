@@ -15,11 +15,12 @@ with convc1 (kernel K1, over a pyramid built by K2).
 bf16 (the JAX bf16 pipeline's RAFT): a copy of the module cast to bf16
 encodes with `compute_dtype=torch.bfloat16` (InstanceNorm statistics stay
 fp32) and refines bf16 features; the coordinate carry and the convex
-upsample's products stay fp32. The correlation volume is fp32 from the
-bf16 maps; on a GPU it is stored in the dtype RAFT computes in (bf16:
-K2's and K1's bf16 forms), on the CPU it stays fp32 and the lookup runs
-in fp32 (`propainter_tpu/models/raft.py:319-331`), as the JAX package's
-CPU and TPU paths differ.
+upsample's products stay fp32. The correlation volume is computed in fp32
+and stored in `corr_volume_dtype` (the JAX attribute; bf16 through K2's
+bf16 form), whatever dtype the refinement computes in: the JAX pipeline
+stores it in bf16 under precision="bf16" off the CPU, and keeps it fp32
+on the CPU (`propainter_tpu/models/raft.py:319-331`); the port's pipeline
+sets the attribute by the same rule.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ import torch.nn.functional as F
 from propainter_tpu_torch.models.layers import (
     FrozenBatchNorm, GemmConv2d, InstanceNorm, conv2d)
 from propainter_tpu_torch.ops.corr import (
-    corr_lookup, corr_lookup_moenc, corr_lookup_moenc_bf16, corr_pyramid)
+    corr_lookup, corr_lookup_bf16, corr_lookup_moenc, corr_lookup_moenc_bf16,
+    corr_lookup_moenc_bf16_volume, corr_pyramid)
 from propainter_tpu_torch.ops.warp import coords_grid
 
 
@@ -111,14 +113,18 @@ class BasicMotionEncoder(nn.Module):
     def forward(self, flow, pyramid=None, coords=None, windows=None):
         """flow (B, 2, h, w); pyramid levels (B*h*w, ., .) and coords NHWC,
         or windows (B, h, w, 324) NHWC. The fused lookup's fp32 output is
-        cast to flow's dtype (a no-op in fp32): over a bf16 pyramid through
-        K1's bf16 form, over an fp32 one through K1 with convc1's
-        parameters in fp32."""
+        cast to flow's dtype (a no-op in fp32): over an fp32 pyramid
+        through K1 with convc1's parameters in fp32; over a bf16 one
+        through K1's bf16 form with bf16 parameters, or with fp32 ones
+        through its form for a bf16 volume (the parameters' dtype is the
+        refinement's)."""
         w = self.convc1.weight.view(self.convc1.out_channels, -1)
         if windows is None:
             if pyramid[0].dtype == torch.bfloat16:
-                cor = corr_lookup_moenc_bf16(pyramid, coords, w.t(),
-                                             self.convc1.bias, self.radius)
+                lookup = (corr_lookup_moenc_bf16 if w.dtype == torch.bfloat16
+                          else corr_lookup_moenc_bf16_volume)
+                cor = lookup(pyramid, coords, w.t(), self.convc1.bias,
+                             self.radius)
             else:
                 cor = corr_lookup_moenc(
                     pyramid, coords, w.t().float().contiguous(),
@@ -212,13 +218,19 @@ class RAFT(nn.Module):
                   (`propainter_tpu/models/raft.py:273-278`), which its
                   pipeline picks under `shard_inference`. Here the name
                   selects the lookup's form only: both read the same
-                  pyramid. Not part of the state dict."""
+                  pyramid; fp32 refinement only (see `refine`).
+    corr_volume_dtype: the pyramid's storage dtype, torch.float32
+      (default) or torch.bfloat16 (the JAX attribute,
+      `propainter_tpu/models/raft.py:272`).
+    Neither is part of the state dict."""
 
     CORR_LAYOUTS = ("flat", "batched")
 
-    def __init__(self, corr_layout: str = "flat"):
+    def __init__(self, corr_layout: str = "flat",
+                 corr_volume_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.corr_layout = corr_layout
+        self.corr_volume_dtype = corr_volume_dtype
         self.hidden_dim = 128
         self.context_dim = 128
         self.corr_levels = 4
@@ -240,20 +252,32 @@ class RAFT(nn.Module):
 
     def refine(self, fmap1, fmap2, net, inp, iters: int = 20):
         """Iterative GRU refinement from encoded features (NCHW) in the
-        dtype of net and of the module's parameters; the coordinates stay
-        fp32. Returns (flow_low (B, 2, h, w), flow_up (B, 2, 8h, 8w)), fp32."""
+        dtype of net and of the module's parameters, over a pyramid stored
+        in `corr_volume_dtype`; the coordinates stay fp32. Returns
+        (flow_low (B, 2, h, w), flow_up (B, 2, 8h, 8w)), fp32.
+
+        The lookup by (layout, volume, refinement dtype): 'flat' runs K1
+        in the form for its volume and parameters (`BasicMotionEncoder`);
+        'batched' runs K7 (its bf16 form over a bf16 volume), then convc1
+        in fp32. A bf16 refinement in 'batched' raises: the JAX package
+        cannot run it either (its batched lookup returns fp32 windows,
+        `corr_pallas.py:363-366`, so convc1, a plain conv at
+        `propainter_tpu/models/raft.py:122`, promotes them and the GRU's
+        bf16 carry to fp32, and `nn.scan` refuses the changed carry,
+        `:226-229`)."""
         if self.corr_layout not in self.CORR_LAYOUTS:
             raise ValueError(f"corr_layout must be one of "
                              f"{self.CORR_LAYOUTS}, got {self.corr_layout!r}")
         if self.corr_layout == "batched" and net.dtype != torch.float32:
             raise NotImplementedError(
-                "corr_layout='batched' in bf16 needs K7's bf16 form, which "
-                "is not ported yet")
-        volume_dtype = (torch.float32 if net.device.type == "cpu"
-                        else net.dtype)
+                "corr_layout='batched' refines in fp32 only: the JAX "
+                "package's batched lookup returns fp32 windows, and its "
+                "convc1 (propainter_tpu/models/raft.py:122) promotes them "
+                "and the GRU's bf16 carry to fp32, which nn.scan refuses "
+                "(:226-229); refine in fp32 (raft_bf16_refine=False)")
         pyramid = corr_pyramid(fmap1.permute(0, 2, 3, 1),
                                fmap2.permute(0, 2, 3, 1), self.corr_levels,
-                               volume_dtype)
+                               self.corr_volume_dtype)
         B, _, h, w = net.shape
         coords0 = coords_grid(B, h, w, device=net.device)
         coords1 = coords0.clone()
@@ -261,8 +285,11 @@ class RAFT(nn.Module):
             flow = (coords1 - coords0).permute(0, 3, 1, 2).to(net.dtype)
             coords = coords1.contiguous()
             if self.corr_layout == "batched":
+                lookup = (corr_lookup_bf16
+                          if pyramid[0].dtype == torch.bfloat16
+                          else corr_lookup)
                 net, delta = self.update_block(
-                    net, inp, flow, windows=corr_lookup(pyramid, coords))
+                    net, inp, flow, windows=lookup(pyramid, coords))
             else:
                 net, delta = self.update_block(net, inp, flow, pyramid,
                                                coords)

@@ -14,6 +14,10 @@ Layouts (the JAX package's; ch = C / n_head, BH = B * n_head, head minor):
   occupancy:    (B, nW), counted as int32 (a sum below 1 is clean)
   frame_select: (B, T) bool
 Output:         (BH, nW, T, win, ch), win_q's dtype.
+
+The windows are fp32 (`sparse_window_attention`, kernel K5) or bf16
+(`sparse_window_attention_bf16`, K5's bf16 form: the JAX bf16 pipeline's
+windows, upcast inside, the arithmetic fp32, the output bf16).
 """
 
 from __future__ import annotations
@@ -79,7 +83,7 @@ def _sparse_window_attention_plain(win_q, win_k, win_v, roll_k, roll_v,
 def sparse_window_attention(win_q, win_k, win_v, roll_k, roll_v, pool_k,
                             pool_v, roll_valid, occupancy, frame_select,
                             n_head: int):
-    """Sparse window attention (layouts in the module docstring).
+    """Sparse window attention (layouts in the module docstring), fp32.
 
     Kernel K5 (`csrc/sparse_window_attention.cu`) replaces
     `propainter_tpu/ops/attention.py:_kernel`. The TPU kernel runs one
@@ -98,6 +102,49 @@ def sparse_window_attention(win_q, win_k, win_v, roll_k, roll_v, pool_k,
         return _sparse_window_attention_plain(
             win_q, win_k, win_v, roll_k, roll_v, pool_k, pool_v, roll_valid,
             occupancy, frame_select, n_head)
+    out = _launch(torch.float32, "sparse_window_attention", win_q, win_k,
+                  win_v, roll_k, roll_v, pool_k, pool_v, roll_valid,
+                  occupancy, frame_select, n_head)
+    sparse_window_attention.launches += 1
+    return out
+
+
+sparse_window_attention.launches = 0
+
+
+def sparse_window_attention_bf16(win_q, win_k, win_v, roll_k, roll_v,
+                                 pool_k, pool_v, roll_valid, occupancy,
+                                 frame_select, n_head: int):
+    """`sparse_window_attention` on bf16 windows, as the TPU kernel
+    computes it in the JAX bf16 pipeline: q, k and v upcast to fp32, every
+    product and the softmax in fp32, the output rounded to bf16
+    (`propainter_tpu/ops/attention.py:51, 62-68, 98-99, 197`); its plain
+    version is `_sparse_window_attention_plain`, which upcasts the same way.
+
+    Kernel K5's bf16 form (`sparse_window_attention_bf16` in
+    `csrc/sparse_window_attention.cu`): K5's clusters on the tile's bf16
+    ring (half the bytes through cp.async); bf16 values are exact in TF32,
+    so each product takes two TF32 passes (q·scale and p split big +
+    small) for 3xTF32's accuracy. Bound: operations (2 x the product FLOPs
+    at the TF32 tensor-core rate) where windows are dirty."""
+    if win_q.device.type == "cpu":
+        return _sparse_window_attention_plain(
+            win_q, win_k, win_v, roll_k, roll_v, pool_k, pool_v, roll_valid,
+            occupancy, frame_select, n_head)
+    out = _launch(torch.bfloat16, "sparse_window_attention_bf16", win_q,
+                  win_k, win_v, roll_k, roll_v, pool_k, pool_v, roll_valid,
+                  occupancy, frame_select, n_head)
+    sparse_window_attention_bf16.launches += 1
+    return out
+
+
+sparse_window_attention_bf16.launches = 0
+
+
+def _launch(dtype, symbol, win_q, win_k, win_v, roll_k, roll_v, pool_k,
+            pool_v, roll_valid, occupancy, frame_select, n_head):
+    """Checks the windows (all of `dtype`) and launches the C entry
+    `symbol` of K5's library; returns the output."""
     _build.require_cuda(win_q, win_k, win_v, roll_k, roll_v, pool_k, pool_v,
                         roll_valid, occupancy, frame_select)
     BH, nW, T, win, ch = win_q.shape
@@ -114,21 +161,15 @@ def sparse_window_attention(win_q, win_k, win_v, roll_k, roll_v, pool_k,
             or occupancy.shape != (B, nW) or frame_select.shape != (B, T)):
         raise ValueError("K5 input shapes do not match the window layout")
     tensors = (win_q, win_k, win_v, roll_k, roll_v, pool_k, pool_v)
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           for t in tensors):
-        raise ValueError("K5 inputs must be contiguous float32")
+    if any(t.dtype != dtype or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{symbol} takes contiguous {dtype} windows")
     valid = roll_valid.to(torch.uint8).contiguous()
     occ = occupancy.to(torch.int32).contiguous()
     fsel = frame_select.to(torch.int32).contiguous()
     out = torch.empty_like(win_q)
-    fn = _build.function("sparse_window_attention", "sparse_window_attention",
-                         11, 6, 1)
-    _build.launch(fn, "sparse_window_attention", win_q,
-                  *[t.data_ptr() for t in tensors], valid.data_ptr(),
-                  occ.data_ptr(), fsel.data_ptr(), out.data_ptr(), BH,
-                  n_head, nW, T, win, P, 1.0 / math.sqrt(ch))
-    sparse_window_attention.launches += 1
+    fn = _build.function("sparse_window_attention", symbol, 11, 6, 1)
+    _build.launch(fn, symbol, win_q, *[t.data_ptr() for t in tensors],
+                  valid.data_ptr(), occ.data_ptr(), fsel.data_ptr(),
+                  out.data_ptr(), BH, n_head, nW, T, win, P,
+                  1.0 / math.sqrt(ch))
     return out
-
-
-sparse_window_attention.launches = 0

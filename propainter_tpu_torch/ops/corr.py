@@ -1,6 +1,7 @@
 """RAFT all-pairs correlation: pyramid build (kernel K2), the radius-r
 window lookup (kernel K7) and the same lookup fused with the motion
-encoder's convc1 (kernel K1).
+encoder's convc1 (kernel K1), each also in a form over a bf16 pyramid
+(K1 with bf16 or with fp32 convc1 parameters).
 
 Counterpart of `propainter_tpu/ops/corr.py` + `ops/corr_pallas.py`.
 Pyramid levels are stored per query row: level l is (B*H*W, H/2^l, W/2^l)
@@ -127,6 +128,11 @@ corr_pyramid_build_bf16.launches = 0
 
 
 def _corr_lookup_plain(pyramid, coords, radius: int = 4):
+    """The lookup's (B, H, W, levels*(2r+1)^2) fp32 values. Over bf16
+    levels, as the TPU kernel computes it on a bf16 volume: the row lerp in
+    bf16 (fy rounded to bf16, each product and the sum rounded), the column
+    lerp in fp32 (`corr_pallas.py:189-196, 264-265`), the values fp32 (its
+    `out_shape`, `:366`)."""
     B, H, W, _ = coords.shape
     N = B * H * W
     r = radius
@@ -142,7 +148,7 @@ def _corr_lookup_plain(pyramid, coords, radius: int = 4):
         x0 = torch.floor(x)
         y0 = torch.floor(y)
         fx = (x - x0)[:, None, None]
-        fy = (y - y0)[:, None, None]
+        fy = (y - y0)[:, None, None].to(corr.dtype)
         # windows wholly outside the map stay wholly outside after the
         # clamp, which keeps the integer indices small
         xs = x0.clamp(-(r + 2), Wl + r).long()[:, None] + s   # (N, n+1)
@@ -153,7 +159,7 @@ def _corr_lookup_plain(pyramid, coords, radius: int = 4):
                + xs.clamp(0, Wl - 1)[:, None, :])
         g = torch.gather(corr.reshape(N, Hl * Wl), 1, idx.reshape(N, -1))
         g = g.reshape(N, n + 1, n + 1) * valid             # [y, x]
-        gy = g[:, :-1] * (1.0 - fy) + g[:, 1:] * fy          # (N, n_y, n+1)
+        gy = (g[:, :-1] * (1.0 - fy) + g[:, 1:] * fy).float()  # (N, n_y, n+1)
         v = gy[:, :, :-1] * (1.0 - fx) + gy[:, :, 1:] * fx   # (N, n_y, n_x)
         outs.append(v.transpose(1, 2).reshape(N, n * n))     # x-major
     return torch.cat(outs, dim=-1).reshape(B, H, W, -1)
@@ -176,28 +182,59 @@ def corr_lookup(pyramid, coords, radius: int = 4):
     taps it reads)."""
     if coords.device.type == "cpu":
         return _corr_lookup_plain(pyramid, coords, radius)
-    _build.require_cuda(coords, *pyramid)
-    B, H, W, _ = coords.shape
-    N = B * H * W
-    if radius != 4 or len(pyramid) != 4:
-        raise ValueError("K7 takes radius 4 and 4 levels")
-    tensors = (*pyramid, coords)
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           for t in tensors):
-        raise ValueError("K7 inputs must be contiguous float32")
-    if any(p.shape[0] != N for p in pyramid):
-        raise ValueError("pyramid rows must equal the number of queries")
-    out = torch.empty((B, H, W, 324), dtype=torch.float32,
-                      device=coords.device)
-    dims = [d for p in pyramid for d in p.shape[1:]]
-    fn = _build.function("corr_lookup", "corr_lookup", 6, 9)
-    _build.launch(fn, "corr_lookup", coords,
-                  *[t.data_ptr() for t in tensors], out.data_ptr(), N, *dims)
+    out = _lookup_launch(pyramid, coords, radius, torch.float32,
+                         "corr_lookup")
     corr_lookup.launches += 1
     return out
 
 
 corr_lookup.launches = 0
+
+
+def corr_lookup_bf16(pyramid, coords, radius: int = 4):
+    """`corr_lookup` over a bf16 pyramid (`corr_pyramid(...,
+    out_dtype=torch.bfloat16)`), as the TPU kernel computes it: the values
+    of `_corr_lookup_plain` over bf16 levels. pyramid levels bf16 (B*H*W,
+    Hl, Wl); coords (B, H, W, 2) fp32. Returns (B, H, W, 324) fp32.
+
+    Kernel K7's bf16 form (`corr_lookup_bf16` in `csrc/corr_lookup.cu`):
+    K7's warp per query over bf16 taps, the row lerp rounded to bf16 at
+    the plain version's points. Bound: bytes (the 324 fp32 outputs of
+    each query, 50 MB per RAFT iteration at 432x240, and the in-range
+    bf16 taps, half K7's)."""
+    if coords.device.type == "cpu":
+        return _corr_lookup_plain(pyramid, coords, radius)
+    out = _lookup_launch(pyramid, coords, radius, torch.bfloat16,
+                         "corr_lookup_bf16")
+    corr_lookup_bf16.launches += 1
+    return out
+
+
+corr_lookup_bf16.launches = 0
+
+
+def _lookup_launch(pyramid, coords, radius, dtype, symbol):
+    """Checks the levels (all of `dtype`) and the fp32 coords and launches
+    the C entry `symbol` of K7's library; returns the output."""
+    _build.require_cuda(coords, *pyramid)
+    B, H, W, _ = coords.shape
+    N = B * H * W
+    if radius != 4 or len(pyramid) != 4:
+        raise ValueError("K7 takes radius 4 and 4 levels")
+    if (any(p.dtype != dtype or not p.is_contiguous() for p in pyramid)
+            or coords.dtype != torch.float32 or not coords.is_contiguous()):
+        raise ValueError(f"{symbol} takes contiguous {dtype} levels and "
+                         f"contiguous float32 coords")
+    if any(p.shape[0] != N for p in pyramid):
+        raise ValueError("pyramid rows must equal the number of queries")
+    out = torch.empty((B, H, W, 324), dtype=torch.float32,
+                      device=coords.device)
+    dims = [d for p in pyramid for d in p.shape[1:]]
+    fn = _build.function("corr_lookup", symbol, 6, 9)
+    _build.launch(fn, symbol, coords,
+                  *[t.data_ptr() for t in (*pyramid, coords)],
+                  out.data_ptr(), N, *dims)
+    return out
 
 
 def _corr_lookup_moenc_plain(pyramid, coords, weight, bias, radius):
@@ -254,44 +291,17 @@ corr_lookup_moenc.launches = 0
 
 
 def _corr_windows_bf16_plain(pyramid, coords, radius: int = 4):
-    """The (N, levels*(2r+1)^2) bf16 window values K1's bf16 form
-    multiplies: `_corr_lookup_plain` over bf16 levels with the row lerp in
-    bf16 (fy rounded to bf16, each product and the sum rounded) and the
-    column lerp in fp32, each value then rounded to bf16 (the TPU kernel's
-    rounding points, `corr_pallas.py:189-196, 264-265, 299-303`)."""
-    B, H, W, _ = coords.shape
-    N = B * H * W
-    r = radius
-    n = 2 * r + 1
-    cx = coords[..., 0].reshape(N).float()
-    cy = coords[..., 1].reshape(N).float()
-    s = torch.arange(n + 1, device=coords.device) - r
-    outs = []
-    for lvl, corr in enumerate(pyramid):
-        Hl, Wl = corr.shape[1:]
-        x = cx / (2.0 ** lvl)
-        y = cy / (2.0 ** lvl)
-        x0 = torch.floor(x)
-        y0 = torch.floor(y)
-        fx = (x - x0)[:, None, None]
-        fyb = (y - y0)[:, None, None].to(torch.bfloat16)
-        xs = x0.clamp(-(r + 2), Wl + r).long()[:, None] + s
-        ys = y0.clamp(-(r + 2), Hl + r).long()[:, None] + s
-        valid = (((ys >= 0) & (ys < Hl))[:, :, None]
-                 & ((xs >= 0) & (xs < Wl))[:, None, :])
-        idx = (ys.clamp(0, Hl - 1)[:, :, None] * Wl
-               + xs.clamp(0, Wl - 1)[:, None, :])
-        g = torch.gather(corr.reshape(N, Hl * Wl), 1, idx.reshape(N, -1))
-        g = g.reshape(N, n + 1, n + 1) * valid                 # bf16 [y, x]
-        gy = (g[:, :-1] * (1.0 - fyb) + g[:, 1:] * fyb).float()
-        v = gy[:, :, :-1] * (1.0 - fx) + gy[:, :, 1:] * fx     # fp32
-        outs.append(v.transpose(1, 2).reshape(N, n * n))
-    return torch.cat(outs, dim=-1).to(torch.bfloat16)
+    """The (N, levels*(2r+1)^2) bf16 window values K1's bf16 forms
+    multiply: `_corr_lookup_plain`'s values over bf16 levels, each rounded
+    to bf16 (the TPU kernel's moenc step, `corr_pallas.py:299-303`)."""
+    v = _corr_lookup_plain(pyramid, coords, radius)
+    return v.reshape(-1, v.shape[-1]).to(torch.bfloat16)
 
 
 def _corr_lookup_moenc_bf16_plain(pyramid, coords, weight, bias, radius):
     a = _corr_windows_bf16_plain(pyramid, coords, radius)
-    out = torch.addmm(bias.float(), a.float(), weight.float())
+    out = torch.addmm(bias.float(), a.float(),
+                      weight.to(torch.bfloat16).float())
     B, H, W, _ = coords.shape
     return torch.relu(out).reshape(B, H, W, -1)
 
@@ -313,29 +323,69 @@ def corr_lookup_moenc_bf16(pyramid, coords, weight, bias, radius: int = 4):
     if coords.device.type == "cpu":
         return _corr_lookup_moenc_bf16_plain(pyramid, coords, weight, bias,
                                              radius)
+    if weight.dtype != torch.bfloat16 or bias.dtype != torch.bfloat16:
+        raise ValueError("K1's bf16 form takes a bf16 weight and bias")
+    out = _moenc_bf16_launch(pyramid, coords, weight, bias, radius,
+                             "corr_lookup_moenc_bf16")
+    corr_lookup_moenc_bf16.launches += 1
+    return out
+
+
+corr_lookup_moenc_bf16.launches = 0
+
+
+def corr_lookup_moenc_bf16_volume(pyramid, coords, weight, bias,
+                                  radius: int = 4):
+    """`corr_lookup_moenc` over a bf16 pyramid with convc1's parameters in
+    fp32: the JAX package's RAFT refining in fp32 over its bf16 volume
+    (`precision="bf16"` with `raft_bf16_refine=False`). The TPU kernel
+    casts the weight and bias to fp32 (`corr_pallas.py:393-394`), rounds
+    the window values and the weight to bf16 for the product, sums in fp32
+    and adds the fp32 bias (`:296-303`): `_corr_lookup_moenc_bf16_plain`
+    with an fp32 bias. weight (324, 256) fp32 (any strides); bias (256,)
+    fp32. Returns (B, H, W, 256) fp32.
+
+    Kernel K1's bf16 form with an fp32 bias (`corr_lookup_moenc_bf16_volume`
+    in `csrc/corr_lookup_moenc.cu`); the weight is rounded to bf16 here,
+    one 324 x 256 copy a call. Bound: bytes, as K1's bf16 form."""
+    if coords.device.type == "cpu":
+        return _corr_lookup_moenc_bf16_plain(pyramid, coords, weight, bias,
+                                             radius)
+    if weight.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise ValueError("K1 over a bf16 volume takes an fp32 weight and "
+                         "bias")
+    out = _moenc_bf16_launch(pyramid, coords, weight.to(torch.bfloat16),
+                             bias, radius, "corr_lookup_moenc_bf16_volume")
+    corr_lookup_moenc_bf16_volume.launches += 1
+    return out
+
+
+corr_lookup_moenc_bf16_volume.launches = 0
+
+
+def _moenc_bf16_launch(pyramid, coords, weight, bias, radius, symbol):
+    """Checks and launches the C entry `symbol` of K1's bf16 forms (bf16
+    levels and weight, the bias in the entry's dtype); returns the
+    output."""
     _build.require_cuda(coords, weight, bias, *pyramid)
     B, H, W, _ = coords.shape
     N = B * H * W
     C, Fo = weight.shape
     if radius != 4 or len(pyramid) != 4 or C != 324 or Fo != 256:
         raise ValueError("K1 takes radius 4, 4 levels, a (324, 256) weight")
-    if (any(t.dtype != torch.bfloat16 for t in (*pyramid, weight, bias))
+    if (any(p.dtype != torch.bfloat16 for p in pyramid)
             or coords.dtype != torch.float32):
-        raise ValueError("K1's bf16 form takes bf16 levels, weight and bias "
-                         "and float32 coords")
+        raise ValueError("K1's bf16 forms take bf16 levels and float32 "
+                         "coords")
     if any(p.shape[0] != N for p in pyramid):
         raise ValueError("pyramid rows must equal the number of queries")
-    wt = weight.t().contiguous()
-    tensors = (*pyramid, coords.contiguous(), wt, bias.contiguous())
     if any(not t.is_contiguous() for t in pyramid):
         raise ValueError("K1's pyramid levels must be contiguous")
+    wt = weight.t().contiguous()
+    tensors = (*pyramid, coords.contiguous(), wt, bias.contiguous())
     out = torch.empty((B, H, W, Fo), dtype=torch.float32, device=coords.device)
     dims = [d for p in pyramid for d in p.shape[1:]]
-    fn = _build.function("corr_lookup_moenc", "corr_lookup_moenc_bf16", 8, 9)
-    _build.launch(fn, "corr_lookup_moenc_bf16", coords,
-                  *[t.data_ptr() for t in tensors], out.data_ptr(), N, *dims)
-    corr_lookup_moenc_bf16.launches += 1
+    fn = _build.function("corr_lookup_moenc", symbol, 8, 9)
+    _build.launch(fn, symbol, coords, *[t.data_ptr() for t in tensors],
+                  out.data_ptr(), N, *dims)
     return out
-
-
-corr_lookup_moenc_bf16.launches = 0

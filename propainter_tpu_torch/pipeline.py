@@ -15,16 +15,17 @@ stage-4 window batches split across it.
 
 precision='bf16' is the JAX package's bf16 pipeline: the flow completion
 and the generator run with their parameters cast to bf16 once and their
-inputs cast to bf16 (`propainter_tpu/pipeline.py:237-248, 347-442`);
-RAFT's parameters stay fp32 and, off the CPU, RAFT encodes and refines
-with a bf16 copy of them (`raft_bf16_encode`, `raft_bf16_refine`, the JAX
-rule `use_bf16 = ... and backend != "cpu"`, here `device.type != "cpu"`:
-the JAX package's own semantics, under which a CPU run keeps RAFT fp32),
-its correlation volume then stored in bf16. With raft_bf16_refine=False
-RAFT runs wholly in fp32, its volume too, where the JAX package would
-store that volume in bf16.
-bf16 runs only with attention_impl='flash' and without shard_inference:
-kernels K5 and K7 have no bf16 form yet.
+inputs cast to bf16 (`propainter_tpu/pipeline.py:237-248, 347-442`), in
+either attention form; RAFT's parameters stay fp32 and, off the CPU, RAFT
+encodes and refines with a bf16 copy of them (`raft_bf16_encode`,
+`raft_bf16_refine`, the JAX rule `use_bf16 = ... and backend != "cpu"`,
+here `device.type != "cpu"`: the JAX package's own semantics, under which
+a CPU run keeps RAFT fp32). Off the CPU RAFT's correlation volume is then
+stored in bf16 (`RAFT.corr_volume_dtype`, as
+`propainter_tpu/pipeline.py:224-226` sets it), under a bf16 refinement or,
+with raft_bf16_refine=False, under an fp32 one. bf16 with shard_inference runs only with
+raft_bf16_refine=False: the JAX package cannot refine in bf16 in the
+batched corr layout (`RAFT.refine`).
 
 The JAX package's TPU scheduling tricks (occupancy bucketing, encoder
 overlap carry, reference-token precompute, last-block query shrink) are
@@ -180,8 +181,9 @@ class ProPainterPipeline:
     `InpaintGenerator` modules with their weights loaded. They are moved to
     `device` (None = the GPU; without one this raises) and set to eval;
     the generator is switched to the config's `attention_impl` and RAFT to
-    the corr layout of `shard_inference` (a module shared by two pipelines
-    runs the later one's form).
+    the corr layout of `shard_inference` and the volume dtype of
+    `precision` (a module shared by two pipelines runs the later one's
+    form).
 
     mesh: the devices `shard_inference` splits over (`parallel.make_mesh`;
     None = every visible GPU, or the CPU once when `device` is the CPU).
@@ -193,19 +195,25 @@ class ProPainterPipeline:
                  mesh=None):
         self.config = config or PipelineConfig()
         bf16 = self.config.precision == "bf16"
-        if bf16 and self.config.attention_impl != "flash":
+        if (bf16 and self.config.shard_inference
+                and self.config.raft_bf16_refine):
             raise NotImplementedError(
-                "precision='bf16' runs attention_impl='flash' only: kernel "
-                "K5 has no bf16 form yet")
-        if bf16 and self.config.shard_inference:
-            raise NotImplementedError(
-                "precision='bf16' with shard_inference needs K7's bf16 "
-                "form, which is not ported yet")
+                "precision='bf16' with shard_inference needs "
+                "raft_bf16_refine=False: the JAX package cannot refine in "
+                "bf16 in the batched corr layout (its convc1, "
+                "propainter_tpu/models/raft.py:122, promotes the GRU's bf16 "
+                "carry to fp32, which nn.scan refuses)")
         self._dtype = torch.bfloat16 if bf16 else torch.float32
+        self.device = canonical_device(resolve_device(device))
+        # off the CPU a bf16 run stores RAFT's volume in bf16, whichever
+        # module refines (the fp32 one with raft_bf16_refine=False)
+        bf16_raft = bf16 and self.device.type != "cpu"
         inpaint.set_attention_impl(self.config.attention_impl)
         raft.corr_layout = ("batched" if self.config.shard_inference
                             else "flat")
-        self.device = canonical_device(resolve_device(device))
+        raft.corr_volume_dtype = (
+            torch.bfloat16 if bf16_raft and not self.config.raft_bf16_refine
+            else torch.float32)
         if not self.config.shard_inference:
             if mesh is not None:
                 raise ValueError("a mesh is used only with shard_inference")
@@ -229,8 +237,9 @@ class ProPainterPipeline:
         if bf16:
             self.flowcomp = copy.deepcopy(self.flowcomp).to(torch.bfloat16)
             self.inpaint = copy.deepcopy(self.inpaint).to(torch.bfloat16)
-            if self.device.type != "cpu" and self.config.raft_bf16_refine:
+            if bf16_raft and self.config.raft_bf16_refine:
                 self._raft_bf16 = copy.deepcopy(self.raft).to(torch.bfloat16)
+                self._raft_bf16.corr_volume_dtype = torch.bfloat16
         self._replicas = {name: replicate(getattr(self, name), self.mesh)
                           for name in ("raft", "flowcomp", "inpaint")}
 

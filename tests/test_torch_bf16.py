@@ -43,7 +43,7 @@ from propainter_tpu_torch.models.flow_completion import (
     RecurrentFlowCompleteNet)
 from propainter_tpu_torch.models.propainter import InpaintGenerator
 from propainter_tpu_torch.models.raft import RAFT
-from propainter_tpu_torch.ops import corr, deform, flash_attention
+from propainter_tpu_torch.ops import attention, corr, deform, flash_attention
 from propainter_tpu_torch.ops.warp import coords_grid
 from propainter_tpu_torch.weights import (FLOWCOMP_RENAMES, INPAINT_RENAMES,
                                           RAFT_RENAMES)
@@ -266,13 +266,17 @@ def test_flow_completion_bf16_matches_jax():
                     np.asarray(want.astype(jnp.float32))) < 5e-2
 
 
-def test_generator_bf16_matches_jax():
-    """InpaintGenerator (depths=2, 'flash') with bf16 parameters and
-    inputs: K3 and K4 in their bf16 forms, branch B's logits in bf16, the
-    warps at bf16 positions. Measured: 1.4e-2 of the output scale (bf16
-    steps through the layers, rounded at other points by XLA)."""
+@pytest.mark.parametrize("attention_impl", ["flash", "pallas"])
+def test_generator_bf16_matches_jax(attention_impl):
+    """InpaintGenerator (depths=2) with bf16 parameters and inputs, in
+    both attention forms: K3 in its bf16 form, the warps at bf16
+    positions, and 'flash' K4's bf16 form with branch B's logits in bf16,
+    'pallas' K5's bf16 form (fp32 inside, bf16 out). Measured: 1.4e-2 of
+    the output scale in 'flash', 1.5e-2 in 'pallas' (bf16 steps
+    through the layers, rounded at other points by XLA)."""
     tree = _fill(_generator_tree(2), 4)
-    model = _load(InpaintGenerator(depths=2), tree, INPAINT_RENAMES).to(BF)
+    model = _load(InpaintGenerator(depths=2, attention_impl=attention_impl),
+                  tree, INPAINT_RENAMES).to(BF)
     rng = np.random.default_rng(5)
     Tn, l_t, Hg, Wg = 5, 3, 64, 64
     frames = _bf16(rng.uniform(-1, 1, (1, Tn, Hg, Wg, 3)))
@@ -284,7 +288,7 @@ def test_generator_bf16_matches_jax():
     m_upd[:, :, 28:32] = 0.0
     valid = np.array([True] * (Tn - 1) + [False])
     jb = lambda a: jnp.asarray(a, jnp.bfloat16)
-    want = JaxGenerator(depths=2, attention_impl="flash").apply(
+    want = JaxGenerator(depths=2, attention_impl=attention_impl).apply(
         {"params": _jax_bf16_tree(tree)}, jb(frames), (jb(ff), jb(fb)),
         jb(m_in), jb(m_upd), l_t, frame_valid=jnp.asarray(valid))
     tb = lambda a: torch.from_numpy(a).to(BF)
@@ -300,11 +304,13 @@ def test_generator_bf16_matches_jax():
 
 
 def test_bf16_guards():
-    """The generator's 'pallas' form and RAFT's batched lookup refuse bf16
-    (K5 and K7 have no bf16 form; the pipeline's own guards are in
-    tests/test_torch_pipeline.py); ProInpainter defaults to bf16; every
-    field of the JAX package's config constructs, and the
-    evaluation-protocol ones raise off their defaults."""
+    """The generator's 'pallas' form runs in bf16 (K5's bf16 form); RAFT
+    refuses a bf16 refinement in the batched corr layout, which the JAX
+    package cannot run either (tests/test_torch_bf16_forms.py; the
+    pipeline's own guards are in tests/test_torch_pipeline.py);
+    ProInpainter defaults to bf16; every field of the JAX package's config
+    constructs, and the evaluation-protocol ones raise off their
+    defaults."""
     mods = {"raft": RAFT(), "flowcomp": RecurrentFlowCompleteNet(),
             "inpaint": InpaintGenerator(depths=2)}
     assert ProInpainter(mods).precision == "bf16"
@@ -312,12 +318,14 @@ def test_bf16_guards():
     z = torch.zeros(1, 3, 64, 64, 3, dtype=BF)
     f = torch.zeros(1, 1, 64, 64, 2, dtype=BF)
     m = torch.zeros(1, 3, 64, 64, 1, dtype=BF)
-    with torch.no_grad(), pytest.raises(NotImplementedError):
-        gen(z, (f, f), m, m, 2)
+    with torch.no_grad():
+        out = gen(z, (f, f), m, m, 2)
+    assert out.dtype == BF and out.shape == (1, 2, 64, 64, 3)
     raft = RAFT(corr_layout="batched").to(BF)
     feat = torch.zeros(1, 256, 16, 16, dtype=BF)
     hid = torch.zeros(1, 128, 16, 16, dtype=BF)
-    with torch.no_grad(), pytest.raises(NotImplementedError):
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match="raft.py:122"):
         raft.refine(feat, feat, hid, hid, 1)
     # every field of the JAX package's config, with its defaults
     fields = {fd.name: getattr(jax_pipeline.PipelineConfig(), fd.name)
@@ -386,6 +394,27 @@ def test_cuda_bf16_kernels_and_dtype_guards(cuda):
         corr.corr_lookup_moenc_bf16([p.float() for p in pyr], coords, w, b)
     with pytest.raises(ValueError):
         corr.corr_pyramid_build_bf16(level0.to(BF))
+    # the forms added for the other bf16 configurations
+    with pytest.raises(ValueError):
+        corr.corr_lookup(pyr, coords)
+    with pytest.raises(ValueError):
+        corr.corr_lookup_bf16([p.float() for p in pyr], coords)
+    with pytest.raises(ValueError):
+        corr.corr_lookup_moenc_bf16_volume(pyr, coords, w, b)
+    with pytest.raises(ValueError):
+        corr.corr_lookup_moenc_bf16([p for p in pyr], coords, w.float(),
+                                    b.float())
+    wins = [torch.zeros(s, device=cuda, dtype=BF)
+            for s in [(1, 1, 2, 45, 128)] * 3 + [(1, 1, 4, 2, 45, 128)] * 2
+            + [(1, 2, 8, 128)] * 2]
+    win_args = (torch.ones(180, dtype=torch.bool, device=cuda),
+                torch.ones(1, 1, device=cuda),
+                torch.ones(1, 2, dtype=torch.bool, device=cuda), 1)
+    with pytest.raises(ValueError):
+        attention.sparse_window_attention(*wins, *win_args)
+    with pytest.raises(ValueError):
+        attention.sparse_window_attention_bf16(*[t.float() for t in wins],
+                                               *win_args)
 
 
 @pytest.fixture

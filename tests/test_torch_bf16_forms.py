@@ -1,0 +1,262 @@
+"""The bf16 forms of K5 and K7, and K1 over a bf16 volume with fp32
+parameters, against the JAX package on the CPU: the configurations the JAX
+package runs in bf16 besides 'flash' with a bf16 RAFT refinement.
+
+Kernels: the plain versions (the CPU path of the wrappers, and what the
+CUDA kernels are held to on the card) against the TPU kernels run on the
+same bf16 inputs in Pallas interpret mode. Modules: the generator's
+'pallas' form with bf16 parameters is in tests/test_torch_bf16.py; here
+RAFT refining in fp32 over a bf16 volume in both corr layouts against the
+JAX fp32 refine, and the JAX package's own bf16 refine in the batched
+layout failing, which is why the port refuses it. The golden fixture in
+bf16 under 'pallas' and under shard_inference:
+tests/test_torch_bf16_pipeline.py. Each tolerance is a measured bound,
+its measurement in the docstring.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from propainter_tpu.models.raft import RAFT as JaxRAFT
+from propainter_tpu.ops.attention import sparse_window_attention_pallas
+from propainter_tpu.ops.corr_pallas import (corr_lookup_flat_moenc,
+                                            corr_lookup_fused,
+                                            corr_pyramid_flat)
+from tests.test_torch_bf16 import _bf16, _corr_case, _jax_bf16_tree, _rel_err
+from tests.test_torch_kernels import _sparse_attention_inputs
+from tests.test_torch_models import _fill, _load, _raft_tree
+
+from propainter_tpu_torch.models.propainter import _valid_rolled_indices
+from propainter_tpu_torch.models.raft import RAFT
+from propainter_tpu_torch.ops import attention, corr
+from propainter_tpu_torch.weights import RAFT_RENAMES
+
+BF = torch.bfloat16
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One PyTorch intra-op thread per test: the suite runs this file beside
+    other pytest-xdist workers, and PyTorch's default of one OpenMP thread
+    per core in every worker oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ---- kernels: plain versions against the TPU kernels ---------------------
+
+
+@pytest.mark.parametrize("case", ["dirty", "all_clean", "frame0_off"])
+def test_sparse_window_attention_bf16_plain_matches_jax_kernel(case):
+    """K5's bf16 form against the TPU sparse window attention kernel on
+    bf16 windows (interpret mode), which upcasts them and writes bf16:
+    mixed dirty and clean windows, all clean, and frame 0 unselected.
+    Both compute in fp32 and round once, so they differ only where fp32
+    summation order moves a value across a bf16 rounding boundary (one
+    bf16 step). Measured: 8, 6 and 15 of 46080 values one bf16 step apart,
+    at most 1.4e-3 of the output scale."""
+    *arrays, n_head = _sparse_attention_inputs(case)
+    windows, rest = [_bf16(a) for a in arrays[:7]], arrays[7:]
+    want = sparse_window_attention_pallas(
+        *(jnp.asarray(a, jnp.bfloat16) for a in windows),
+        *map(jnp.asarray, rest), n_head, interpret=True)
+    got = attention.sparse_window_attention_bf16(
+        *(torch.from_numpy(a).to(BF) for a in windows),
+        *map(torch.from_numpy, rest), n_head)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert _rel_err(got.float().numpy(),
+                    np.asarray(want.astype(jnp.float32))) <= 2 ** -8
+
+
+def test_corr_lookup_bf16_plain_matches_jax_kernel():
+    """K7's bf16 form against the TPU lookup kernel without the convc1
+    epilogue (`corr_lookup_fused`, the pallas_call at corr_pallas.py:363,
+    interpret mode) over the same bf16 pyramid in its per-pair layout
+    (the JAX RAFT's batched layout under precision='bf16'): a ragged 8 x
+    13 map (level 3 is 1 x 1), coordinates up to 40 pixels outside it. The
+    row lerp rounds to bf16 at the same points and the column lerp is
+    fp32 on both sides. Measured: 2.4e-7 (an fp32 ulp of the sums)."""
+    f1, f2, coords, _, _ = _corr_case()
+    B, Hc, Wc, _ = f1.shape
+    pyr = corr.corr_pyramid(torch.from_numpy(f1).to(BF),
+                            torch.from_numpy(f2).to(BF), 4,
+                            out_dtype=torch.bfloat16)
+    # (B*P, Hl, Wl) rows -> the JAX per-pair layout (B, Hl, Wl, P)
+    jpyr = [jnp.asarray(lvl.float().numpy().reshape(
+        B, Hc * Wc, *lvl.shape[1:]).transpose(0, 2, 3, 1), jnp.bfloat16)
+        for lvl in pyr]
+    want = corr_lookup_fused(jpyr, jnp.asarray(coords), interpret=True)
+    got = corr.corr_lookup_bf16(pyr, torch.from_numpy(coords))
+    assert got.dtype == torch.float32 and got.shape == (B, Hc, Wc, 324)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
+def test_corr_lookup_moenc_bf16_volume_plain_matches_jax_kernel():
+    """K1 over a bf16 volume with fp32 convc1 parameters (not
+    bf16-representable) against the TPU lookup kernel with its convc1
+    epilogue over the bf16 flat pyramid (interpret mode): both round the
+    window values and the weight to bf16, sum in fp32 and add the fp32
+    bias. Measured: 1.6e-7 of the output scale."""
+    f1, f2, coords, _, _ = _corr_case()
+    rng = np.random.default_rng(7)
+    w = (rng.standard_normal((324, 256)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(256) * 0.05).astype(np.float32)
+    pyr = corr_pyramid_flat(jnp.asarray(f1, jnp.bfloat16),
+                            jnp.asarray(f2, jnp.bfloat16), 4,
+                            out_dtype=jnp.bfloat16, interpret=True)
+    want = corr_lookup_flat_moenc(pyr, jnp.asarray(coords), jnp.asarray(w),
+                                  jnp.asarray(b), interpret=True)
+    tpyr = corr.corr_pyramid(torch.from_numpy(f1).to(BF),
+                             torch.from_numpy(f2).to(BF), 4,
+                             out_dtype=torch.bfloat16)
+    got = corr.corr_lookup_moenc_bf16_volume(
+        tpyr, torch.from_numpy(coords), torch.from_numpy(w),
+        torch.from_numpy(b))
+    assert got.dtype == torch.float32 and got.shape == (2, 8, 13, 256)
+    assert _rel_err(got.numpy(), want) < 2 ** -8
+
+
+# ---- RAFT: an fp32 refinement over a bf16 volume --------------------------
+
+
+def _refine_case():
+    """RAFT's weights and features of two pairs on a 16 x 16 grid: the
+    second map of each pair is the first one shifted (by 2 and by -1
+    columns), so the flows follow a clear correlation peak."""
+    tree = _fill(_raft_tree(), 0)
+    rng = np.random.default_rng(9)
+    f1 = rng.standard_normal((2, 16, 16, 256)).astype(np.float32)
+    f2 = np.stack([np.roll(f1[0], 2, axis=1), np.roll(f1[1], -1, axis=1)])
+    net = np.tanh(rng.standard_normal((2, 16, 16, 128))).astype(np.float32)
+    inp = np.maximum(rng.standard_normal((2, 16, 16, 128)), 0).astype(
+        np.float32)
+    return tree, (f1, f2, net, inp)
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_fp32_refine():
+    tree, args = _refine_case()
+    _, up = JaxRAFT().apply({"params": tree},
+                            *(jnp.asarray(a) for a in args), 4,
+                            method="refine")
+    return np.asarray(up)
+
+
+@pytest.mark.parametrize("layout", ["flat", "batched"])
+def test_raft_fp32_refine_over_bf16_volume_matches_jax(layout):
+    """RAFT with fp32 parameters refining over a bf16 volume
+    (`corr_volume_dtype=torch.bfloat16`, the JAX bf16 pipeline's RAFT with
+    raft_bf16_refine=False): 'flat' through K1 over a bf16 volume,
+    'batched' through K7's bf16 form and an fp32 convc1. The JAX package
+    builds a bf16 volume only off the CPU; on the CPU its refine is fp32
+    throughout, which is the oracle here, so the difference is the
+    volume's rounding (and, in 'flat', convc1's bf16 operands). Measured:
+    flows up to 8.2 px, max drift 0.0054 px (6.6e-4 of the flow scale) in
+    'flat', 0.0041 px (4.9e-4) in 'batched'; the port's fp32 refine is
+    6.2e-6 px from the JAX one."""
+    tree, args = _refine_case()
+    model = _load(RAFT(corr_layout=layout, corr_volume_dtype=BF), tree,
+                  RAFT_RENAMES)
+    with torch.no_grad():
+        _, up = model.refine(*(torch.from_numpy(a).permute(0, 3, 1, 2)
+                               for a in args), 4)
+    assert up.dtype == torch.float32
+    want = _jax_fp32_refine()
+    drift = np.abs(up.permute(0, 2, 3, 1).numpy() - want).max()
+    scale = np.abs(want).max()
+    assert scale > 1.0                # the flows follow the shifts
+    assert drift <= 0.02 and drift / scale <= 3e-3, (drift, scale)
+
+
+def test_jax_bf16_refine_in_the_batched_layout_raises():
+    """The JAX package cannot refine in bf16 in the batched corr layout:
+    its lookup returns fp32 windows, convc1 (a plain conv,
+    propainter_tpu/models/raft.py:122) promotes them and the GRU's bf16
+    carry to fp32, and `nn.scan` refuses the changed carry at trace time.
+    So the port's pipeline refuses precision='bf16' with shard_inference
+    unless raft_bf16_refine=False, and its RAFT refuses a bf16 refinement
+    in the batched layout."""
+    tree, (f1, _, net, _) = _refine_case()
+    feat = jnp.asarray(f1[:1, :8, :8], jnp.bfloat16)
+    hid = jnp.asarray(net[:1, :8, :8], jnp.bfloat16)
+    with pytest.raises(TypeError, match="carry"):
+        JaxRAFT(corr_layout="batched", corr_volume_dtype="bfloat16").apply(
+            {"params": _jax_bf16_tree(tree)}, feat, feat, hid, hid, 1,
+            method="refine")
+    model = RAFT(corr_layout="batched").to(BF)
+    feat_t = torch.zeros(1, 256, 8, 8, dtype=BF)
+    hid_t = torch.zeros(1, 128, 8, 8, dtype=BF)
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match="raft.py:122"):
+        model.refine(feat_t, feat_t, hid_t, hid_t, 1)
+
+
+# ---- on the card: the kernels against their plain versions ---------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on a GPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# the bf16 kernels' tolerance relative to the output scale (chip_smoke.py's
+# BF16_REL_TOL): two bf16 steps
+_BF16_REL_TOL = 2.0 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occupancy", ["clean", "dirty"])
+def test_cuda_sparse_window_attention_bf16_kernel(cuda, occupancy):
+    """K5's bf16 form at T * win = 855 query rows (19 frames of 45 tokens,
+    a partial last query tile) and 8 pooled tokens, every window clean or
+    every window dirty, every other frame selected."""
+    rng = np.random.default_rng(12)
+    n_head, nW, T, win, P, ch = 2, 3, 19, 45, 8, 128
+    q, k, v = (rng.standard_normal((n_head, nW, T, win, ch))
+               for _ in range(3))
+    rk, rv = (rng.standard_normal((n_head, nW, 4, T, win, ch))
+              for _ in range(2))
+    pk, pv = (rng.standard_normal((n_head, T, P, ch)) for _ in range(2))
+    windows = [torch.from_numpy(a).to(cuda, BF)
+               for a in (q, k, v, rk, rv, pk, pv)]
+    roll_valid = torch.zeros(4 * win, dtype=torch.bool, device=cuda)
+    roll_valid[torch.as_tensor(_valid_rolled_indices((5, 9), (3, 5)))] = True
+    occ = torch.full((1, nW), float(occupancy == "dirty"), device=cuda)
+    fsel = (torch.arange(T, device=cuda) % 2 == 0)[None]
+    got = attention.sparse_window_attention_bf16(*windows, roll_valid, occ,
+                                                 fsel, n_head)
+    want = attention._sparse_window_attention_plain(*windows, roll_valid,
+                                                    occ, fsel, n_head)
+    assert got.dtype == torch.bfloat16
+    assert _rel_err(got.float().cpu().numpy(),
+                    want.float().cpu().numpy()) <= _BF16_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "far"])
+def test_cuda_corr_lookup_bf16_kernel(cuda, case):
+    """K7's bf16 form against its plain version on a ragged 8 x 13 map
+    (level 3 is 1 x 1), with coordinates near the grid or up to 40 pixels
+    outside it: the same bf16 taps and rounding, fp32 out."""
+    f1, f2, coords, _, _ = _corr_case()
+    if case == "far":
+        rng = np.random.default_rng(13)
+        coords = (coords + rng.standard_normal(coords.shape) * 15.0).astype(
+            np.float32)
+        coords[0, 0, :3] = [[-40.0, 3.0], [52.0, 47.0], [6.5, -40.0]]
+    f1, f2 = (torch.from_numpy(a).to(cuda, BF) for a in (f1, f2))
+    coords = torch.from_numpy(coords).to(cuda)
+    pyr = corr.corr_pyramid(f1, f2, 4, out_dtype=torch.bfloat16)
+    got = corr.corr_lookup_bf16(pyr, coords)
+    want = corr._corr_lookup_plain(pyr, coords)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)

@@ -102,14 +102,16 @@ def test_tensor_core_launch_grids():
     (two blocks a tile), K3 its position tiles times the wrapper's split
     for 2 resident blocks per SM at each call site; the bf16 forms one
     block per tile: K1's 608 64-query tiles, K4's as K4's, K3's 32-position
-    tiles (the launch facts the card reported)."""
+    tiles, and K5's two blocks a tile as K5's (the launch facts the card
+    reported)."""
     info = {"corr_lookup_moenc_kernel": [2, 93696, 128, 32, 1],
             "window_attention_kernel": [2, 107520, 128, 64, 1],
             "sparse_window_attention_kernel": [2, 107520, 128, 64, 2],
             "deform_conv_kernel": [2, 67584, 128, 64, 8],
             "corr_lookup_moenc_bf16_kernel": [2, 0, 256, 64, 1],
             "window_attention_bf16_kernel": [3, 0, 128, 64, 1],
-            "deform_conv_bf16_kernel": [8, 0, 128, 32, 1]}
+            "deform_conv_bf16_kernel": [8, 0, 128, 32, 1],
+            "sparse_window_attention_bf16_kernel": [2, 72704, 128, 64, 2]}
     grids = {(symbol, site): grid_of(info[symbol])
              for _, symbol, site, _, _, grid_of
              in chip_smoke._tensor_core_launches(132)}
@@ -122,7 +124,9 @@ def test_tensor_core_launch_grids():
         ("corr_lookup_moenc_bf16_kernel", "bf16 main path"): 608,
         ("window_attention_bf16_kernel", "bf16 main path"): 14 * 64,
         ("deform_conv_bf16_kernel", "generator, bf16"): 203,
-        ("deform_conv_bf16_kernel", "flow completion, bf16"): 102}
+        ("deform_conv_bf16_kernel", "flow completion, bf16"): 102,
+        ("sparse_window_attention_bf16_kernel", "bf16 main path"):
+            14 * 2 * 64}
 
 
 def test_corr_lookup_bound_at_the_main_path_shape():
@@ -145,3 +149,17 @@ def test_main_path_launch_counts():
     assert chip_smoke._window_batches(80, pipe) == 16
     pipe._window_batch = 4
     assert chip_smoke._window_batches(80, pipe) == 6
+
+
+def test_sparse_window_attention_bf16_bound_at_the_main_path_shape():
+    """K5's bf16 form at the smoke occupancy's operations: its products
+    take two TF32 passes (bf16 k and v are exact in TF32), so its
+    operations bound is two thirds of the 3xTF32 K5's."""
+    logits, ch = 4 * 19 * 45 * 10000, 128
+    three = chip_smoke._tensor_core_bounds(0, 4 * ch * logits, 5 * logits)
+    two = chip_smoke._tensor_core_bounds(0, 4 * ch * logits, 5 * logits,
+                                         passes=2)
+    assert two["bound_basis"] == "operations (2xTF32)"
+    assert math.isclose(two["bound_ms"], three["bound_ms"] * 2 / 3,
+                        rel_tol=1e-9)
+    assert two["fp32_bound_ms"] == three["fp32_bound_ms"]

@@ -162,14 +162,18 @@ def test_schedule_helpers_match_jax():
 def test_precision_and_device_guards():
     mods = {"raft": RAFT(), "flowcomp": RecurrentFlowCompleteNet(),
             "inpaint": InpaintGenerator(depths=2)}
-    # bf16 runs 'flash' without shard_inference: K5 and K7 have no bf16
-    # form yet
+    # bf16 runs 'pallas' (K5's bf16 form) and shard_inference with an fp32
+    # RAFT refinement (K7's bf16 form); a bf16 refinement in the batched
+    # corr layout raises, as the JAX package cannot run it
     for options in (dict(attention_impl="pallas"),
-                    dict(shard_inference=True)):
-        with pytest.raises(NotImplementedError):
-            torch_pipeline.ProPainterPipeline(
-                *mods.values(), torch_pipeline.PipelineConfig(
-                    precision="bf16", **options), device="cpu")
+                    dict(shard_inference=True, raft_bf16_refine=False)):
+        torch_pipeline.ProPainterPipeline(
+            *mods.values(), torch_pipeline.PipelineConfig(
+                precision="bf16", **options), device="cpu")
+    with pytest.raises(NotImplementedError, match="raft.py:122"):
+        torch_pipeline.ProPainterPipeline(
+            *mods.values(), torch_pipeline.PipelineConfig(
+                precision="bf16", shard_inference=True), device="cpu")
     with pytest.raises(ValueError):
         torch_pipeline.PipelineConfig(precision="fp16")
     # the dense differentiable form comes with training
