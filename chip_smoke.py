@@ -8,11 +8,12 @@ Phases:
   device      card name and `nvidia-smi` name / power limit;
   build       compile every CUDA kernel (one nvcc per source, in parallel);
               for the tensor-core kernels K1, K3, K4 and K5 print registers,
-              spills and shared memory (`-Xptxas -v`), the HMMA count of
-              their SASS, resident blocks per SM and the waves of each
-              main-path grid, for K7 (CUDA cores) registers, spills and
-              shared memory; fails if a tensor-core kernel has no HMMA
-              instruction, or any kernel spills;
+              spills and shared memory (`-Xptxas -v`), the HMMA
+              (mma.sync) and HGMMA (wgmma) counts of their SASS, resident
+              blocks per SM and the waves of each main-path grid, for K7
+              (CUDA cores) registers, spills and shared memory; fails if a
+              tensor-core kernel has neither instruction, or any kernel
+              spills;
   kernels     each kernel at the main path's shapes against its plain
               PyTorch version on the card (max abs error within a stated
               tolerance), timed beside the plain version and a library
@@ -195,36 +196,38 @@ def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def _tensor_core_bounds(n_bytes: float, product_flops: float,
-                        cuda_core_ops: float, passes: int = 3) -> dict:
+                        cuda_core_ops: float) -> dict:
     """The bounds of a kernel whose products run in 3xTF32 (K1, K3, K4,
-    K5), or in `passes` TF32 passes (K5's bf16 form: 2): `bound_ms` is
-    "operations (3xTF32)", the larger of the bytes over the memory rate
-    and the operations (the products `passes` times over at the TF32
-    tensor-core rate, or the rest on CUDA cores, whichever takes longer);
-    `fp32_bound_ms` all operations on CUDA cores, the bound of an fp32
-    kernel."""
+    K5): `bound_ms` is "operations (3xTF32)", the larger of the bytes over
+    the memory rate and the operations (the products three times over at
+    the TF32 tensor-core rate, or the rest on CUDA cores, whichever takes
+    longer); `fp32_bound_ms` all operations on CUDA cores, the bound of an
+    fp32 kernel."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(passes * product_flops / PEAK_TF32_FLOPS,
+    t_ops = max(3 * product_flops / PEAK_TF32_FLOPS,
                 cuda_core_ops / PEAK_FP32_FLOPS) * 1e3
     fp32_ms, fp32_by = _bound(n_bytes, product_flops + cuda_core_ops)
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_basis=f"operations ({passes}xTF32)",
+                bound_basis="operations (3xTF32)",
                 fp32_bound_ms=fp32_ms, fp32_bound_by=fp32_by)
 
 
 def _bf16_bounds(n_bytes: float, product_flops: float,
-                 cuda_core_ops: float) -> dict:
+                 cuda_core_ops: float, pv_passes: int = 1) -> dict:
     """The bounds of a bf16 kernel: the larger of the bytes over the
-    memory rate and the operations (the products once at the bf16
-    tensor-core rate, or the rest on CUDA cores, whichever takes
-    longer)."""
+    memory rate and the operations (the products at the bf16 tensor-core
+    rate, or the rest on CUDA cores, whichever takes longer). The products
+    run once, or for attention with `pv_passes` = 2 (K5's bf16 form, p as
+    bf16 hi + lo) Q·Kᵀ, half of `product_flops`, once and P·V, the other
+    half, twice."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(product_flops / PEAK_BF16_FLOPS,
+    t_ops = max((1 + pv_passes) / 2 * product_flops / PEAK_BF16_FLOPS,
                 cuda_core_ops / PEAK_FP32_FLOPS) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_basis="bf16 tensor cores")
+                bound_basis=("bf16 tensor cores" if pv_passes == 1 else
+                             f"bf16 tensor cores, 1 + {pv_passes} passes"))
 
 
 def _nbytes(*tensors) -> int:
@@ -280,7 +283,8 @@ def _tensor_core_launches(n_sm: int) -> list:
             "modulated_deform_conv2d_launch_info", (cg,),
             lambda info, n=n_pos, c=C: -(-n // info[3]) * deform.k3_split(
                 n, c, n_sm * info[0])))
-    # the bf16 forms: one block per row tile
+    # the bf16 forms: one block per row tile (K4's and K5's 128-query
+    # tiles of the wgmma tile, attention_wgmma.cuh)
     launches += [
         ("corr_lookup_moenc", "corr_lookup_moenc_bf16_kernel",
          "bf16 main path", "corr_lookup_moenc_bf16_launch_info", (),
@@ -339,12 +343,12 @@ def _sass_counts(sass: str, opcode: str) -> dict:
 def phase_build(state: dict) -> None:
     """Compile every kernel, then report on the tensor-core kernels (K1,
     K3, K4, K5 and their bf16 forms): registers, spills and shared memory,
-    the tensor-core (HMMA) instructions of their SASS, resident blocks per
-    SM and the waves of each main-path grid on this card's SMs; and on K7
-    and its bf16 form (CUDA cores only) registers, spills and shared
-    memory. Fails if a tensor-core kernel has
-    no HMMA instruction, or fits no block on an SM, or any of them
-    spills."""
+    the tensor-core instructions of their SASS (HMMA: mma.sync; HGMMA:
+    wgmma), resident blocks per SM and the waves of each main-path grid on
+    this card's SMs; and on K7 and its bf16 form (CUDA cores only)
+    registers, spills and shared memory. Fails if a tensor-core kernel has
+    neither an HMMA nor an HGMMA instruction, or fits no block on an SM,
+    or any of them spills."""
     import ctypes
 
     import torch
@@ -361,22 +365,29 @@ def phase_build(state: dict) -> None:
             ptxas = {fn: r for fn, r in
                      _ptxas_report(_build.build_log(lib)).items()
                      if symbol in fn}
-            hmma = sum(n for fn, n in
-                       _sass_counts(_build.sass(lib), "HMMA").items()
-                       if symbol in fn)
-            report[symbol] = dict(ptxas=ptxas, hmma=hmma, sites={})
+            sass = _build.sass(lib)
+            hmma, hgmma = (sum(n for fn, n in
+                               _sass_counts(sass, opcode).items()
+                               if symbol in fn)
+                           for opcode in ("HMMA", "HGMMA"))
+            report[symbol] = dict(ptxas=ptxas, hmma=hmma, hgmma=hgmma,
+                                  sites={})
             for fn, r in ptxas.items():
                 print(f"  {fn}: {r.get('registers')} registers, "
                       f"{r.get('spill_stores')} B spill stores, "
                       f"{r.get('spill_loads')} B spill loads, "
                       f"{r.get('static_smem', 0)} B static shared memory")
-            print(f"  {symbol}: {hmma} HMMA instructions")
+            print(f"  {symbol}: {hmma} HMMA, {hgmma} HGMMA instructions")
             if not ptxas:
                 failures.append(f"{symbol}: no -Xptxas -v report")
-            if hmma == 0:
-                failures.append(f"{symbol}: no HMMA instruction")
+            if hmma == 0 and hgmma == 0:
+                failures.append(f"{symbol}: no HMMA or HGMMA instruction")
             if any(r.get("spill_stores", 0) for r in ptxas.values()):
                 failures.append(f"{symbol}: spills")
+            # ptxas says when it had to serialize a kernel's wgmma
+            for line in _build.build_log(lib).splitlines():
+                if "wgmma" in line and symbol in line:
+                    print(f"  {symbol}: {line.strip()}")
         info = (ctypes.c_int * 5)()
         fn = _build.function(lib, info_fn, 1, len(args))
         _build.check(fn(ctypes.addressof(info), *args, None), info_fn)
@@ -893,6 +904,15 @@ def _check_k5(randn, dtype=None) -> dict:
                 f"{name} {occ_name}, parity {parity}",
                 k5(occ, fsel), attention._sparse_window_attention_plain(
                     *inputs, occ, fsel, n_head), tol))
+    # every window dirty, one selected frame or none (the mean of v)
+    one = torch.zeros(1, T, dtype=torch.bool, device=dev)
+    one[0, 3] = True
+    for what, fsel in (("one selected frame", one),
+                       ("no selected frame", torch.zeros_like(one))):
+        err = max(err, _compare(
+            f"{name} all dirty, {what}", k5(occs["all dirty"], fsel),
+            attention._sparse_window_attention_plain(
+                *inputs, occs["all dirty"], fsel, n_head), tol))
     fsel = (static_sel(0) & frame_valid)[None]
     scale = 1.0 / math.sqrt(ch)
 
@@ -914,8 +934,12 @@ def _check_k5(randn, dtype=None) -> dict:
                      + (2 * Ts * P if dirty else 0))             # pooled k, v
         n_bytes = rows * ch * wq.element_size() + _nbytes(
             occ, fsel, roll_valid)
-        return _tensor_core_bounds(n_bytes, 4 * ch * logits, 5 * logits,
-                                   2 if bf16 else 3)
+        if not bf16:
+            return _tensor_core_bounds(n_bytes, 4 * ch * logits, 5 * logits)
+        fp32_ms, fp32_by = _bound(n_bytes, 4 * ch * logits + 5 * logits)
+        return dict(_bf16_bounds(n_bytes, 4 * ch * logits, 5 * logits,
+                                 pv_passes=2),
+                    fp32_bound_ms=fp32_ms, fp32_bound_by=fp32_by)
 
     # yardstick: the dirty problems' branch A in one library call, over
     # the selected frames' 270 keys each, invalid rolled keys masked out
@@ -1137,16 +1161,27 @@ def _check_bf16(randn, level0) -> dict:
         flash_attention._flash_window_attention_bf16_plain(q, k, v, None,
                                                            scale),
         BF16_REL_TOL))
+    # ragged: partial query and key tiles, a bias masking most keys; 4
+    # batch rows of different biases (the shard path's window batch), one
+    # masking the whole first 128-key tile
     qr, kr, vr = (randn(1, 3, T_, ch).to(bf) for T_ in (130, 70, 70))
     kbr = torch.zeros(1, 70, device=level0.device)
-    kbr[:, 32:64] = flash_attention.NEG_INF
-    for b_, what in ((kbr, "bias"), (None, "no bias")):
+    kbr[:, :64] = flash_attention.NEG_INF
+    q4, k4_, v4 = (randn(4, 3, T_, ch).to(bf) for T_ in (130, 200, 200))
+    kb4 = torch.zeros(4, 200, device=level0.device)
+    kb4[0, 64:128] = flash_attention.NEG_INF
+    kb4[1, :150] = flash_attention.NEG_INF
+    kb4[3, 10:] = flash_attention.NEG_INF
+    for (qq, kk, vv), b_, what in (((qr, kr, vr), kbr, "Tq 130 Tk 70, bias"),
+                                   ((qr, kr, vr), None, "Tq 130 Tk 70"),
+                                   ((q4, k4_, v4), kb4,
+                                    "B 4 Tq 130 Tk 200, biases")):
         err = max(err, _compare(
-            f"flash_window_attention_bf16 Tq 130 Tk 70 ({what})",
-            flash_attention.flash_window_attention_bf16(qr, kr, vr, b_,
+            f"flash_window_attention_bf16 {what}",
+            flash_attention.flash_window_attention_bf16(qq, kk, vv, b_,
                                                         scale),
             flash_attention._flash_window_attention_bf16_plain(
-                qr, kr, vr, b_, scale), BF16_REL_TOL))
+                qq, kk, vv, b_, scale), BF16_REL_TOL))
     mask4 = kb[:, None, None, :].to(bf)
     records["flash_window_attention_bf16"] = dict(
         name="flash_window_attention_bf16", route="cuda",
@@ -1162,6 +1197,7 @@ def _check_bf16(randn, level0) -> dict:
         library_ms=_time_ms(
             lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask4, scale=scale), 10),
+        encode_us=_k4_bf16_encode_us(q, k, v),
         **_bf16_bounds(_nbytes(q, k, v, kb, got), Gp * 4 * Tq * Tk * ch,
                        Gp * 5 * Tq * Tk))
 
@@ -1175,6 +1211,20 @@ def _check_bf16(randn, level0) -> dict:
 # K7's bf16 form against its plain version: the same bf16 taps and the
 # same rounding, fp32 out, so equal but for an fp32 ulp of summation order
 K7_BF16_ABS_TOL = 1e-6
+
+
+def _k4_bf16_encode_us(q, k, v, reps: int = 1000) -> float:
+    """Host microseconds to encode the three TMA tensor maps of one call of
+    K4's bf16 form (done on every call), over `reps` encodings."""
+    from propainter_tpu_torch import _build
+
+    fn = _build.function("window_attention", "window_attention_bf16_encode",
+                         3, 4)
+    B, G, Tq, _ = q.shape
+    t0 = time.perf_counter()
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), B * G, Tq,
+                    k.shape[2], reps, None), "window_attention_bf16_encode")
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 def _check_k7_bf16(randn, pyr, coords) -> dict:

@@ -1,7 +1,6 @@
 // The streamed-softmax tile shared by K4 (window_attention.cu) and K5
-// (sparse_window_attention.cu): head width 128, both products on the
-// tensor cores in 3xTF32, inputs and outputs of element type T, fp32 or
-// bf16 (K5's bf16 form).
+// (sparse_window_attention.cu): fp32 inputs and outputs, head width 128,
+// both products on the tensor cores in 3xTF32.
 //
 // Numerics. Both products run in 3xTF32 (tf32_mma.cuh): each operand
 // split big + small, three mma.sync.m16n8k8 per product. The running max,
@@ -23,30 +22,19 @@
 // 2p are d = 16p + 4t, +1; of k-step 2p + 1, d + 2, d + 3), so one 128-bit
 // load gives a thread its Q or K values of two k-steps.
 //
-// bf16 inputs (T = __nv_bfloat16). A bf16 value has 8 significant bits,
-// so it is exact in TF32 (11): K and V need no small half, and each
-// product takes two passes, big·k + small·k for Q·Kᵀ (q·scale is fp32,
-// split as above) and big·v + small·v for P·V, with 3xTF32's accuracy.
-// K and V stay bf16 in the ring (half the bytes through cp.async, half
-// the shared memory) and are widened in registers as fragments are
-// loaded; Q is widened once into its fp32 tile; the output is rounded to
-// bf16 once. All arithmetic is fp32, as the TPU kernel's on bf16 inputs.
-//
-// Where the split happens. Shared memory holds the unsplit values only,
-// and each warp splits the fragments it loads, in registers. Splitting once in
+// Where the split happens. Shared memory holds the fp32 values only, and
+// each warp splits the fragments it loads, in registers. Splitting once in
 // shared memory (big and small copies of Q and of each K/V tile) needs
 // twice the room and a third pass over every tile: at 205 KB one block
 // filled an SM, the split pass and its barrier stalled all four warps, and
 // K4 took 2.35 ms on an H100 (PERF.md, §6). Here a block takes 105 KB,
 // two blocks share an SM, and the splits are ALU work beside the mma.
 //
-// Shared memory, in carve() order:
-//   Q    [kBQ][kLdQK] fp32         the queries (prescaled), loaded once
-//   ring [kStages] x (K [kBK][kLdK], V [kBK][kLdV]) of T, filled by cp.async
-// In 32-bit words: kLdQK = 16 (mod 32) makes the 128-bit Q and fp32 K
-// fragment loads free of bank conflicts, fp32 kLdV = 4 (mod 32) the 32-bit
-// V loads; in bf16, kLdK = 8 (mod 32) the 64-bit K loads and kLdV = 4
-// (mod 32) the 16-bit V loads (Tile<T>).
+// Shared memory, in carve() order (floats):
+//   Q    [kBQ][kLdQK]             the queries (prescaled), loaded once
+//   ring [kStages] x (K [kBK][kLdQK], V [kBK][kLdV])  filled by cp.async
+// kLdQK = 16 (mod 32) makes the 128-bit Q and K fragment loads free of bank
+// conflicts, kLdV = 4 (mod 32) the 32-bit V loads.
 //
 // Pipeline (stream()): per key tile j, wait for its copies, one barrier
 // (tile j visible; every warp done with tile j - 1's slot), start tile
@@ -64,12 +52,9 @@
 #pragma once
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "tf32_mma.cuh"
 
@@ -91,67 +76,30 @@ constexpr int kNT = kBK / 8;        // 8-key n-tiles per key tile
 constexpr int kStages = 2;          // ring slots
 constexpr int kBlocksPerSm = 2;     // resident blocks the kernels ask for
 constexpr int kSplit = 2;           // blocks (a cluster) per query tile
-constexpr int kLdQK = kD + 16;      // fp32 Q (and fp32 K) row stride
+constexpr int kLdQK = kD + 16;
+constexpr int kLdV = kD + 4;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// The ring's row strides (elements), by element type.
-template <class T>
-struct Tile;
-template <>
-struct Tile<float> {
-  static constexpr int kLdK = kLdQK;
-  static constexpr int kLdV = kD + 4;
-};
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int kLdK = kD + 16;   // 72 words = 8 mod 32
-  static constexpr int kLdV = kD + 8;    // 68 words = 4 mod 32
-};
-
-template <class T>
-constexpr int kSlotElems = kBK * (Tile<T>::kLdK + Tile<T>::kLdV);
-template <class T>
-constexpr size_t kSmemBytesOf =
-    sizeof(float) * kBQ * kLdQK + sizeof(T) * kStages * kSlotElems<T>;
-constexpr size_t kSmemBytes = kSmemBytesOf<float>;
-static_assert(sizeof(float) * kStages * kSlotElems<float> >=
-                      sizeof(float) * kBQ * (kD + 2) &&
-                  sizeof(__nv_bfloat16) * kStages *
-                          kSlotElems<__nv_bfloat16> >=
-                      sizeof(float) * kBQ * (kD + 2),
+constexpr int kSlotFloats = kBK * kLdQK + kBK * kLdV;
+constexpr size_t kSmemBytes =
+    sizeof(float) * (kBQ * kLdQK + kStages * kSlotFloats);
+static_assert(kStages * kSlotFloats >= kBQ * (kD + 2),
               "block 0's ring receives block 1's part");
 
-template <class T>
-struct TileSmem {
+struct Smem {
   float* Q;
-  T* ring;
+  float* ring;
 };
-using Smem = TileSmem<float>;
 
-template <class T = float>
-__device__ __forceinline__ TileSmem<T> carve(float* smem) {
-  return TileSmem<T>{smem, reinterpret_cast<T*>(smem + kBQ * kLdQK)};
+__device__ __forceinline__ Smem carve(float* smem) {
+  return Smem{smem, smem + kBQ * kLdQK};
 }
 
-template <class T>
-__device__ __forceinline__ T* slot_k(const TileSmem<T>& s, int stage) {
-  return s.ring + stage * kSlotElems<T>;
+__device__ __forceinline__ float* slot_k(const Smem& s, int stage) {
+  return s.ring + stage * kSlotFloats;
 }
 
-template <class T>
-__device__ __forceinline__ T* slot_v(const TileSmem<T>& s, int stage) {
-  return slot_k(s, stage) + kBK * Tile<T>::kLdK;
-}
-
-// bf16 bits as an fp32 value (exact, and exact in TF32), from the low or
-// high half of a 32-bit word.
-__device__ __forceinline__ uint32_t bf16_lo(uint32_t w) { return w << 16; }
-__device__ __forceinline__ uint32_t bf16_hi(uint32_t w) {
-  return w & 0xffff0000u;
-}
-__device__ __forceinline__ uint32_t bf16_bits(const __nv_bfloat16* p) {
-  return static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(p))
-         << 16;
+__device__ __forceinline__ float* slot_v(const Smem& s, int stage) {
+  return slot_k(s, stage) + kBK * kLdQK;
 }
 
 // ---- softmax pieces ------------------------------------------------------
@@ -174,28 +122,16 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // ---- the block's tiles -----------------------------------------------------
 
-// Q[r] = q[r * kD ...] * qscale (in fp32) for the n_rows rows from q;
-// zeros past them.
-template <class T>
-__device__ __forceinline__ void load_queries(const TileSmem<T>& s,
-                                             const T* __restrict__ q,
+// Q[r] = q[r * kD ...] * qscale for the n_rows rows from q; zeros past them.
+__device__ __forceinline__ void load_queries(const Smem& s,
+                                             const float* __restrict__ q,
                                              int n_rows, float qscale) {
   for (int e = threadIdx.x; e < kBQ * kD / 4; e += kThreads) {
     const int r = e / (kD / 4), c = 4 * (e % (kD / 4));
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_rows) {
-      if constexpr (std::is_same<T, float>::value) {
-        x = __ldg(reinterpret_cast<const float4*>(
-            q + static_cast<size_t>(r) * kD + c));
-      } else {
-        const uint2 w = __ldg(reinterpret_cast<const uint2*>(
-            q + static_cast<size_t>(r) * kD + c));
-        x = make_float4(__uint_as_float(bf16_lo(w.x)),
-                        __uint_as_float(bf16_hi(w.x)),
-                        __uint_as_float(bf16_lo(w.y)),
-                        __uint_as_float(bf16_hi(w.y)));
-      }
-    }
+    if (r < n_rows)
+      x = __ldg(reinterpret_cast<const float4*>(
+          q + static_cast<size_t>(r) * kD + c));
     *reinterpret_cast<float4*>(s.Q + r * kLdQK + c) = make_float4(
         x.x * qscale, x.y * qscale, x.z * qscale, x.w * qscale);
   }
@@ -204,27 +140,21 @@ __device__ __forceinline__ void load_queries(const TileSmem<T>& s,
 // Starts the copies of one key tile into ring slot `stage`:
 // rows(c, kr, vr) says whether tile key c is live and, if so, sets the K
 // and V rows it reads; a dead key's rows are zero-filled from `fallback`
-// (a valid address that is not read). One warp copies one row (512 bytes
-// in fp32, two 256-byte rows in bf16), 16 bytes a thread.
-template <class T, class Rows>
-__device__ __forceinline__ void issue_keys(const TileSmem<T>& s, int stage,
-                                           const T* fallback, Rows rows) {
-  constexpr int kChunk = 16 / sizeof(T);     // elements per 16 bytes
-  T* ks = slot_k(s, stage);
-  T* vs = slot_v(s, stage);
+// (a valid address that is not read). One warp copies one 512-byte row.
+template <class Rows>
+__device__ __forceinline__ void issue_keys(const Smem& s, int stage,
+                                           const float* fallback, Rows rows) {
+  float* ks = slot_k(s, stage);
+  float* vs = slot_v(s, stage);
 #pragma unroll
-  for (int i = 0; i < kBK * kD / kChunk / kThreads; ++i) {
+  for (int i = 0; i < kBK * kD / 4 / kThreads; ++i) {
     const int e = threadIdx.x + i * kThreads;
-    const int c = e / (kD / kChunk), col = kChunk * (e % (kD / kChunk));
-    const T* kr = fallback;
-    const T* vr = fallback;
+    const int c = e / (kD / 4), col = 4 * (e % (kD / 4));
+    const float* kr = fallback;
+    const float* vr = fallback;
     const bool live = rows(c, kr, vr);
-    cp_async16(reinterpret_cast<float*>(ks + c * Tile<T>::kLdK + col),
-               reinterpret_cast<const float*>(live ? kr + col : fallback),
-               live);
-    cp_async16(reinterpret_cast<float*>(vs + c * Tile<T>::kLdV + col),
-               reinterpret_cast<const float*>(live ? vr + col : fallback),
-               live);
+    cp_async16(ks + c * kLdQK + col, live ? kr + col : fallback, live);
+    cp_async16(vs + c * kLdV + col, live ? vr + col : fallback, live);
   }
 }
 
@@ -259,13 +189,11 @@ __device__ __forceinline__ bool warp_live(int n_rows) {
 // bias[jn][e] is the additive logit bias (log2 units) of the tile's key
 // 8 jn + 2t + e, -inf when that key is masked for every row;
 // visible(i, jn, e) masks the pair (row g + 8 i, that key).
-template <class T, class Visible>
-__device__ __forceinline__ void softmax_step(const TileSmem<T>& sm,
-                                             int stage, Running& r,
+template <class Visible>
+__device__ __forceinline__ void softmax_step(const Smem& sm, int stage,
+                                             Running& r,
                                              const float (&bias)[kNT][2],
                                              Visible visible) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int kLdK = Tile<T>::kLdK, kLdV = Tile<T>::kLdV;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int row = 16 * (threadIdx.x / 32) + g;
 
@@ -277,7 +205,7 @@ __device__ __forceinline__ void softmax_step(const TileSmem<T>& sm,
 #pragma unroll
     for (int j = 0; j < 4; ++j) sb[jn][j] = sx[jn][j] = 0.f;
   const float* qp = sm.Q + row * kLdQK + 4 * t;
-  const T* kp = slot_k(sm, stage) + g * kLdK + 4 * t;
+  const float* kp = slot_k(sm, stage) + g * kLdQK + 4 * t;
 #pragma unroll
   for (int p = 0; p < kD / 16; ++p) {
     // rows g and g + 8 of the queries, d = 16p + 4t .. + 3
@@ -294,30 +222,17 @@ __device__ __forceinline__ void softmax_step(const TileSmem<T>& sm,
 #pragma unroll
     for (int jn = 0; jn < kNT; ++jn) {
       // key g of n-tile jn, the same four d
-      if constexpr (kBf16) {
-        // exact in TF32: big·k + small·k
-        const uint2 kv =
-            *reinterpret_cast<const uint2*>(kp + 8 * jn * kLdK + 16 * p);
-        const uint32_t b[4] = {bf16_lo(kv.x), bf16_hi(kv.x), bf16_lo(kv.y),
-                               bf16_hi(kv.y)};
+      const float4 kv =
+          *reinterpret_cast<const float4*>(kp + 8 * jn * kLdQK + 16 * p);
+      const float kf[4] = {kv.x, kv.y, kv.z, kv.w};
+      uint32_t b_big[4], b_small[4];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          mma(sb[jn], a_big[h], b[2 * h], b[2 * h + 1]);
-          mma(sx[jn], a_small[h], b[2 * h], b[2 * h + 1]);
-        }
-      } else {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(kp + 8 * jn * kLdK + 16 * p);
-        const float kf[4] = {kv.x, kv.y, kv.z, kv.w};
-        uint32_t b_big[4], b_small[4];
+      for (int j = 0; j < 4; ++j) split(kf[j], b_big[j], b_small[j]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) split(kf[j], b_big[j], b_small[j]);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          mma(sb[jn], a_big[h], b_big[2 * h], b_big[2 * h + 1]);
-          mma(sx[jn], a_big[h], b_small[2 * h], b_small[2 * h + 1]);
-          mma(sx[jn], a_small[h], b_big[2 * h], b_big[2 * h + 1]);
-        }
+      for (int h = 0; h < 2; ++h) {
+        mma(sb[jn], a_big[h], b_big[2 * h], b_big[2 * h + 1]);
+        mma(sx[jn], a_big[h], b_small[2 * h], b_small[2 * h + 1]);
+        mma(sx[jn], a_small[h], b_big[2 * h], b_big[2 * h + 1]);
       }
     }
   }
@@ -363,7 +278,7 @@ __device__ __forceinline__ void softmax_step(const TileSmem<T>& sm,
 
   // O += P·V: the k-step over keys 8 jn .. 8 jn + 7 takes its A fragment
   // from the probabilities of n-tile jn (slots t, t + 4: keys 2t, 2t + 1)
-  const T* vp = slot_v(sm, stage) + 2 * t * kLdV + g;
+  const float* vp = slot_v(sm, stage) + 2 * t * kLdV + g;
 #pragma unroll
   for (int jn = 0; jn < kNT; ++jn) {
     const float pa[4] = {sb[jn][0], sb[jn][2], sb[jn][1], sb[jn][3]};
@@ -373,18 +288,11 @@ __device__ __forceinline__ void softmax_step(const TileSmem<T>& sm,
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n) {
       // keys 8 jn + 2t and + 1, column 8n + g
-      const T* v0 = vp + 8 * jn * kLdV + 8 * n;
-      if constexpr (kBf16) {
-        // exact in TF32: big·v + small·v
-        const uint32_t b0 = bf16_bits(v0), b1 = bf16_bits(v0 + kLdV);
-        mma(r.o[n], a_small, b0, b1);
-        mma(r.o[n], a_big, b0, b1);
-      } else {
-        uint32_t b0_big, b0_small, b1_big, b1_small;
-        split(v0[0], b0_big, b0_small);
-        split(v0[kLdV], b1_big, b1_small);
-        mma3(r.o[n], a_big, a_small, b0_big, b0_small, b1_big, b1_small);
-      }
+      const float* v0 = vp + 8 * jn * kLdV + 8 * n;
+      uint32_t b0_big, b0_small, b1_big, b1_small;
+      split(v0[0], b0_big, b0_small);
+      split(v0[kLdV], b1_big, b1_small);
+      mma3(r.o[n], a_big, a_small, b0_big, b0_small, b1_big, b1_small);
     }
   }
 }
@@ -397,15 +305,16 @@ __device__ __forceinline__ void softmax_step(const TileSmem<T>& sm,
 // products, so its latency hides behind them. rows(tile, slot, c, kr, vr):
 // the K and V rows of the tile's key c (false: a dead key). step(tile,
 // stage): the tile's softmax step on ring slot `stage`.
-template <class T, class Prepare, class Rows, class Step>
-__device__ __forceinline__ void stream(const TileSmem<T>& sm, int first,
-                                       int n_tiles, const T* fallback,
+template <class Prepare, class Rows, class Step>
+__device__ __forceinline__ void stream(const Smem& sm, int first,
+                                       int n_tiles, const float* fallback,
                                        Prepare prepare, Rows rows,
                                        Step step) {
   // local index i: tile first + i, ring and table slot i % kStages
   auto issue = [&](int i) {
     const int slot = i % kStages;
-    issue_keys(sm, slot, fallback, [&](int c, const T*& kr, const T*& vr) {
+    issue_keys(sm, slot, fallback, [&](int c, const float*& kr,
+                                       const float*& vr) {
       return rows(first + i, slot, c, kr, vr);
     });
   };
@@ -441,42 +350,32 @@ __device__ __forceinline__ void split_range(int n_tiles, int& first,
   count = n_tiles * (h + 1) / kSplit - first;
 }
 
-// Two output values at o (fp32, or rounded to bf16).
-__device__ __forceinline__ void store2(float* o, float a, float b) {
-  *reinterpret_cast<float2*>(o) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
-}
-
 // o[r * kD + ...] = o / l for the warp's rows below n_rows.
-template <class T>
-__device__ __forceinline__ void store(T* o, int n_rows, Running& r) {
+__device__ __forceinline__ void store(float* o, int n_rows, Running& r) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int row = 16 * (threadIdx.x / 32) + g;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float inv = 1.f / quad_sum(r.l[i]);
     if (row + 8 * i >= n_rows) continue;
-    T* orow = o + static_cast<size_t>(row + 8 * i) * kD + 2 * t;
+    float* orow = o + static_cast<size_t>(row + 8 * i) * kD + 2 * t;
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n)
-      store2(orow + 8 * n, r.o[n][2 * i] * inv, r.o[n][2 * i + 1] * inv);
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(r.o[n][2 * i] * inv, r.o[n][2 * i + 1] * inv);
   }
 }
 
 // The end of a split-K block pair (see the top): both blocks call it after
 // streaming their halves; block 0 writes the merged rows below n_rows.
-template <class T>
-__device__ __forceinline__ void finish_split(const TileSmem<T>& sm, T* o,
+__device__ __forceinline__ void finish_split(const Smem& sm, float* o,
                                              int n_rows, Running& r) {
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int row = 16 * (threadIdx.x / 32) + g;
   const float l[2] = {quad_sum(r.l[0]), quad_sum(r.l[1])};
-  // [kBQ][kD] o, then [kBQ][2] (m, l)
-  float* part = reinterpret_cast<float*>(sm.ring);
+  float* part = sm.ring;            // [kBQ][kD] o, then [kBQ][2] (m, l)
   cluster.sync();                   // both blocks done with their rings
   if (cluster.block_rank() == 1) {
     float* remote = cluster.map_shared_rank(part, 0);
@@ -504,25 +403,26 @@ __device__ __forceinline__ void finish_split(const TileSmem<T>& sm, T* o,
     const float a1 = ml.x == -CUDART_INF_F ? 0.f : exp2_approx(ml.x - m);
     const float inv = 1.f / (l[i] * a0 + ml.y * a1);
     if (rr >= n_rows) continue;
-    T* orow = o + static_cast<size_t>(rr) * kD + 2 * t;
+    float* orow = o + static_cast<size_t>(rr) * kD + 2 * t;
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n) {
       const float2 p =
           *reinterpret_cast<const float2*>(part + rr * kD + 8 * n + 2 * t);
-      store2(orow + 8 * n, (r.o[n][2 * i] * a0 + p.x * a1) * inv,
-             (r.o[n][2 * i + 1] * a0 + p.y * a1) * inv);
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2((r.o[n][2 * i] * a0 + p.x * a1) * inv,
+                      (r.o[n][2 * i + 1] * a0 + p.y * a1) * inv);
     }
   }
 }
 
 // Launch configuration every kernel built on the tile needs once per
-// device: more than 48 KB of dynamic shared memory (kSmemBytesOf<T> for
-// elements of type T), an attribute of the kernel on one device.
-// `configured` holds a flag per device; the setup is done for the device
-// current at the call (the wrapper makes the tensors' device current).
+// device: more than 48 KB of dynamic shared memory, an attribute of the
+// kernel on one device. `configured` holds a flag per device; the setup is
+// done for the device current at the call (the wrapper makes the tensors'
+// device current).
 constexpr int kMaxDevices = 64;
 
-template <class T = float, class Kernel>
+template <class Kernel>
 __host__ int configure(Kernel kernel, bool (&configured)[kMaxDevices]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -532,7 +432,7 @@ __host__ int configure(Kernel kernel, bool (&configured)[kMaxDevices]) {
   if (configured[dev]) return 0;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemBytesOf<T>));
+                             static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   configured[dev] = true;
   return 0;
@@ -541,17 +441,17 @@ __host__ int configure(Kernel kernel, bool (&configured)[kMaxDevices]) {
 // info = {resident blocks per SM, dynamic shared memory bytes, threads
 // per block, query rows per block, blocks per query tile} of a kernel
 // built on the tile.
-template <class T = float, class Kernel>
+template <class Kernel>
 __host__ int launch_info(Kernel kernel, bool (&configured)[kMaxDevices],
                          int split, int* info) {
-  const int err = configure<T>(kernel, configured);
+  const int err = configure(kernel, configured);
   if (err != 0) return err;
-  info[1] = static_cast<int>(kSmemBytesOf<T>);
+  info[1] = static_cast<int>(kSmemBytes);
   info[2] = kThreads;
   info[3] = kBQ;
   info[4] = split;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      info, kernel, kThreads, kSmemBytesOf<T>));
+      info, kernel, kThreads, kSmemBytes));
 }
 
 }  // namespace attn

@@ -40,20 +40,42 @@
 // (batch*head), clean ones T * 4 * win^2 * 128, three times over on the
 // tensor cores in TF32; the rolled copies (112 MB each at 432x240) are read
 // once per query tile.
-//
+
 // The bf16 form (sparse_window_attention_bf16; the TPU kernel on the bf16
 // windows of the JAX bf16 pipeline, which upcasts q, k and v to fp32 and
-// writes its output in bf16, attention.py:51, 62-68, 98-99, 197).
+// writes its output in bf16, attention.py:51, 62-68, 84, 98-99, 197).
 // Semantics: propainter_tpu_torch/ops/attention.py:
 // sparse_window_attention_bf16. q, k, v, rolled and pooled windows and
-// the output bf16; roll_valid, occupancy and frame_select as above. The
-// same kernel on attention_tile.cuh's bf16 tile: the rows come through the
-// same cp.async ring at half the bytes, K and V are exact in TF32, so each
-// product takes two passes in place of three (the bound's operations
-// term: 2 x the product FLOPs at the TF32 rate); every sum, the softmax
+// the output bf16; roll_valid, occupancy and frame_select as above. It
+// runs on the wgmma tile of attention_wgmma.cuh: one block of a producer
+// and two consumer warpgroups per (batch*head, window, 128-query tile), 7
+// tiles of 855 rows. Q·Kᵀ is one bf16 pass with fp32 sums (the products
+// of bf16 values are exact in fp32), the scale applied to the fp32
+// logits; the TPU kernel scales the upcast q first, so the two differ in
+// fp32 rounding only. p stays fp32 in the TPU kernel's P·V, so P goes in
+// as bf16 hi + bf16 lo (lo = p - hi) over the same V tile: 16 significant
+// bits of p, a relative error of at most 2^-17. Every sum, the softmax
 // and the final division are fp32, and the output is rounded once.
+// TMA cannot gather rows, so the producer warpgroup fills the ring's
+// swizzled tiles with 16-byte cp.async (two threads per key row, one
+// 64-column atom each; the consumers fence the async proxy after each
+// wait) and signals each full barrier with cp.async.mbarrier.arrive.noinc:
+//   dirty: the same flat key list as above (selected frames' window keys,
+//     valid rolled keys, pooled keys), no split over a cluster; with no
+//     selected frame, the mean of v over all keys, as above;
+//   clean: the contiguous keys of the frames the block's 128 rows span
+//     (at most 4 at win = 45), pairs across frames masked.
+// The copies bound it where windows are dirty: on an H100 the copies alone
+// take most of an all-dirty call (PERF.md §7). Tried there and slower:
+// TMA boxes of 8 or 16 rows over runs padded to multiples of 8, and a
+// cluster pair sharing each tile's halves through distributed shared
+// memory.
+// Bound: operations, 1 + 2 bf16 passes each over half the product FLOPs
+// (1.5 x the product FLOPs at the bf16 tensor-core rate) where windows
+// are dirty.
 
 #include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -83,32 +105,22 @@ __device__ __forceinline__ int warp_compact(int n, On on, Entry entry,
   return count;
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store1(float* o, float x) { *o = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* o, float x) {
-  *o = __float2bfloat16_rn(x);
-}
-
-// The kernel's body for elements of type E (float or __nv_bfloat16); the
-// two kernels below instantiate it.
-template <class E>
-__device__ __forceinline__ void sparse_window_attention_body(
-    const E* __restrict__ q, const E* __restrict__ k,
-    const E* __restrict__ v, const E* __restrict__ rk,
-    const E* __restrict__ rv, const E* __restrict__ pk,
-    const E* __restrict__ pv, const unsigned char* __restrict__ roll_valid,
+__global__ void __cluster_dims__(kSplit, 1, 1)
+    __launch_bounds__(kThreads, kBlocksPerSm)
+    sparse_window_attention_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ rk,
+    const float* __restrict__ rv, const float* __restrict__ pk,
+    const float* __restrict__ pv, const unsigned char* __restrict__ roll_valid,
     const int* __restrict__ occupancy, const int* __restrict__ frame_select,
-    E* __restrict__ o, int n_head, int nW, int T, int win, int P,
+    float* __restrict__ o, int n_head, int nW, int T, int win, int P,
     float scale) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int sel[kMaxT];
   __shared__ int rolled[kMaxRolled];   // rolled rows of frame 0
   __shared__ int key_row[kStages][kBK];
   __shared__ int n_sel_s, n_rolled_s;
-  const TileSmem<E> sm = carve<E>(smem);
+  const Smem sm = carve(smem);
 
   const int bh = blockIdx.z, w = blockIdx.y;
   const int b = bh / n_head;
@@ -120,14 +132,14 @@ __device__ __forceinline__ void sparse_window_attention_body(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   const size_t win_base = (static_cast<size_t>(bh) * nW + w) * T * win * kD;
-  const E* kw = k + win_base;
-  const E* vw = v + win_base;
-  const E* rkw = rk + 4 * win_base;
-  const E* rvw = rv + 4 * win_base;
+  const float* kw = k + win_base;
+  const float* vw = v + win_base;
+  const float* rkw = rk + 4 * win_base;
+  const float* rvw = rv + 4 * win_base;
   const size_t pool_base = static_cast<size_t>(bh) * T * P * kD;
-  const E* pkw = pk + pool_base;
-  const E* pvw = pv + pool_base;
-  E* ow = o + win_base + static_cast<size_t>(q0) * kD;
+  const float* pkw = pk + pool_base;
+  const float* pvw = pv + pool_base;
+  float* ow = o + win_base + static_cast<size_t>(q0) * kD;
 
   load_queries(sm, q + win_base + static_cast<size_t>(q0) * kD, n_rows,
                 scale * kLog2e);
@@ -154,15 +166,12 @@ __device__ __forceinline__ void sparse_window_attention_body(
       const int n_keys = T * (5 * win + P);
       for (int d = tid; d < kD; d += kThreads) {
         float s = 0.f;
-        for (int r = 0; r < T * win; ++r)
-          s += to_float(vw[static_cast<size_t>(r) * kD + d]);
+        for (int r = 0; r < T * win; ++r) s += vw[static_cast<size_t>(r) * kD + d];
         for (int r = 0; r < 4 * T * win; ++r)
-          s += to_float(rvw[static_cast<size_t>(r) * kD + d]);
-        for (int r = 0; r < T * P; ++r)
-          s += to_float(pvw[static_cast<size_t>(r) * kD + d]);
+          s += rvw[static_cast<size_t>(r) * kD + d];
+        for (int r = 0; r < T * P; ++r) s += pvw[static_cast<size_t>(r) * kD + d];
         const float mean = s / static_cast<float>(n_keys);
-        for (int r = 0; r < n_rows; ++r)
-          store1(ow + static_cast<size_t>(r) * kD + d, mean);
+        for (int r = 0; r < n_rows; ++r) ow[static_cast<size_t>(r) * kD + d] = mean;
       }
       return;
     }
@@ -190,7 +199,7 @@ __device__ __forceinline__ void sparse_window_attention_body(
             key_row[slot][c] = entry;
           }
         },
-        [&](int, int slot, int c, const E*& kr, const E*& vr) {
+        [&](int, int slot, int c, const float*& kr, const float*& vr) {
           const int entry = key_row[slot][c];
           if (entry < 0) return false;
           const int src = entry >> kSrcShift;
@@ -224,7 +233,7 @@ __device__ __forceinline__ void sparse_window_attention_body(
     const int row_frame[2] = {row / win, (row + 8) / win};
     stream(
         sm, 0, (n_keys + kBK - 1) / kBK, kw, [](int, int) {},
-        [&](int tile, int, int c, const E*& kr, const E*& vr) {
+        [&](int tile, int, int c, const float*& kr, const float*& vr) {
           const int key = tile * kBK + c;
           if (key >= n_keys) return false;
           const size_t off = static_cast<size_t>(key0 + key) * kD;
@@ -252,24 +261,16 @@ __device__ __forceinline__ void sparse_window_attention_body(
   }
 }
 
-__global__ void __cluster_dims__(kSplit, 1, 1)
-    __launch_bounds__(kThreads, kBlocksPerSm)
-    sparse_window_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ rk,
-    const float* __restrict__ rv, const float* __restrict__ pk,
-    const float* __restrict__ pv, const unsigned char* __restrict__ roll_valid,
-    const int* __restrict__ occupancy, const int* __restrict__ frame_select,
-    float* __restrict__ o, int n_head, int nW, int T, int win, int P,
-    float scale) {
-  sparse_window_attention_body(q, k, v, rk, rv, pk, pv, roll_valid,
-                               occupancy, frame_select, o, n_head, nW, T,
-                               win, P, scale);
-}
+bool configured[kMaxDevices] = {};   // per device (attention_tile.cuh)
 
-__global__ void __cluster_dims__(kSplit, 1, 1)
-    __launch_bounds__(kThreads, kBlocksPerSm)
-    sparse_window_attention_bf16_kernel(
+// ---- the bf16 form --------------------------------------------------------
+
+// the wgmma tile with key tiles of 64 keys (room for P's hi and lo; the
+// producer's two threads per key row cover 64 rows)
+using Tile = wga::Ring<64>;
+
+__global__ void __launch_bounds__(wga::kThreads, 1)
+sparse_window_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ rk,
@@ -280,38 +281,165 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
     const int* __restrict__ occupancy, const int* __restrict__ frame_select,
     __nv_bfloat16* __restrict__ o, int n_head, int nW, int T, int win, int P,
     float scale) {
-  sparse_window_attention_body(q, k, v, rk, rv, pk, pv, roll_valid,
-                               occupancy, frame_select, o, n_head, nW, T,
-                               win, P, scale);
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int sel[kMaxT];
+  __shared__ int rolled[kMaxRolled];   // rolled rows of frame 0
+  __shared__ int n_sel_s, n_rolled_s;
+  const Tile sm = wga::carve<Tile::kBN>(smem_raw);
+
+  const int bh = blockIdx.z, w = blockIdx.y;
+  const int b = bh / n_head;
+  const int q0 = blockIdx.x * wga::kBQ;
+  const int n_rows = min(wga::kBQ, T * win - q0);
+  const bool dirty = occupancy[b * nW + w] > 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t win_base =
+      (static_cast<size_t>(bh) * nW + w) * T * win * wga::kD;
+  const bf16* kw = k + win_base;
+  const bf16* vw = v + win_base;
+  const bf16* rkw = rk + 4 * win_base;
+  const bf16* rvw = rv + 4 * win_base;
+  const size_t pool_base = static_cast<size_t>(bh) * T * P * wga::kD;
+  const bf16* pkw = pk + pool_base;
+  const bf16* pvw = pv + pool_base;
+  const bf16* qw = q + win_base + static_cast<size_t>(q0) * wga::kD;
+  bf16* ow = o + win_base + static_cast<size_t>(q0) * wga::kD;
+
+  if (dirty) {
+    if (warp == 0) {
+      const int n = warp_compact(
+          T, [&](int i) { return frame_select[b * T + i] > 0; },
+          [](int i) { return i; }, sel);
+      if (lane == 0) n_sel_s = n;
+    } else if (warp == 1) {
+      const int n = warp_compact(
+          4 * win, [&](int i) { return roll_valid[i] != 0; },
+          [&](int i) { return (i / win) * T * win + i % win; }, rolled);
+      if (lane == 0) n_rolled_s = n;
+    }
+  }
+  wga::init_barriers(sm, 128);
+  __syncthreads();
+  const int n_sel = dirty ? n_sel_s : 0, n_valid = dirty ? n_rolled_s : 0;
+  if (dirty && n_sel == 0) {
+    // every key of every frame with weight 1 (see the note above)
+    const int n_keys = T * (5 * win + P);
+    for (int d = tid; d < wga::kD; d += wga::kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < T * win; ++r)
+        s += __bfloat162float(vw[static_cast<size_t>(r) * wga::kD + d]);
+      for (int r = 0; r < 4 * T * win; ++r)
+        s += __bfloat162float(rvw[static_cast<size_t>(r) * wga::kD + d]);
+      for (int r = 0; r < T * P; ++r)
+        s += __bfloat162float(pvw[static_cast<size_t>(r) * wga::kD + d]);
+      const float mean = s / static_cast<float>(n_keys);
+      for (int r = 0; r < n_rows; ++r)
+        ow[static_cast<size_t>(r) * wga::kD + d] = __float2bfloat16_rn(mean);
+    }
+    return;
+  }
+  // the block's keys: dirty, the flat list of the selected frames; clean,
+  // the frames f0 .. f1 that its rows span, from key row key0
+  const int per_frame = win + n_valid + P;
+  const int f0 = q0 / win, f1 = (q0 + n_rows - 1) / win;
+  const int key0 = f0 * win;
+  const int n_keys = dirty ? n_sel * per_frame : (f1 - f0 + 1) * win;
+  const int n_tiles = (n_keys + Tile::kBN - 1) / Tile::kBN;
+
+  const int group = wga::warpgroup();
+  if (group == 0) {
+    wga::producer_regs();
+    // Q: 128 rows of 16 chunks, zeros past n_rows
+#pragma unroll
+    for (int i = 0; i < wga::kBQ * 16 / 128; ++i) {
+      const int e = tid + 128 * i, r = e / 16, c = e % 16;
+      const bool live = r < n_rows;
+      wga::cp_async16(sm.q() + wga::swizzled(r, c, wga::kQAtom),
+                      qw + (live ? r * wga::kD + 8 * c : 0), live);
+    }
+    wga::bar_arrive_cp_async(sm.q_full());
+    // key c of each tile, 64-column atom h
+    const int c = tid / 2, h = tid % 2;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int key = j * Tile::kBN + c;
+      const bf16* kr = kw;
+      const bf16* vr = vw;
+      const bool live = key < n_keys;
+      if (live && dirty) {
+        const int f = key / per_frame, r = key - f * per_frame;
+        const int t = sel[f];
+        size_t off;
+        if (r < win) {
+          off = static_cast<size_t>(t * win + r) * wga::kD;
+        } else if (r < win + n_valid) {
+          off = static_cast<size_t>(rolled[r - win] + t * win) * wga::kD;
+          kr = rkw;
+          vr = rvw;
+        } else {
+          off = static_cast<size_t>(t * P + r - win - n_valid) * wga::kD;
+          kr = pkw;
+          vr = pvw;
+        }
+        kr += off;
+        vr += off;
+      } else if (live) {
+        kr += static_cast<size_t>(key0 + key) * wga::kD;
+        vr += static_cast<size_t>(key0 + key) * wga::kD;
+      }
+      const int st = j % Tile::kStages;
+      const int parity = ((j / Tile::kStages) & 1) ^ 1;   // slot freed
+      wga::bar_wait(sm.k_empty(st), parity);
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc)
+        wga::cp_async16(
+            sm.k(st) + wga::swizzled(c, 8 * h + cc, Tile::kTileAtom),
+            kr + 64 * h + 8 * cc, live);
+      wga::bar_arrive_cp_async(sm.k_full(st));
+      wga::bar_wait(sm.v_empty(st), parity);
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc)
+        wga::cp_async16(
+            sm.v(st) + wga::swizzled(c, 8 * h + cc, Tile::kTileAtom),
+            vr + 64 * h + 8 * cc, live);
+      wga::bar_arrive_cp_async(sm.v_full(st));
+    }
+  } else {
+    wga::consumer_regs();
+    const int cg = group - 1;
+    const int g = lane / 4, t4 = lane % 4;
+    const float qscale = scale * wga::kLog2e;
+    auto key_bias = [&](int tile, float (&kb)[Tile::kBlocks][2]) {
+#pragma unroll
+      for (int j = 0; j < Tile::kBlocks; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          kb[j][e] = tile * Tile::kBN + 8 * j + 2 * t4 + e < n_keys
+                         ? 0.f : -CUDART_INF_F;
+    };
+    wga::Rows r;
+    wga::bar_wait(sm.q_full(), 0);
+    if (dirty) {
+      wga::consume<Tile::kBN, true, true>(
+          sm, cg, n_tiles, qscale, key_bias,
+          [](int, int, int, int) { return true; }, r);
+    } else {
+      // the keys of rows g and g + 8's own frames, from key0
+      const int row = q0 + 64 * cg + 16 * (warp % 4) + g;
+      const int lo[2] = {row / win * win - key0, (row + 8) / win * win - key0};
+      wga::consume<Tile::kBN, true, true>(
+          sm, cg, n_tiles, qscale, key_bias,
+          [&](int tile, int i, int j, int e) {
+            const int key = tile * Tile::kBN + 8 * j + 2 * t4 + e;
+            return key >= lo[i] && key < lo[i] + win;
+          },
+          r);
+    }
+    wga::store(ow, cg, n_rows, r);
+  }
 }
 
-// per device (attention_tile.cuh), one flag array per kernel
-bool configured[kMaxDevices] = {};
-bool configured_bf16[kMaxDevices] = {};
-
-template <class E, class Kernel>
-int launch(Kernel kernel, bool (&flags)[kMaxDevices], const void* q,
-           const void* k, const void* v, const void* rk, const void* rv,
-           const void* pk, const void* pv, const void* roll_valid,
-           const void* occupancy, const void* frame_select, void* out,
-           int BH, int n_head, int nW, int T, int win, int P, float scale,
-           void* stream) {
-  if (T > kMaxT || win > kMaxWin || win < 1 || P < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int err = configure<E>(kernel, flags);
-  if (err != 0) return err;
-  const dim3 grid((T * win + kBQ - 1) / kBQ * kSplit, nW, BH);
-  kernel<<<grid, kThreads, kSmemBytesOf<E>,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<const E*>(rk),
-      static_cast<const E*>(rv), static_cast<const E*>(pk),
-      static_cast<const E*>(pv),
-      static_cast<const unsigned char*>(roll_valid),
-      static_cast<const int*>(occupancy), static_cast<const int*>(frame_select),
-      static_cast<E*>(out), n_head, nW, T, win, P, scale);
-  return static_cast<int>(cudaGetLastError());
-}
+bool configured_bf16[wga::kMaxDevices] = {};
 
 }  // namespace
 
@@ -320,21 +448,21 @@ extern "C" int sparse_window_attention(
     const void* rv, const void* pk, const void* pv, const void* roll_valid,
     const void* occupancy, const void* frame_select, void* out, int BH,
     int n_head, int nW, int T, int win, int P, float scale, void* stream) {
-  return launch<float>(sparse_window_attention_kernel, configured, q, k, v,
-                       rk, rv, pk, pv, roll_valid, occupancy, frame_select,
-                       out, BH, n_head, nW, T, win, P, scale, stream);
-}
-
-// The bf16 form: q, k, v, rolled and pooled windows and out bf16.
-extern "C" int sparse_window_attention_bf16(
-    const void* q, const void* k, const void* v, const void* rk,
-    const void* rv, const void* pk, const void* pv, const void* roll_valid,
-    const void* occupancy, const void* frame_select, void* out, int BH,
-    int n_head, int nW, int T, int win, int P, float scale, void* stream) {
-  return launch<__nv_bfloat16>(sparse_window_attention_bf16_kernel,
-                               configured_bf16, q, k, v, rk, rv, pk, pv,
-                               roll_valid, occupancy, frame_select, out, BH,
-                               n_head, nW, T, win, P, scale, stream);
+  if (T > kMaxT || win > kMaxWin || win < 1 || P < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = configure(sparse_window_attention_kernel, configured);
+  if (err != 0) return err;
+  const dim3 grid((T * win + kBQ - 1) / kBQ * kSplit, nW, BH);
+  sparse_window_attention_kernel<<<grid, kThreads, kSmemBytes,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(rk),
+      static_cast<const float*>(rv), static_cast<const float*>(pk),
+      static_cast<const float*>(pv),
+      static_cast<const unsigned char*>(roll_valid),
+      static_cast<const int*>(occupancy), static_cast<const int*>(frame_select),
+      static_cast<float*>(out), n_head, nW, T, win, P, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch facts for chip_smoke.py's build phase (attention_tile.cuh:
@@ -344,8 +472,36 @@ extern "C" int sparse_window_attention_launch_info(void* info, void*) {
                      static_cast<int*>(info));
 }
 
+// The bf16 form: q, k, v, rolled and pooled windows and out bf16, 16-byte
+// aligned.
+extern "C" int sparse_window_attention_bf16(
+    const void* q, const void* k, const void* v, const void* rk,
+    const void* rv, const void* pk, const void* pv, const void* roll_valid,
+    const void* occupancy, const void* frame_select, void* out, int BH,
+    int n_head, int nW, int T, int win, int P, float scale, void* stream) {
+  if (T > kMaxT || win > kMaxWin || win < 1 || P < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err =
+      wga::configure<Tile::kBN>(sparse_window_attention_bf16_kernel,
+                                configured_bf16);
+  if (err != 0) return err;
+  const dim3 grid((T * win + wga::kBQ - 1) / wga::kBQ, nW, BH);
+  using bf16 = __nv_bfloat16;
+  sparse_window_attention_bf16_kernel<<<grid, wga::kThreads, Tile::kSmemBytes,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(rk),
+      static_cast<const bf16*>(rv), static_cast<const bf16*>(pk),
+      static_cast<const bf16*>(pv),
+      static_cast<const unsigned char*>(roll_valid),
+      static_cast<const int*>(occupancy), static_cast<const int*>(frame_select),
+      static_cast<bf16*>(out), n_head, nW, T, win, P, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch facts of the bf16 form (attention_wgmma.cuh: launch_info).
 extern "C" int sparse_window_attention_bf16_launch_info(void* info, void*) {
-  return launch_info<__nv_bfloat16>(sparse_window_attention_bf16_kernel,
-                                    configured_bf16, kSplit,
-                                    static_cast<int*>(info));
+  return wga::launch_info<Tile::kBN>(sparse_window_attention_bf16_kernel,
+                                     configured_bf16,
+                                     static_cast<int*>(info));
 }

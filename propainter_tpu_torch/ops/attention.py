@@ -122,11 +122,15 @@ def sparse_window_attention_bf16(win_q, win_k, win_v, roll_k, roll_v,
     version is `_sparse_window_attention_plain`, which upcasts the same way.
 
     Kernel K5's bf16 form (`sparse_window_attention_bf16` in
-    `csrc/sparse_window_attention.cu`): K5's clusters on the tile's bf16
-    ring (half the bytes through cp.async); bf16 values are exact in TF32,
-    so each product takes two TF32 passes (q·scale and p split big +
-    small) for 3xTF32's accuracy. Bound: operations (2 x the product FLOPs
-    at the TF32 tensor-core rate) where windows are dirty."""
+    `csrc/sparse_window_attention.cu`, on the wgmma tile of
+    `csrc/attention_wgmma.cuh`): one block per (batch*head, window,
+    128-query tile), a producer warpgroup gathering the same keys as K5
+    by cp.async into a ring of 64-key stages, two consumer warpgroups of
+    64 rows. q·kᵀ is one bf16 wgmma pass with fp32 sums (exact products),
+    scaled in fp32; p, fp32 in the TPU kernel, goes into P·V as bf16 hi +
+    lo (two passes, 16 significant bits). Bound: operations (1.5 x the
+    product FLOPs at the bf16 tensor-core rate) where windows are
+    dirty."""
     if win_q.device.type == "cpu":
         return _sparse_window_attention_plain(
             win_q, win_k, win_v, roll_k, roll_v, pool_k, pool_v, roll_valid,
@@ -161,8 +165,10 @@ def _launch(dtype, symbol, win_q, win_k, win_v, roll_k, roll_v, pool_k,
             or occupancy.shape != (B, nW) or frame_select.shape != (B, T)):
         raise ValueError("K5 input shapes do not match the window layout")
     tensors = (win_q, win_k, win_v, roll_k, roll_v, pool_k, pool_v)
-    if any(t.dtype != dtype or not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{symbol} takes contiguous {dtype} windows")
+    if any(t.dtype != dtype or not t.is_contiguous() or t.data_ptr() % 16
+           for t in tensors):
+        raise ValueError(f"{symbol} takes contiguous {dtype} windows, "
+                         f"16-byte aligned")
     valid = roll_valid.to(torch.uint8).contiguous()
     occ = occupancy.to(torch.int32).contiguous()
     fsel = frame_select.to(torch.int32).contiguous()

@@ -79,13 +79,15 @@ def flash_window_attention_bf16(q, k, v, key_bias, scale: float):
     key_bias: (B, Tk) fp32 or None. Returns (B, G, Tq, ch) bf16.
 
     Kernel K4's bf16 form (`window_attention_bf16` in
-    `csrc/window_attention.cu`): one block per (problem, 64-query tile)
-    streaming K/V in 32-key tiles through an online softmax, both products
-    one m16n8k16 bf16 pass on the tensor cores. It rounds the running,
-    unnormalised probabilities and divides at the end, where the TPU
-    kernel normalises first: the two differ by a bf16 step. Bound:
-    operations (4 * Tq * Tk * ch FLOPs per problem at the bf16
-    tensor-core rate)."""
+    `csrc/window_attention.cu`, on the wgmma tile of
+    `csrc/attention_wgmma.cuh`): one block per (problem, 128-query tile),
+    a producer warpgroup bringing Q, K and V in by TMA (3-D tensor maps
+    encoded for each call) into a ring of 128-key stages, two consumer
+    warpgroups of 64 rows running both products as one bf16 wgmma pass and
+    the online softmax in fp32. It rounds the running, unnormalised
+    probabilities and divides at the end, where the TPU kernel normalises
+    first: the two differ by a bf16 step. Bound: operations (4 * Tq * Tk *
+    ch FLOPs per problem at the bf16 tensor-core rate)."""
     if q.device.type == "cpu":
         return _flash_window_attention_bf16_plain(q, k, v, key_bias, scale)
     _build.require_cuda(q, k, v, key_bias)

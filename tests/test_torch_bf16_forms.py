@@ -74,6 +74,100 @@ def test_sparse_window_attention_bf16_plain_matches_jax_kernel(case):
                     np.asarray(want.astype(jnp.float32))) <= 2 ** -8
 
 
+def _k5_bf16_kernel_emulation(q, k, v, rk, rv, pk, pv, roll_valid, occ,
+                              fsel, n_head, split_p):
+    """The arithmetic of K5's bf16 CUDA kernel in numpy, block by block:
+    128 query rows a block, keys streamed in tiles of 64 through an online
+    softmax in log2 units; q·k as exact products summed in fp32, the scale
+    applied to the fp32 logits; p as bf16 hi + bf16 lo (split_p) or one
+    bf16 rounding; fp32 sums, the division at the end. Dirty windows walk
+    the selected frames' window, valid rolled and pooled keys, clean ones
+    the frames the block's rows span with pairs across frames masked.
+    Returns the fp32 output before its final rounding."""
+    BH, nW, T, win, ch = q.shape
+    c = np.float32(np.log2(np.e) / np.sqrt(ch))
+    valid = np.asarray(roll_valid, bool)
+    out = np.zeros(q.shape, np.float32)
+
+    def bf16(x):
+        return _bf16(x).astype(np.float64)
+
+    for bh in range(BH):
+        b = bh // n_head
+        sel = np.flatnonzero(fsel[b])
+        for w in range(nW):
+            dirty = int(occ[b, w]) > 0
+            assert not dirty or sel.size, "the mean branch is not emulated"
+            qw = q[bh, w].reshape(T * win, ch).astype(np.float64)
+            if dirty:
+                def gathered(c, r, p):
+                    return np.concatenate([np.concatenate([
+                        c[bh, w, t], r[bh, w, :, t].reshape(4 * win, ch)[valid],
+                        p[bh, t]]) for t in sel])
+
+                kk, vv = gathered(k, rk, pk), gathered(v, rv, pv)
+            for q0 in range(0, T * win, 128):
+                rows = np.arange(q0, min(q0 + 128, T * win))
+                if not dirty:
+                    f0, f1 = rows[0] // win, rows[-1] // win
+                    kk = k[bh, w, f0:f1 + 1].reshape(-1, ch)
+                    vv = v[bh, w, f0:f1 + 1].reshape(-1, ch)
+                    key_frame = f0 + np.arange(len(kk)) // win
+                m = np.full(len(rows), -np.inf, np.float32)
+                l = np.zeros(len(rows), np.float32)
+                acc = np.zeros((len(rows), ch), np.float32)
+                for k0 in range(0, len(kk), 64):
+                    kt = kk[k0:k0 + 64].astype(np.float64)
+                    x = ((qw[rows] @ kt.T).astype(np.float32) * c)
+                    if not dirty:
+                        x[(rows // win)[:, None]
+                          != key_frame[None, k0:k0 + 64]] = -np.inf
+                    m_new = np.maximum(m, x.max(1))
+                    with np.errstate(invalid="ignore"):   # -inf - -inf
+                        alpha = np.where(m == -np.inf, 0, np.exp2(
+                            m - m_new)).astype(np.float32)
+                        p = np.where(x == -np.inf, 0, np.exp2(
+                            x - m_new[:, None])).astype(np.float32)
+                    l = l * alpha + p.sum(1, dtype=np.float32)
+                    hi = bf16(p)
+                    parts = hi + bf16(p - hi) if split_p else hi
+                    pv_ = (parts @ vv[k0:k0 + 64].astype(np.float64))
+                    acc = acc * alpha[:, None] + pv_.astype(np.float32)
+                    m = m_new
+                out[bh, w].reshape(T * win, ch)[rows] = acc / l[:, None]
+    return out
+
+
+@pytest.mark.parametrize("case", ["dirty", "all_clean", "frame0_off"])
+def test_sparse_window_attention_bf16_kernel_arithmetic(case):
+    """The arithmetic of K5's bf16 kernel (one bf16 q·k pass with fp32
+    sums, the scale after, p into P·V as bf16 hi + lo) against the TPU
+    kernel in interpret mode on the same bf16 values, which upcasts them
+    and keeps p in fp32 (run here on fp32 copies of the bf16 windows: its
+    output before the final bf16 rounding). hi + lo carries 16 significant
+    bits of p, so the two differ in fp32 rounding only; one bf16 rounding
+    of p, as K4's bf16 form makes, lands further off, which is why K5's
+    form pays for the second pass. Measured: hi + lo within 1.2e-6 to
+    2.6e-6 of the output scale (the TPU kernel streams frame by frame, the
+    CUDA kernel in 64-key tiles), one rounding 7.4e-4 to 1.2e-3, 460-640
+    times as far."""
+    *arrays, n_head = _sparse_attention_inputs(case)
+    windows, rest = [_bf16(a) for a in arrays[:7]], arrays[7:]
+    want = np.asarray(sparse_window_attention_pallas(
+        *map(jnp.asarray, windows), *map(jnp.asarray, rest), n_head,
+        interpret=True))
+    hi_lo = _k5_bf16_kernel_emulation(*windows, *rest, n_head, split_p=True)
+    single = _k5_bf16_kernel_emulation(*windows, *rest, n_head,
+                                       split_p=False)
+    assert _rel_err(hi_lo, want) <= 1e-5
+    assert _rel_err(single, want) >= 100 * _rel_err(hi_lo, want)
+    # rounded to bf16, hi + lo gives the bf16 kernel's output
+    got = attention.sparse_window_attention_bf16(
+        *(torch.from_numpy(a).to(BF) for a in windows),
+        *map(torch.from_numpy, rest), n_head)
+    assert _rel_err(_bf16(hi_lo), got.float().numpy()) <= 2 ** -8
+
+
 def test_corr_lookup_bf16_plain_matches_jax_kernel():
     """K7's bf16 form against the TPU lookup kernel without the convc1
     epilogue (`corr_lookup_fused`, the pallas_call at corr_pallas.py:363,
@@ -215,11 +309,13 @@ _BF16_REL_TOL = 2.0 ** -6
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("occupancy", ["clean", "dirty"])
-def test_cuda_sparse_window_attention_bf16_kernel(cuda, occupancy):
+@pytest.mark.parametrize("frames", ["every other 0", "every other 1", "one"])
+@pytest.mark.parametrize("occupancy", ["clean", "dirty", "mixed"])
+def test_cuda_sparse_window_attention_bf16_kernel(cuda, occupancy, frames):
     """K5's bf16 form at T * win = 855 query rows (19 frames of 45 tokens,
-    a partial last query tile) and 8 pooled tokens, every window clean or
-    every window dirty, every other frame selected."""
+    7 query tiles of 128, the last partial) and 8 pooled tokens: every
+    window clean, every window dirty, or both kinds; every other frame
+    selected from either parity, or one frame."""
     rng = np.random.default_rng(12)
     n_head, nW, T, win, P, ch = 2, 3, 19, 45, 8, 128
     q, k, v = (rng.standard_normal((n_head, nW, T, win, ch))
@@ -231,12 +327,46 @@ def test_cuda_sparse_window_attention_bf16_kernel(cuda, occupancy):
                for a in (q, k, v, rk, rv, pk, pv)]
     roll_valid = torch.zeros(4 * win, dtype=torch.bool, device=cuda)
     roll_valid[torch.as_tensor(_valid_rolled_indices((5, 9), (3, 5)))] = True
-    occ = torch.full((1, nW), float(occupancy == "dirty"), device=cuda)
-    fsel = (torch.arange(T, device=cuda) % 2 == 0)[None]
+    occ = torch.tensor([{"clean": [0.0] * nW, "dirty": [1.0] * nW,
+                         "mixed": [1.0, 0.0, 2.0]}[occupancy]], device=cuda)
+    t = torch.arange(T, device=cuda)
+    fsel = {"every other 0": t % 2 == 0, "every other 1": t % 2 == 1,
+            "one": t == 7}[frames][None]
     got = attention.sparse_window_attention_bf16(*windows, roll_valid, occ,
                                                  fsel, n_head)
     want = attention._sparse_window_attention_plain(*windows, roll_valid,
                                                     occ, fsel, n_head)
+    assert got.dtype == torch.bfloat16
+    assert _rel_err(got.float().cpu().numpy(),
+                    want.float().cpu().numpy()) <= _BF16_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["most keys masked", "shard rows"])
+def test_cuda_window_attention_bf16_ragged(cuda, case):
+    """K4's bf16 form at ragged shapes: Tq 130 and Tk 70 (a partial query
+    tile of the 128-row block and a partial key tile) with a bias that
+    masks 64 of the 70 keys; and B = 4 batch rows of different biases
+    over 3 problems each, as the shard path calls it (64 middle keys
+    masked; the whole first 128-key tile and more masked; one tail window
+    all but masked)."""
+    from propainter_tpu_torch.ops import flash_attention
+
+    rng = np.random.default_rng(13)
+    B, G, Tq, Tk = (1, 3, 130, 70) if case == "most keys masked" else (
+        4, 3, 130, 200)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, G, T_, 128))).to(
+        cuda, BF) for T_ in (Tq, Tk, Tk))
+    bias = torch.zeros(B, Tk, device=cuda)
+    if case == "most keys masked":
+        bias[:, :64] = flash_attention.NEG_INF
+    else:
+        bias[0, 64:128] = flash_attention.NEG_INF
+        bias[1, :150] = flash_attention.NEG_INF
+        bias[3, 10:] = flash_attention.NEG_INF
+    got = flash_attention.flash_window_attention_bf16(q, k, v, bias, 0.088)
+    want = flash_attention._flash_window_attention_bf16_plain(q, k, v, bias,
+                                                              0.088)
     assert got.dtype == torch.bfloat16
     assert _rel_err(got.float().cpu().numpy(),
                     want.float().cpu().numpy()) <= _BF16_REL_TOL

@@ -28,6 +28,10 @@ SASS = """\
         /*0b50*/                   FFMA R1, R2, R3, R4 ;
 \t\tFunction : _Z5otherv
         /*0010*/                   FFMA R1, R2, R3, R4 ;
+\t\tFunction : _Z12wgmma_kernelv
+        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x128x16.F32.BF16 R88, R152, gdesc[UR8], R88, gsb0 ;
+        /*0220*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
 """
 
 
@@ -41,10 +45,13 @@ def test_ptxas_report_reads_each_entry_function():
 
 
 def test_sass_counts_per_function():
-    counts = chip_smoke._sass_counts(SASS, "HMMA")
-    assert counts == {
-        "_ZN12_GLOBAL__N_123window_attention_kernelEPKfS2_S2_S2_Pfiiif": 2,
-        "_Z5otherv": 0}
+    """mma.sync assembles to HMMA, wgmma to HGMMA: each count sees only its
+    own opcode."""
+    k4 = "_ZN12_GLOBAL__N_123window_attention_kernelEPKfS2_S2_S2_Pfiiif"
+    assert chip_smoke._sass_counts(SASS, "HMMA") == {
+        k4: 2, "_Z5otherv": 0, "_Z12wgmma_kernelv": 0}
+    assert chip_smoke._sass_counts(SASS, "HGMMA") == {
+        k4: 0, "_Z5otherv": 0, "_Z12wgmma_kernelv": 2}
 
 
 def test_attention_bounds_at_the_main_path_shape():
@@ -101,17 +108,18 @@ def test_tensor_core_launch_grids():
     its persistent blocks), K4 14 query tiles x 64 problems, K5 twice that
     (two blocks a tile), K3 its position tiles times the wrapper's split
     for 2 resident blocks per SM at each call site; the bf16 forms one
-    block per tile: K1's 608 64-query tiles, K4's as K4's, K3's 32-position
-    tiles, and K5's two blocks a tile as K5's (the launch facts the card
+    block per tile: K1's 608 64-query tiles, K3's 32-position tiles, and
+    K4's and K5's 7 tiles of 128 query rows x 64 problems on the wgmma tile
+    (one block of 384 threads per SM; the launch facts the card
     reported)."""
     info = {"corr_lookup_moenc_kernel": [2, 93696, 128, 32, 1],
             "window_attention_kernel": [2, 107520, 128, 64, 1],
             "sparse_window_attention_kernel": [2, 107520, 128, 64, 2],
             "deform_conv_kernel": [2, 67584, 128, 64, 8],
             "corr_lookup_moenc_bf16_kernel": [2, 0, 256, 64, 1],
-            "window_attention_bf16_kernel": [3, 0, 128, 64, 1],
+            "window_attention_bf16_kernel": [1, 164936, 384, 128, 1],
             "deform_conv_bf16_kernel": [8, 0, 128, 32, 1],
-            "sparse_window_attention_bf16_kernel": [2, 72704, 128, 64, 2]}
+            "sparse_window_attention_bf16_kernel": [1, 132200, 384, 128, 1]}
     grids = {(symbol, site): grid_of(info[symbol])
              for _, symbol, site, _, _, grid_of
              in chip_smoke._tensor_core_launches(132)}
@@ -122,11 +130,10 @@ def test_tensor_core_launch_grids():
         ("deform_conv_kernel", "generator"): 102 * 2,
         ("deform_conv_kernel", "flow completion"): 51 * 4,
         ("corr_lookup_moenc_bf16_kernel", "bf16 main path"): 608,
-        ("window_attention_bf16_kernel", "bf16 main path"): 14 * 64,
+        ("window_attention_bf16_kernel", "bf16 main path"): 7 * 64,
         ("deform_conv_bf16_kernel", "generator, bf16"): 203,
         ("deform_conv_bf16_kernel", "flow completion, bf16"): 102,
-        ("sparse_window_attention_bf16_kernel", "bf16 main path"):
-            14 * 2 * 64}
+        ("sparse_window_attention_bf16_kernel", "bf16 main path"): 7 * 64}
 
 
 def test_corr_lookup_bound_at_the_main_path_shape():
@@ -152,14 +159,24 @@ def test_main_path_launch_counts():
 
 
 def test_sparse_window_attention_bf16_bound_at_the_main_path_shape():
-    """K5's bf16 form at the smoke occupancy's operations: its products
-    take two TF32 passes (bf16 k and v are exact in TF32), so its
-    operations bound is two thirds of the 3xTF32 K5's."""
-    logits, ch = 4 * 19 * 45 * 10000, 128
-    three = chip_smoke._tensor_core_bounds(0, 4 * ch * logits, 5 * logits)
-    two = chip_smoke._tensor_core_bounds(0, 4 * ch * logits, 5 * logits,
-                                         passes=2)
-    assert two["bound_basis"] == "operations (2xTF32)"
-    assert math.isclose(two["bound_ms"], three["bound_ms"] * 2 / 3,
+    """K5's bf16 form at the smoke occupancy's operations (6 dirty windows
+    of 16, 9 live frames of 19, 148 valid rolled keys): Q·Kᵀ, half the
+    product FLOPs, is one bf16 pass and P·V, the other half, two (p as bf16
+    hi + lo), so the operations bound is 1.5 x the product FLOPs at 989
+    TFLOP/s, 0.035 ms, above the bytes that occupancy reads."""
+    n_head, nW, T, win, P, ch, dirty, Ts = 4, 16, 19, 45, 45, 128, 6, 9
+    keys = Ts * (win + 148 + P)
+    logits = (dirty * n_head * T * win * keys
+              + (nW - dirty) * n_head * T * win * win)
+    rows = n_head * (2 * nW * T * win + 2 * (nW - dirty) * T * win
+                     + 2 * dirty * Ts * (win + 148) + 2 * Ts * P)
+    b = chip_smoke._bf16_bounds(2 * ch * rows, 4 * ch * logits, 5 * logits,
+                                pv_passes=2)
+    assert b["bound_basis"] == "bf16 tensor cores, 1 + 2 passes"
+    assert b["bound_by"] == "operations"
+    assert math.isclose(b["bound_ms"], 1.5 * 4 * ch * logits / 989e9,
                         rel_tol=1e-9)
-    assert two["fp32_bound_ms"] == three["fp32_bound_ms"]
+    assert math.isclose(b["bound_ms"], 0.035, rel_tol=0.03)
+    one = chip_smoke._bf16_bounds(2 * ch * rows, 4 * ch * logits, 5 * logits)
+    assert one["bound_basis"] == "bf16 tensor cores"
+    assert math.isclose(b["bound_ms"], 1.5 * one["bound_ms"], rel_tol=1e-9)
