@@ -32,7 +32,12 @@ Phases:
               versions (two bf16 steps of the output scale; K7's fp32
               output within 1e-6), beside the bf16 library routes
               (F.grid_sample + addmm for K1, F.grid_sample for K7, SDPA
-              for K4 and K5) and, for K5, the fp32 K5;
+              for K4 and K5) and, for K5, the fp32 K5; K3's bf16 form
+              also at every cluster split at both sites (timed), at 65
+              positions at every group width and at 21 (one partial
+              tile, one cluster) at every split, offsets to 40 px; K1's
+              bf16 forms also at the far-off 8 x 13 map and at an 8 x 9
+              map with every coordinate outside every level;
   deform_opt  K6's path: the differentiable deform dispatchers
               (`modulated_deform_conv2d_opt` through K6, `_opt2` through
               K3) forward and backward at both call sites' shapes; values
@@ -260,12 +265,13 @@ def _tensor_core_launches(n_sm: int) -> list:
     """The main path's launches of the tensor-core kernels: (library,
     kernel symbol, site, launch-info symbol and its int arguments,
     grid(info)), info = {resident blocks per SM, dynamic shared memory
-    bytes, threads per block, rows per block, blocks per row tile}. K1: the
-    32-query tiles of one RAFT iteration (its persistent blocks, one per
-    resident slot, walk them, so its waves are rounds of tiles); K4 and
-    K5: 16 windows x 4 heads of 855 query rows; K3: each call site's
-    positions in 64-position tiles, times the cluster split the wrapper
-    picks for this card's resident blocks."""
+    bytes, threads per block, rows per block, blocks per row tile}. K1 and
+    its bf16 form: the 32- and 64-query tiles of one RAFT iteration (their
+    persistent blocks, one per resident slot, walk them, so their waves are
+    rounds of tiles); K4 and K5: 16 windows x 4 heads of 855 query rows;
+    K3 and its bf16 form: each call site's positions in 64-position tiles,
+    times the cluster split the wrapper picks for this card's resident
+    blocks."""
     from propainter_tpu_torch.ops import deform
 
     def attention_grid(info):
@@ -283,11 +289,13 @@ def _tensor_core_launches(n_sm: int) -> list:
             "modulated_deform_conv2d_launch_info", (cg,),
             lambda info, n=n_pos, c=C: -(-n // info[3]) * deform.k3_split(
                 n, c, n_sm * info[0])))
-    # the bf16 forms: one block per row tile (K4's and K5's 128-query
-    # tiles of the wgmma tile, attention_wgmma.cuh)
+    # the bf16 forms: K1's 64-query tiles (its persistent blocks,
+    # `corr.k1_bf16_grid`, walk them); one block per row tile for K4 and K5
+    # (128-query tiles of the wgmma tile, attention_wgmma.cuh); K3's
+    # 64-position tiles times the wrapper's split of their 64-channel chunks
     launches += [
         ("corr_lookup_moenc", "corr_lookup_moenc_bf16_kernel",
-         "bf16 main path", "corr_lookup_moenc_bf16_launch_info", (),
+         "bf16 main path, tiles", "corr_lookup_moenc_bf16_launch_info", (),
          lambda info: -(-K1_QUERIES // info[3])),
         ("window_attention", "window_attention_bf16_kernel",
          "bf16 main path", "window_attention_bf16_launch_info", (),
@@ -299,7 +307,8 @@ def _tensor_core_launches(n_sm: int) -> list:
         launches.append((
             "deform_conv", "deform_conv_bf16_kernel", f"{site}, bf16",
             "modulated_deform_conv2d_bf16_launch_info", (cg,),
-            lambda info, n=n_pos: -(-n // info[3])))
+            lambda info, n=n_pos, c=C: -(-n // info[3]) * deform.k3_split(
+                n, c, n_sm * info[0], deform.K3_BF16_CHUNK)))
     return launches
 
 
@@ -1042,8 +1051,9 @@ def _check_bf16(randn, level0) -> dict:
     taps within 1e-6), timed beside the plain version and the bf16
     library route (`_k1_library` over the bf16 levels for K1,
     `_lookup_library` for K7, F.scaled_dot_product_attention for K4 and
-    K5); K1, K3 and K7 also at ragged, far-off cases and K4 at ragged
-    shapes, K3 at every group width, K5 at three occupancies."""
+    K5); K1 and K7 also at ragged, far-off cases (`_k1_ragged_cases`), K3
+    at every cluster split (timed) and at ragged images at every group
+    width and split, K4 at ragged shapes, K5 at three occupancies."""
     import torch
     import torch.nn.functional as F
     from propainter_tpu_torch.ops import corr, deform, flash_attention
@@ -1084,13 +1094,13 @@ def _check_bf16(randn, level0) -> dict:
 
     got = run_k1()
     err = _compare("corr_lookup_moenc_bf16", got, plain_k1(), BF16_REL_TOL)
-    small, far = _far_off_case(randn)
-    small = [p.to(bf).contiguous() for p in small]
-    err = max(err, _compare(
-        "corr_lookup_moenc_bf16 maps 8 x 13, coordinates to 40 px outside",
-        corr.corr_lookup_moenc_bf16(small, far, w, bias),
-        corr._corr_lookup_moenc_bf16_plain(small, far, w, bias, 4),
-        BF16_REL_TOL))
+    ragged = _k1_ragged_cases(randn)
+    for what, small, far in ragged:
+        err = max(err, _compare(
+            f"corr_lookup_moenc_bf16 {what}",
+            corr.corr_lookup_moenc_bf16(small, far, w, bias),
+            corr._corr_lookup_moenc_bf16_plain(small, far, w, bias, 4),
+            BF16_REL_TOL))
     library = _k1_library(pyr, coords, w, bias)
     n_q = B * H8 * W8
     records["corr_lookup_moenc_bf16"] = dict(
@@ -1104,7 +1114,7 @@ def _check_bf16(randn, level0) -> dict:
                        + _nbytes(coords, w, bias, got),
                        n_q * 2 * 324 * 256, n_q * 324 * 10))
 
-    # ---- K3: both call sites, then ragged images at every group width
+    # ---- K3: both call sites at every cluster split, then ragged images
     k3 = []
     for Bd, Hd, Wd, C, dg, max_res in ((1, 60, 108, 128, 16, 3.0),
                                        (2, 30, 54, 256, 16, 5.0)):
@@ -1112,33 +1122,56 @@ def _check_bf16(randn, level0) -> dict:
             randn, Bd, Hd, Wd, C, dg, max_res))
         shape = f"x {(Bd, Hd, Wd, C)} dg {dg}, bf16"
 
-        def run_k3():
-            return deform.modulated_deform_conv2d_bf16(x, off, msk, wt, bs)
+        def run_k3(split=None):
+            return deform.modulated_deform_conv2d_bf16(x, off, msk, wt, bs,
+                                                       split=split)
 
         def plain_k3():
             return deform._modulated_deform_conv2d_bf16_plain(x, off, msk,
                                                               wt, bs)
 
-        got = run_k3()
-        err = _compare(f"modulated_deform_conv2d_bf16 {shape}", got,
-                       plain_k3(), BF16_REL_TOL)
+        want = plain_k3()
+        err = _compare(f"modulated_deform_conv2d_bf16 {shape}", run_k3(),
+                       want, BF16_REL_TOL)
+        splits = _k3_bf16_splits(C)
+        for sp in splits:
+            err = max(err, _compare(
+                f"modulated_deform_conv2d_bf16 {shape}, split {sp}",
+                run_k3(sp), want, BF16_REL_TOL))
+        split_ms = {sp: _graph_ms(lambda: run_k3(sp)) for sp in splits}
         n_pos = Bd * Hd * Wd
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        slots = n_sm * deform.k3_launch_info(C // dg, bf16=True)[0]
+        split = deform.k3_split(n_pos, C, slots, deform.K3_BF16_CHUNK)
         k3.append(dict(shape=shape, max_abs_err=err, ms=_graph_ms(run_k3),
                        eager_ms=_time_ms(run_k3, 50),
                        plain_ms=_time_ms(plain_k3, 5), library_ms=None,
-                       **_bf16_bounds(_nbytes(x, off, msk, wt, bs, got),
+                       split=split, split_ms=split_ms,
+                       **_bf16_bounds(_nbytes(x, off, msk, wt, bs, want),
                                       n_pos * 2 * 9 * C * 128,
                                       n_pos * 9 * C * 12)))
-    for C, dg in ((128, 32), (128, 16), (256, 16), (128, 4)):
-        x, off, msk, wt, bs = _deform_inputs(randn, 1, 5, 13, C, dg, 3.0)
+        by_split = ", ".join(f"{sp}: {t:.4f}" for sp, t in split_ms.items())
+        print(f"  modulated_deform_conv2d_bf16 {shape}: split {split}; "
+              f"device ms by split {by_split}")
+    # ragged: 65 positions (a full 64-position tile and one of a single
+    # position) at every group width, and 21 positions (one partial tile:
+    # the whole grid is one cluster) at every split; offsets to 40 pixels
+    # outside the image
+    for (Hd, Wd, C, dg), splits in (
+            *(((5, 13, C, dg), (None,))
+              for C, dg in ((128, 32), (128, 16), (256, 16), (128, 4))),
+            ((3, 7, 128, 16), _k3_bf16_splits(128))):
+        x, off, msk, wt, bs = _deform_inputs(randn, 1, Hd, Wd, C, dg, 3.0)
         x, off, msk, wt, bs = (t.to(bf).contiguous()
                                for t in (x, off * 8.0, msk, wt, bs))
-        k3[0]["max_abs_err"] = max(k3[0]["max_abs_err"], _compare(
-            f"modulated_deform_conv2d_bf16 x (1, 5, 13, {C}) dg {dg}, "
-            f"offsets to 40 px",
-            deform.modulated_deform_conv2d_bf16(x, off, msk, wt, bs),
-            deform._modulated_deform_conv2d_bf16_plain(x, off, msk, wt, bs),
-            BF16_REL_TOL))
+        want = deform._modulated_deform_conv2d_bf16_plain(x, off, msk, wt, bs)
+        for sp in splits:
+            k3[0]["max_abs_err"] = max(k3[0]["max_abs_err"], _compare(
+                f"modulated_deform_conv2d_bf16 x (1, {Hd}, {Wd}, {C}) dg "
+                f"{dg}, offsets to 40 px" + (f", split {sp}" if sp else ""),
+                deform.modulated_deform_conv2d_bf16(x, off, msk, wt, bs,
+                                                    split=sp),
+                want, BF16_REL_TOL))
     records["modulated_deform_conv2d_bf16"] = dict(
         name="modulated_deform_conv2d_bf16", route="cuda",
         source="propainter_tpu_torch/csrc/deform_conv.cu",
@@ -1204,8 +1237,40 @@ def _check_bf16(randn, level0) -> dict:
     records["sparse_window_attention_bf16"] = _check_k5(randn, bf)
     records["corr_lookup_bf16"] = _check_k7_bf16(randn, pyr, coords)
     records["corr_lookup_moenc_bf16_volume"] = _check_k1_bf16_volume(
-        randn, pyr, coords)
+        randn, pyr, coords, ragged)
     return records
+
+
+def _k3_bf16_splits(C: int) -> list:
+    """Every cluster split K3's bf16 form takes at C channels: the counts
+    up to 8 that divide its 9 * C / 64 chunks."""
+    from propainter_tpu_torch.ops import deform
+
+    n_chunks = 9 * C // deform.K3_BF16_CHUNK
+    return [sp for sp in range(1, deform.K3_MAX_SPLIT + 1)
+            if n_chunks % sp == 0]
+
+
+def _k1_ragged_cases(randn) -> list:
+    """K1's bf16 forms' ragged inputs, (what, bf16 pyramid, coords): the
+    far-off 8 x 13 map (104 queries: a full 64-query tile and a partial
+    one, fewer than the card's SMs) and an 8 x 9 map (72 queries) whose
+    every coordinate lies 200 pixels outside every level's map."""
+    import torch
+    from propainter_tpu_torch.ops import corr
+    from propainter_tpu_torch.ops.warp import coords_grid
+
+    small, far = _far_off_case(randn)
+    f1, f2 = randn(1, 8, 9, 256), randn(1, 8, 9, 256)
+    outside = coords_grid(1, 8, 9, device=f1.device)
+    sign = torch.where(torch.arange(72, device=f1.device).reshape(1, 8, 9, 1)
+                       % 2 == 0, 1.0, -1.0)
+    outside = (outside + 200.0 * sign).contiguous()
+    return [(what, [p.to(torch.bfloat16).contiguous() for p in pyr], c)
+            for what, pyr, c in (
+                ("maps 8 x 13, coordinates to 40 px outside", small, far),
+                ("maps 8 x 9, every coordinate outside every level",
+                 corr.corr_pyramid(f1, f2, 4), outside))]
 
 
 # K7's bf16 form against its plain version: the same bf16 taps and the
@@ -1267,12 +1332,12 @@ def _check_k7_bf16(randn, pyr, coords) -> dict:
         bound_ms=bound_ms, bound_by=bound_by)
 
 
-def _check_k1_bf16_volume(randn, pyr, coords) -> dict:
+def _check_k1_bf16_volume(randn, pyr, coords, ragged) -> dict:
     """K1 over the bf16 pyramid of one RAFT chunk with convc1's parameters
-    in fp32 (RAFT's fp32 refinement over a bf16 volume), and at the ragged,
-    far-off 8 x 13 map, against its plain version (BF16_REL_TOL), timed
-    by CUDA-graph replay beside the bf16 library route (`_k1_library` with
-    the parameters in bf16)."""
+    in fp32 (RAFT's fp32 refinement over a bf16 volume), and at K1's
+    ragged cases (`_k1_ragged_cases`), against its plain version
+    (BF16_REL_TOL), timed by CUDA-graph replay beside the bf16 library
+    route (`_k1_library` with the parameters in bf16)."""
     from propainter_tpu_torch.ops import corr
 
     w = randn(324, 256, std=0.02)
@@ -1287,13 +1352,12 @@ def _check_k1_bf16_volume(randn, pyr, coords) -> dict:
     got = run()
     err = _compare("corr_lookup_moenc_bf16_volume", got, plain(),
                    BF16_REL_TOL)
-    small, far = _far_off_case(randn)
-    small = [p.to(pyr[0].dtype).contiguous() for p in small]
-    err = max(err, _compare(
-        "corr_lookup_moenc_bf16_volume maps 8 x 13, coordinates to 40 px "
-        "outside", corr.corr_lookup_moenc_bf16_volume(small, far, w, bias),
-        corr._corr_lookup_moenc_bf16_plain(small, far, w, bias, 4),
-        BF16_REL_TOL))
+    for what, small, far in ragged:
+        err = max(err, _compare(
+            f"corr_lookup_moenc_bf16_volume {what}",
+            corr.corr_lookup_moenc_bf16_volume(small, far, w, bias),
+            corr._corr_lookup_moenc_bf16_plain(small, far, w, bias, 4),
+            BF16_REL_TOL))
     n_q = coords.shape[0] * coords.shape[1] * coords.shape[2]
     library = _k1_library(pyr, coords, w.to(pyr[0].dtype),
                           bias.to(pyr[0].dtype))

@@ -39,7 +39,7 @@
 
 #include <type_traits>
 
-#include "bf16_mma.cuh"
+#include "bf16.cuh"
 
 namespace {
 

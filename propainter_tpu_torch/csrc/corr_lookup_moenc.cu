@@ -49,20 +49,51 @@
 // The bf16 form (corr_lookup_moenc_bf16; the TPU kernel as the JAX bf16
 // pipeline runs it, over a bf16 pyramid). Semantics:
 // propainter_tpu_torch/ops/corr.py:corr_lookup_moenc_bf16. Levels are (N,
-// H_l, W_l) bf16; the weight is convc1's own (256, 324) layout, row f =
-// output f; bias bf16; out (N, 256) fp32. Each window value rounds where
-// the TPU kernel rounds it: the row lerp in bf16 (fy rounded to bf16, each
-// product and the sum rounded, corr_pallas.py:189-196), the column lerp in
-// fp32 (:264-265), the value rounded to bf16 as the A operand; the weight
-// is the B operand; one m16n8k16 bf16 pass with fp32 accumulators
-// (:299-303, bf16_mma.cuh); bias + relu in fp32. A first, simple design:
-// blocks of 8 warps own 64 queries x 256 outputs; the warps gather each
-// (query, level)'s 10 x 10 window with the fp32 form's lane layout into
-// a bf16 A tile in shared memory (64 x 336, padded channels zero), then
-// warp (wm, wn) multiplies its 32 queries x 64 outputs, reading B
-// fragments straight from the weight (L1-resident, 166 KB). No overlap of
-// the gather with the products. Bound: bytes (the in-range taps read, in
-// bf16, and the fp32 output).
+// H_l, W_l) bf16; the weight convc1's rows K-major, (256, 336) with
+// channels 324 .. 335 zero (the wrapper's copy); bias bf16; out (N, 256)
+// fp32. Each window value rounds where the TPU kernel rounds it: the row
+// lerp in bf16 (fy rounded to bf16, each product and the sum rounded,
+// corr_pallas.py:189-196), the column lerp in fp32 (:264-265), the value
+// rounded to bf16 as the A operand; one bf16 pass with fp32 sums
+// (:299-303); bias + relu in fp32.
+// Bound: bytes (the in-range bf16 taps and the 40 MB fp32 output of one
+// RAFT iteration; the products are 0.4x that time at the bf16 rate). What
+// holds it back is the gather: chains of dependent loads, shuffles and
+// roundings per (query, level) and warp, which need many warps in flight
+// to hide their latency.
+// Design: persistent blocks of 1024 threads, one per SM (the weight fills
+// its shared memory), walk 64-query tiles; warp-specialised. convc1's
+// whole weight stays in shared memory as wgmma's B operand, loaded once
+// by cp.async; both operands are K-major in the 32-byte swizzle, whose
+// k-step blocks of 16 channels take K = 336 without padding to a 128-byte
+// atom (172 KB of weight + 43 KB for the one A tile).
+//   producers 16 warps; warp p gathers queries p + 16q of the tile, level
+//             by level, with K7's lane layout (lane (r, c) reads window
+//             rows r + 3k, column c: each neighbour once; a query's
+//             coordinates loaded once a tile), lerps them with shuffles
+//             and writes the level's bf16 values into A, then arrives on
+//             full[l];
+//   consumers four warpgroups; warpgroup w multiplies A by outputs 64w ..
+//             64w + 63 (wgmma m64n64k16, 32 accumulators a thread: at 1024
+//             threads ptxas compiles every thread to 64 registers, too few
+//             for m64n128's 64 accumulators): on full[l] the k-steps that
+//             read only levels <= l (5l .. 5l + 4, the last to 20), then
+//             arrive on empty[l]; after step 3, bias + relu from the
+//             accumulators, stored as whole 32-byte sectors.
+// A level l of the next tile waits on empty[min(l + 1, 3)], the last step
+// that reads its k-steps, so the gather of a tile overlaps the products
+// and the epilogue of the one before, and no barrier stops the block.
+// (Measured on an H100, 700 W, a RAFT iteration: 0.092 ms; without the
+// products and the stores 0.081, without the tap loads 0.068, so most of
+// it is the gather's instructions (kernel_variants.py k1). Not kept:
+// all 8 warps of two m64n128 warpgroups gathering every level between
+// block barriers, 0.187 ms (chip_smoke.py); 8 producer warps, 0.148 ms
+// (48 bytes spilled at 768 threads' 80 registers); the producers' level
+// loop unrolled, which spills 212 bytes of A's store addresses, 0.119
+// ms; the next level's taps loaded before the current level's lerps,
+// 0.099 ms (kernel_variants.py k1). Two m64n128 consumer warpgroups
+// beside 16 producer warps do not compile: 768 threads leave ptxas 80
+// registers a thread.)
 //
 // Over a bf16 volume with fp32 parameters (corr_lookup_moenc_bf16_volume;
 // the JAX RAFT refining in fp32 over its bf16 volume). Semantics:
@@ -76,7 +107,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
+#include "attention_wgmma.cuh"
+#include "bf16.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -325,153 +357,6 @@ corr_lookup_moenc_kernel(Levels lv, const float* __restrict__ coords,
   cp_async_wait<0>();
 }
 
-// ---- the bf16 form -------------------------------------------------------
-
-constexpr int kBQb = 64;                        // queries per block
-constexpr int kThreadsB = 256;                  // 8 warps
-constexpr int kLdAb = 344;                      // bf16 per A row: 172 words
-                                                // = 12 mod 32, conflict-free
-static_assert(kLdAb >= kCP && (kLdAb / 2) % 32 == 12, "A tile layout");
-
-struct LevelsBf16 {
-  const __nv_bfloat16* ptr[kLevels];
-  int h[kLevels];
-  int w[kLevels];
-};
-
-// Bias columns col, col + 1 in fp32: a bf16 bias (the bf16 form) or an
-// fp32 one (over a bf16 volume with fp32 parameters).
-__device__ __forceinline__ float2 bias_pair(const __nv_bfloat16* b, int col) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + col));
-}
-__device__ __forceinline__ float2 bias_pair(const float* b, int col) {
-  return *reinterpret_cast<const float2*>(b + col);
-}
-
-template <class Bias>
-__global__ void __launch_bounds__(kThreadsB)
-corr_lookup_moenc_bf16_kernel(LevelsBf16 lv, const float* __restrict__ coords,
-                              const __nv_bfloat16* __restrict__ weight,
-                              const Bias* __restrict__ bias,
-                              float* __restrict__ out, int n_query) {
-  __shared__ __align__(16) __nv_bfloat16 a[kBQb * kLdAb];
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r = lane / kWin, c = lane % kWin;   // gather: window row, column
-  const bool glane = lane < 3 * kWin;
-  const int q0 = blockIdx.x * kBQb;
-
-  for (int e = tid; e < kBQb * (kCP - kC); e += kThreadsB)
-    a[e / (kCP - kC) * kLdAb + kC + e % (kCP - kC)] = __float2bfloat16(0.f);
-
-  // gather: warp w takes queries 8w .. 8w + 7 at every level
-#pragma unroll
-  for (int l = 0; l < kLevels; ++l) {
-    const int H = lv.h[l], W = lv.w[l];
-    const float scale = 1.f / static_cast<float>(1 << l);
-    for (int i = 0; i < kBQb / 8; ++i) {
-      const int qi = 8 * warp + i;
-      const int n = q0 + qi;
-      const bool live = n < n_query;
-      const float x =
-          live ? __ldg(coords + 2 * static_cast<size_t>(n)) * scale : 0.f;
-      const float y =
-          live ? __ldg(coords + 2 * static_cast<size_t>(n) + 1) * scale : 0.f;
-      const float x0 = floorf(x), y0 = floorf(y);
-      const int xs = static_cast<int>(fminf(fmaxf(x0, -6.f), W + 4.f))
-                     - kRadius + c;
-      const int ys = static_cast<int>(fminf(fmaxf(y0, -6.f), H + 4.f))
-                     - kRadius + r;
-      const __nv_bfloat16* m =
-          lv.ptr[l] + (live ? static_cast<size_t>(n) * H * W : 0);
-      const bool col_in = live && glane && xs >= 0 && xs < W;
-      float gv[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int yy = ys + 3 * k;
-        const bool in = col_in && r + 3 * k < kWin && yy >= 0 && yy < H;
-        gv[k] = in ? __bfloat162float(m[yy * W + xs]) : 0.f;
-      }
-      // row lerp in bf16, column lerp in fp32, the value rounded to bf16
-      const float fyb = bf::round_bf16(y - y0);
-      const float omfy = bf::round_bf16(1.f - fyb);
-      const float fx = x - x0;
-      __nv_bfloat16* row = a + qi * kLdAb + l * kLevelC;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float up = __shfl_down_sync(0xffffffffu, gv[k], kWin);
-        const float wrap = __shfl_up_sync(0xffffffffu, gv[k + 1], 2 * kWin);
-        const float below = r < 2 ? up : wrap;
-        const float gy = bf::round_bf16(
-            __fadd_rn(bf::round_bf16(__fmul_rn(gv[k], omfy)),
-                      bf::round_bf16(__fmul_rn(below, fyb))));
-        const float right = __shfl_down_sync(0xffffffffu, gy, 1);
-        const float v = __fadd_rn(__fmul_rn(gy, 1.f - fx),
-                                  __fmul_rn(right, fx));
-        if (glane && c < kTaps)
-          row[c * kTaps + 3 * k + r] = __float2bfloat16_rn(v);
-      }
-    }
-  }
-  __syncthreads();
-
-  // products: warp (wm, wn) = 32 queries x 64 outputs
-  const int wm = warp / 4, wn = warp % 4;
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
-  const uint32_t* aw = reinterpret_cast<const uint32_t*>(a);
-  for (int s = 0; s < kCP / 16; ++s) {
-    uint32_t fa[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int row = 32 * wm + 16 * mi + g;
-      const int w0 = (row * kLdAb + 16 * s) / 2 + t;
-      fa[mi][0] = aw[w0];
-      fa[mi][1] = aw[w0 + 4 * kLdAb];
-      fa[mi][2] = aw[w0 + 4];
-      fa[mi][3] = aw[w0 + 4 * kLdAb + 4];
-    }
-    const int k0 = 16 * s + 2 * t;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      // column f's k pairs; channels past 324 read as zero
-      const __nv_bfloat16* wr =
-          weight + static_cast<size_t>(64 * wn + 8 * j + g) * kC;
-      const uint32_t b0 =
-          k0 < kC ? __ldg(reinterpret_cast<const unsigned int*>(wr + k0)) : 0u;
-      const uint32_t b1 =
-          k0 + 8 < kC
-              ? __ldg(reinterpret_cast<const unsigned int*>(wr + k0 + 8))
-              : 0u;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) bf::mma(acc[mi][j], fa[mi], b0, b1);
-    }
-  }
-
-  // bias + relu: rows g, g + 8 of each m-tile, columns 2t, 2t + 1
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int n = q0 + 32 * wm + 16 * mi + 8 * hh + g;
-      if (n >= n_query) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = 64 * wn + 8 * j + 2 * t;
-        const float2 b = bias_pair(bias, col);
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(n) * kF + col) =
-            make_float2(fmaxf(acc[mi][j][2 * hh] + b.x, 0.f),
-                        fmaxf(acc[mi][j][2 * hh + 1] + b.y, 0.f));
-      }
-    }
-}
-
 // The shared-memory limit is an attribute of the kernel on one device and
 // the persistent grid depends on that device's SMs, so both are set up
 // once per device, for the device current at the call (the wrapper makes
@@ -499,6 +384,290 @@ int configure(int& dev) {
   if (err != cudaSuccess) return static_cast<int>(err);
   resident[dev] = n_sm * per_sm;
   configured[dev] = true;
+  return 0;
+}
+
+// ---- the bf16 form -------------------------------------------------------
+
+constexpr int kBQb = 64;                        // queries per tile: wgmma's M
+constexpr int kConsumerGroups = 4;              // warpgroups of 64 outputs
+constexpr int kConsumerThreads = 128 * kConsumerGroups;
+constexpr int kProducerWarps = 16;
+constexpr int kThreadsB = kConsumerThreads + 32 * kProducerWarps;   // 1024
+constexpr int kQPW = kBQb / kProducerWarps;     // queries a producer warp
+static_assert(kF == 64 * kConsumerGroups && kThreadsB <= 1024,
+              "a consumer warpgroup per 64 outputs");
+constexpr int kKSteps = kCP / 16;               // 21 k-steps of 16
+// Both operands K-major in the 32-byte swizzle: one k-step of 16 channels
+// is a block of 32-byte rows (8-row groups 256 bytes apart), so K = 336
+// needs no padding to a 128-byte atom and convc1's whole weight fits.
+constexpr int kRowB = 32;
+constexpr int kABlock = kBQb * kRowB;           // 2 KB: a k-step of A
+constexpr int kWBlock = kF * kRowB;             // 8 KB: a k-step of B
+constexpr int kBarBytes = 8 * 2 * kLevels;      // full[l], empty[l]
+constexpr size_t kSmemB = kKSteps * (kWBlock + kABlock) + kBarBytes
+                          + 1024;               // + room to align
+static_assert(kSmemB <= 232448, "the weight and one A tile fit");
+
+struct LevelsBf16 {
+  const __nv_bfloat16* ptr[kLevels];
+  int h[kLevels];
+  int w[kLevels];
+};
+
+// Bias columns col, col + 1 in fp32: a bf16 bias (the bf16 form) or an
+// fp32 one (over a bf16 volume with fp32 parameters).
+__device__ __forceinline__ float2 bias_pair(const __nv_bfloat16* b, int col) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + col));
+}
+__device__ __forceinline__ float2 bias_pair(const float* b, int col) {
+  return *reinterpret_cast<const float2*>(b + col);
+}
+
+// Byte offset of 16-byte chunk c (0, 1) of row r in a block of 32-byte
+// rows in the 32-byte swizzle (bit 4 of the address ^= bit 7).
+__device__ __forceinline__ uint32_t swizzled32(int r, int c) {
+  return r * kRowB + ((c ^ ((r >> 2) & 1)) << 4);
+}
+
+// Byte offset of A's element (query m, channel k).
+__device__ __forceinline__ uint32_t a_offset(int m, int k) {
+  return (k >> 4) * kABlock + swizzled32(m, (k >> 3) & 1) + (k & 7) * 2;
+}
+
+// Shared-memory matrix descriptor of a K-major operand in the 32-byte
+// swizzle (layout type 3): 8-row groups 256 bytes apart (the stride byte
+// offset); the leading byte offset is unused for a swizzled K-major
+// operand whose k-step spans the swizzle width.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | 1ull << 16 |
+         static_cast<uint64_t>(8 * kRowB >> 4) << 32 | 3ull << 62;
+}
+
+// The first k-step of level step l and the one past its last: step l
+// reads channels below 81 (l + 1) only (kStepGroups), the last to 336.
+__host__ __device__ constexpr int step_begin(int l) { return kStepGroups * l; }
+__host__ __device__ constexpr int step_end(int l) {
+  return l + 1 < kLevels ? kStepGroups * (l + 1) : kKSteps;
+}
+
+// Query n's integer taps of level l's 10 x 10 window at (x, y) (the
+// query's coordinates at the level): lane (r, c) reads rows r + 3k, k =
+// 0..3, column c (zero outside the map or past the last query). Each
+// level has fewer than 2^31 elements (the wrapper checks).
+__device__ __forceinline__ void load_window(const LevelsBf16& lv, int l,
+                                            int n, bool live, float x,
+                                            float y, int r, int c,
+                                            float (&gv)[4]) {
+  const int H = lv.h[l], W = lv.w[l];
+  // a window wholly outside the map stays wholly outside after the
+  // clamp, which keeps the integer taps small
+  const int xs = static_cast<int>(fminf(fmaxf(floorf(x), -6.f), W + 4.f))
+                 - kRadius + c;
+  const int ys = static_cast<int>(fminf(fmaxf(floorf(y), -6.f), H + 4.f))
+                 - kRadius + r;
+  const unsigned short* m =
+      reinterpret_cast<const unsigned short*>(lv.ptr[l]);
+  const int row0 = (live ? n * H : 0) + ys;
+  const bool col_in = live && xs >= 0 && xs < W;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int yy = ys + 3 * k;
+    const bool in = col_in && r + 3 * k < kWin && yy >= 0 && yy < H;
+    gv[k] = in ? __uint_as_float(static_cast<uint32_t>(
+                     __ldg(m + (row0 + 3 * k) * W + xs)) << 16)
+               : 0.f;
+  }
+}
+
+// The window's 81 values from its taps: rows lerped by fy in bf16 (fy
+// rounded, each product and the sum rounded; the row below from lane +
+// 10, or from the next load's lane c, 20 lanes down), then columns by fx
+// in fp32 (the column right from lane + 1); v[k] is lane (r, c)'s value
+// at column c, row 3k + r, for c < 9.
+__device__ __forceinline__ void lerp_window(const float (&gv)[4], float x,
+                                            float y, int r,
+                                            float (&v)[3]) {
+  const float fyb = bf::round_bf16(y - floorf(y));
+  const float omfy = bf::round_bf16(1.f - fyb);
+  const float fx = x - floorf(x);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float up = __shfl_down_sync(0xffffffffu, gv[k], kWin);
+    const float wrap = __shfl_up_sync(0xffffffffu, gv[k + 1], 2 * kWin);
+    const float below = r < 2 ? up : wrap;
+    const float gy =
+        bf::round_bf16(__fadd_rn(bf::round_bf16(__fmul_rn(gv[k], omfy)),
+                                 bf::round_bf16(__fmul_rn(below, fyb))));
+    const float right = __shfl_down_sync(0xffffffffu, gy, 1);
+    v[k] = __fadd_rn(__fmul_rn(gy, 1.f - fx), __fmul_rn(right, fx));
+  }
+}
+
+template <class Bias>
+__global__ void __launch_bounds__(kThreadsB, 1)
+corr_lookup_moenc_bf16_kernel(LevelsBf16 lv, const float* __restrict__ coords,
+                              const __nv_bfloat16* __restrict__ weight,
+                              const Bias* __restrict__ bias,
+                              float* __restrict__ out, int n_query,
+                              int n_tiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t w_base = base;                        // [21][256 rows]
+  const uint32_t a_base = base + kKSteps * kWBlock;    // [21][64 rows]
+  const uint32_t bars = a_base + kKSteps * kABlock;
+  unsigned char* const a = smem_raw + (a_base - raw);
+  // full[l]: level l of the tile's A written (one arrival a producer
+  // warp); empty[l]: level step l's products done (one a consumer warp)
+  auto full = [&](int l) { return bars + 8 * l; };
+  auto empty = [&](int l) { return bars + 8 * (kLevels + l); };
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int role = wga::warpgroup();   // 0 .. 3 consumers, 4 .. 7 producers
+  if (tid == 0) {
+    for (int l = 0; l < kLevels; ++l) {
+      wga::bar_init(full(l), kProducerWarps);
+      wga::bar_init(empty(l), kConsumerThreads / 32);
+    }
+    wga::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (role >= kConsumerThreads / 128) {
+    // ---- producers: warp pw gathers queries pw + 16q of each tile, level
+    // by level. Tile i's level l overwrites A's k-steps that step
+    // min(l + 1, 3) of tile i - 1 was the last to read.
+    const int pw = warp - kConsumerThreads / 32;
+    const int r = lane / kWin, c = lane % kWin;   // window row, column
+    const bool glane = lane < 3 * kWin;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+      float cx[kQPW], cy[kQPW];
+#pragma unroll
+      for (int q = 0; q < kQPW; ++q) {
+        const int n = tile * kBQb + pw + kProducerWarps * q;
+        const bool live = n < n_query;
+        cx[q] = live ? __ldg(coords + 2 * static_cast<size_t>(n)) : 0.f;
+        cy[q] = live ? __ldg(coords + 2 * static_cast<size_t>(n) + 1) : 0.f;
+      }
+      // (not unrolled: unrolled, the compiler keeps the 48 store addresses
+      // of A across the tiles and spills them)
+#pragma unroll 1
+      for (int l = 0; l < kLevels; ++l) {
+        const float scale = 1.f / static_cast<float>(1 << l);
+        float gv[kQPW][4];
+#pragma unroll
+        for (int q = 0; q < kQPW; ++q) {
+          const int n = tile * kBQb + pw + kProducerWarps * q;
+          load_window(lv, l, n, n < n_query && glane,
+                      cx[q] * scale, cy[q] * scale, r, c, gv[q]);
+        }
+        float v[kQPW][3];
+#pragma unroll
+        for (int q = 0; q < kQPW; ++q)
+          lerp_window(gv[q], cx[q] * scale, cy[q] * scale, r, v[q]);
+        wga::bar_wait(empty(l + 1 < kLevels ? l + 1 : l), (it + 1) & 1);
+        if (glane && c < kTaps) {
+#pragma unroll
+          for (int q = 0; q < kQPW; ++q)
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              *reinterpret_cast<__nv_bfloat16*>(
+                  a + a_offset(pw + kProducerWarps * q,
+                               l * kLevelC + c * kTaps + 3 * k + r)) =
+                  __float2bfloat16_rn(v[q][k]);
+        }
+        wga::proxy_fence();   // the values visible to wgmma
+        __syncwarp();
+        if (lane == 0) wga::bar_arrive(full(l));
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg multiplies the tile by outputs 64 wg ..
+  // + 63, level step by level step, then bias + relu
+  const int wg = role;
+  const int g = lane / 4, t = lane % 4;
+  // convc1's weight, once: row f's 16-byte chunk q (channels 8q .. 8q + 7)
+  // into k-step q / 2; A's padding channels stay zero
+  for (int e = tid; e < kF * (kCP / 8); e += kConsumerThreads) {
+    const int f = e / (kCP / 8), q = e % (kCP / 8);
+    wga::cp_async16(w_base + (q >> 1) * kWBlock + swizzled32(f, q & 1),
+                    weight + f * kCP + 8 * q, true);
+  }
+  bf::cp_async_commit();
+  for (int e = tid; e < kBQb * (kCP - kC); e += kConsumerThreads)
+    *reinterpret_cast<__nv_bfloat16*>(
+        a + a_offset(e / (kCP - kC), kC + e % (kCP - kC))) =
+        __float2bfloat16(0.f);
+  bf::cp_async_wait<0>();
+  wga::proxy_fence();
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
+
+  const uint64_t da = desc_sw32(a_base);
+  const uint64_t db = desc_sw32(w_base + wg * 64 * kRowB);
+  float acc[32];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+#pragma unroll
+    for (int l = 0; l < kLevels; ++l) {
+      wga::bar_wait(full(l), it & 1);
+      wga::proxy_fence();
+      wga::pin(acc);
+      wga::wgmma_fence();
+#pragma unroll
+      for (int kk = step_begin(l); kk < step_end(l); ++kk)
+        wga::mma_ss_n64(acc, da + kk * kABlock / 16, db + kk * kWBlock / 16,
+                        kk > 0);
+      wga::wgmma_commit();
+      wga::wgmma_wait<0>();
+      wga::pin(acc);
+      __syncwarp();
+      if (lane == 0) wga::bar_arrive(empty(l));
+    }
+    // bias + relu from the accumulators: thread (warp, g, t) of the
+    // group holds rows 16 (warp % 4) + g (+ 8), columns 8j + 2t, + 1; a
+    // warp's store fills whole 32-byte sectors of 8 rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = tile * kBQb + 16 * (warp % 4) + g + 8 * h;
+      if (n >= n_query) continue;
+      float* const row = out + static_cast<size_t>(n) * kF + 64 * wg + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 b = bias_pair(bias, 64 * wg + 8 * j + 2 * t);
+        *reinterpret_cast<float2*>(row + 8 * j) =
+            make_float2(fmaxf(acc[4 * j + 2 * h] + b.x, 0.f),
+                        fmaxf(acc[4 * j + 2 * h + 1] + b.y, 0.f));
+      }
+    }
+  }
+}
+
+// The bf16 form's setup, per device (as configure): more than 48 KB of
+// dynamic shared memory, for both instances.
+bool configured_bf16[kMaxDevices] = {};
+
+int configure_bf16() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (configured_bf16[dev]) return 0;
+  err = cudaFuncSetAttribute(
+      corr_lookup_moenc_bf16_kernel<__nv_bfloat16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemB));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        corr_lookup_moenc_bf16_kernel<float>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemB));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  configured_bf16[dev] = true;
   return 0;
 }
 
@@ -553,13 +722,16 @@ extern "C" int corr_lookup_moenc_launch_info(void* info, void*) {
 
 namespace {
 
-// Launches K1's bf16 kernel with a bias of type Bias.
+// Launches K1's bf16 kernel with a bias of type Bias: `blocks` persistent
+// blocks (the wrapper's ops/corr.py:k1_bf16_grid) walk the 64-query tiles.
 template <class Bias>
 int launch_bf16(const void* l0, const void* l1, const void* l2,
                 const void* l3, const void* coords, const void* weight,
                 const void* bias, void* out, int n_query, int h0, int w0,
-                int h1, int w1, int h2, int w2, int h3, int w3,
+                int h1, int w1, int h2, int w2, int h3, int w3, int blocks,
                 void* stream) {
+  const int err = configure_bf16();
+  if (err != 0) return err;
   LevelsBf16 lv;
   lv.ptr[0] = static_cast<const __nv_bfloat16*>(l0);
   lv.ptr[1] = static_cast<const __nv_bfloat16*>(l1);
@@ -569,30 +741,33 @@ int launch_bf16(const void* l0, const void* l1, const void* l2,
   lv.h[1] = h1; lv.w[1] = w1;
   lv.h[2] = h2; lv.w[2] = w2;
   lv.h[3] = h3; lv.w[3] = w3;
-  const int blocks = (n_query + kBQb - 1) / kBQb;
-  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  corr_lookup_moenc_bf16_kernel<Bias><<<blocks, kThreadsB, 0,
+  const int n_tiles = (n_query + kBQb - 1) / kBQb;
+  if (blocks < 1 || blocks > n_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  corr_lookup_moenc_bf16_kernel<Bias><<<blocks, kThreadsB, kSmemB,
                                         static_cast<cudaStream_t>(stream)>>>(
       lv, static_cast<const float*>(coords),
       static_cast<const __nv_bfloat16*>(weight),
-      static_cast<const Bias*>(bias), static_cast<float*>(out), n_query);
+      static_cast<const Bias*>(bias), static_cast<float*>(out), n_query,
+      n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The bf16 form: levels bf16, coords fp32, weight (256, 324) bf16, bias
-// (256) bf16, out (N, 256) fp32; all contiguous (the wrapper checks).
+// The bf16 form: levels bf16, coords fp32, weight (256, 336) bf16 (convc1's
+// rows, channels 324 .. 335 zero), bias (256) bf16, out (N, 256) fp32; all
+// contiguous, weight and out 16-byte aligned (the wrapper checks).
 extern "C" int corr_lookup_moenc_bf16(const void* l0, const void* l1,
                                       const void* l2, const void* l3,
                                       const void* coords, const void* weight,
                                       const void* bias, void* out,
                                       int n_query, int h0, int w0, int h1,
                                       int w1, int h2, int w2, int h3, int w3,
-                                      void* stream) {
+                                      int blocks, void* stream) {
   return launch_bf16<__nv_bfloat16>(l0, l1, l2, l3, coords, weight, bias,
                                     out, n_query, h0, w0, h1, w1, h2, w2, h3,
-                                    w3, stream);
+                                    w3, blocks, stream);
 }
 
 // Over a bf16 volume with fp32 parameters (the JAX RAFT's fp32 refine over
@@ -603,19 +778,22 @@ extern "C" int corr_lookup_moenc_bf16_volume(
     const void* l0, const void* l1, const void* l2, const void* l3,
     const void* coords, const void* weight, const void* bias, void* out,
     int n_query, int h0, int w0, int h1, int w1, int h2, int w2, int h3,
-    int w3, void* stream) {
+    int w3, int blocks, void* stream) {
   return launch_bf16<float>(l0, l1, l2, l3, coords, weight, bias, out,
-                            n_query, h0, w0, h1, w1, h2, w2, h3, w3, stream);
+                            n_query, h0, w0, h1, w1, h2, w2, h3, w3, blocks,
+                            stream);
 }
 
-// Launch facts of the bf16 form (as corr_lookup_moenc_launch_info; one
-// block per 64-query tile, static shared memory).
+// Launch facts of the bf16 forms (as corr_lookup_moenc_launch_info; the
+// persistent grid is the wrapper's).
 extern "C" int corr_lookup_moenc_bf16_launch_info(void* info, void*) {
+  const int err = configure_bf16();
+  if (err != 0) return err;
   int* i = static_cast<int*>(info);
-  i[1] = 0;
+  i[1] = static_cast<int>(kSmemB);
   i[2] = kThreadsB;
   i[3] = kBQb;
   i[4] = 1;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      i, corr_lookup_moenc_bf16_kernel<__nv_bfloat16>, kThreadsB, 0));
+      i, corr_lookup_moenc_bf16_kernel<__nv_bfloat16>, kThreadsB, kSmemB));
 }

@@ -65,27 +65,55 @@
 // The bf16 form of K3 (modulated_deform_conv2d_bf16; the TPU kernel as the
 // JAX bf16 pipeline runs it). Semantics:
 // propainter_tpu_torch/ops/deform.py:modulated_deform_conv2d_bf16. x,
-// offset, mask, weight, bias and out are bf16, in K3's layouts. It rounds
-// where the TPU kernel rounds (deform_pallas.py:192-204, 256-258, 276-280):
-// each sample position (h + i - 1 + dy in fp32) to bf16; the column weights
-// max(1 - |sx - col|, 0) to bf16, the row weights fp32; the value (its
-// column lerp, row lerp and mask product, fp32, no FMA contraction) to
-// bf16 as the A operand; the contraction one m16n8k16 bf16 pass with fp32
-// accumulators over every group and tap; the sum to bf16, then + bias in
-// bf16. A first, simple design: one block of 4 warps per 32 positions x
-// 128 outputs (warp w: outputs 32w .. 32w + 31), K walked in 32-channel
-// chunks of one tap; per chunk the taps' corners and weights, the weight
-// chunk (transposed into k pairs) and the A tile are built in shared
-// memory between barriers, then 2 k-steps of products. No cluster split
-// and no overlap. Bound: operations (2 * 9 * C * 128 FLOPs per position
-// at the bf16 tensor-core rate) or bytes, whichever is larger.
+// offset, mask, weight, bias and out are bf16, in K3's layouts; C % 64 ==
+// 0. It rounds where the TPU kernel rounds (deform_pallas.py:192-204,
+// 256-258, 276-280): each sample position (h + i - 1 + dy in fp32) to
+// bf16; the column weights max(1 - |sx - col|, 0) to bf16, the row weights
+// fp32; the value (its column lerp, row lerp and mask product, fp32, no
+// FMA contraction) to bf16 as the A operand; the contraction bf16 x bf16
+// with fp32 sums over every group and tap (the TPU kernel sums its groups
+// in fp32 across its grid, :206-211, so any fp32 order is its order); the
+// sum to bf16, then + bias in bf16.
+// Bound: at the main path's shapes the products (2 * 9 * C * 128 FLOPs a
+// position) take 1.9 us at the bf16 tensor-core rate and the bytes 1.8-2.8
+// us, so the kernel is bound by neither but by the latency of its
+// gathers: each 64-channel chunk of one tap needs the taps' offsets, then
+// four dependent corner reads per 8 channels.
+// Design: a GEMM of M = B*H*W positions, N = 128, K = 9*C (tap-major)
+// whose A operand is built in shared memory. A block is one warpgroup
+// owning a 64-position x 128-output tile, 64 fp32 accumulators a thread,
+// on wgmma m64n128k16 (4 per chunk). K is walked in 64-channel chunks of
+// one tap through 3 stages of shared memory, each an A tile (64 rows of
+// 128 bytes) and the chunk's 64 weight rows (two 64-output atoms), both in
+// the 128-byte swizzle that wgmma reads: A K-major, the HWIO weight as it
+// lies, MN-major (wgmma's transposed B). Per chunk every thread loads the
+// next chunk's raw taps, then gathers its items of this chunk (an item:
+// one position's 8 channels, 4 for group width 4: corners and weights
+// from the taps, four 16-byte corner reads, the rounded values, one
+// swizzled store), waits for the chunk's weight rows (cp.async issued a
+// chunk ahead), passes one barrier and issues the products, which run
+// under the next chunk's gather; 3 stages let one barrier a chunk order
+// every reuse of a stage. Fill: at 64 positions a tile the main path has
+// 102 (generator) and 51 (flow completion) tiles for 132 SMs, so each
+// tile's chunks are split over a cluster of n_split blocks
+// (ops/deform.py:k3_split over 64-channel chunks), whose fp32 partial sums
+// meet in distributed shared memory in rank order, then are rounded and
+// biased once (as the fp32 form does). At 2 resident blocks per SM (195
+// to 222 registers) the split is 2 at the generator and 4 at the flow
+// completion: 204 blocks of 9 chunks each, one round.
+// (Measured on an H100, 700 W, and not kept: 3 resident blocks per SM,
+// ptxas held to 168 registers, split 3 / 6, 0.041 / 0.030 ms against
+// 0.036 / 0.030; a fourth stage, no change (kernel_variants.py k3). The
+// form this replaces, one block of 4 warps per 32 positions walking every
+// chunk on mma.sync between three barriers a chunk, is in PERF.md.)
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
+#include "attention_wgmma.cuh"
+#include "bf16.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -392,34 +420,34 @@ deform_conv_kernel(const float* __restrict__ x,
 // the tensors' device current).
 constexpr int kMaxDevices = 64;
 
-template <int kCg>
-int configure() {
-  static bool done[kMaxDevices] = {};
+template <class Kernel>
+int configure(Kernel kernel, size_t smem, bool (&done)[kMaxDevices]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
   if (done[dev]) return 0;
-  err = cudaFuncSetAttribute(
-      deform_conv_kernel<kCg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<kCg>()));
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   done[dev] = true;
   return 0;
 }
 
-template <int kCg>
-int launch_conv(const float* x, const float* offset, const float* mask,
-                const float* weight, const float* bias, float* out,
-                int n_pos, int H, int W, int C, int split,
-                cudaStream_t stream) {
-  const int err = configure<kCg>();
+// One launch of `kernel` over `tiles` position tiles, each split over a
+// cluster of `split` blocks.
+template <class Kernel, class... Args>
+int launch_split(Kernel kernel, bool (&done)[kMaxDevices], size_t smem,
+                 int threads, int tiles, int split, cudaStream_t stream,
+                 Args... args) {
+  const int err = configure(kernel, smem, done);
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n_pos + kBP - 1) / kBP * split);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes<kCg>();
+  cfg.gridDim = dim3(tiles * split);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -428,219 +456,356 @@ int launch_conv(const float* x, const float* offset, const float* mask,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, deform_conv_kernel<kCg>, x, offset,
-                                     mask, weight, bias, out, n_pos, H, W, C,
-                                     split);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kCg>
-int conv_info(int* info) {
-  const int err = configure<kCg>();
+// info = {resident blocks per SM, dynamic shared memory bytes, threads per
+// block, positions per block, most blocks per cluster}.
+template <class Kernel>
+int split_info(Kernel kernel, bool (&done)[kMaxDevices], size_t smem,
+               int threads, int positions, int* info) {
+  const int err = configure(kernel, smem, done);
   if (err != 0) return err;
-  info[1] = static_cast<int>(smem_bytes<kCg>());
-  info[2] = kThreads;
-  info[3] = kBP;
+  info[1] = static_cast<int>(smem);
+  info[2] = threads;
+  info[3] = positions;
   info[4] = kMaxSplit;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      info, deform_conv_kernel<kCg>, kThreads, smem_bytes<kCg>()));
+      info, kernel, threads, smem));
+}
+
+template <int kCg>
+bool conv_configured[kMaxDevices] = {};
+
+template <int kCg>
+int launch_conv(const float* x, const float* offset, const float* mask,
+                const float* weight, const float* bias, float* out,
+                int n_pos, int H, int W, int C, int split,
+                cudaStream_t stream) {
+  return launch_split(deform_conv_kernel<kCg>, conv_configured<kCg>,
+                      smem_bytes<kCg>(), kThreads, (n_pos + kBP - 1) / kBP,
+                      split, stream, x, offset, mask, weight, bias, out,
+                      n_pos, H, W, C, split);
+}
+
+template <int kCg>
+int conv_info(int* info) {
+  return split_info(deform_conv_kernel<kCg>, conv_configured<kCg>,
+                    smem_bytes<kCg>(), kThreads, kBP, info);
 }
 
 // ---- K3, bf16 form --------------------------------------------------------
 
-constexpr int kBPb = 32;            // positions per block
-constexpr int kLdAb = kCK + 8;      // bf16 per A row: 20 words, conflict-free
-constexpr int kLdWb = kCK + 8;      // bf16 per transposed weight row (one o)
+constexpr int kBPb = 64;            // positions per tile: wgmma's M
+constexpr int kCKb = 64;            // channels per K chunk: one 128-byte
+                                    // swizzled row of bf16
+constexpr int kStagesB = 3;         // A + weight stages
+constexpr int kBlocksPerSmB = 2;    // resident blocks asked for: no spills
+constexpr int kAStageB = kBPb * kCKb * 2;              // 8 KB, one atom
+constexpr int kWAtomB = kCKb * wga::kAtomRow;          // 64 k x 64 outputs
+constexpr int kStageB = kAStageB + 2 * kWAtomB;        // 24 KB
+constexpr int kLdPb = kO + 8;       // partial-sum row (floats): float2
+                                    // stores free of bank conflicts
+constexpr size_t kSmemB = kStagesB * kStageB + 1024;   // + room to align
+static_assert(kBPb * kLdPb * sizeof(float) <= kStagesB * kStageB,
+              "the partial sums fit in the stages");
+
+#define K3B_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define K3B_F16(a, i) \
+  K3B_F4(a, i), K3B_F4(a, i + 4), K3B_F4(a, i + 8), K3B_F4(a, i + 12)
+
+// d += A·B over one k-step of 16: A 64 x 16 K-major, B 16 (k) x 128 (n)
+// MN-major (tnspB 1: the HWIO weight's own layout), both in shared memory
+// in the 128-byte swizzle.
+__device__ __forceinline__ void mma_ss_n128_mn(float (&d)[64], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+      "1, 0, 1;\n}"
+      : K3B_F16(d, 0), K3B_F16(d, 16), K3B_F16(d, 32), K3B_F16(d, 48)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef K3B_F16
+#undef K3B_F4
+
+// Word e of a 16-byte load (e a constant once the loops are unrolled).
+__device__ __forceinline__ uint32_t word(const uint4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// kU channels (8, or 4 for group width 4) at p of x: kU / 2 words.
+template <int kU>
+__device__ __forceinline__ uint4 load_channels(const __nv_bfloat16* p) {
+  if constexpr (kU == 8) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_uint4(v.x, v.y, 0u, 0u);
+  }
+}
 
 template <int kCg>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSmB)
 deform_conv_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                         const __nv_bfloat16* __restrict__ offset,
                         const __nv_bfloat16* __restrict__ mask,
                         const __nv_bfloat16* __restrict__ weight,
                         const __nv_bfloat16* __restrict__ bias,
                         __nv_bfloat16* __restrict__ out, int n_pos, int H,
-                        int W, int C) {
-  constexpr int kNG = kCK / kCg;           // groups per chunk
-  __shared__ __align__(16) __nv_bfloat16 a[kBPb * kLdAb];
-  __shared__ __align__(16) __nv_bfloat16 wt[kO * kLdWb];
-  __shared__ int4 tap_off[kBPb * kNG];
-  __shared__ float4 tap_w[kBPb * kNG];     // wx0, wx1 (bf16), wy0, wy1
-  __shared__ float tap_m[kBPb * kNG];
+                        int W, int C, int n_split) {
+  constexpr int kU = kCg < 8 ? kCg : 8;          // channels an item
+  constexpr int kUnits = kCKb / kU;              // items a position row
+  constexpr int kRowsPass = kThreads / kUnits;   // rows of one pass
+  constexpr int kItems = kBPb / kRowsPass;       // items a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;   // the swizzle's alignment
+  unsigned char* const smem = smem_raw + (base - raw);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
-  const int p0 = blockIdx.x * kBPb;
-  const int dg = C / kCg, n_cc = C / kCK, n_chunks = 9 * n_cc;
+  const int rank = blockIdx.x % n_split;
+  const int p0 = blockIdx.x / n_split * kBPb;
+  const int dg = C / kCg, n_cc = C / kCKb, n_chunks = 9 * n_cc;
+  const int j0 = n_chunks * rank / n_split;
+  const int j1 = n_chunks * (rank + 1) / n_split;
+  const int unit = tid % kUnits, row0 = tid / kUnits;
 
-  float acc[2][4][4];
+  // item i: tile row row0 + kRowsPass i, channels unit kU .. + kU - 1 of
+  // each chunk; ih < 0 past the last position
+  int ih[kItems], iw[kItems];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  for (int i = 0; i < kItems; ++i) {
+    const int p = p0 + row0 + kRowsPass * i;
+    ih[i] = -1;
+    iw[i] = 0;
+    if (p < n_pos) {
+      const int r = p % (H * W);
+      ih[i] = r / W;
+      iw[i] = r - ih[i] * W;
+    }
+  }
 
-  for (int j = 0; j < n_chunks; ++j) {
+  // the raw taps (dy, dx as a bf16 pair; the mask's bf16 bits) of chunk j
+  auto load_taps = [&](int j, uint32_t (&d)[kItems],
+                       unsigned short (&m)[kItems]) {
     const int k = j / n_cc;
-    const int c0 = (j - k * n_cc) * kCK;
-    __syncthreads();   // the previous chunk's products are done
-    // taps of (position, group): corners clamped into the image, weights
-    // zero for a corner outside it
-    for (int e = tid; e < kBPb * kNG; e += kThreads) {
-      const int pm = e / kNG, gi = e % kNG;
-      const int p = p0 + pm;
-      int4 o = make_int4(0, 0, 0, 0);
-      float4 wv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float m = 0.f;
-      if (p < n_pos) {
-        const int b = p / (H * W);
-        const int rr = p - b * H * W;
-        const int h = rr / W, w = rr - h * W;
-        const int idx = (p * dg + c0 / kCg + gi) * 9 + k;
-        const float2 d = __bfloat1622float2(
-            reinterpret_cast<const __nv_bfloat162*>(offset)[idx]);
-        m = __bfloat162float(mask[idx]);
+    const int grp = ((j - k * n_cc) * kCKb + unit * kU) / kCg;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int idx = ((p0 + row0 + kRowsPass * i) * dg + grp) * 9 + k;
+      const bool live = ih[i] >= 0;
+      d[i] = live ? __ldg(reinterpret_cast<const unsigned int*>(offset) + idx)
+                  : 0u;
+      m[i] = live ? __ldg(reinterpret_cast<const unsigned short*>(mask) + idx)
+                  : static_cast<unsigned short>(0);
+    }
+  };
+  // chunk j's A tile into stage s: each item's corners and weights, its
+  // four corner loads, the modulated value rounded where the TPU kernel
+  // rounds, one 16- (or 8-) byte store in the 128-byte swizzle
+  auto gather = [&](int j, int s, const uint32_t (&d)[kItems],
+                    const unsigned short (&m)[kItems]) {
+    const int k = j / n_cc;
+    const int c0 = (j - k * n_cc) * kCKb + unit * kU;
+    unsigned char* const a = smem + s * kStageB;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int row = row0 + kRowsPass * i;
+      uint32_t packed[kU / 2];
+#pragma unroll
+      for (int e = 0; e < kU / 2; ++e) packed[e] = 0u;
+      if (ih[i] >= 0) {
+        const float mm = __uint_as_float(static_cast<uint32_t>(m[i]) << 16);
         const float sy = bf::round_bf16(
-            __fadd_rn(static_cast<float>(h + k / 3 - 1), d.x));
+            __fadd_rn(static_cast<float>(ih[i] + k / 3 - 1), bf::lo(d[i])));
         const float sx = bf::round_bf16(
-            __fadd_rn(static_cast<float>(w + k % 3 - 1), d.y));
+            __fadd_rn(static_cast<float>(iw[i] + k % 3 - 1), bf::hi(d[i])));
         const float y0 = floorf(sy), x0 = floorf(sx);
         const bool yin0 = y0 >= 0.f && y0 <= H - 1;
         const bool yin1 = y0 + 1.f >= 0.f && y0 + 1.f <= H - 1;
         const bool xin0 = x0 >= 0.f && x0 <= W - 1;
         const bool xin1 = x0 + 1.f >= 0.f && x0 + 1.f <= W - 1;
-        wv.x = xin0 ? bf::round_bf16(fmaxf(1.f - fabsf(sx - x0), 0.f)) : 0.f;
-        wv.y = xin1 ? bf::round_bf16(fmaxf(1.f - fabsf(sx - (x0 + 1.f)), 0.f))
-                    : 0.f;
-        wv.z = yin0 ? fmaxf(1.f - fabsf(sy - y0), 0.f) : 0.f;
-        wv.w = yin1 ? fmaxf(1.f - fabsf(sy - (y0 + 1.f)), 0.f) : 0.f;
+        const float wx0 =
+            xin0 ? bf::round_bf16(fmaxf(1.f - fabsf(sx - x0), 0.f)) : 0.f;
+        const float wx1 =
+            xin1 ? bf::round_bf16(fmaxf(1.f - fabsf(sx - (x0 + 1.f)), 0.f))
+                 : 0.f;
+        const float wy0 = yin0 ? fmaxf(1.f - fabsf(sy - y0), 0.f) : 0.f;
+        const float wy1 = yin1 ? fmaxf(1.f - fabsf(sy - (y0 + 1.f)), 0.f)
+                               : 0.f;
         const int ya = static_cast<int>(fminf(fmaxf(y0, 0.f), H - 1.f));
         const int yb = static_cast<int>(fminf(fmaxf(y0 + 1.f, 0.f), H - 1.f));
         const int xa = static_cast<int>(fminf(fmaxf(x0, 0.f), W - 1.f));
         const int xb = static_cast<int>(fminf(fmaxf(x0 + 1.f, 0.f), W - 1.f));
-        const int pix0 = b * H * W;
-        o = make_int4((pix0 + ya * W + xa) * C, (pix0 + ya * W + xb) * C,
-                      (pix0 + yb * W + xa) * C, (pix0 + yb * W + xb) * C);
-      }
-      tap_off[e] = o;
-      tap_w[e] = wv;
-      tap_m[e] = m;
-    }
-    // weight rows k*C + c0 .. + 31, transposed: wt[o][kk] (pairs of k)
-    const __nv_bfloat16* wsrc =
-        weight + (static_cast<size_t>(k) * C + c0) * kO;
+        const int pix0 = p0 + row - ih[i] * W - iw[i];
+        const __nv_bfloat16* xq = x + c0;
+        const uint4 r00 = load_channels<kU>(xq + (pix0 + ya * W + xa) * C);
+        const uint4 r01 = load_channels<kU>(xq + (pix0 + ya * W + xb) * C);
+        const uint4 r10 = load_channels<kU>(xq + (pix0 + yb * W + xa) * C);
+        const uint4 r11 = load_channels<kU>(xq + (pix0 + yb * W + xb) * C);
 #pragma unroll
-    for (int i = 0; i < kCK / 2; ++i) {
-      const __nv_bfloat16 lo = wsrc[(2 * i) * kO + tid];
-      const __nv_bfloat16 hi = wsrc[(2 * i + 1) * kO + tid];
-      __nv_bfloat162 pr;
-      pr.x = lo;
-      pr.y = hi;
-      *reinterpret_cast<__nv_bfloat162*>(wt + tid * kLdWb + 2 * i) = pr;
-    }
-    __syncthreads();   // taps visible
-    // A tile: thread (position, 4-channel quad)
+        for (int e = 0; e < kU / 2; ++e) {
+          float v[2];
 #pragma unroll
-    for (int i = 0; i < kBPb * kCK / 4 / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int pm = e / (kCK / 4), quad = e % (kCK / 4);
-      const int tap = pm * kNG + 4 * quad / kCg;
-      const int4 o = tap_off[tap];
-      const float4 wv = tap_w[tap];
-      const float m = tap_m[tap];
-      const __nv_bfloat16* xq = x + c0 + 4 * quad;
-      const uint2 r00 = __ldg(reinterpret_cast<const uint2*>(xq + o.x));
-      const uint2 r01 = __ldg(reinterpret_cast<const uint2*>(xq + o.y));
-      const uint2 r10 = __ldg(reinterpret_cast<const uint2*>(xq + o.z));
-      const uint2 r11 = __ldg(reinterpret_cast<const uint2*>(xq + o.w));
-      const uint32_t v00[2] = {r00.x, r00.y}, v01[2] = {r01.x, r01.y};
-      const uint32_t v10[2] = {r10.x, r10.y}, v11[2] = {r11.x, r11.y};
-      float v[4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const float a00 = e2 ? bf::hi(v00[hh]) : bf::lo(v00[hh]);
-          const float a01 = e2 ? bf::hi(v01[hh]) : bf::lo(v01[hh]);
-          const float a10 = e2 ? bf::hi(v10[hh]) : bf::lo(v10[hh]);
-          const float a11 = e2 ? bf::hi(v11[hh]) : bf::lo(v11[hh]);
-          const float t0 = __fadd_rn(__fmul_rn(a00, wv.x), __fmul_rn(a01, wv.y));
-          const float t1 = __fadd_rn(__fmul_rn(a10, wv.x), __fmul_rn(a11, wv.y));
-          v[2 * hh + e2] = __fmul_rn(
-              __fadd_rn(__fmul_rn(t0, wv.z), __fmul_rn(t1, wv.w)), m);
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t w00 = word(r00, e), w01 = word(r01, e);
+            const uint32_t w10 = word(r10, e), w11 = word(r11, e);
+            const float a00 = h ? bf::hi(w00) : bf::lo(w00);
+            const float a01 = h ? bf::hi(w01) : bf::lo(w01);
+            const float a10 = h ? bf::hi(w10) : bf::lo(w10);
+            const float a11 = h ? bf::hi(w11) : bf::lo(w11);
+            const float t0 =
+                __fadd_rn(__fmul_rn(a00, wx0), __fmul_rn(a01, wx1));
+            const float t1 =
+                __fadd_rn(__fmul_rn(a10, wx0), __fmul_rn(a11, wx1));
+            v[h] = __fmul_rn(
+                __fadd_rn(__fmul_rn(t0, wy0), __fmul_rn(t1, wy1)), mm);
+          }
+          packed[e] = bf::pack(v[0], v[1]);
         }
       }
-      *reinterpret_cast<uint2*>(a + pm * kLdAb + 4 * quad) =
-          make_uint2(bf::pack(v[0], v[1]), bf::pack(v[2], v[3]));
+      const int ch = unit * kU;   // the item's first channel in the chunk
+      unsigned char* dst =
+          a + row * wga::kAtomRow + (((ch >> 3) ^ (row & 7)) << 4)
+          + (ch & 7) * 2;
+      if constexpr (kU == 8) {
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      } else {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
+      }
     }
-    __syncthreads();   // A tile and weights visible
-    const uint32_t* aw = reinterpret_cast<const uint32_t*>(a);
-    const uint32_t* ww = reinterpret_cast<const uint32_t*>(wt);
+  };
+  // chunk j's weight rows k C + c0 .. + 63 of the (9 C, 128) weight into
+  // stage s, MN-major: two atoms of 64 outputs
+  auto issue_weights = [&](int j, int s) {
+    const int k = j / n_cc;
+    const __nv_bfloat16* src =
+        weight + (static_cast<size_t>(k) * C + (j - k * n_cc) * kCKb) * kO;
+    const uint32_t dst = base + s * kStageB + kAStageB;
 #pragma unroll
-    for (int s = 0; s < kCK / 16; ++s) {
-      uint32_t fa[2][4];
+    for (int i = 0; i < kCKb * (kO / 8) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / (kO / 8), c = e % (kO / 8);
+      wga::cp_async16(dst + wga::swizzled(r, c, kWAtomB), src + r * kO + 8 * c,
+                      true);
+    }
+  };
+
+  float acc[64];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int w0 = ((16 * mi + g) * kLdAb + 16 * s) / 2 + t;
-        fa[mi][0] = aw[w0];
-        fa[mi][1] = aw[w0 + 4 * kLdAb];
-        fa[mi][2] = aw[w0 + 4];
-        fa[mi][3] = aw[w0 + 4 * kLdAb + 4];
-      }
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // chunk j: A and weights in stage (j - j0) % 3. Its raw taps are loaded
+  // a chunk ahead, under the gather before; its weights issued a chunk
+  // ahead, under its own gather; its products run under the next chunk's
+  // gather. With 3 stages, the barrier of chunk j - 1 follows every warp's
+  // wait for the products of chunk j - 3, so one barrier a chunk orders
+  // both reuses of a stage.
+  uint32_t d_next[kItems], d_cur[kItems];
+  unsigned short m_next[kItems], m_cur[kItems];
+  issue_weights(j0, 0);
+  bf::cp_async_commit();
+  load_taps(j0, d_next, m_next);
+  for (int j = j0; j < j1; ++j) {
+    const int it = j - j0, s = it % kStagesB;
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        const int wb = ((32 * warp + 8 * jn + g) * kLdWb + 16 * s) / 2 + t;
+    for (int i = 0; i < kItems; ++i) {
+      d_cur[i] = d_next[i];
+      m_cur[i] = m_next[i];
+    }
+    if (j + 1 < j1) load_taps(j + 1, d_next, m_next);
+    gather(j, s, d_cur, m_cur);
+    bf::cp_async_wait<0>();
+    wga::proxy_fence();   // A and weights visible to wgmma
+    __syncthreads();
+    if (j + 1 < j1) issue_weights(j + 1, (it + 1) % kStagesB);
+    bf::cp_async_commit();
+    const uint32_t a_addr = base + s * kStageB;
+    const uint64_t da = wga::desc_k_major(a_addr);
+    const uint64_t db = wga::desc_mn_major(a_addr + kAStageB, kWAtomB);
+    wga::pin(acc);
+    wga::wgmma_fence();
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          bf::mma(acc[mi][jn], fa[mi], ww[wb], ww[wb + 4]);
-      }
+    for (int kk = 0; kk < kCKb / 16; ++kk)
+      mma_ss_n128_mn(acc, da + kk * 32 / 16, db + kk * 16 * wga::kAtomRow / 16);
+    wga::wgmma_commit();
+    wga::wgmma_wait<1>();
+    wga::pin(acc);
+  }
+  wga::wgmma_wait<0>();
+  wga::pin(acc);
+  __syncthreads();   // every product done: the stages hold the partials
+
+  // this block's partial sums -> shared memory [kBPb][kLdPb]: thread (warp,
+  // g, t) holds rows 16 warp + g (+ 8), columns 8 jn + 2t, + 1
+  float* const part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int jn = 0; jn < kO / 8; ++jn)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(part + (16 * warp + g + 8 * h) * kLdPb
+                                 + 8 * jn + 2 * t) =
+          make_float2(acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]);
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  cluster.sync();      // every block's part written
+  // block r of the cluster sums rows [64r/n, 64(r+1)/n) of every part in
+  // rank order; the sum rounded to bf16, then + bias in bf16
+  const int r0 = kBPb * rank / n_split, r1 = kBPb * (rank + 1) / n_split;
+  for (int e = tid; e < (r1 - r0) * (kO / 4); e += kThreads) {
+    const int row = r0 + e / (kO / 4), c4 = 4 * (e % (kO / 4));
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int src = 0; src < n_split; ++src) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, src) + row * kLdPb + c4);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    if (p0 + row < n_pos) {
+      const uint2 bv = __ldg(reinterpret_cast<const uint2*>(bias + c4));
+      *reinterpret_cast<uint2*>(out + static_cast<size_t>(p0 + row) * kO
+                                + c4) = make_uint2(
+          bf::pack(__fadd_rn(bf::round_bf16(s.x), bf::lo(bv.x)),
+                   __fadd_rn(bf::round_bf16(s.y), bf::hi(bv.x))),
+          bf::pack(__fadd_rn(bf::round_bf16(s.z), bf::lo(bv.y)),
+                   __fadd_rn(bf::round_bf16(s.w), bf::hi(bv.y))));
     }
   }
-
-  // the sum rounded to bf16, then + bias in bf16
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int p = p0 + 16 * mi + 8 * hh + g;
-      if (p >= n_pos) continue;
-#pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        const int col = 32 * warp + 8 * jn + 2 * t;
-        const float2 bv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(bias + col));
-        const float s0 = __fadd_rn(bf::round_bf16(acc[mi][jn][2 * hh]), bv.x);
-        const float s1 =
-            __fadd_rn(bf::round_bf16(acc[mi][jn][2 * hh + 1]), bv.y);
-        *reinterpret_cast<__nv_bfloat162*>(
-            out + static_cast<size_t>(p) * kO + col) =
-            __floats2bfloat162_rn(s0, s1);
-      }
-    }
+  cluster.sync();      // no block leaves while another reads its part
 }
+
+template <int kCg>
+bool conv_bf16_configured[kMaxDevices] = {};
 
 template <int kCg>
 int launch_conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* offset,
                      const __nv_bfloat16* mask, const __nv_bfloat16* weight,
                      const __nv_bfloat16* bias, __nv_bfloat16* out, int n_pos,
-                     int H, int W, int C, cudaStream_t stream) {
-  deform_conv_bf16_kernel<kCg><<<(n_pos + kBPb - 1) / kBPb, kThreads, 0,
-                                 stream>>>(x, offset, mask, weight, bias, out,
-                                           n_pos, H, W, C);
-  return static_cast<int>(cudaGetLastError());
+                     int H, int W, int C, int split, cudaStream_t stream) {
+  return launch_split(deform_conv_bf16_kernel<kCg>, conv_bf16_configured<kCg>,
+                      kSmemB, kThreads, (n_pos + kBPb - 1) / kBPb, split,
+                      stream, x, offset, mask, weight, bias, out, n_pos, H, W,
+                      C, split);
 }
 
 template <int kCg>
 int conv_bf16_info(int* info) {
-  info[1] = 0;
-  info[2] = kThreads;
-  info[3] = kBPb;
-  info[4] = 1;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      info, deform_conv_bf16_kernel<kCg>, kThreads, 0));
+  return split_info(deform_conv_bf16_kernel<kCg>, conv_bf16_configured<kCg>,
+                    kSmemB, kThreads, kBPb, info);
 }
 
 // ---- K6 ------------------------------------------------------------------
@@ -750,15 +915,16 @@ extern "C" int modulated_deform_conv2d_launch_info(void* info, int cg,
   }
 }
 
-// The bf16 form of K3: every tensor bf16, in K3's layouts; no cluster
-// split.
+// The bf16 form of K3: every tensor bf16, in K3's layouts; C % 64 == 0,
+// each 64-position tile's chunks split over a cluster of `split` blocks.
 extern "C" int modulated_deform_conv2d_bf16(const void* x, const void* offset,
                                             const void* mask,
                                             const void* weight,
                                             const void* bias, void* out,
                                             int B, int H, int W, int C,
-                                            int dg, void* stream) {
-  if (dg < 1 || C % dg != 0 || C % kCK != 0)
+                                            int dg, int split, void* stream) {
+  if (dg < 1 || C % dg != 0 || C % kCKb != 0 || split < 1
+      || split > kMaxSplit || split > 9 * C / kCKb)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto args = [&](auto launch) {
     return launch(static_cast<const __nv_bfloat16*>(x),
@@ -766,7 +932,7 @@ extern "C" int modulated_deform_conv2d_bf16(const void* x, const void* offset,
                   static_cast<const __nv_bfloat16*>(mask),
                   static_cast<const __nv_bfloat16*>(weight),
                   static_cast<const __nv_bfloat16*>(bias),
-                  static_cast<__nv_bfloat16*>(out), B * H * W, H, W, C,
+                  static_cast<__nv_bfloat16*>(out), B * H * W, H, W, C, split,
                   static_cast<cudaStream_t>(stream));
   };
   switch (C / dg) {

@@ -316,10 +316,15 @@ def corr_lookup_moenc_bf16(pyramid, coords, weight, bias, radius: int = 4):
     (B, H, W, 256) fp32.
 
     Kernel K1's bf16 form (`corr_lookup_moenc_bf16` in
-    `csrc/corr_lookup_moenc.cu`): a 64-query x 256-output tile per block
-    whose bf16 A rows are gathered into shared memory, then one
-    m16n8k16 bf16 pass on the tensor cores, B fragments read straight from
-    the weight. Bound: bytes (the in-range bf16 taps, the fp32 output)."""
+    `csrc/corr_lookup_moenc.cu`): persistent blocks, one per SM
+    (`k1_bf16_grid`), hold convc1's whole weight in shared memory as the
+    `wgmma` B operand, loaded once, and walk 64-query tiles. In a block,
+    16 producer warps gather each level's windows into one bf16 A tile (a
+    warp per query, each 10 x 10 neighbour read once) while four consumer
+    warpgroups multiply the levels already gathered by 64 outputs each;
+    full/empty barriers per level let the next tile's gather run under
+    the products and the epilogue (bias + relu) of the one before. Bound:
+    bytes (the in-range bf16 taps, the fp32 output)."""
     if coords.device.type == "cpu":
         return _corr_lookup_moenc_bf16_plain(pyramid, coords, weight, bias,
                                              radius)
@@ -346,8 +351,9 @@ def corr_lookup_moenc_bf16_volume(pyramid, coords, weight, bias,
     fp32. Returns (B, H, W, 256) fp32.
 
     Kernel K1's bf16 form with an fp32 bias (`corr_lookup_moenc_bf16_volume`
-    in `csrc/corr_lookup_moenc.cu`); the weight is rounded to bf16 here,
-    one 324 x 256 copy a call. Bound: bytes, as K1's bf16 form."""
+    in `csrc/corr_lookup_moenc.cu`, the same kernel template); the weight
+    is rounded to bf16 here, in the copy every call makes. Bound: bytes,
+    as K1's bf16 form."""
     if coords.device.type == "cpu":
         return _corr_lookup_moenc_bf16_plain(pyramid, coords, weight, bias,
                                              radius)
@@ -363,10 +369,48 @@ def corr_lookup_moenc_bf16_volume(pyramid, coords, weight, bias,
 corr_lookup_moenc_bf16_volume.launches = 0
 
 
+K1_BF16_QUERIES = 64     # queries per tile of K1's bf16 forms (wgmma's M)
+
+
+def k1_bf16_grid(n_query: int, slots: int) -> int:
+    """Persistent blocks of K1's bf16 forms: one per resident slot (SMs x
+    resident blocks per SM; the weight fills an SM's shared memory, so one
+    per SM), or one per 64-query tile when there are fewer tiles. Block b
+    walks tiles b, b + grid, b + 2 grid, ..."""
+    return min(-(-n_query // K1_BF16_QUERIES), slots)
+
+
+def k1_bf16_launch_info(device=None) -> tuple:
+    """The launch facts of K1's bf16 forms on a CUDA device: (resident
+    blocks per SM, dynamic shared memory bytes, threads per block, queries
+    per tile, 1)."""
+    import ctypes
+
+    with torch.cuda.device(device):
+        info = (ctypes.c_int * 5)()
+        fn = _build.function("corr_lookup_moenc",
+                             "corr_lookup_moenc_bf16_launch_info", 1, 0)
+        _build.check(fn(ctypes.addressof(info), None),
+                     "corr_lookup_moenc_bf16_launch_info")
+    return tuple(info)
+
+
+_k1_slots: dict = {}
+
+
+def _resident_k1_bf16_blocks(device) -> int:
+    if device.index not in _k1_slots:
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        _k1_slots[device.index] = n_sm * k1_bf16_launch_info(device)[0]
+    return _k1_slots[device.index]
+
+
 def _moenc_bf16_launch(pyramid, coords, weight, bias, radius, symbol):
     """Checks and launches the C entry `symbol` of K1's bf16 forms (bf16
     levels and weight, the bias in the entry's dtype); returns the
-    output."""
+    output. The kernel takes convc1's rows K-major, 16-byte aligned: the
+    (256, 324) transpose of the weight padded with zeros to 336 channels,
+    one 172 KB copy a call."""
     _build.require_cuda(coords, weight, bias, *pyramid)
     B, H, W, _ = coords.shape
     N = B * H * W
@@ -379,13 +423,15 @@ def _moenc_bf16_launch(pyramid, coords, weight, bias, radius, symbol):
                          "coords")
     if any(p.shape[0] != N for p in pyramid):
         raise ValueError("pyramid rows must equal the number of queries")
-    if any(not t.is_contiguous() for t in pyramid):
-        raise ValueError("K1's pyramid levels must be contiguous")
-    wt = weight.t().contiguous()
+    if any(not t.is_contiguous() or t.numel() >= 2 ** 31 for t in pyramid):
+        raise ValueError("K1's pyramid levels must be contiguous, with "
+                         "fewer than 2^31 elements")
+    wt = F.pad(weight.t(), (0, 336 - C))
     tensors = (*pyramid, coords.contiguous(), wt, bias.contiguous())
     out = torch.empty((B, H, W, Fo), dtype=torch.float32, device=coords.device)
     dims = [d for p in pyramid for d in p.shape[1:]]
-    fn = _build.function("corr_lookup_moenc", symbol, 8, 9)
+    blocks = k1_bf16_grid(N, _resident_k1_bf16_blocks(coords.device))
+    fn = _build.function("corr_lookup_moenc", symbol, 8, 10)
     _build.launch(fn, symbol, coords, *[t.data_ptr() for t in tensors],
-                  out.data_ptr(), N, *dims)
+                  out.data_ptr(), N, *dims, blocks)
     return out

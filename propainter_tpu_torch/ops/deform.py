@@ -101,49 +101,52 @@ def _modulated_deform_conv2d_plain(x, offset, mask, weight, bias):
                      weight, bias)
 
 
-K3_POSITIONS = 64        # output positions per K3 block
-K3_CHUNK = 32            # channels per K3 K-chunk
+K3_POSITIONS = 64        # output positions per K3 block (both forms)
+K3_CHUNK = 32            # channels per K chunk of the fp32 form
+K3_BF16_CHUNK = 64       # channels per K chunk of the bf16 form
 K3_MAX_SPLIT = 8         # blocks per K3 cluster (the portable limit)
 GROUP_WIDTHS = (4, 8, 16, 32)    # Cg = C / dg that K3 and K6 take
 _INT32 = 2 ** 31
 
 
-def k3_split(n_pos: int, C: int, slots: int) -> int:
+def k3_split(n_pos: int, C: int, slots: int, chunk: int = K3_CHUNK) -> int:
     """Blocks per cluster over which K3 splits each 64-position tile's
-    9 * C / 32 channel chunks: the most (up to 8) that divide the chunks
-    evenly and keep the whole grid resident at once in `slots` (SMs x
-    resident blocks per SM); 1 when the tiles alone fill them. A cluster
-    waits for its slowest block, and blocks past the resident slots run in
-    a second round."""
+    9 * C / chunk channel chunks (32 channels in the fp32 form, 64 in the
+    bf16 form): the most (up to 8) that divide the chunks evenly and keep
+    the whole grid resident at once in `slots` (SMs x resident blocks per
+    SM); 1 when the tiles alone fill them. A cluster waits for its
+    slowest block, and blocks past the resident slots run in a second
+    round."""
     tiles = -(-n_pos // K3_POSITIONS)
-    chunks = 9 * C // K3_CHUNK
+    chunks = 9 * C // chunk
     return max((s for s in range(1, K3_MAX_SPLIT + 1)
                 if chunks % s == 0 and tiles * s <= slots), default=1)
 
 
-def k3_launch_info(cg: int, device=None) -> tuple:
-    """K3's launch facts for group width cg on a CUDA device: (resident
-    blocks per SM, dynamic shared memory bytes, threads per block,
-    positions per block, most blocks per cluster)."""
+def k3_launch_info(cg: int, device=None, bf16: bool = False) -> tuple:
+    """K3's launch facts for group width cg on a CUDA device (its bf16
+    form's with bf16=True): (resident blocks per SM, dynamic shared memory
+    bytes, threads per block, positions per block, most blocks per
+    cluster)."""
     import ctypes
 
+    symbol = ("modulated_deform_conv2d_bf16_launch_info" if bf16
+              else "modulated_deform_conv2d_launch_info")
     with torch.cuda.device(device):
         info = (ctypes.c_int * 5)()
-        fn = _build.function("deform_conv",
-                             "modulated_deform_conv2d_launch_info", 1, 1)
-        _build.check(fn(ctypes.addressof(info), cg, None),
-                     "modulated_deform_conv2d_launch_info")
+        fn = _build.function("deform_conv", symbol, 1, 1)
+        _build.check(fn(ctypes.addressof(info), cg, None), symbol)
     return tuple(info)
 
 
 _k3_slots: dict = {}
 
 
-def _resident_k3_blocks(device, cg: int) -> int:
-    key = (device.index, cg)
+def _resident_k3_blocks(device, cg: int, bf16: bool = False) -> int:
+    key = (device.index, cg, bf16)
     if key not in _k3_slots:
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        _k3_slots[key] = n_sm * k3_launch_info(cg, device)[0]
+        _k3_slots[key] = n_sm * k3_launch_info(cg, device, bf16)[0]
     return _k3_slots[key]
 
 
@@ -204,9 +207,10 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None, split=None):
 modulated_deform_conv2d.launches = 0
 
 
-def _modulated_deform_conv2d_bf16_plain(x, offset, mask, weight, bias):
-    """The TPU kernel's bf16 rounding points (`deform_pallas.py:173-204`,
-    `:256-258`, `:276-280`), in fp32 arithmetic between them."""
+def _deform_samples_bf16_plain(x, offset, mask):
+    """The (B, H, W, dg, 9, Cg) bf16 modulated samples K3's bf16 form
+    multiplies (its A operand), rounded where the TPU kernel rounds them
+    (`deform_pallas.py:173-204`), in fp32 arithmetic between."""
     B, H, W, C = x.shape
     dg = offset.shape[3]
     Cg = C // dg
@@ -239,12 +243,22 @@ def _modulated_deform_conv2d_bf16_plain(x, offset, mask, weight, bias):
     t1 = at(y0 + 1.0, x0) * g_(wx0) + at(y0 + 1.0, x0 + 1.0) * g_(wx1)
     val = (t0 * g_(wy0) + t1 * g_(wy1)) * g_(mask.float())
     val = val.reshape(B, dg, H, W, 9, Cg).permute(0, 2, 3, 1, 4, 5)
-    out = _contract(val.to(torch.bfloat16).float(), weight.float(), None)
+    return val.to(torch.bfloat16)
+
+
+def _modulated_deform_conv2d_bf16_plain(x, offset, mask, weight, bias):
+    """The TPU kernel's bf16 rounding points: the samples of
+    `_deform_samples_bf16_plain`, a bf16 x bf16 contraction with fp32 sums,
+    the sum rounded to bf16, then + bias in bf16
+    (`deform_pallas.py:256-258`, `:276-280`)."""
+    out = _contract(_deform_samples_bf16_plain(x, offset, mask).float(),
+                    weight.float(), None)
     out = out.to(torch.bfloat16)
     return out if bias is None else out + bias
 
 
-def modulated_deform_conv2d_bf16(x, offset, mask, weight, bias=None):
+def modulated_deform_conv2d_bf16(x, offset, mask, weight, bias=None,
+                                 split=None):
     """`modulated_deform_conv2d` in bf16, as the TPU kernel computes it in
     the JAX bf16 pipeline: every tensor bf16; each tap position (h + i - 1
     + dy, in fp32) rounded to bf16, the column weights rounded to bf16,
@@ -253,12 +267,18 @@ def modulated_deform_conv2d_bf16(x, offset, mask, weight, bias=None):
     bias added in bf16. Returns (B, H, W, O) bf16.
 
     Kernel K3's bf16 form (`modulated_deform_conv2d_bf16` in
-    `csrc/deform_conv.cu`): one block per 32 positions x 128 outputs, K
-    walked in 32-channel chunks of one tap whose samples are built in
-    shared memory, one m16n8k16 bf16 pass on the tensor cores; no cluster
-    split. Takes C % 32 == 0, C / dg in GROUP_WIDTHS and O = 128. Bound:
-    operations (2 * 9 * C * 128 FLOPs per position at the bf16
-    tensor-core rate)."""
+    `csrc/deform_conv.cu`): one warpgroup per 64 positions x 128 outputs
+    on `wgmma`, K walked in 64-channel chunks of one tap through three
+    shared-memory stages: each chunk's samples are built into one while
+    the products of the chunk before run, its weight rows arrive by
+    `cp.async`, its taps are loaded a chunk ahead. Each tile's chunks are
+    split over a cluster of `split` blocks (default: `k3_split` of its
+    64-channel chunks for this card's resident blocks) whose fp32 partial
+    sums are added in rank order through distributed shared memory, then
+    rounded and biased once. Takes C % 64 == 0, C / dg in GROUP_WIDTHS
+    and O = 128. Bound: bytes at the generator's shape, operations (2 * 9
+    * C * 128 FLOPs per position at the bf16 tensor-core rate) at the
+    flow completion's; under 3 microseconds at both."""
     if x.device.type == "cpu":
         return _modulated_deform_conv2d_bf16_plain(x, offset, mask, weight,
                                                    bias)
@@ -269,11 +289,18 @@ def modulated_deform_conv2d_bf16(x, offset, mask, weight, bias=None):
     if weight.shape != (3, 3, C, O) or O != 128:
         raise ValueError(f"K3 takes a (3, 3, C, 128) weight, got "
                          f"{tuple(weight.shape)}")
-    if C % K3_CHUNK or C % dg or C // dg not in GROUP_WIDTHS:
-        raise ValueError(f"K3 needs C % {K3_CHUNK} == 0 and C / dg in "
-                         f"{GROUP_WIDTHS} (C={C}, dg={dg})")
+    if C % K3_BF16_CHUNK or C % dg or C // dg not in GROUP_WIDTHS:
+        raise ValueError(f"K3's bf16 form needs C % {K3_BF16_CHUNK} == 0 "
+                         f"and C / dg in {GROUP_WIDTHS} (C={C}, dg={dg})")
     if offset.shape != (B, H, W, dg, 9, 2) or mask.shape != (B, H, W, dg, 9):
         raise ValueError("offset/mask shapes do not match x")
+    if split is None:
+        split = k3_split(B * H * W, C,
+                         _resident_k3_blocks(x.device, C // dg, bf16=True),
+                         K3_BF16_CHUNK)
+    if not 1 <= split <= min(K3_MAX_SPLIT, 9 * C // K3_BF16_CHUNK):
+        raise ValueError(f"K3 takes 1 to {K3_MAX_SPLIT} blocks per cluster "
+                         f"and at most one per chunk, got {split}")
     if bias is None:
         bias = torch.zeros(O, dtype=x.dtype, device=x.device)
     tensors = (x, offset, mask, weight, bias)
@@ -282,10 +309,10 @@ def modulated_deform_conv2d_bf16(x, offset, mask, weight, bias=None):
         raise ValueError("K3's bf16 form takes contiguous bfloat16 inputs, "
                          "16-byte aligned, with fewer than 2^31 elements")
     out = torch.empty((B, H, W, O), dtype=torch.bfloat16, device=x.device)
-    fn = _build.function("deform_conv", "modulated_deform_conv2d_bf16", 6, 5)
+    fn = _build.function("deform_conv", "modulated_deform_conv2d_bf16", 6, 6)
     _build.launch(fn, "modulated_deform_conv2d_bf16", x,
                   *[t.data_ptr() for t in tensors], out.data_ptr(), B, H, W,
-                  C, dg)
+                  C, dg, split)
     modulated_deform_conv2d_bf16.launches += 1
     return out
 

@@ -173,6 +173,71 @@ def test_modulated_deform_conv2d_bf16_plain_matches_jax_kernel():
                     np.asarray(want.astype(jnp.float32))) <= 2 ** -7
 
 
+def _deform_bf16_case(C, dg, seed=1, Hd=6, Wd=10):
+    """bf16 x, offset (positions up to 40 pixels outside the image), mask,
+    HWIO weight and bias of K3 at C channels in dg groups."""
+    rng = np.random.default_rng(seed)
+    B, O = 1, 128
+    x = _bf16(rng.standard_normal((B, Hd, Wd, C)))
+    off = np.tanh(rng.standard_normal((B, Hd, Wd, dg, 9, 2))) * 3.0 \
+        + rng.standard_normal((B, Hd, Wd, 1, 1, 2)) * 4.0
+    off[0, 0, 0, 0, :3, 0] = [-40.0, 40.0, 9.5]
+    off = _bf16(off)
+    msk = _bf16(rng.uniform(0, 1, (B, Hd, Wd, dg, 9)))
+    wt = _bf16(rng.standard_normal((3, 3, C, O)) * 0.05)
+    bs = _bf16(rng.standard_normal(O) * 0.1)
+    return x, off, msk, wt, bs
+
+
+def _k3_bf16_kernel_emulation(x, off, msk, wt, bs, n_split):
+    """The arithmetic of K3's bf16 kernel: its bf16 samples
+    (`_deform_samples_bf16_plain`) times the HWIO weight in 64-channel
+    chunks of one tap (tap-major K, as the kernel walks it), block r of a
+    cluster of n_split summing chunks [n r / n_split, n (r + 1) / n_split)
+    in fp32 (a chunk's 64 products are exact; summed in float64 and added
+    in fp32), the blocks' partial sums added in rank order in fp32, the sum
+    rounded to bf16, then + bias in bf16."""
+    samples = deform._deform_samples_bf16_plain(
+        *(torch.from_numpy(a).to(BF) for a in (x, off, msk))).float().numpy()
+    B, H, W, dg, K, Cg = samples.shape
+    a = samples.transpose(0, 1, 2, 4, 3, 5).reshape(-1, K * dg * Cg)
+    w = wt.reshape(K * dg * Cg, -1)
+    n_chunks = a.shape[1] // deform.K3_BF16_CHUNK
+    total = np.zeros((a.shape[0], w.shape[1]), np.float32)
+    for rank in range(n_split):
+        part = np.zeros_like(total)
+        for j in range(n_chunks * rank // n_split,
+                       n_chunks * (rank + 1) // n_split):
+            ck = slice(deform.K3_BF16_CHUNK * j, deform.K3_BF16_CHUNK * (j + 1))
+            part = part + (a[:, ck].astype(np.float64)
+                           @ w[ck].astype(np.float64)).astype(np.float32)
+        total = total + part
+    return _bf16(_bf16(total) + bs).reshape(B, H, W, -1)
+
+
+@pytest.mark.parametrize("C, dg, split", [(128, 16, 2), (256, 16, 4)],
+                         ids=["generator Cg 8", "flow completion Cg 16"])
+def test_modulated_deform_conv2d_bf16_kernel_arithmetic(C, dg, split):
+    """The summation order of K3's bf16 kernel (fp32 partial sums over its
+    64-channel chunks, split over the cluster's blocks and added in rank
+    order) against the fused TPU deform kernel on the same bf16 inputs
+    (interpret mode), at both call sites' group widths and channel counts
+    with their main-path splits, and unsplit. Any fp32 order is the TPU
+    kernel's (it sums its groups in fp32 across its grid), so the two
+    differ only where an fp32 sum falls on the other side of a bf16
+    rounding boundary: within one bf16 step of the output scale (2^-8).
+    Measured: equal, or 1 of 7680 values one step apart (9.2e-4 and
+    4.3e-5 of the scale)."""
+    arrays = _deform_bf16_case(C, dg)
+    want = np.asarray(modulated_deform_conv2d_fused_out(
+        *(jnp.asarray(a, jnp.bfloat16) for a in arrays),
+        interpret=True).astype(jnp.float32))
+    for n_split in (1, split):
+        got = _k3_bf16_kernel_emulation(*arrays, n_split)
+        assert _rel_err(got, want) <= 2 ** -8
+        assert (got != want).mean() < 1e-3
+
+
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_flash_window_attention_bf16_plain_matches_jax_kernel(with_bias):
     """K4's bf16 form against the TPU flash attention kernel on bf16 q, k,
@@ -338,6 +403,29 @@ def test_bf16_guards():
             torch_pipeline.PipelineConfig(**dict(fields, **{name: value}))
     for name in ("occupancy_bucketing", "encoder_carry"):
         torch_pipeline.PipelineConfig(**dict(fields, **{name: False}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(5, 13), (3, 7)],
+                         ids=["65 positions", "one partial tile"])
+@pytest.mark.parametrize("cg", [4, 8, 16, 32])
+def test_cuda_modulated_deform_conv2d_bf16_ragged(cuda, cg, hw):
+    """K3's bf16 form against its bf16 plain version at every group width
+    (C 128) on ragged images: 65 positions (a full 64-position tile and a
+    tile of one) and 21 (one partial tile: the whole grid one cluster),
+    offsets to 40 pixels outside, at the wrapper's split and at every
+    other split of the 18 chunks; within two bf16 steps of the output
+    scale (chip_smoke.py's BF16_REL_TOL)."""
+    x, off, msk, wt, bs = (torch.from_numpy(a).to(cuda, BF)
+                           for a in _deform_bf16_case(128, 128 // cg, seed=5,
+                                                      Hd=hw[0], Wd=hw[1]))
+    want = deform._modulated_deform_conv2d_bf16_plain(x, off, msk, wt, bs)
+    for split in (None, 1, 2, 3, 6):
+        got = deform.modulated_deform_conv2d_bf16(x, off, msk, wt, bs,
+                                                  split=split)
+        assert got.dtype == BF and got.shape == want.shape
+        assert _rel_err(got.float().cpu().numpy(),
+                        want.float().cpu().numpy()) <= 2 ** -6
 
 
 @pytest.mark.cuda

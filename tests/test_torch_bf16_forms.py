@@ -390,3 +390,38 @@ def test_cuda_corr_lookup_bf16_kernel(cuda, case):
     got = corr.corr_lookup_bf16(pyr, coords)
     want = corr._corr_lookup_plain(pyr, coords)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "far", "outside"])
+@pytest.mark.parametrize("form", ["bf16", "bf16 volume"])
+def test_cuda_corr_lookup_moenc_bf16_kernel(cuda, form, case):
+    """K1's bf16 forms (bf16 convc1 parameters, and fp32 ones over a bf16
+    volume: one kernel template) against their plain version on a ragged
+    8 x 13 map of 2 pairs (208 queries: three full 64-query tiles and a
+    partial one, fewer than the card's SMs; level 3 is 1 x 1), with
+    coordinates near the grid, up to 40 pixels outside it, or every one
+    200 pixels outside every level; within two bf16 steps of the output
+    scale."""
+    f1, f2, coords, w, b = _corr_case()
+    rng = np.random.default_rng(14)
+    if case == "far":
+        coords = (coords + rng.standard_normal(coords.shape) * 15.0).astype(
+            np.float32)
+        coords[0, 0, :3] = [[-40.0, 3.0], [52.0, 47.0], [6.5, -40.0]]
+    elif case == "outside":
+        sign = np.where(np.arange(coords[..., :1].size).reshape(
+            coords[..., :1].shape) % 2 == 0, 1.0, -1.0)
+        coords = (coords + 200.0 * sign).astype(np.float32)
+    f1, f2 = (torch.from_numpy(a).to(cuda, BF) for a in (f1, f2))
+    coords = torch.from_numpy(coords).to(cuda)
+    pyr = corr.corr_pyramid(f1, f2, 4, out_dtype=torch.bfloat16)
+    w, b = (torch.from_numpy(a).to(cuda) for a in (w, b))
+    if form == "bf16":
+        w, b = w.to(BF), b.to(BF)
+        got = corr.corr_lookup_moenc_bf16(pyr, coords, w, b)
+    else:
+        got = corr.corr_lookup_moenc_bf16_volume(pyr, coords, w, b)
+    want = corr._corr_lookup_moenc_bf16_plain(pyr, coords, w, b, 4)
+    assert got.dtype == torch.float32 and got.shape == (2, 8, 13, 256)
+    assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= _BF16_REL_TOL

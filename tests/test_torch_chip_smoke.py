@@ -5,7 +5,12 @@ kernels' bounds, and the main path's expected launch counts."""
 import math
 from types import SimpleNamespace
 
+import numpy as np
+import pytest
+import torch
+
 import chip_smoke
+from propainter_tpu_torch.ops import corr, deform
 from propainter_tpu_torch.pipeline import PipelineConfig
 
 PTXAS_LOG = """\
@@ -107,18 +112,20 @@ def test_tensor_core_launch_grids():
     """The build phase's grids on 132 SMs: K1 1215 32-query tiles (walked by
     its persistent blocks), K4 14 query tiles x 64 problems, K5 twice that
     (two blocks a tile), K3 its position tiles times the wrapper's split
-    for 2 resident blocks per SM at each call site; the bf16 forms one
-    block per tile: K1's 608 64-query tiles, K3's 32-position tiles, and
-    K4's and K5's 7 tiles of 128 query rows x 64 problems on the wgmma tile
-    (one block of 384 threads per SM; the launch facts the card
-    reported)."""
+    for 2 resident blocks per SM at each call site; the bf16 forms: K1's
+    608 64-query tiles (walked by one persistent block of 1024 threads per
+    SM), K3's 64-position tiles times the split of their 64-channel chunks
+    for 2 resident blocks per SM (2 at the generator, 4 at the flow
+    completion: 204 blocks each), and K4's and K5's 7 tiles of 128 query
+    rows x 64 problems on the wgmma tile (one block of 384 threads per SM;
+    the launch facts the card reported)."""
     info = {"corr_lookup_moenc_kernel": [2, 93696, 128, 32, 1],
             "window_attention_kernel": [2, 107520, 128, 64, 1],
             "sparse_window_attention_kernel": [2, 107520, 128, 64, 2],
             "deform_conv_kernel": [2, 67584, 128, 64, 8],
-            "corr_lookup_moenc_bf16_kernel": [2, 0, 256, 64, 1],
+            "corr_lookup_moenc_bf16_kernel": [1, 216128, 1024, 64, 1],
             "window_attention_bf16_kernel": [1, 164936, 384, 128, 1],
-            "deform_conv_bf16_kernel": [8, 0, 128, 32, 1],
+            "deform_conv_bf16_kernel": [2, 74752, 128, 64, 8],
             "sparse_window_attention_bf16_kernel": [1, 132200, 384, 128, 1]}
     grids = {(symbol, site): grid_of(info[symbol])
              for _, symbol, site, _, _, grid_of
@@ -129,11 +136,87 @@ def test_tensor_core_launch_grids():
         ("sparse_window_attention_kernel", "main path"): 14 * 2 * 64,
         ("deform_conv_kernel", "generator"): 102 * 2,
         ("deform_conv_kernel", "flow completion"): 51 * 4,
-        ("corr_lookup_moenc_bf16_kernel", "bf16 main path"): 608,
+        ("corr_lookup_moenc_bf16_kernel", "bf16 main path, tiles"): 608,
         ("window_attention_bf16_kernel", "bf16 main path"): 7 * 64,
-        ("deform_conv_bf16_kernel", "generator, bf16"): 203,
-        ("deform_conv_bf16_kernel", "flow completion, bf16"): 102,
+        ("deform_conv_bf16_kernel", "generator, bf16"): 102 * 2,
+        ("deform_conv_bf16_kernel", "flow completion, bf16"): 51 * 4,
         ("sparse_window_attention_bf16_kernel", "bf16 main path"): 7 * 64}
+
+
+@pytest.mark.parametrize("n_pos, C, slots, want", [
+    (60 * 108, 128, 2 * 132, 2), (2 * 30 * 54, 256, 2 * 132, 4),
+    (60 * 108, 128, 3 * 132, 3), (2 * 30 * 54, 256, 3 * 132, 6),
+    (60 * 108, 128, 132, 1), (21, 128, 2 * 132, 6)])
+def test_k3_bf16_split_fills_the_sms(n_pos, C, slots, want):
+    """K3's bf16 form splits the 9 * C / 64 chunks of each 64-position tile
+    over the most blocks (up to 8) that divide them evenly and keep the
+    grid resident: at both call sites on 132 SMs with 2 resident blocks
+    per SM, 204 blocks, more than the SMs and within the 264 slots (3 per
+    SM: 306 of 396); with 1 per SM the generator's 102 tiles alone; a
+    single partial tile (21 positions) becomes one cluster of 6."""
+    split = deform.k3_split(n_pos, C, slots, deform.K3_BF16_CHUNK)
+    assert split == want
+    chunks = 9 * C // deform.K3_BF16_CHUNK
+    assert chunks % split == 0
+    assert -(-n_pos // deform.K3_POSITIONS) * split <= slots
+
+
+@pytest.mark.parametrize("n_query, slots, want", [
+    (chip_smoke.K1_QUERIES, 132, 132), (104, 132, 2), (64, 132, 1),
+    (chip_smoke.K1_QUERIES, 2 * 132, 264)])
+def test_k1_bf16_persistent_grid(n_query, slots, want):
+    """K1's bf16 forms launch one persistent block per resident slot, or
+    one per 64-query tile when there are fewer: the main path's 608 tiles
+    fill the 132 SMs, each block walking 4 or 5 of them."""
+    blocks = corr.k1_bf16_grid(n_query, slots)
+    assert blocks == want
+    tiles = -(-n_query // corr.K1_BF16_QUERIES)
+    assert 1 <= blocks <= min(tiles, slots)
+    per_block = [len(range(b, tiles, blocks)) for b in range(blocks)]
+    assert max(per_block) - min(per_block) <= 1 and sum(per_block) == tiles
+
+
+def test_deform_conv_bf16_bounds_at_the_main_path_shapes():
+    """K3's bf16 form, every tensor bf16: at the generator's 6480 positions
+    (C 128) its 9.2 MB at 3.35 TB/s bound it (0.0027 ms), above its
+    products (2 * 9 * C * 128 FLOPs a position at 989 TFLOP/s, 0.0019
+    ms); at the flow completion's 3240 (C 256) the products do (0.0019
+    ms), above its 5.9 MB."""
+    for n_pos, C, by, ms in ((60 * 108, 128, "bytes", 0.0027497),
+                             (2 * 30 * 54, 256, "operations", 0.0019323)):
+        dg = 16
+        n_bytes = 2 * (n_pos * (C + dg * 27 + 128) + 9 * C * 128 + 128)
+        b = chip_smoke._bf16_bounds(n_bytes, n_pos * 2 * 9 * C * 128,
+                                    n_pos * 9 * C * 12)
+        assert b["bound_by"] == by
+        assert b["bound_basis"] == "bf16 tensor cores"
+        assert math.isclose(b["bound_ms"], ms, rel_tol=1e-4)
+
+
+def test_corr_lookup_moenc_bf16_bound_at_the_main_path_shape():
+    """K1's bf16 forms at one RAFT iteration: bytes bound them, the
+    in-range bf16 taps, the fp32 output (40 MB) and the coordinates, at
+    3.35 TB/s, above the products at 989 TFLOP/s (0.0065 ms). On the grid
+    coordinates 229.6 of each query's 400 window taps lie inside its maps
+    (level 3 is 3 x 6): 0.01736 ms; moved by N(0, 3^2) pixels, as in the
+    smoke's kernel check, 0.0172 ms."""
+    from propainter_tpu_torch.ops.warp import coords_grid
+
+    n_q = chip_smoke.K1_QUERIES
+    pyr = [SimpleNamespace(shape=(n_q, h, w))
+           for h, w in ((30, 54), (15, 27), (7, 13), (3, 6))]
+    grid = coords_grid(24, 30, 54)
+    noise = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        grid.shape).astype(np.float32)) * 3.0
+    for coords, ms in ((grid, 0.017356), (grid + noise, 0.0172)):
+        taps = chip_smoke._in_range_taps(pyr, coords)
+        n_bytes = (2 * taps + 4 * (2 * n_q + 256 * n_q)
+                   + 2 * (324 * 256 + 256))
+        b = chip_smoke._bf16_bounds(n_bytes, n_q * 2 * 324 * 256,
+                                    n_q * 324 * 10)
+        assert b["bound_by"] == "bytes"
+        assert math.isclose(b["bound_ms"], ms, rel_tol=2e-3)
+    assert chip_smoke._in_range_taps(pyr, grid) == round(229.598148 * n_q)
 
 
 def test_corr_lookup_bound_at_the_main_path_shape():
