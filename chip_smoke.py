@@ -13,7 +13,8 @@ Phases:
               blocks per SM and the waves of each main-path grid, for K7
               (CUDA cores) registers, spills and shared memory; fails if a
               tensor-core kernel has neither instruction, or any kernel
-              spills;
+              spills; K7's bf16 form (persistent) also its blocks per SM
+              and waves;
   kernels     each kernel at the main path's shapes against its plain
               PyTorch version on the card (max abs error within a stated
               tolerance), timed beside the plain version and a library
@@ -36,8 +37,10 @@ Phases:
               also at every cluster split at both sites (timed), at 65
               positions at every group width and at 21 (one partial
               tile, one cluster) at every split, offsets to 40 px; K1's
-              bf16 forms also at the far-off 8 x 13 map and at an 8 x 9
-              map with every coordinate outside every level;
+              bf16 forms and K7's bf16 form also at the far-off 8 x 13
+              map and at an 8 x 9 map with every coordinate outside every
+              level, K7's bf16 form also at a 9 x 27 map (odd widths),
+              with a sector floor beside its bound;
   deform_opt  K6's path: the differentiable deform dispatchers
               (`modulated_deform_conv2d_opt` through K6, `_opt2` through
               K3) forward and backward at both call sites' shapes; values
@@ -415,7 +418,7 @@ def phase_build(state: dict) -> None:
         if blocks_per_sm < 1:
             failures.append(f"{symbol} ({site}): no block fits on an SM")
     # K7 and its bf16 form run on CUDA cores: registers, spills and shared
-    # memory only
+    # memory; for the bf16 form also its persistent grid at the main path
     for symbol in ("corr_lookup_kernel", "corr_lookup_bf16_kernel"):
         ptxas = {fn: r for fn, r in
                  _ptxas_report(_build.build_log("corr_lookup")).items()
@@ -430,13 +433,32 @@ def phase_build(state: dict) -> None:
             failures.append(f"{symbol}: no -Xptxas -v report")
         if any(r.get("spill_stores", 0) for r in ptxas.values()):
             failures.append(f"{symbol}: spills")
+    info = (ctypes.c_int * 5)()
+    fn = _build.function("corr_lookup", "corr_lookup_bf16_launch_info", 1, 0)
+    _build.check(fn(ctypes.addressof(info), None),
+                 "corr_lookup_bf16_launch_info")
+    blocks_per_sm, smem, threads, in_flight, slots = info
+    grid = min(slots, -(-K1_QUERIES // (threads // 32)))
+    report["corr_lookup_bf16_kernel"]["sites"] = {"main path": dict(
+        dynamic_smem=smem, threads=threads, queries_in_flight=in_flight,
+        blocks_per_sm=blocks_per_sm, grid=grid, sms=n_sm,
+        waves=grid / slots, queries_per_warp=K1_QUERIES / (
+            grid * threads // 32))}
+    print(f"  corr_lookup_bf16_kernel (main path): {smem} B dynamic shared "
+          f"memory ({in_flight} queries in flight a warp), {threads} threads "
+          f"x {blocks_per_sm} blocks per SM; persistent grid {grid} blocks = "
+          f"{grid / slots:.2f} waves of {slots} resident blocks on {n_sm} "
+          f"SMs, {K1_QUERIES / (grid * threads // 32):.2f} queries a warp")
+    if blocks_per_sm < 1:
+        failures.append("corr_lookup_bf16_kernel: no block fits on an SM")
     state["build"] = report
     if failures:
         raise AssertionError("; ".join(failures))
 
 
-def phase_kernels(records: dict) -> None:
-    """Each kernel against its plain version at the main path's shapes."""
+def phase_kernels(records: dict, state: dict) -> None:
+    """Each kernel against its plain version at the main path's shapes;
+    K7 bf16's sector floor into `state`."""
     import torch
     import torch.nn.functional as F
     from propainter_tpu_torch.ops import corr, deform, flash_attention
@@ -518,7 +540,7 @@ def phase_kernels(records: dict) -> None:
         **_tensor_core_bounds(_nbytes(q, k, v, kb, got),
                               Gp * 4 * Tq * Tk * ch, Gp * 5 * Tq * Tk))
     records["sparse_window_attention"] = _check_k5(randn)
-    records.update(_check_bf16(randn, level0))
+    records.update(_check_bf16(randn, level0, state))
     for r in records.values():
         for site, rr in (("", r), (" (flow completion)",
                                    r.get("flow_completion_site"))):
@@ -1044,7 +1066,7 @@ def _check_k5(randn, dtype=None) -> dict:
         max_abs_err=err, plain_ms=plain_ms, **smoke, occupancies=timing)
 
 
-def _check_bf16(randn, level0) -> dict:
+def _check_bf16(randn, level0, state: dict) -> dict:
     """The bf16 forms of K2, K1, K3, K4, K5 and K7, and K1 over a bf16
     volume with fp32 parameters, at the main path's shapes against their
     bf16 plain versions (BF16_REL_TOL; K7's fp32 output from the same bf16
@@ -1235,7 +1257,8 @@ def _check_bf16(randn, level0) -> dict:
                        Gp * 5 * Tq * Tk))
 
     records["sparse_window_attention_bf16"] = _check_k5(randn, bf)
-    records["corr_lookup_bf16"] = _check_k7_bf16(randn, pyr, coords)
+    records["corr_lookup_bf16"] = _check_k7_bf16(randn, pyr, coords,
+                                                 ragged, state)
     records["corr_lookup_moenc_bf16_volume"] = _check_k1_bf16_volume(
         randn, pyr, coords, ragged)
     return records
@@ -1252,10 +1275,11 @@ def _k3_bf16_splits(C: int) -> list:
 
 
 def _k1_ragged_cases(randn) -> list:
-    """K1's bf16 forms' ragged inputs, (what, bf16 pyramid, coords): the
-    far-off 8 x 13 map (104 queries: a full 64-query tile and a partial
-    one, fewer than the card's SMs) and an 8 x 9 map (72 queries) whose
-    every coordinate lies 200 pixels outside every level's map."""
+    """The ragged inputs of K1's bf16 forms and of K7's bf16 form, (what,
+    bf16 pyramid, coords): the far-off 8 x 13 map (104 queries: a full
+    64-query tile and a partial one, fewer than the card's SMs) and an 8
+    x 9 map (72 queries) whose every coordinate lies 200 pixels outside
+    every level's map."""
     import torch
     from propainter_tpu_torch.ops import corr
     from propainter_tpu_torch.ops.warp import coords_grid
@@ -1292,11 +1316,67 @@ def _k4_bf16_encode_us(q, k, v, reps: int = 1000) -> float:
     return (time.perf_counter() - t0) / reps * 1e6
 
 
-def _check_k7_bf16(randn, pyr, coords) -> dict:
+def _odd_width_case(randn) -> tuple:
+    """A 9 x 27 map of 2 pairs (486 queries; levels 9 x 27, 4 x 13, 2 x 6,
+    1 x 3: odd widths, and an odd level-0 map, so rows and queries' maps
+    start at both 2-byte alignments of a 4-byte word), coordinates moved
+    by N(0, 4^2) pixels and three of them off the map: (bf16 pyramid,
+    coords)."""
+    import torch
+    from propainter_tpu_torch.ops import corr
+    from propainter_tpu_torch.ops.warp import coords_grid
+
+    f1, f2 = randn(2, 9, 27, 256), randn(2, 9, 27, 256)
+    coords = coords_grid(2, 9, 27, device=f1.device) + randn(2, 9, 27, 2,
+                                                            std=4.0)
+    coords[1, 8, -3:] = torch.tensor([[-9.5, 8.25], [31.0, -5.0],
+                                      [26.75, 8.5]], device=f1.device)
+    return (corr.corr_pyramid(f1, f2, 4, out_dtype=torch.bfloat16),
+            coords.contiguous())
+
+
+def _sector_bytes(pyr, coords, elem: int = 2, sector: int = 32) -> int:
+    """The bytes of the `sector`-byte blocks that every query's in-range
+    window rows touch in levels of `elem`-byte values, each block of one
+    query's window once (the rows of a narrow map share blocks), every
+    level starting on a block: with 32-byte sectors, what a lookup must
+    move from device memory, as `_in_range_taps` counts the taps
+    themselves."""
+    import torch
+
+    N = coords.shape[0] * coords.shape[1] * coords.shape[2]
+    c = coords.reshape(N, 2).float()
+    n = torch.arange(N, device=c.device)
+    sectors = 0
+    for lvl, p in enumerate(pyr):
+        H, W = p.shape[1:]
+        xs = torch.floor(c[:, 0] / 2 ** lvl).clamp(-6, W + 4).long() - 4
+        ys = torch.floor(c[:, 1] / 2 ** lvl).clamp(-6, H + 4).long() - 4
+        c0, c1 = xs.clamp(min=0), (xs + 9).clamp(max=W - 1)
+        last = torch.full_like(n, -1)     # the window's last sector so far
+        for r in range(10):
+            y = ys + r
+            live = (y >= 0) & (y < H) & (c0 <= c1)
+            row = (n * H + y) * W
+            s0 = torch.maximum((row + c0) * elem // sector, last + 1)
+            s1 = ((row + c1 + 1) * elem - 1) // sector
+            sectors += int(torch.where(live, (s1 - s0 + 1).clamp(min=0),
+                                       0).sum().item())
+            last = torch.where(live, s1, last)
+    return sector * sectors
+
+
+def _check_k7_bf16(randn, pyr, coords, ragged, state: dict) -> dict:
     """K7's bf16 form over the bf16 pyramid of one RAFT chunk at one
-    iteration's coordinates, and at the ragged, far-off 8 x 13 map,
-    against its plain version (K7_BF16_ABS_TOL), timed by CUDA-graph
-    replay beside four bf16 `F.grid_sample` calls (`_lookup_library`)."""
+    iteration's coordinates, at K1's ragged cases (the far-off 8 x 13
+    map, and every coordinate outside every level of an 8 x 9 map) and at
+    the odd-width 9 x 27 map (`_odd_width_case`), against its plain
+    version (K7_BF16_ABS_TOL), timed by CUDA-graph replay beside four
+    bf16 `F.grid_sample` calls (`_lookup_library`). Beside the bound (each
+    in-range tap read once), printed and kept in
+    `state["corr_lookup_bf16_floor"]` (not in the kernel's record): the
+    sector floor, the 32-byte sectors the in-range window rows touch
+    (`_sector_bytes`), the coords and the output, at the memory rate."""
     from propainter_tpu_torch.ops import corr
 
     def run():
@@ -1306,14 +1386,14 @@ def _check_k7_bf16(randn, pyr, coords) -> dict:
         return corr._corr_lookup_plain(pyr, coords)
 
     got = run()
-    err = (got - plain()).abs().max().item()
-    small, far = _far_off_case(randn)
-    small = [p.to(pyr[0].dtype).contiguous() for p in small]
-    err = max(err, (corr.corr_lookup_bf16(small, far)
-                    - corr._corr_lookup_plain(small, far)
-                    ).abs().max().item())
-    print(f"  corr_lookup_bf16 (main path and 8 x 13 far off): "
-          f"max_abs_err={err:.3e} (tolerance {K7_BF16_ABS_TOL:.0e})")
+    err = 0.0
+    for what, p, c in [("main path", pyr, coords), *ragged,
+                       ("maps 9 x 27, odd widths", *_odd_width_case(randn))]:
+        e = (corr.corr_lookup_bf16(p, c)
+             - corr._corr_lookup_plain(p, c)).abs().max().item()
+        print(f"  corr_lookup_bf16 {what}: max_abs_err={e:.3e} (tolerance "
+              f"{K7_BF16_ABS_TOL:.0e})")
+        err = max(err, e)
     if err > K7_BF16_ABS_TOL:
         raise AssertionError("corr_lookup_bf16 disagrees with its plain "
                              "version")
@@ -1321,6 +1401,17 @@ def _check_k7_bf16(randn, pyr, coords) -> dict:
     bound_ms, bound_by = _bound(
         2 * _in_range_taps(pyr, coords) + _nbytes(coords, got),
         n_q * 324 * 10)
+    floor = dict(sector_bytes=_sector_bytes(pyr, coords),
+                 block64_bytes=_sector_bytes(pyr, coords, sector=64),
+                 tap_bytes=2 * _in_range_taps(pyr, coords))
+    floor["sector_floor_ms"] = ((floor["sector_bytes"] + _nbytes(coords, got))
+                                / PEAK_BYTES_PER_S * 1e3)
+    state["corr_lookup_bf16_floor"] = floor
+    print(f"  corr_lookup_bf16 sector floor: {floor['sector_floor_ms']:.4f} "
+          f"ms ({floor['sector_bytes'] / 1e6:.1f} MB of sectors, "
+          f"{floor['block64_bytes'] / 1e6:.1f} MB in 64-byte blocks, "
+          f"{floor['tap_bytes'] / 1e6:.1f} MB of taps; bound "
+          f"{bound_ms:.4f} ms)")
     return dict(
         name="corr_lookup_bf16", route="cuda",
         source="propainter_tpu_torch/csrc/corr_lookup.cu",
@@ -2314,7 +2405,7 @@ def main(argv=None) -> int:
             if phase == "build":
                 phase_build(state)
             elif phase == "kernels":
-                phase_kernels(records)
+                phase_kernels(records, state)
             elif phase == "deform_opt":
                 phase_deform_opt(state)
             elif phase == "pipeline":

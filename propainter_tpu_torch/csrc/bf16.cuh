@@ -1,6 +1,6 @@
-// bf16 rounding and packing shared by the bf16 forms of K1, K3 and K7
-// (corr_lookup_moenc.cu, deform_conv.cu, corr_lookup.cu), and the commit
-// and wait of their cp.async copies.
+// bf16 rounding and packing shared by the bf16 forms of K1 and K3
+// (corr_lookup_moenc.cu, deform_conv.cu), and the commit and wait of their
+// cp.async copies.
 //
 // The kernels round exactly where the TPU kernels round: a value is
 // rounded to bf16 (to nearest even) and carried on in fp32. A product of

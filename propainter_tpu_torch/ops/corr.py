@@ -198,10 +198,14 @@ def corr_lookup_bf16(pyramid, coords, radius: int = 4):
     Hl, Wl); coords (B, H, W, 2) fp32. Returns (B, H, W, 324) fp32.
 
     Kernel K7's bf16 form (`corr_lookup_bf16` in `csrc/corr_lookup.cu`):
-    K7's warp per query over bf16 taps, the row lerp rounded to bf16 at
-    the plain version's points. Bound: bytes (the 324 fp32 outputs of
-    each query, 50 MB per RAFT iteration at 432x240, and the in-range
-    bf16 taps, half K7's)."""
+    persistent blocks walk runs of queries, one query a warp a round; each
+    warp loads its next query's taps (each neighbour once, two bytes) into
+    a second register set while this query's lerps run, the row lerp in
+    bf16 rounding at the plain version's points, the column lerp in fp32,
+    and each query's values leave as one bulk store. Bound: bytes (the 324
+    fp32 outputs of each query, 50 MB per RAFT iteration at 432x240, and
+    the in-range bf16 taps, in 32-byte sectors of which a 20-byte window
+    row touches ~1.6)."""
     if coords.device.type == "cpu":
         return _corr_lookup_plain(pyramid, coords, radius)
     out = _lookup_launch(pyramid, coords, radius, torch.bfloat16,

@@ -192,6 +192,103 @@ def test_corr_lookup_bf16_plain_matches_jax_kernel():
                                atol=1e-6)
 
 
+def _round_bf16(x):
+    """Values rounded to bf16 (to nearest even) in one step from float64,
+    as __hmul_rn and __hadd_rn round the exact product and sum."""
+    m, e = np.frexp(np.asarray(x, np.float64))
+    return np.ldexp(np.rint(m * 256.0), e - 8)
+
+
+def _k7_bf16_kernel_emulation(levels, coords):
+    """The arithmetic of K7's bf16 CUDA kernel in numpy. Lane (r, c) of a
+    query's warp loads tap (r + 3k, c) of each level's 10 x 10 window by
+    its absolute element index in the level (query n's map starts at n H_l
+    W_l, odd at several levels), zero outside the map; rows lerp in bf16,
+    each product and the sum rounded once from its exact value (as
+    __hmul_rn and __hadd_rn round), the row below from lane r + 1 or from
+    the next load's lane; columns lerp in fp32. levels: (N, H_l, W_l)
+    float32 holding bf16 values; coords (N, 2). Returns (N, 324)
+    float32."""
+    N = coords.shape[0]
+    n = np.arange(N)[:, None, None]
+    r, c = np.arange(3), np.arange(10)
+    outs = []
+    for lvl, level in enumerate(levels):
+        _, H, W = level.shape
+        flat = level.reshape(-1)
+        x = coords[:, 0].astype(np.float32) / np.float32(2 ** lvl)
+        y = coords[:, 1].astype(np.float32) / np.float32(2 ** lvl)
+        fx = x - np.floor(x)
+        fy = _round_bf16(y - np.floor(y))[:, None]
+        omfy = _round_bf16(1.0 - fy)
+        xs = np.clip(np.floor(x), -6, W + 4).astype(np.int64) - 4
+        ys = np.clip(np.floor(y), -6, H + 4).astype(np.int64) - 4
+        # the four loads of lane (r, c): rows r, r + 3, r + 6, r + 9
+        loads = np.zeros((N, 4, 3, 10))
+        for k in range(4):
+            yy = (ys[:, None] + r + 3 * k)[:, :, None]          # (N, 3, 1)
+            xx = (xs[:, None] + c)[:, None, :]                  # (N, 1, 10)
+            ok = ((r + 3 * k < 10)[None, :, None] & (yy >= 0) & (yy < H)
+                  & (xx >= 0) & (xx < W))
+            idx = np.where(ok, n * H * W + yy * W + xx, 0)
+            loads[:, k] = np.where(ok, flat[idx], 0.0)
+        taps = loads.reshape(N, 12, 10)[:, :10]                 # rows 0-9
+        gy = _round_bf16(_round_bf16(taps[:, :-1] * omfy[:, :, None])
+                         + _round_bf16(taps[:, 1:] * fy[:, :, None])
+                         ).astype(np.float32)
+        v = (gy[:, :, :-1] * (np.float32(1) - fx)[:, None, None]
+             + gy[:, :, 1:] * fx[:, None, None])                # [y, x]
+        outs.append(v.transpose(0, 2, 1).reshape(N, 81))        # x-major
+    return np.concatenate(outs, 1)
+
+
+def _k7_bf16_case(case):
+    """bf16 pyramid (port layout), coords, and the map's (B, Hc, Wc): the
+    ragged 8 x 13 map with coordinates up to 40 pixels outside it, or a
+    9 x 27 map (levels 9 x 27, 4 x 13, 2 x 6, 1 x 3: odd widths, and an
+    odd level-0 map, so rows and queries' maps start at both 2-byte
+    alignments of a 4-byte word)."""
+    if case == "8 x 13 far off":
+        f1, f2, coords, _, _ = _corr_case()
+    else:
+        rng = np.random.default_rng(15)
+        B, Hc, Wc = 2, 9, 27
+        f1, f2 = (_bf16(rng.standard_normal((B, Hc, Wc, 256)))
+                  for _ in range(2))
+        grid = np.stack(np.meshgrid(np.arange(Wc), np.arange(Hc)), -1)
+        coords = (grid[None] + rng.standard_normal((B, Hc, Wc, 2)) * 4.0
+                  ).astype(np.float32)
+        coords[1, 8, -3:] = [[-9.5, 8.25], [31.0, -5.0], [26.75, 8.5]]
+    pyr = corr.corr_pyramid(torch.from_numpy(f1).to(BF),
+                            torch.from_numpy(f2).to(BF), 4,
+                            out_dtype=torch.bfloat16)
+    return pyr, coords, f1.shape[:3]
+
+
+@pytest.mark.parametrize("case", ["8 x 13 far off", "9 x 27 odd widths"])
+def test_corr_lookup_bf16_kernel_arithmetic(case):
+    """The arithmetic of K7's bf16 kernel (`_k7_bf16_kernel_emulation`:
+    taps loaded by absolute element index and masked, the bf16 row lerp
+    rounded once per product and sum, the fp32 column lerp) against the
+    TPU lookup kernel without the convc1 epilogue (`corr_lookup_fused`,
+    interpret mode) on the same bf16 pyramid, within K7's bf16 tolerance
+    on the card (chip_smoke.py's K7_BF16_ABS_TOL, 1e-6), and against the
+    plain version, which rounds the fp32 sums. Measured: 2.4e-7 from the
+    TPU kernel, 0 from the plain version."""
+    pyr, coords, (B, Hc, Wc) = _k7_bf16_case(case)
+    levels = [lvl.float().numpy() for lvl in pyr]
+    got = _k7_bf16_kernel_emulation(levels, coords.reshape(-1, 2))
+    jpyr = [jnp.asarray(lvl.reshape(B, Hc * Wc, *lvl.shape[1:]).transpose(
+        0, 2, 3, 1), jnp.bfloat16) for lvl in levels]
+    want = np.asarray(corr_lookup_fused(jpyr, jnp.asarray(coords),
+                                        interpret=True))
+    np.testing.assert_allclose(got.reshape(want.shape), want, rtol=0,
+                               atol=1e-6)
+    plain = corr._corr_lookup_plain(pyr, torch.from_numpy(coords)).numpy()
+    np.testing.assert_allclose(got.reshape(plain.shape), plain, rtol=0,
+                               atol=1e-6)
+
+
 def test_corr_lookup_moenc_bf16_volume_plain_matches_jax_kernel():
     """K1 over a bf16 volume with fp32 convc1 parameters (not
     bf16-representable) against the TPU lookup kernel with its convc1
@@ -373,20 +470,30 @@ def test_cuda_window_attention_bf16_ragged(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ragged", "far"])
+@pytest.mark.parametrize("case", ["ragged", "far", "outside", "odd widths"])
 def test_cuda_corr_lookup_bf16_kernel(cuda, case):
     """K7's bf16 form against its plain version on a ragged 8 x 13 map
-    (level 3 is 1 x 1), with coordinates near the grid or up to 40 pixels
-    outside it: the same bf16 taps and rounding, fp32 out."""
+    (level 3 is 1 x 1), with coordinates near the grid, up to 40 pixels
+    outside it, or every one 200 pixels outside every level; and on the
+    9 x 27 map of `_k7_bf16_case` (odd widths): the same bf16 taps and
+    rounding, fp32 out."""
     f1, f2, coords, _, _ = _corr_case()
+    rng = np.random.default_rng(13)
     if case == "far":
-        rng = np.random.default_rng(13)
         coords = (coords + rng.standard_normal(coords.shape) * 15.0).astype(
             np.float32)
         coords[0, 0, :3] = [[-40.0, 3.0], [52.0, 47.0], [6.5, -40.0]]
-    f1, f2 = (torch.from_numpy(a).to(cuda, BF) for a in (f1, f2))
+    elif case == "outside":
+        sign = np.where(np.arange(coords[..., :1].size).reshape(
+            coords[..., :1].shape) % 2 == 0, 1.0, -1.0)
+        coords = (coords + 200.0 * sign).astype(np.float32)
+    if case == "odd widths":
+        pyr, coords, _ = _k7_bf16_case("9 x 27 odd widths")
+        pyr = [lvl.to(cuda) for lvl in pyr]
+    else:
+        f1, f2 = (torch.from_numpy(a).to(cuda, BF) for a in (f1, f2))
+        pyr = corr.corr_pyramid(f1, f2, 4, out_dtype=torch.bfloat16)
     coords = torch.from_numpy(coords).to(cuda)
-    pyr = corr.corr_pyramid(f1, f2, 4, out_dtype=torch.bfloat16)
     got = corr.corr_lookup_bf16(pyr, coords)
     want = corr._corr_lookup_plain(pyr, coords)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)

@@ -229,6 +229,64 @@ def test_corr_lookup_bound_at_the_main_path_shape():
     assert math.isclose(ms, 0.0337, rel_tol=1e-3)
 
 
+def _brute_sector_bytes(shapes, coords, elem, sector):
+    """Every in-range tap's byte address, as a set of `sector`-byte blocks
+    per query and level."""
+    total = 0
+    for q, (cx, cy) in enumerate(coords.reshape(-1, 2).tolist()):
+        for lvl, (H, W) in enumerate(shapes):
+            xs = int(min(max(math.floor(cx / 2 ** lvl), -6), W + 4)) - 4
+            ys = int(min(max(math.floor(cy / 2 ** lvl), -6), H + 4)) - 4
+            total += len({((q * H + y) * W + x) * elem // sector
+                          for y in range(max(ys, 0), min(ys + 10, H))
+                          for x in range(max(xs, 0), min(xs + 10, W))})
+    return sector * total
+
+
+@pytest.mark.parametrize("elem, sector", [(2, 32), (4, 32), (2, 64)])
+def test_sector_bytes_counts_each_window_sector_once(elem, sector):
+    """K7's bf16 sector floor counts the 32-byte sectors (or 64-byte
+    blocks) of each query's in-range window taps once (rows of the narrow
+    levels share them), against every tap's address: a 9 x 27 map of 2
+    pairs (odd widths), coordinates near the map and up to 40 pixels off
+    it."""
+    rng = np.random.default_rng(3)
+    shapes = ((9, 27), (4, 13), (2, 6), (1, 3))
+    n_q = 2 * 9 * 27
+    pyr = [SimpleNamespace(shape=(n_q, h, w)) for h, w in shapes]
+    ys, xs = np.meshgrid(np.arange(9), np.arange(27), indexing="ij")
+    coords = (np.stack([xs, ys], -1)[None]
+              + rng.standard_normal((2, 9, 27, 2)) * 6.0).astype(np.float32)
+    coords[0, 0, :3] = [[-40.0, 3.0], [52.0, 47.0], [6.5, -40.0]]
+    assert chip_smoke._sector_bytes(pyr, torch.from_numpy(coords), elem,
+                                    sector) == _brute_sector_bytes(
+        shapes, coords, elem, sector)
+
+
+def test_corr_lookup_bf16_sector_floor_at_the_main_path_shape():
+    """K7's bf16 form at one RAFT iteration on the grid coordinates: the
+    in-range taps are 17.85 MB, the sectors that hold them 42.60 MB (2.39
+    x; 59.41 MB in 64-byte blocks), so with the coords and the 50.4 MB
+    fp32 output the sector floor, 0.0279 ms at 3.35 TB/s, lies above the
+    counted bound, 0.0205 ms."""
+    from propainter_tpu_torch.ops.warp import coords_grid
+
+    n_q = chip_smoke.K1_QUERIES
+    pyr = [SimpleNamespace(shape=(n_q, h, w))
+           for h, w in ((30, 54), (15, 27), (7, 13), (3, 6))]
+    grid = coords_grid(24, 30, 54)
+    out_bytes = 4 * n_q * (324 + 2)
+    sectors = chip_smoke._sector_bytes(pyr, grid)
+    taps = 2 * chip_smoke._in_range_taps(pyr, grid)
+    assert sectors == 42_601_344 and taps == 17_853_552
+    assert chip_smoke._sector_bytes(pyr, grid, sector=64) == 59_407_104
+    floor_ms = (sectors + out_bytes) / chip_smoke.PEAK_BYTES_PER_S * 1e3
+    bound_ms, by = chip_smoke._bound(taps + out_bytes, n_q * 324 * 10)
+    assert by == "bytes"
+    assert math.isclose(floor_ms, 0.027851, rel_tol=1e-4)
+    assert math.isclose(bound_ms, 0.020464, rel_tol=1e-4)
+
+
 def test_main_path_launch_counts():
     """80 frames of 432 x 240: 7 RAFT chunks of 20 iterations (140 lookups,
     K1's or K7's); 16 generator windows (lengths 6, 11 x 14, 10), in 6
