@@ -10,7 +10,8 @@ Phases:
               for the tensor-core kernels K1, K3, K4 and K5 print registers,
               spills and shared memory (`-Xptxas -v`), the HMMA
               (mma.sync) and HGMMA (wgmma) counts of their SASS, resident
-              blocks per SM and the waves of each main-path grid, for K7
+              blocks per SM and the waves of each main-path grid (K4's
+              at each bucketed shape of `K4_BUCKET_SHAPES`), for K7
               (CUDA cores) registers, spills and shared memory; fails if a
               tensor-core kernel has neither instruction, or any kernel
               spills; K7's bf16 form (persistent) also its blocks per SM
@@ -24,9 +25,13 @@ Phases:
               beside the reference RAFT's F.grid_sample route (+ addmm for
               K1); K3 also beside the
               unfused K6 + GEMM route and at every cluster split, K3 and
-              K6 at a ragged image with far-off coordinates; K4 also at
-              ragged shapes (a partial query and key tile, a bias masking
-              a whole key tile); K5 at three occupancies and both
+              K6 at a ragged image with far-off coordinates; K4 and its
+              bf16 form at the bucketed main path's shapes (buckets of 8
+              and 4 windows, the last block's 11 local frames' queries)
+              with their bounds, SDPA and waves, at the 64-problem shape
+              of a run without bucketing, and at ragged shapes (a partial
+              query and key tile, a bias masking a whole key tile); K5 at
+              three occupancies and both
               temporal-dilation parities, and A/B against K4 plus branch
               B; the bf16 forms of K1-K5 and K7, and K1 over a bf16
               volume with fp32 parameters, against their bf16 plain
@@ -51,15 +56,23 @@ Phases:
               'pallas', and shard_inference with window_batch 4 on the
               card's one-device mesh, the same three in bf16
               (shard_inference with raft_bf16_refine=False), and bf16
-              'flash' with raft_bf16_refine=False; output
-              shape/dtype, unmasked pixels unchanged, every kernel of each
-              path launched (K1 once per RAFT iteration and K7 never,
-              except under shard_inference, the reverse; K5 once per
-              transformer block and K4 never under 'pallas'; in bf16 the
-              bf16 forms as often as the fp32 run of the configuration
-              launches the fp32 ones, and no fp32 form), the fp32 outputs
-              within 12 max / 0.5 mean LSB of 'flash' (bf16's differences
-              reported, not gated);
+              'flash' with raft_bf16_refine=False; fp32 'flash' measured
+              3 times and bf16 'flash' 5 times (each stage's median and
+              min-max), then both once more on the plain stage-4 schedule
+              (occupancy_bucketing and encoder_carry off) for their stage
+              times and output differences (reported, not gated); each
+              configuration's stage-4 plan printed (frames encoded and
+              tokenized, generator calls, sub-runs with their buckets and
+              carries); output shape/dtype, unmasked pixels unchanged,
+              every kernel of each path launched (K1 once per RAFT
+              iteration and K7 never, except under shard_inference, the
+              reverse; K4, or K5 under 'pallas', once per transformer
+              block of each generator call of the pipeline's plan, K4 at
+              the plan's (problems, query rows); in bf16 the bf16 forms as
+              often as the fp32 run of the configuration launches the
+              fp32 ones, and no fp32 form), the fp32 outputs within 12
+              max / 0.5 mean LSB of 'flash' (bf16's differences reported,
+              not gated);
   small       a 6-frame 144x160 clip on the GPU (kernels) and on the CPU
               (plain versions), fan-in scaled weights, in the three
               configurations ('flash' through `ProInpainter`): uint8
@@ -90,9 +103,11 @@ Imports nothing of JAX or of `propainter_tpu`.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -263,6 +278,15 @@ DEFORM_SITES = (("generator", 60 * 108, 128, 8),
 # directions of 30 x 54 (1/8 of 240 x 432)
 K1_QUERIES = 24 * 30 * 54
 
+# K4's (problems, query rows, keys) on the main path's 11-frame windows
+# under occupancy bucketing: 4 heads x a bucket of 8 or 4 dirty windows;
+# 19 frames (11 local + 8 reference) of 45 window tokens, or on the last
+# block the 11 local frames' only; keys of 10 or 9 selected frames (the
+# temporal dilation), 238 a frame (45 window + 148 rolled band + 45
+# pooled). The pipeline phase checks that the run launches each.
+K4_BUCKET_SHAPES = ((32, 855, 2380), (16, 855, 2380), (32, 495, 2142),
+                    (16, 495, 2142))
+
 
 def _tensor_core_launches(n_sm: int) -> list:
     """The main path's launches of the tensor-core kernels: (library,
@@ -277,8 +301,15 @@ def _tensor_core_launches(n_sm: int) -> list:
     blocks."""
     from propainter_tpu_torch.ops import deform
 
-    def attention_grid(info):
-        return -(-855 // info[3]) * info[4] * 64
+    def attention_grid(info, rows=855, problems=64):
+        return -(-rows // info[3]) * info[4] * problems
+
+    def bucketed(symbol, prefix=""):
+        return [("window_attention", symbol,
+                 f"{prefix}bucketed, {g} problems x {rows} rows",
+                 symbol.replace("_kernel", "_launch_info"), (),
+                 lambda info, r=rows, g=g: attention_grid(info, r, g))
+                for g, rows, _ in K4_BUCKET_SHAPES]
 
     launches = [("corr_lookup_moenc", "corr_lookup_moenc_kernel",
                  "main path, tiles", "corr_lookup_moenc_launch_info", (),
@@ -286,6 +317,7 @@ def _tensor_core_launches(n_sm: int) -> list:
     launches += [(lib, f"{lib}_kernel", "main path", f"{lib}_launch_info",
                   (), attention_grid)
                  for lib in ("window_attention", "sparse_window_attention")]
+    launches += bucketed("window_attention_kernel")
     for site, n_pos, C, cg in DEFORM_SITES:
         launches.append((
             "deform_conv", "deform_conv_kernel", site,
@@ -306,6 +338,7 @@ def _tensor_core_launches(n_sm: int) -> list:
         ("sparse_window_attention", "sparse_window_attention_bf16_kernel",
          "bf16 main path", "sparse_window_attention_bf16_launch_info", (),
          attention_grid)]
+    launches += bucketed("window_attention_bf16_kernel", "bf16 ")
     for site, n_pos, C, cg in DEFORM_SITES:
         launches.append((
             "deform_conv", "deform_conv_bf16_kernel", f"{site}, bf16",
@@ -522,23 +555,24 @@ def phase_kernels(records: dict, state: dict) -> None:
             flash_attention.flash_window_attention(qr, kr, vr, b_, scale),
             flash_attention._flash_window_attention_plain(qr, kr, vr, b_,
                                                           scale)))
-    ms = _time_ms(
-        lambda: flash_attention.flash_window_attention(q, k, v, kb, scale), 10)
-    plain_ms = _time_ms(
-        lambda: flash_attention._flash_window_attention_plain(
-            q, k, v, kb, scale), 5)
     mask4 = kb[:, None, None, :]
-    library_ms = _time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
-                                               scale=scale), 10)
-    records["flash_window_attention"] = dict(
-        name="flash_window_attention", route="cuda",
-        source="propainter_tpu_torch/csrc/window_attention.cu",
-        replaces="propainter_tpu/ops/flash_attention.py:36",
-        shape=f"q {tuple(q.shape)} k {tuple(k.shape)}", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    dense = dict(
+        shape=f"q {tuple(q.shape)} k {tuple(k.shape)}",
+        ms=_time_ms(lambda: flash_attention.flash_window_attention(
+            q, k, v, kb, scale), 10),
+        plain_ms=_time_ms(
+            lambda: flash_attention._flash_window_attention_plain(
+                q, k, v, kb, scale), 5),
+        library_ms=_time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
+                                                   scale=scale), 10),
         **_tensor_core_bounds(_nbytes(q, k, v, kb, got),
                               Gp * 4 * Tq * Tk * ch, Gp * 5 * Tq * Tk))
+    print(f"  flash_window_attention without bucketing {dense['shape']}: "
+          f"{dense['ms']:.4f} ms (bound {dense['bound_ms']:.4f})")
+    records["flash_window_attention"] = _k4_record(
+        "flash_window_attention", err, dense,
+        _check_k4_shapes(randn, state))
     records["sparse_window_attention"] = _check_k5(randn)
     records.update(_check_bf16(randn, level0, state))
     for r in records.values():
@@ -1238,12 +1272,8 @@ def _check_bf16(randn, level0, state: dict) -> dict:
             flash_attention._flash_window_attention_bf16_plain(
                 qq, kk, vv, b_, scale), BF16_REL_TOL))
     mask4 = kb[:, None, None, :].to(bf)
-    records["flash_window_attention_bf16"] = dict(
-        name="flash_window_attention_bf16", route="cuda",
-        source="propainter_tpu_torch/csrc/window_attention.cu",
-        replaces="propainter_tpu/ops/flash_attention.py:36",
+    dense = dict(
         shape=f"q {tuple(q.shape)} k {tuple(k.shape)}, bf16",
-        max_abs_err=err,
         ms=_time_ms(lambda: flash_attention.flash_window_attention_bf16(
             q, k, v, kb, scale), 10),
         plain_ms=_time_ms(
@@ -1252,9 +1282,15 @@ def _check_bf16(randn, level0, state: dict) -> dict:
         library_ms=_time_ms(
             lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask4, scale=scale), 10),
-        encode_us=_k4_bf16_encode_us(q, k, v),
         **_bf16_bounds(_nbytes(q, k, v, kb, got), Gp * 4 * Tq * Tk * ch,
                        Gp * 5 * Tq * Tk))
+    print(f"  flash_window_attention_bf16 without bucketing "
+          f"{dense['shape']}: {dense['ms']:.4f} ms (bound "
+          f"{dense['bound_ms']:.4f})")
+    records["flash_window_attention_bf16"] = _k4_record(
+        "flash_window_attention_bf16", err, dense,
+        _check_k4_shapes(randn, state, bf16=True),
+        encode_us=_k4_bf16_encode_us(q, k, v))
 
     records["sparse_window_attention_bf16"] = _check_k5(randn, bf)
     records["corr_lookup_bf16"] = _check_k7_bf16(randn, pyr, coords,
@@ -1262,6 +1298,76 @@ def _check_bf16(randn, level0, state: dict) -> dict:
     records["corr_lookup_moenc_bf16_volume"] = _check_k1_bf16_volume(
         randn, pyr, coords, ragged)
     return records
+
+
+def _check_k4_shapes(randn, state: dict, bf16: bool = False) -> list:
+    """K4 (or its bf16 form) at each of `K4_BUCKET_SHAPES` with one padded
+    reference frame's keys masked, against its plain version (REL_TOL, or
+    BF16_REL_TOL), timed beside the plain version and SDPA, with its bound
+    and its grid's waves (from the build phase, when it ran)."""
+    import torch
+    import torch.nn.functional as F
+    from propainter_tpu_torch.ops import flash_attention as fa
+
+    if bf16:
+        dt, run, plain = (torch.bfloat16, fa.flash_window_attention_bf16,
+                          fa._flash_window_attention_bf16_plain)
+        symbol, prefix, tol = "window_attention_bf16_kernel", "bf16 ", \
+            BF16_REL_TOL
+    else:
+        dt, run, plain = (torch.float32, fa.flash_window_attention,
+                          fa._flash_window_attention_plain)
+        symbol, prefix, tol = "window_attention_kernel", "", REL_TOL
+    sites = state.get("build", {}).get(symbol, {}).get("sites", {})
+    scale = 1.0 / math.sqrt(128)
+    out = []
+    for G, Tq, Tk in K4_BUCKET_SHAPES:
+        q, k, v = (randn(1, G, n, 128).to(dt) for n in (Tq, Tk, Tk))
+        kb = torch.zeros(1, Tk, device=q.device)
+        kb[:, -238:] = fa.NEG_INF
+        got = run(q, k, v, kb, scale)
+        name = f"{run.__name__} {G} problems x {Tq} rows, {Tk} keys"
+        err = _compare(name, got, plain(q, k, v, kb, scale), tol)
+        mask4 = kb[:, None, None, :].to(dt)
+        bounds = (_bf16_bounds if bf16 else _tensor_core_bounds)(
+            _nbytes(q, k, v, kb, got), G * 4 * Tq * Tk * 128,
+            G * 5 * Tq * Tk)
+        site = sites.get(f"{prefix}bucketed, {G} problems x {Tq} rows", {})
+        rec = dict(shape=f"q {tuple(q.shape)} k {tuple(k.shape)}",
+                   max_abs_err=err,
+                   ms=_time_ms(lambda: run(q, k, v, kb, scale), 20),
+                   plain_ms=_time_ms(lambda: plain(q, k, v, kb, scale), 3),
+                   library_ms=_time_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask4, scale=scale), 20),
+                   **bounds)
+        print(f"  {name}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f}, "
+              f"SDPA {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+              f"by {rec['bound_by']}, {rec['bound_ms'] / rec['ms']:.0%} of "
+              f"it; grid {site.get('grid')} blocks, {site.get('waves')} "
+              f"waves)")
+        out.append(rec)
+    return out
+
+
+def _k4_record(name: str, dense_err: float, dense: dict, shapes: list,
+               **extra) -> dict:
+    """K4's kernels-line record: the numbers of the main path's commonest
+    shape (bucket 8, the first of `K4_BUCKET_SHAPES`, named in `basis`),
+    every bucketed shape's and those of the 64-problem shape K4 ran before
+    bucketing beside them. Measured numbers and bounds only: the grids'
+    waves stay in the build phase's record."""
+    main = shapes[0]
+    return dict(
+        name=name, route="cuda",
+        source="propainter_tpu_torch/csrc/window_attention.cu",
+        replaces="propainter_tpu/ops/flash_attention.py:36",
+        basis="the top-level ms, bounds and library_ms are those of the "
+              "bucket-8 shape (32 problems x 855 rows), not of the "
+              "64-problem shape K4 ran before bucketing (under 'dense')",
+        **{k: main[k] for k in main if k != "max_abs_err"},
+        max_abs_err=max([dense_err] + [r["max_abs_err"] for r in shapes]),
+        bucketed=shapes, dense=dense, **extra)
 
 
 def _k3_bf16_splits(C: int) -> list:
@@ -1716,35 +1822,90 @@ def phase_deform_opt(state: dict) -> None:
                 _compare(f"{name} {shape} {what}", a, b)
 
 
-def _measured_run(pipe, frames, flow_masks, smi: str):
-    """One main-path run with the launch counts zeroed just before and
-    read just after: (uint8 output, launches, stage summary)."""
+@contextlib.contextmanager
+def _k4_calls(record: dict):
+    """While active, counts K4's calls from the generator by (problems,
+    query rows, keys) into `record` (both forms; each still counts its own
+    launch)."""
+    from propainter_tpu_torch.models import propainter as gen_module
+
+    names = ("flash_window_attention", "flash_window_attention_bf16")
+    saved = [getattr(gen_module, n) for n in names]
+
+    def recorder(fn):
+        def call(q, k, v, key_bias, scale):
+            key = (q.shape[1], q.shape[2], k.shape[2])
+            record[key] = record.get(key, 0) + 1
+            return fn(q, k, v, key_bias, scale)
+        return call
+
+    for n, fn in zip(names, saved):
+        setattr(gen_module, n, recorder(fn))
+    try:
+        yield record
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(gen_module, n, fn)
+
+
+def _spread(values) -> dict:
+    return dict(median=statistics.median(values), min=min(values),
+                max=max(values))
+
+
+def _measured_run(pipe, frames, flow_masks, smi: str, repeats: int = 1):
+    """`repeats` main-path runs, each with the launch counts zeroed just
+    before and read just after (they must agree), K4's calls by shape
+    recorded over the first: (uint8 output of the last, launches, stage
+    summary with each stage's median and min-max over the runs)."""
     import numpy as np
     import torch
 
     T, H, W = frames.shape[:3]
-    _zero_launches()
-    timings: dict = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = np.stack(pipe.inpaint_video(frames, flow_masks, flow_masks,
-                                      timings=timings))
-    total = time.perf_counter() - t0
-    launches = _read_launches()
+    runs, k4 = [], {}
+    for i in range(repeats):
+        _zero_launches()
+        timings: dict = {}
+        torch.cuda.synchronize()
+        with _k4_calls(k4 if i == 0 else {}):
+            t0 = time.perf_counter()
+            out = np.stack(pipe.inpaint_video(frames, flow_masks, flow_masks,
+                                              timings=timings))
+            total = time.perf_counter() - t0
+        runs.append((total, timings, _read_launches()))
+    launches = runs[0][2]
     cfg = pipe.config
     impl = (f"shard_inference, window_batch {cfg.window_batch}, mesh of "
             f"{len(pipe.mesh)}" if cfg.shard_inference
             else f"attention_impl={cfg.attention_impl!r}")
+    if not (cfg.occupancy_bucketing and cfg.encoder_carry):
+        impl += (f", occupancy_bucketing={cfg.occupancy_bucketing}, "
+                 f"encoder_carry={cfg.encoder_carry}")
     print(f"  launches ({impl}): {launches}")
+    if any(r[2] != launches for r in runs):
+        raise AssertionError(f"launches differ between runs: "
+                             f"{[r[2] for r in runs]}")
     if out.shape != (T, H, W, 3) or out.dtype != np.uint8:
         raise AssertionError(f"output {out.shape} {out.dtype}")
     keep = flow_masks == 0
     if not np.array_equal(out[keep], frames[keep]):
         raise AssertionError("unmasked pixels changed")
-    stages = ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
-    print(f"  pipeline {T}x{W}x{H} {cfg.precision}, {impl}: "
-          f"{total:.3f} s, {T / total:.3f} fps ({stages}) on {smi}")
-    return out, launches, dict(seconds=total, fps=T / total, stages=timings)
+    seconds = [r[0] for r in runs]
+    stages = {k: _spread([r[1][k] for r in runs]) for k in runs[0][1]}
+    total = _spread(seconds)
+    fmt = (lambda d: f"{d['median']:.3f} s" if repeats == 1 else
+           f"{d['median']:.3f} s ({d['min']:.3f}-{d['max']:.3f})")
+    print(f"  pipeline {T}x{W}x{H} {cfg.precision}, {impl}"
+          + (f", median (min-max) of {repeats} runs" if repeats > 1 else "")
+          + f": {fmt(total)}, {T / total['median']:.3f} fps ("
+          + ", ".join(f"{k} {fmt(v)}" for k, v in stages.items())
+          + f") on {smi}")
+    summary = dict(seconds=total["median"], fps=T / total["median"],
+                   stages={k: v["median"] for k, v in stages.items()},
+                   runs=[dict(seconds=r[0], stages=r[1]) for r in runs],
+                   spread=dict(total=total, **stages),
+                   k4_calls=[[*key, n] for key, n in sorted(k4.items())])
+    return out, launches, summary
 
 
 def _raft_launches(pipe, frames) -> int:
@@ -1752,7 +1913,94 @@ def _raft_launches(pipe, frames) -> int:
     from propainter_tpu_torch.pipeline import get_short_clip_len
 
     T, W = frames.shape[0], frames.shape[2]
-    return len(range(0, T, get_short_clip_len(W))) * pipe.config.raft_iter
+    clip = pipe.config.raft_clip_len or get_short_clip_len(W)
+    return len(range(0, T, clip)) * pipe.config.raft_iter
+
+
+def _plan_counts(plan) -> dict:
+    """What the stage-4 plan spends: generator calls (each sub-run's
+    windows, window_batch at a time); frames through the encoder (the
+    reference union once; a carried sub-run its first window's first l_t
+    - stride frames, then stride a window; any other, l_t a window of each
+    batch, tail repeats included); frames through SoftSplit (the union
+    once, then l_t a window of each batch)."""
+    wb = plan.window_batch
+    batches = [-(-len(sr.windows) // wb) for sr in plan.subruns]
+    n_ref = len(plan.ref_union)
+    return dict(
+        calls=sum(batches),
+        encoded=n_ref + sum(
+            sr.l_t - sr.carry + len(sr.windows) * sr.carry if sr.carry
+            else n * wb * sr.l_t for sr, n in zip(plan.subruns, batches)),
+        tokenized=n_ref + sum(n * wb * sr.l_t
+                              for sr, n in zip(plan.subruns, batches)))
+
+
+def _stage4_plan(pipe, flow_masks):
+    """The stage-4 plan `pipe` builds for this clip (its masked-window
+    bitmaps and `plan_bucket_subruns`), printed: frames through the encoder
+    and SoftSplit (beside the count of a schedule that encodes every
+    window's own l_t + ref_pad frames), generator calls and each sub-run's
+    (l_t, windows, bucket, carry)."""
+    import torch
+
+    masks = torch.from_numpy(flow_masks.astype("float32")).to(pipe.device)
+    plan = pipe.stage4_plan(masks[None, ..., None])
+    every_window = sum(len(w[0]) + len(w[1]) for sr in plan.subruns
+                       for w in sr.windows)
+    subruns = [(sr.l_t, len(sr.windows),
+                sr.bucket if sr.masked is not None else "dense", sr.carry)
+               for sr in plan.subruns]
+    n = _plan_counts(plan)
+    print(f"  stage 4 plan: {n['encoded']} frames encoded "
+          f"(every window's own: {every_window}), "
+          f"{n['tokenized']} tokenized, {n['calls']} "
+          f"generator calls; sub-runs (l_t, windows, bucket, carry): "
+          f"{subruns}")
+    return plan
+
+
+def _plan_launches(plan, pipe) -> dict:
+    """What the plan makes the attention launch: one K4 (under 'flash') or
+    K5 (under 'pallas') call per transformer block of each generator call,
+    and K4's calls by (problems, query rows): n_head x the sub-run's
+    bucket of windows (every window's without bucketing: not predicted
+    here), the l_t + ref_pad frames' rows on every block but the last, the
+    l_t local frames' on the last."""
+    blocks = pipe.inpaint.transformers.transformer
+    n_head = blocks[0].attention.n_head
+    win = math.prod(blocks[0].attention.window_size)
+    calls = _plan_counts(plan)["calls"] * len(blocks)
+    shapes: dict = {}
+    for sr in plan.subruns:
+        if sr.bucket is None:
+            return dict(calls=calls, shapes=None)
+        n = -(-len(sr.windows) // plan.window_batch)
+        T = sr.l_t + len(sr.windows[0][1])
+        for i in range(len(blocks)):
+            key = (n_head * sr.bucket,
+                   (sr.l_t if i == len(blocks) - 1 else T) * win)
+            shapes[key] = shapes.get(key, 0) + n
+    return dict(calls=calls, shapes=shapes)
+
+
+def _check_k4_calls(summary: dict, want: dict) -> None:
+    """K4's calls by (problems, query rows) in a measured run (its
+    `k4_calls`: [problems, query rows, keys, calls]) against the plan's,
+    and `K4_BUCKET_SHAPES` among them."""
+    got: dict = {}
+    seen = set()
+    for g, q, k, n in summary["k4_calls"]:
+        got[(g, q)] = got.get((g, q), 0) + n
+        seen.add((g, q, k))
+    print(f"  K4 calls by (problems, query rows): {dict(sorted(got.items()))}"
+          f" (the plan's: {dict(sorted(want['shapes'].items()))})")
+    if got != want["shapes"]:
+        raise AssertionError("K4 ran at other shapes than the plan's")
+    missing = set(K4_BUCKET_SHAPES) - seen
+    if missing:
+        raise AssertionError(f"the kernels phase's K4 shapes {missing} are "
+                             f"not on the main path")
 
 
 def phase_pipeline(state: dict, smi: str) -> None:
@@ -1760,10 +2008,14 @@ def phase_pipeline(state: dict, smi: str) -> None:
     weights and clip ('flash', 'pallas', and shard_inference with
     window_batch 4 on the card's one-device mesh), then bf16 'flash' and
     the other bf16 configurations (`_bf16_other_configs`), each once to
-    warm up (cuDNN plans, lazy module loading), then measured; every
-    kernel of each path must launch in its measured run, K1 under 'flash'
-    and 'pallas' and K7 under shard_inference once per RAFT iteration, the
-    other never."""
+    warm up (cuDNN plans, lazy module loading), then measured (fp32
+    'flash' 3 times, bf16 'flash' 5 times); then fp32 and bf16 'flash'
+    with occupancy_bucketing and encoder_carry off (the plain stage-4
+    schedule, `_schedule_ab`). Every kernel of each path must launch in
+    its measured run, K1 under 'flash' and 'pallas' and K7 under
+    shard_inference once per RAFT iteration, the other never; K4 and K5 as
+    often as the pipeline's own stage-4 plan says (`_plan_launches`), K4
+    at the plan's shapes."""
     import numpy as np
 
     pipe, frames, flow_masks = _main_path_inputs()
@@ -1773,7 +2025,10 @@ def phase_pipeline(state: dict, smi: str) -> None:
     pipe.inpaint_video(frames, flow_masks, flow_masks)
     print(f"  warm-up run: {time.perf_counter() - t0:.3f} s")
     out, launches, state["pipeline"] = _measured_run(pipe, frames,
-                                                     flow_masks, smi)
+                                                     flow_masks, smi, 3)
+    plan = _stage4_plan(pipe, flow_masks)
+    want = _plan_launches(plan, pipe)
+    state["pipeline"]["plan"] = _plan_counts(plan)
     state.setdefault("launches", {})["flash"] = launches
     missing = [k for k, path in KERNEL_PATH.items()
                if path == "flash" and launches[k] == 0]
@@ -1781,9 +2036,11 @@ def phase_pipeline(state: dict, smi: str) -> None:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
     if (launches["corr_lookup_moenc"] != want_lookups
-            or launches["corr_lookup"] != 0):
-        raise AssertionError(f"'flash' must launch K1 {want_lookups} times "
-                             f"and K7 never: {launches}")
+            or launches["corr_lookup"] != 0
+            or launches["flash_window_attention"] != want["calls"]):
+        raise AssertionError(f"'flash' must launch K1 {want_lookups} times, "
+                             f"K4 {want['calls']} and K7 never: {launches}")
+    _check_k4_calls(state["pipeline"], want)
 
     sparse = _pallas_pipeline(pipe)
     state["main_path_pallas"] = sparse
@@ -1791,10 +2048,9 @@ def phase_pipeline(state: dict, smi: str) -> None:
     out_p, launches, state["pipeline_pallas"] = _measured_run(
         sparse, frames, flow_masks, smi)
     state["launches"]["pallas"] = launches
-    # one K5 launch per transformer block of every generator window
-    n_windows = len(range(0, frames.shape[0],
-                          sparse.config.neighbor_length // 2))
-    want_k5 = n_windows * len(sparse.inpaint.transformers.transformer)
+    # one K5 launch per transformer block of every generator call
+    want_k5 = _plan_launches(_stage4_plan(sparse, flow_masks),
+                             sparse)["calls"]
     diff = np.abs(out_p.astype(int) - out.astype(int))
     print(f"  'pallas' vs 'flash' output: max {diff.max()} LSB, mean "
           f"{diff.mean():.4f} LSB (limits {SMALL_MAX_LSB} / "
@@ -1819,33 +2075,33 @@ def phase_pipeline(state: dict, smi: str) -> None:
     out_s, launches, state["pipeline_shard"] = _measured_run(
         shard, frames, flow_masks, smi)
     state["launches"]["shard"] = launches
-    # one K4 launch per transformer block of every window batch
-    want_k4 = (_window_batches(frames.shape[0], shard)
-               * len(shard.inpaint.transformers.transformer))
+    # one K4 launch per transformer block of every window batch of the plan
+    want_s = _plan_launches(_stage4_plan(shard, flow_masks), shard)
     diff = np.abs(out_s.astype(int) - out.astype(int))
     print(f"  shard_inference vs 'flash' output: max {diff.max()} LSB, mean "
           f"{diff.mean():.4f} LSB (limits {SMALL_MAX_LSB} / "
           f"{SMALL_MEAN_LSB}); K7 launches {launches['corr_lookup']} (want "
           f"{want_lookups}), K1 launches {launches['corr_lookup_moenc']} "
           f"(want 0), K4 launches {launches['flash_window_attention']} (want "
-          f"{want_k4})")
+          f"{want_s['calls']})")
     state["pipeline_shard"].update(max_lsb_vs_flash=int(diff.max()),
                                    mean_lsb_vs_flash=float(diff.mean()))
     missing = [k for k in ("corr_pyramid_build", "modulated_deform_conv2d")
                if launches[k] == 0]
     if (missing or launches["corr_lookup"] != want_lookups
             or launches["corr_lookup_moenc"] != 0
-            or launches["flash_window_attention"] != want_k4
+            or launches["flash_window_attention"] != want_s["calls"]
             or launches["sparse_window_attention"] != 0):
         raise AssertionError(f"the shard_inference path launched {launches}")
     if diff.max() > SMALL_MAX_LSB or diff.mean() > SMALL_MEAN_LSB:
         raise AssertionError("shard_inference and 'flash' outputs disagree")
+    _check_k4_calls(state["pipeline_shard"], want_s)
 
     bf16 = _bf16_pipeline(pipe)
     state["main_path_bf16"] = bf16
     bf16.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
     out_b, launches, state["pipeline_bf16"] = _measured_run(
-        bf16, frames, flow_masks, smi)
+        bf16, frames, flow_masks, smi, 5)
     state["launches"]["bf16"] = launches
     # the bf16 forms launch as often as the fp32 ones under 'flash'; no
     # fp32 form of them launches
@@ -1865,23 +2121,26 @@ def phase_pipeline(state: dict, smi: str) -> None:
              if launches[k] != flash[v] or launches[v] != 0]
     if wrong or launches["corr_lookup"] or launches["sparse_window_attention"]:
         raise AssertionError(f"the bf16 path launched {launches}")
+    _check_k4_calls(state["pipeline_bf16"],
+                    _plan_launches(_stage4_plan(bf16, flow_masks), bf16))
 
     _bf16_other_configs(state, frames, flow_masks, out, out_b, smi)
+    _schedule_ab(state, frames, flow_masks, out, out_b, smi)
 
 
 def _bf16_other_configs(state, frames, flow_masks, out, out_b,
                         smi) -> None:
     """The other bf16 configurations of the pipeline phase, each once to
     warm up, then measured: 'pallas' (K5's bf16 form once per transformer
-    block, K4 in neither form; RAFT, flow completion and K3 as bf16
-    'flash'), shard_inference with window_batch 4 and
-    raft_bf16_refine=False (K7's bf16 form once per RAFT iteration, K1 in
-    no form, K4's bf16 form once per block of each window batch, K3's bf16
-    form as fp32 shard_inference launches K3), and 'flash' with
-    raft_bf16_refine=False (K1 over a bf16 volume once per RAFT iteration,
-    in place of K1's bf16 form); none launches an fp32 kernel form. Their
-    outputs' differences from bf16 'flash' and from fp32 'flash' are
-    reported, not gated."""
+    block of each generator call, K4 in neither form; RAFT, flow
+    completion and K3 as bf16 'flash'), shard_inference with window_batch
+    4 and raft_bf16_refine=False (K7's bf16 form once per RAFT iteration,
+    K1 in no form, K4's bf16 form once per block of each window batch of
+    its plan, K3's bf16 form as fp32 shard_inference launches K3), and
+    'flash' with raft_bf16_refine=False (K1 over a bf16 volume once per
+    RAFT iteration, in place of K1's bf16 form); none launches an fp32
+    kernel form. Their outputs' differences from bf16 'flash' and from
+    fp32 'flash' are reported, not gated."""
     import numpy as np
 
     pipe = state["main_path"][0]
@@ -1897,11 +2156,9 @@ def _bf16_other_configs(state, frames, flow_masks, out, out_b,
         out_x, launches, state[f"pipeline_{name}"] = _measured_run(
             p, frames, flow_masks, smi)
         state["launches"][name] = launches
-        n_blocks = len(p.inpaint.transformers.transformer)
+        calls = _plan_launches(_stage4_plan(p, flow_masks), p)["calls"]
         if name == "bf16_pallas":
-            n_windows = len(range(0, frames.shape[0],
-                                  p.config.neighbor_length // 2))
-            want = dict(sparse_window_attention_bf16=n_windows * n_blocks,
+            want = dict(sparse_window_attention_bf16=calls,
                         flash_window_attention_bf16=0,
                         corr_lookup_moenc_bf16=want_lookups,
                         corr_lookup_bf16=0,
@@ -1921,8 +2178,7 @@ def _bf16_other_configs(state, frames, flow_masks, out, out_b,
                         corr_lookup_moenc_bf16=0,
                         corr_lookup_moenc_bf16_volume=0,
                         corr_pyramid_build_bf16=flash["corr_pyramid_build"],
-                        flash_window_attention_bf16=(
-                            _window_batches(frames.shape[0], p) * n_blocks),
+                        flash_window_attention_bf16=calls,
                         sparse_window_attention_bf16=0,
                         modulated_deform_conv2d_bf16=state["launches"][
                             "shard"]["modulated_deform_conv2d"])
@@ -1945,19 +2201,50 @@ def _bf16_other_configs(state, frames, flow_masks, out, out_b,
                                  f"{wrong}")
 
 
-def _window_batches(T: int, pipe) -> int:
-    """Stage 4's generator calls: batches of up to window_batch consecutive
-    windows of equal length."""
-    stride = pipe.config.neighbor_length // 2
-    lengths = [min(T, f + stride + 1) - max(0, f - stride)
-               for f in range(0, T, stride)]
-    runs = [1]
-    for a, b in zip(lengths, lengths[1:]):
-        if a == b:
-            runs[-1] += 1
-        else:
-            runs.append(1)
-    return sum(-(-n // pipe._window_batch) for n in runs)
+def _schedule_ab(state, frames, flow_masks, out, out_b, smi) -> None:
+    """fp32 and bf16 'flash' on the plain stage-4 schedule
+    (occupancy_bucketing and encoder_carry off: every window encodes its
+    local frames, branch A over every window), once to warm up, then
+    measured (3 and 5 times, as the scheduled runs): stage times beside
+    the scheduled runs', and the outputs' differences from them (reported,
+    not gated); K4 once per block of every window."""
+    import numpy as np
+
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+
+    pipe = state["main_path"][0]
+    for name, precision, repeats, scheduled in (
+            ("plain_schedule", "fp32", 3, out),
+            ("bf16_plain_schedule", "bf16", 5, out_b)):
+        p = ProPainterPipeline(pipe.raft, pipe.flowcomp, pipe.inpaint,
+                               PipelineConfig(precision=precision,
+                                              occupancy_bucketing=False,
+                                              encoder_carry=False),
+                               device="cuda")
+        p.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
+        out_x, launches, summary = _measured_run(p, frames, flow_masks, smi,
+                                                 repeats)
+        plan = _stage4_plan(p, flow_masks)
+        key = ("flash_window_attention" if precision == "fp32"
+               else "flash_window_attention_bf16")
+        want = _plan_launches(plan, p)["calls"]
+        d = np.abs(out_x.astype(int) - scheduled.astype(int))
+        base = state["pipeline" if precision == "fp32" else "pipeline_bf16"]
+        print(f"  {precision} 'flash', plain schedule against scheduled "
+              f"(reported, not gated): output max {d.max()} LSB, mean "
+              f"{d.mean():.4f} LSB; generation {summary['stages']['generation']:.3f}"
+              f" s against {base['stages']['generation']:.3f} s (medians), "
+              f"whole run {summary['seconds']:.3f} s against "
+              f"{base['seconds']:.3f} s; K4 launches {launches[key]} (want "
+              f"{want})")
+        summary.update(max_lsb_vs_scheduled=int(d.max()),
+                       mean_lsb_vs_scheduled=float(d.mean()),
+                       plan=_plan_counts(plan))
+        state[f"pipeline_{name}"] = summary
+        if launches[key] != want:
+            raise AssertionError(f"the plain schedule launched K4 "
+                                 f"{launches[key]} times, want {want}")
 
 
 def _profile_run(pipe, frames, flow_masks, label: str):

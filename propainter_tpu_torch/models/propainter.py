@@ -4,12 +4,12 @@ ProPainter.pth's.
 
 Tokens between SoftSplit and SoftComp are channel-last, (B, T, h, w, C).
 The sparse window attention has two forms (`attention_impl`): 'flash'
-computes both branches for every window and selects per window by
-occupancy — branch A (masked windows attend over the selected frames'
-window, rolled-band and pooled tokens) through kernel K4, branch B (within
-window, same frame) a plain batched softmax; 'pallas' lets kernel K5 take
-each window's branch. Feature propagation's deformable alignment is
-kernel K3.
+computes branch A (masked windows attend over the selected frames'
+window, rolled-band and pooled tokens) through kernel K4, for every
+window or for a bucket of the dirty ones (`masked_windows`), and branch B
+(within window, same frame) as a plain batched softmax, and selects per
+window by occupancy; 'pallas' lets kernel K5 take each window's branch.
+Feature propagation's deformable alignment is kernel K3.
 """
 
 from __future__ import annotations
@@ -222,6 +222,21 @@ def window_occupancy(mask, window_size):
     return mp.reshape(B, l_t, -1).sum(dim=1)
 
 
+def masked_window_bitmap(masks_in_local, window_size=(5, 9)):
+    """(B, l_t, H, W, 1) 0/1 dilated masks of the local frames at image
+    resolution -> (B, nW) bool: which attention windows hold a hole token.
+    The occupancy `SparseWindowAttention` derives, bit for bit: the
+    nearest resize to the encoder grid (two stride-2 convs: ceil/2
+    twice), `token_masks`, `window_occupancy`. Counterpart of
+    `propainter_tpu/models/propainter.py:masked_window_bitmap`."""
+    def half(n):    # a stride-2 3x3 convolution with padding 1
+        return -(-n // 2)
+
+    H, W = masks_in_local.shape[2:4]
+    ds = resize(masks_in_local, (half(half(H)), half(half(W))), "nearest")
+    return window_occupancy(token_masks(ds), window_size) > 0
+
+
 def _check_attention_impl(impl: str) -> None:
     if impl == "xla":
         raise NotImplementedError(
@@ -238,10 +253,11 @@ class SparseWindowAttention(nn.Module):
     sparse_transformer.py:117-281.
 
     attention_impl:
-      'flash'  (default) — both branches for every window, selected per
-               window by occupancy: branch A (over the selected frames'
-               window, rolled-band and pooled tokens) through kernel K4,
-               branch B (within window and frame) a plain batched softmax.
+      'flash'  (default) — both branches, selected per window by
+               occupancy: branch A (over the selected frames' window,
+               rolled-band and pooled tokens) through kernel K4, for every
+               window or a bucket of the dirty ones, branch B (within
+               window and frame) a plain batched softmax.
       'pallas' — one kernel, K5, that takes each window's branch itself,
                so branch-A work scales with the dirty windows; its inputs
                are the window partition of q/k/v and of four rolled copies
@@ -276,13 +292,30 @@ class SparseWindowAttention(nn.Module):
         self.register_buffer("roll_valid", roll_valid, persistent=False)
         self._gather_idx: dict = {}   # (nwh, nww, device) -> indices
 
-    def forward(self, x, mask, static_sel, frame_valid=None):
+    def forward(self, x, mask, static_sel, frame_valid=None,
+                masked_windows=None, q_frames: int | None = None):
         """x (B, T, H, W, C) tokens; mask (B, l_t, H, W, 1) pooled local
         masks; static_sel (T,) numpy bool — frames visible to branch A (the
         temporal dilation); frame_valid (T,) or (B, T) bool tensor or None
         — False masks padded reference frames' keys (per batch row when
-        (B, T): stage 4 batches windows with their own padding)."""
+        (B, T): stage 4 batches windows with their own padding).
+
+        'flash' only ('pallas' ignores masked_windows and refuses
+        q_frames, the JAX rule):
+        masked_windows: (idx (B, m_b) int64, valid (B, m_b) bool) or None
+          — a bucket holding every dirty window (`masked_window_bitmap`;
+          slots past the dirty ones repeat them, an all-False row leaves
+          the row to branch B). Branch A then runs on those m_b windows
+          only and is scattered over branch B's output: the same result
+          as the dense form.
+        q_frames: the queries of only the first q_frames frames (keys and
+          values still from all T); the output is (B, q_frames, H, W, C),
+          exact for those frames."""
         B, T, H, W, C = x.shape
+        if q_frames is not None and self.attention_impl == "pallas":
+            raise AssertionError(
+                "q_frames shrink not wired for the opt-in pallas kernel")
+        Tq = T if q_frames is None else q_frames
         wh, ww = self.window_size
         nh = self.n_head
         ch = C // nh
@@ -292,7 +325,7 @@ class SparseWindowAttention(nn.Module):
         if pad_b or pad_r:
             x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
 
-        q, k, v = self.query(x), self.key(x), self.value(x)
+        q, k, v = self.query(x[:, :Tq]), self.key(x), self.value(x)
         pool_x = self.pool_layer(
             x.reshape(B * T, new_h, new_w, C).permute(0, 3, 1, 2))
         p_h, p_w = pool_x.shape[2:]
@@ -301,21 +334,27 @@ class SparseWindowAttention(nn.Module):
 
         occ = window_occupancy(mask, self.window_size)          # (B, nW)
 
-        windows = (self._sparse_windows if self.attention_impl == "pallas"
-                   else self._dense_windows)
-        out = windows(q, k, v, pool_k, pool_v, occ, static_sel, frame_valid)
-        out = out.reshape(B, nwh, nww, nh, T, wh, ww, ch)
-        out = out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, T, new_h, new_w,
-                                                          C)
+        if self.attention_impl == "pallas":
+            out = self._sparse_windows(q, k, v, pool_k, pool_v, occ,
+                                       static_sel, frame_valid)
+        else:
+            out = self._dense_windows(q, k, v, pool_k, pool_v, occ,
+                                      static_sel, frame_valid,
+                                      masked_windows)
+        out = out.reshape(B, nwh, nww, nh, Tq, wh, ww, ch)
+        out = out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, Tq, new_h,
+                                                          new_w, C)
         if pad_b or pad_r:
             out = out[:, :, :H, :W]
         return self.proj(out)
 
     def _dense_windows(self, q, k, v, pool_k, pool_v, occ, static_sel,
-                       frame_valid):
-        """'flash': both branches for every window -> (B, nW, head, T, win,
-        ch)."""
-        B, T, new_h, new_w, C = q.shape
+                       frame_valid, masked_windows=None):
+        """'flash': branch A for every window, or for the bucket
+        `masked_windows`, branch B for every window -> (B, nW, head, Tq,
+        win, ch), Tq = q's frames."""
+        B, Tq, new_h, new_w, C = q.shape
+        T = k.shape[1]
         wh, ww = self.window_size
         nh = self.n_head
         ch = C // nh
@@ -328,6 +367,7 @@ class SparseWindowAttention(nn.Module):
                 device=q.device)
         idx_all = self._gather_idx[key]
         idx_q = idx_all[:, :win]
+        n_idx = idx_all.shape[1]
 
         def gather_windows(t, idx):
             """(B, T', H', W', C) -> (B, nW, head, T', n_idx, ch)."""
@@ -337,23 +377,40 @@ class SparseWindowAttention(nn.Module):
             return g.permute(0, 2, 4, 1, 3, 5)
 
         win_q = gather_windows(q, idx_q)
-        win_k = gather_windows(k, idx_q)
-        win_v = gather_windows(v, idx_q)
+        # branch B is same-frame: only the query frames' keys
+        win_k = gather_windows(k[:, :Tq], idx_q)
+        win_v = gather_windows(v[:, :Tq], idx_q)
         scale = 1.0 / math.sqrt(ch)
 
-        # branch A: every window over the selected frames' window, rolled
-        # band and pooled tokens (kernel K4)
+        # branch A: the windows over the selected frames' window, rolled
+        # band and pooled tokens (kernel K4) for the bucket's windows, or
+        # for every window (the bucket of all nW, its dirty slots valid),
+        # gathered row by row from the flat token grid
         sel = torch.as_tensor(np.nonzero(static_sel)[0], device=q.device)
         Ts = sel.numel()
+        if masked_windows is None:
+            masked_windows = (torch.arange(nW, device=q.device).expand(B, nW),
+                              occ > 0)
+        mw_idx, mw_valid = masked_windows
+        nWa = mw_idx.shape[1]
+        bidx = torch.arange(B, device=q.device)[:, None]
+        win_q_a = win_q[bidx, mw_idx]
+        rows = idx_all[mw_idx].reshape(B, nWa * n_idx)
+
+        def gather_a(t):
+            tf = t.reshape(B, t.shape[1], new_h * new_w, C)
+            g = tf[bidx, :, rows]          # (B, nWa * n_idx, T', C)
+            g = g.reshape(B, nWa, n_idx, t.shape[1], nh, ch)
+            return g.permute(0, 1, 4, 3, 2, 5)
 
         def pool_windows(p):
             p = p.index_select(1, sel).reshape(B, Ts, P, nh, ch)
             p = p.permute(0, 3, 1, 2, 4)[:, None]
-            return p.expand(B, nW, nh, Ts, P, ch)
+            return p.expand(B, nWa, nh, Ts, P, ch)
 
-        k_all = torch.cat([gather_windows(k.index_select(1, sel), idx_all),
+        k_all = torch.cat([gather_a(k.index_select(1, sel)),
                            pool_windows(pool_k)], dim=4)
-        v_all = torch.cat([gather_windows(v.index_select(1, sel), idx_all),
+        v_all = torch.cat([gather_a(v.index_select(1, sel)),
                            pool_windows(pool_v)], dim=4)
         k_tok = k_all.shape[4]
         bias = None
@@ -364,19 +421,23 @@ class SparseWindowAttention(nn.Module):
         attend = (flash_window_attention_bf16 if q.dtype == torch.bfloat16
                   else flash_window_attention)
         out_a = attend(
-            win_q.reshape(B, nW * nh, T * win, ch).contiguous(),
-            k_all.reshape(B, nW * nh, Ts * k_tok, ch).contiguous(),
-            v_all.reshape(B, nW * nh, Ts * k_tok, ch).contiguous(),
+            win_q_a.reshape(B, nWa * nh, Tq * win, ch).contiguous(),
+            k_all.reshape(B, nWa * nh, Ts * k_tok, ch).contiguous(),
+            v_all.reshape(B, nWa * nh, Ts * k_tok, ch).contiguous(),
             bias, scale)
-        out_a = out_a.reshape(B, nW, nh, T, win, ch)
+        out_a = out_a.reshape(B, nWa, nh, Tq, win, ch)
 
         # branch B: within window, same frame (bf16 logits in bf16, as the
         # JAX module's, `propainter.py:583, 612-619`)
         att_b = torch.softmax(win_q @ win_k.transpose(-1, -2) * scale, dim=-1)
         out_b = att_b @ win_v
 
-        return torch.where((occ > 0)[:, :, None, None, None, None],
-                           out_a, out_b)
+        # the bucket's windows over branch B's: an invalid slot writes back
+        # the value it reads, and repeated slots write equal values (each
+        # K4 problem is computed on its own)
+        keep = mw_valid[:, :, None, None, None, None]
+        return out_b.index_put(
+            (bidx, mw_idx), torch.where(keep, out_a, out_b[bidx, mw_idx]))
 
     def _sparse_windows(self, q, k, v, pool_k, pool_v, occ, static_sel,
                         frame_valid):
@@ -429,9 +490,17 @@ class TemporalSparseTransformer(nn.Module):
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = FusionFeedForward(dim)
 
-    def forward(self, x, fold_x_size, mask, static_sel, frame_valid=None):
+    def forward(self, x, fold_x_size, mask, static_sel, frame_valid=None,
+                masked_windows=None, out_frames: int | None = None):
+        """out_frames: only the first out_frames frames come out (their
+        queries, shortcut and MLP; keys from all frames), exact for
+        those."""
         B, T, H, W, C = x.shape
-        x = x + self.attention(self.norm1(x), mask, static_sel, frame_valid)
+        att = self.attention(self.norm1(x), mask, static_sel, frame_valid,
+                             masked_windows, out_frames)
+        if out_frames is not None:
+            x, T = x[:, :out_frames], out_frames
+        x = x + att
         y = self.mlp(self.norm2(x).reshape(B, T * H * W, C), fold_x_size)
         return x + y.reshape(B, T, H, W, C)
 
@@ -449,12 +518,17 @@ class TemporalSparseTransformerBlock(nn.Module):
             for _ in range(depths)])
 
     def forward(self, x, fold_x_size, l_mask, t_dilation: int = 2,
-                frame_valid=None):
+                frame_valid=None, masked_windows=None,
+                out_frames: int | None = None):
+        """out_frames: the last block emits only the first out_frames
+        frames (the decoder reads no others)."""
         T = x.shape[1]
+        last = len(self.transformer) - 1
         for i, block in enumerate(self.transformer):
             static_sel = np.zeros(T, np.bool_)
             static_sel[i % t_dilation::t_dilation] = True
-            x = block(x, fold_x_size, l_mask, static_sel, frame_valid)
+            x = block(x, fold_x_size, l_mask, static_sel, frame_valid,
+                      masked_windows, out_frames if i == last else None)
         return x
 
 
@@ -614,19 +688,57 @@ class InpaintGenerator(nn.Module):
         for block in self.transformers.transformer:
             block.attention.attention_impl = impl
 
+    def encode(self, frames, masks_in, masks_updated):
+        """(N, H, W, 3), (N, H, W, 1), (N, H, W, 1) -> encoder features (N,
+        c, h, w); the encoder is per frame."""
+        x = torch.cat([frames, masks_in, masks_updated], dim=-1)
+        return self.encoder(x.permute(0, 3, 1, 2))
+
+    def tokenize(self, feat):
+        """(N, c, h, w) features -> (N, fh, fw, hidden) tokens; SoftSplit
+        is per frame."""
+        return self.ss(feat, 1)[0]
+
     def forward(self, masked_frames, completed_flows, masks_in, masks_updated,
-                num_local_frames: int, t_dilation: int = 2, frame_valid=None):
+                num_local_frames: int, t_dilation: int = 2, frame_valid=None,
+                precomputed_enc_feat=None, precomputed_ref_feat=None,
+                precomputed_ref_tokens=None, masked_windows=None):
         """masked_frames (B, T, H, W, 3) in [-1, 1]; completed_flows
         (flows_f, flows_b) each (B, l_t-1, H, W, 2); masks_in / masks_updated
         (B, T, H, W, 1); frame_valid (T,) or (B, T) bool or None (False =
         padded reference frame, per batch row when (B, T)). Returns (B,
-        l_t, H, W, 3) in [-1, 1]."""
+        l_t, H, W, 3) in [-1, 1].
+
+        Stage 4's schedule (`propainter_tpu/models/propainter.py:982-1111`):
+        precomputed_enc_feat: (B, T, c, h, w) encoder features of the l_t
+          local frames, then the references; nothing is encoded, the mask
+          inputs need only the local frames and masked_frames may be None.
+        precomputed_ref_feat: (B, T - l_t, c, h, w) the references'
+          features; the frame and mask inputs are the l_t local frames.
+        precomputed_ref_tokens: (B, T - l_t, fh, fw, hidden) the
+          references' tokens; only the local frames are tokenized.
+        masked_windows: (idx, valid), each (B, m_b): the bucket of dirty
+          windows branch A runs on under 'flash'
+          (`SparseWindowAttention`)."""
         l_t = num_local_frames
-        B, T, H, W, _ = masked_frames.shape
-        enc_in = torch.cat([masked_frames, masks_in, masks_updated], dim=-1)
-        enc = self.encoder(enc_in.reshape(B * T, H, W, 5).permute(0, 3, 1, 2))
-        _, c, h, w = enc.shape
-        enc = enc.view(B, T, c, h, w)
+        B, _, H, W, _ = masks_in.shape
+        if precomputed_enc_feat is not None:
+            enc = precomputed_enc_feat
+            local, ref = enc[:, :l_t], enc[:, l_t:]
+        elif precomputed_ref_feat is not None:
+            if masked_frames.shape[1] != l_t:
+                raise ValueError("with precomputed_ref_feat the frames are "
+                                 "the l_t local ones")
+            local = self.encode(*(x.flatten(0, 1) for x in (
+                masked_frames, masks_in, masks_updated)))
+            local = local.view(B, l_t, *local.shape[1:])
+            ref = precomputed_ref_feat.to(masked_frames.dtype)
+        else:
+            enc = self.encode(*(x.flatten(0, 1) for x in (
+                masked_frames, masks_in, masks_updated)))
+            enc = enc.view(B, -1, *enc.shape[1:])
+            local, ref = enc[:, :l_t], enc[:, l_t:]
+        c, h, w = local.shape[2:]
         fold_size = (h, w)
 
         flows_f, flows_b = completed_flows
@@ -637,14 +749,24 @@ class InpaintGenerator(nn.Module):
         mask_pool_l = token_masks(ds_mask_in)
 
         prop_mask = torch.cat([ds_mask_in, ds_mask_upd], dim=-1)
-        local = self.feat_prop_module(enc[:, :l_t], ds_ff, ds_fb,
+        local = self.feat_prop_module(local, ds_ff, ds_fb,
                                       prop_mask.permute(0, 1, 4, 2, 3))
-        enc = torch.cat([local, enc[:, l_t:]], dim=1)
+        enc = torch.cat([local, ref], dim=1)
 
-        tokens = self.ss(enc.flatten(0, 1), B)
+        if precomputed_ref_tokens is not None:
+            tokens = torch.cat([self.ss(local.flatten(0, 1), B),
+                                precomputed_ref_tokens.to(local.dtype)],
+                               dim=1)
+        else:
+            tokens = self.ss(enc.flatten(0, 1), B)
+        # the last block's queries shrink to the local frames, except under
+        # 'pallas' (the JAX package's rule, `propainter.py:1100-1101`)
+        pallas = (self.transformers.transformer[0].attention.attention_impl
+                  == "pallas")
         tokens = self.transformers(tokens, fold_size, mask_pool_l, t_dilation,
-                                   frame_valid)
+                                   frame_valid, masked_windows,
+                                   None if pallas else l_t)
         trans = self.sc(tokens[:, :l_t], fold_size).view(B, l_t, c, h, w)
-        dec_in = (enc[:, :l_t] + trans).flatten(0, 1)
+        dec_in = (local + trans).flatten(0, 1)
         out = torch.tanh(self.decoder(dec_in))
         return out.view(B, l_t, 3, H, W).permute(0, 1, 3, 4, 2)

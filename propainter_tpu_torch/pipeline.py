@@ -27,11 +27,18 @@ with raft_bf16_refine=False, under an fp32 one. bf16 with shard_inference runs o
 raft_bf16_refine=False: the JAX package cannot refine in bf16 in the
 batched corr layout (`RAFT.refine`).
 
-The JAX package's TPU scheduling tricks (occupancy bucketing, encoder
-overlap carry, reference-token precompute, last-block query shrink) are
-not ported: its tests pin each bit-exact to the plain schedule, which is
-what runs here. Their `PipelineConfig` fields are accepted and change
-nothing.
+Stage 4 runs the JAX package's schedule (`propainter_tpu/pipeline.py:
+658-849`, `plan_stage4`): the reference frames' union is encoded and
+tokenized once per video; with `occupancy_bucketing` the windows' dirty
+attention windows come back to the host in one readback and branch A runs
+on a bucket of them (`plan_bucket_subruns`); with `encoder_carry` a
+sub-run of regularly strided single windows encodes only each window's
+new frames; the last transformer block computes the local frames' queries
+only ('flash'). The JAX tests pin each as output-identical to the plain
+schedule, and so do the port's (`tests/test_torch_stage4.py`).
+
+`raft_clip_len` and `unchunked` are the JAX package's evaluation protocol:
+a fixed RAFT chunk, and stages 2-3 whole with uncapped references.
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ import torch
 from propainter_tpu_torch.device import resolve_device
 from propainter_tpu_torch.models.flow_completion import (
     combine_flow, forward_bidirect_flow)
-from propainter_tpu_torch.models.propainter import image_propagation
+from propainter_tpu_torch.models.propainter import (
+    image_propagation, masked_window_bitmap)
 from propainter_tpu_torch.parallel import (
     canonical_device, make_mesh, map_shards, replicate)
 
@@ -86,6 +94,39 @@ def equal_chunk_schedule(length: int, n_chunks: int, pad: int
             for i in range(n_chunks)]
 
 
+def plan_bucket_subruns(bm: np.ndarray) -> list[tuple[int, list[int]]]:
+    """Split a window run into consecutive same-bucket sub-runs for stage
+    4's occupancy bucketing. Copy of `propainter_tpu/pipeline.py:89-122`.
+
+    bm: (n_windows, nW) bool masked-window bitmaps, in execution order.
+    Returns [(bucket, [window rows])]: buckets are the per-window masked
+    counts rounded up to multiples of 4 (at least 4, at most nW); adjacent
+    sub-runs merge greedily while upgrading their windows to the larger
+    bucket costs at most two 4-window steps. Execution order is kept (the
+    0.5/0.5 revisit average is sequential)."""
+    nW = bm.shape[1]
+    buckets = np.minimum(-(-bm.sum(axis=1).astype(int) // 4) * 4, nW)
+    buckets = np.maximum(buckets, 4)
+    subruns: list[tuple[int, list[int]]] = []
+    for gi, b in enumerate(buckets):
+        if subruns and subruns[-1][0] == b:
+            subruns[-1][1].append(gi)
+        else:
+            subruns.append((int(b), [gi]))
+
+    def upgrade_steps(a, b):
+        bm_ = max(a[0], b[0])
+        return (len(a[1]) * (bm_ - a[0]) + len(b[1]) * (bm_ - b[0])) // 4
+
+    merged: list[tuple[int, list[int]]] = []
+    for sr in subruns:
+        while merged and upgrade_steps(merged[-1], sr) <= 2:
+            prev = merged.pop()
+            sr = (max(prev[0], sr[0]), prev[1] + sr[1])
+        merged.append(sr)
+    return merged
+
+
 def get_ref_index(mid_neighbor_id, neighbor_ids, length, ref_stride=10,
                   ref_num=-1):
     """Global reference frames. Reference inference_propainter.py:159-173."""
@@ -106,6 +147,33 @@ def get_ref_index(mid_neighbor_id, neighbor_ids, length, ref_stride=10,
 
 
 @dataclasses.dataclass
+class SubRun:
+    """Consecutive stage-4 windows of one length run the same way.
+
+    windows: [(neighbor ids, reference-union rows, frame_valid)], padded
+    reference slots at union row 0 and False in frame_valid. bucket: the
+    occupancy bucket m_b (None without bucketing); masked: (idx, valid),
+    each (n_windows, m_b), when m_b < nW, else None (branch A over every
+    window). carry: the encoder carry's stride, or None."""
+
+    l_t: int
+    windows: list
+    bucket: int | None
+    masked: tuple | None
+    carry: int | None
+
+
+@dataclasses.dataclass
+class Stage4Plan:
+    """The generator calls of one video's stage 4, in order: each sub-run's
+    windows, `window_batch` at a time."""
+
+    ref_union: list
+    subruns: list
+    window_batch: int
+
+
+@dataclasses.dataclass
 class PipelineConfig:
     """Every field of the JAX package's `PipelineConfig`, with its
     defaults."""
@@ -115,16 +183,16 @@ class PipelineConfig:
     subvideo_length: int = 80
     raft_iter: int = 20
     precision: str = "fp32"   # 'fp32' | 'bf16'
-    # the JAX package's fixed RAFT chunk length (its evaluation protocol);
-    # only None (the width-based length) until evaluation is ported
+    # a fixed RAFT chunk length (the JAX package's evaluation protocol
+    # chunks by 60); None = the width-based length (get_short_clip_len)
     raft_clip_len: int | None = None
-    # the JAX package's whole-video evaluation protocol; only False until
-    # evaluation is ported
+    # the evaluation protocol: stages 2-3 whole-video (no subvideo chunks,
+    # no mesh split) and uncapped reference frames
     unchunked: bool = False
     # the generator's sparse window attention: 'flash' (kernel K4 over
-    # every window, then the occupancy selects) or 'pallas' (kernel K5
-    # takes each window's branch); the pipeline sets it on its generator
-    # when it is built
+    # the dirty windows' bucket, or every window, then the occupancy
+    # selects) or 'pallas' (kernel K5 takes each window's branch); the
+    # pipeline sets it on its generator when it is built
     attention_impl: str = "flash"
     # stage-4 windows of equal length run this many at a time as one
     # batched generator call; a tail batch is padded by repeating its
@@ -139,10 +207,13 @@ class PipelineConfig:
     # 2-3 chunks (equal_chunk_schedule) and stage-4 window batches split
     # across it
     shard_inference: bool = False
-    # the JAX package's stage-4 occupancy bucketing and encoder overlap
-    # carry: scheduling choices its tests pin output-identical to the dense
-    # schedule, which is what runs here whatever these say
+    # stage 4: each window's dirty attention windows (masked_window_bitmap,
+    # one readback a video) bucketed in multiples of 4; under 'flash'
+    # branch A runs on the bucket only (plan_bucket_subruns)
     occupancy_bucketing: bool = True
+    # stage 4: with window_batch 1, a sub-run of regularly strided windows
+    # encodes only each window's stride new frames and carries the
+    # features of the l_t - stride it shares with the previous window
     encoder_carry: bool = True
     # bf16 only, off the CPU: RAFT's refinement, and with it its encoders,
     # in bf16 (see the module docstring); fp32 otherwise
@@ -153,10 +224,6 @@ class PipelineConfig:
         if self.precision not in ("fp32", "bf16"):
             raise ValueError(f"precision must be 'fp32' or 'bf16', got "
                              f"{self.precision!r}")
-        if self.raft_clip_len is not None or self.unchunked:
-            raise NotImplementedError(
-                "raft_clip_len and unchunked are the JAX package's "
-                "evaluation protocol, which is not ported yet")
 
 
 @contextlib.contextmanager
@@ -296,7 +363,7 @@ class ProPainterPipeline:
         """Stage 1: chunked bidirectional RAFT (chunks overlap by one frame).
         Reference inference_propainter.py:302-330."""
         T, W = frames.shape[1], frames.shape[3]
-        clip = get_short_clip_len(W)
+        clip = self.config.raft_clip_len or get_short_clip_len(W)
         iters = self.config.raft_iter
         if T <= clip:
             return self._raft_bi(frames, iters)
@@ -351,18 +418,19 @@ class ProPainterPipeline:
         """Stage 2: chunked flow completion with 5-frame overlap trim.
         Reference inference_propainter.py:341-368. Over a mesh of more than
         one device, equal chunks split across it when the video is long
-        enough (`_sharded_chunks`)."""
+        enough (`_sharded_chunks`); `unchunked` runs the whole video."""
         flows_f, flows_b = gt_flows_bi
         n = flows_f.shape[1]
         sub = self.config.subvideo_length
-        if len(self.mesh) > 1:
+        unchunked = self.config.unchunked
+        if len(self.mesh) > 1 and not unchunked:
             out = self._sharded_chunks(
                 self._complete_flow_batched, n, 5,
                 lambda s, e: (flows_f[:, s:e], flows_b[:, s:e],
                               flow_masks[:, s:e + 1]))
             if out is not None:
                 return out
-        if n <= sub:
+        if unchunked or n <= sub:
             return self._complete_flow(flows_f, flows_b, flow_masks)
         pred_f, pred_b = [], []
         pad = 5
@@ -385,19 +453,20 @@ class ProPainterPipeline:
 
     def propagate_images(self, frames, pred_flows_bi, masks_dilated):
         """Stage 3: chunked image propagation with 10-frame overlap trim.
-        Reference inference_propainter.py:371-404. Split over a mesh as
-        stage 2 is."""
+        Reference inference_propainter.py:371-404. Split over a mesh, or
+        run whole, as stage 2 is."""
         T = frames.shape[1]
         sub = min(100, self.config.subvideo_length)
         flows_f, flows_b = pred_flows_bi
-        if len(self.mesh) > 1:
+        unchunked = self.config.unchunked
+        if len(self.mesh) > 1 and not unchunked:
             out = self._sharded_chunks(
                 self._img_prop_batched, T, 10,
                 lambda s, e: (frames[:, s:e], flows_f[:, s:e - 1],
                               flows_b[:, s:e - 1], masks_dilated[:, s:e]))
             if out is not None:
                 return out
-        if T <= sub:
+        if unchunked or T <= sub:
             return self._img_prop(frames, flows_f, flows_b, masks_dilated)
         upd_frames, upd_masks = [], []
         pad = 10
@@ -411,69 +480,157 @@ class ProPainterPipeline:
             upd_masks.append(um[:, ps:e - s - pe])
         return torch.cat(upd_frames, dim=1), torch.cat(upd_masks, dim=1)
 
+    def stage4_plan(self, masks_dilated) -> Stage4Plan:
+        """Stage 4's windows and generator calls, as the JAX package plans
+        them (`propainter_tpu/pipeline.py:670-841`). masks_dilated (1, T,
+        H, W, 1) on the device; with `occupancy_bucketing` each window's
+        masked-window bitmap comes back to the host in one readback for
+        the whole video (neighbour lists padded to the longest by repeating
+        a frame, which leaves the union unchanged)."""
+        cfg = self.config
+        T = masks_dilated.shape[1]
+        stride = cfg.neighbor_length // 2
+        ref_num = (cfg.subvideo_length // cfg.ref_stride
+                   if not cfg.unchunked and T > cfg.subvideo_length else -1)
+        ref_cap = T if cfg.unchunked else min(T, cfg.subvideo_length)
+        ref_pad = max(1, -(-ref_cap // cfg.ref_stride))
+        specs = []
+        for f in range(0, T, stride):
+            nb = list(range(max(0, f - stride), min(T, f + stride + 1)))
+            specs.append((nb, get_ref_index(f, nb, T, cfg.ref_stride,
+                                            ref_num)[:ref_pad]))
+        # the union of the truncated lists; a video with no reference keeps
+        # one entry for the padded slots
+        ref_union = sorted({r for _, refs in specs for r in refs}) or [0]
+        pos = {r: i for i, r in enumerate(ref_union)}
+        windows = [(nb, [pos[r] for r in refs] + [0] * (ref_pad - len(refs)),
+                    [True] * (len(nb) + len(refs))
+                    + [False] * (ref_pad - len(refs)))
+                   for nb, refs in specs]
+        runs = []   # consecutive windows of equal length
+        for w in windows:
+            if runs and len(runs[-1][0][0]) == len(w[0]):
+                runs[-1].append(w)
+            else:
+                runs.append([w])
+
+        bitmaps = None
+        if cfg.occupancy_bucketing:
+            l_max = max(len(w[0]) for w in windows)
+            nb_all = torch.as_tensor(
+                [w[0] + [w[0][-1]] * (l_max - len(w[0])) for w in windows],
+                device=masks_dilated.device)
+            window = self.inpaint.transformers.transformer[0].attention
+            bitmaps = masked_window_bitmap(masks_dilated[0][nb_all],
+                                           window.window_size).cpu().numpy()
+        wb = self._window_batch
+        subruns, row = [], 0
+        for run in runs:
+            l_t = len(run[0][0])
+            parts = [(None, list(range(len(run))))]
+            if bitmaps is not None:
+                bm = bitmaps[row:row + len(run)]
+                parts = plan_bucket_subruns(bm)
+            row += len(run)
+            for m_b, rows in parts:
+                sub = [run[i] for i in rows]
+                masked = None
+                if m_b is not None and m_b < bm.shape[1]:
+                    idx = np.zeros((len(sub), m_b), np.int64)
+                    valid = np.zeros((len(sub), m_b), np.bool_)
+                    for si, gi in enumerate(rows):
+                        dirty = np.nonzero(bm[gi])[0]
+                        if len(dirty):
+                            # repeats of real dirty windows: repeated
+                            # scatter slots write equal values
+                            idx[si] = np.resize(dirty, m_b)
+                            valid[si] = True
+                    masked = (idx, valid)
+                carry = None
+                if cfg.encoder_carry and wb == 1 and len(sub) > 1:
+                    nbs = [w[0] for w in sub]
+                    s = nbs[1][0] - nbs[0][0]
+                    if 0 < s < l_t and all(
+                            nbs[k + 1] == [x + s for x in nbs[k]]
+                            for k in range(len(nbs) - 1)):
+                        carry = s
+                subruns.append(SubRun(l_t, sub, m_b, masked, carry))
+        return Stage4Plan(ref_union, subruns, wb)
+
     def generate(self, updated_frames, pred_flows_bi, masks_dilated,
                  updated_masks, ori_frames):
-        """Stage 4: sliding windows through the generator, composited into
-        uint8 frames in window order. Reference inference_propainter.py:
-        407-452:
+        """Stage 4: sliding windows through the generator on the plan of
+        `stage4_plan`, composited into uint8 frames in window order.
+        Reference inference_propainter.py:407-452:
 
             img  = floor((pred + 1) / 2 * 255) clipped, inside the mask;
                    the original pixel outside it
             comp = img                     on a frame's first visit
             comp = floor(comp/2 + img/2)   on each revisit
 
-        Consecutive windows of equal length run `window_batch` at a time
-        as one generator call with a (batch, frames) frame_valid, the batch
-        split over the mesh; a tail batch is padded by repeating its
-        windows with weight 0, and the compositing skips them.
+        The reference union's features and tokens are computed once and
+        gathered per window. Consecutive windows of a sub-run run
+        `window_batch` at a time as one generator call with a (batch,
+        frames) frame_valid, the batch (with its references' features and
+        tokens and its bucket rows) split over the mesh; a tail batch is
+        padded by repeating its windows with weight 0, and the compositing
+        skips them. A carried sub-run runs one window a call.
 
         ori_frames: (T, H, W, 3) uint8 tensor on the device. Returns
         (T, H, W, 3) uint8 on the device."""
-        cfg = self.config
         _, T, H, W, _ = updated_frames.shape
-        stride = cfg.neighbor_length // 2
-        ref_num = (cfg.subvideo_length // cfg.ref_stride
-                   if T > cfg.subvideo_length else -1)
-        # every window gets the same number of reference slots; unused ones
-        # repeat a real reference and are masked out by frame_valid
-        ref_pad = max(1, -(-min(T, cfg.subvideo_length) // cfg.ref_stride))
-        runs = []   # consecutive windows of equal length: [(nb, ids, valid)]
-        for f in range(0, T, stride):
-            nb = list(range(max(0, f - stride), min(T, f + stride + 1)))
-            refs = get_ref_index(f, nb, T, cfg.ref_stride, ref_num)[:ref_pad]
-            pad_id = refs[0] if refs else nb[0]
-            window = (nb, nb + refs + [pad_id] * (ref_pad - len(refs)),
-                      [True] * (len(nb) + len(refs))
-                      + [False] * (ref_pad - len(refs)))
-            if runs and len(runs[-1][0][0]) == len(nb):
-                runs[-1].append(window)
-            else:
-                runs.append([window])
+        plan = self.stage4_plan(masks_dilated)
         dt = self._dtype
+        dev = self.device
         uf, md, um = (x[0].to(dt) for x in (updated_frames, masks_dilated,
                                             updated_masks))
         ff, fb = (x[0].to(dt) for x in pred_flows_bi)
         masks_bin = masks_dilated[0]
-        comp = torch.zeros((T, H, W, 3), dtype=torch.float32,
-                           device=self.device)
+        gen = self.inpaint
+
+        def encode(ids):
+            return gen.encode(uf[ids], md[ids], um[ids])
+
+        ru = torch.as_tensor(plan.ref_union, device=dev)
+        ref_feat = encode(ru)
+        ref_tok = gen.tokenize(ref_feat)
+        comp = torch.zeros((T, H, W, 3), dtype=torch.float32, device=dev)
         visited = torch.zeros(T, dtype=torch.bool)
         ori = ori_frames.float()
-        wb = self._window_batch
-        for run in runs:
-            l_t = len(run[0][0])
-            for start in range(0, len(run), wb):
-                batch = run[start:start + wb]
-                n_real = len(batch)
-                batch = (batch * wb)[:wb]   # tail: repeats of weight 0
-                idx = torch.as_tensor([w[1] for w in batch],
-                                      device=self.device)
-                valid = torch.as_tensor([w[2] for w in batch],
-                                        device=self.device)
-                (pred,) = self._sharded(
-                    "inpaint", lambda m, x, f_, b_, mi, mu, fv: (m(
-                        x, (f_, b_), mi, mu, l_t, frame_valid=fv),),
-                    uf[idx], ff[idx[:, :l_t - 1]], fb[idx[:, :l_t - 1]],
-                    md[idx], um[idx], valid)
+        wb = plan.window_batch
+        for sr in plan.subruns:
+            l_t, s = sr.l_t, sr.carry
+            if s:   # the seed: the first window's first l_t - s frames
+                carry = encode(torch.as_tensor(sr.windows[0][0][:l_t - s],
+                                               device=dev))
+            for start in range(0, len(sr.windows), wb):
+                rows = list(range(start, min(start + wb, len(sr.windows))))
+                n_real = len(rows)
+                rows = (rows * wb)[:wb]   # tail: repeats of weight 0
+                batch = [sr.windows[i] for i in rows]
+                nb, rp, valid = (torch.as_tensor([w[i] for w in batch],
+                                                 device=dev)
+                                 for i in range(3))
+                mw = () if sr.masked is None else tuple(
+                    torch.as_tensor(a[rows], device=dev) for a in sr.masked)
+                if s:
+                    local = torch.cat([carry, encode(nb[0, l_t - s:])])
+                    carry = local[s:]
+                    pred = gen(None, (ff[nb[:, :-1]], fb[nb[:, :-1]]),
+                               md[nb], um[nb], l_t, frame_valid=valid,
+                               precomputed_enc_feat=torch.cat(
+                                   [local[None], ref_feat[rp]], dim=1),
+                               precomputed_ref_tokens=ref_tok[rp],
+                               masked_windows=mw or None)
+                else:
+                    (pred,) = self._sharded(
+                        "inpaint", lambda m, x, f_, b_, mi, mu, fv, rf, rt,
+                        *mw_: (m(x, (f_, b_), mi, mu, l_t, frame_valid=fv,
+                                 precomputed_ref_feat=rf,
+                                 precomputed_ref_tokens=rt,
+                                 masked_windows=mw_ or None),),
+                        uf[nb], ff[nb[:, :-1]], fb[nb[:, :-1]], md[nb],
+                        um[nb], valid, ref_feat[rp], ref_tok[rp], *mw)
                 img8 = torch.floor((pred.float() + 1.0) / 2.0 * 255.0).clamp(
                     0.0, 255.0)
                 for w in range(n_real):

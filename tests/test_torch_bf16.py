@@ -374,8 +374,9 @@ def test_bf16_guards():
     package cannot run either (tests/test_torch_bf16_forms.py; the
     pipeline's own guards are in tests/test_torch_pipeline.py);
     ProInpainter defaults to bf16; every field of the JAX package's config
-    constructs, and the evaluation-protocol ones raise off their
-    defaults."""
+    constructs, with its defaults and off them (the evaluation protocol's
+    `raft_clip_len` and `unchunked` too, which the port now runs:
+    tests/test_torch_pipeline.py)."""
     mods = {"raft": RAFT(), "flowcomp": RecurrentFlowCompleteNet(),
             "inpaint": InpaintGenerator(depths=2)}
     assert ProInpainter(mods).precision == "bf16"
@@ -398,11 +399,11 @@ def test_bf16_guards():
               .values()}
     cfg = torch_pipeline.PipelineConfig(**fields)
     assert cfg.raft_bf16_refine and cfg.raft_bf16_encode
-    for name, value in (("raft_clip_len", 60), ("unchunked", True)):
-        with pytest.raises(NotImplementedError):
-            torch_pipeline.PipelineConfig(**dict(fields, **{name: value}))
-    for name in ("occupancy_bucketing", "encoder_carry"):
-        torch_pipeline.PipelineConfig(**dict(fields, **{name: False}))
+    for name, value in (("raft_clip_len", 60), ("unchunked", True),
+                        ("occupancy_bucketing", False),
+                        ("encoder_carry", False)):
+        cfg = torch_pipeline.PipelineConfig(**dict(fields, **{name: value}))
+        assert getattr(cfg, name) == value
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The pieces of `chip_smoke.py` that run without a GPU: the build phase's
 readers of the compiler's and the disassembler's output and its grids, the
-kernels' bounds, and the main path's expected launch counts."""
+kernels' bounds, and the main path's expected launch counts from the
+pipeline's own stage-4 plan."""
 
 import math
 from types import SimpleNamespace
@@ -118,7 +119,9 @@ def test_tensor_core_launch_grids():
     for 2 resident blocks per SM (2 at the generator, 4 at the flow
     completion: 204 blocks each), and K4's and K5's 7 tiles of 128 query
     rows x 64 problems on the wgmma tile (one block of 384 threads per SM;
-    the launch facts the card reported)."""
+    the launch facts the card reported); K4 and its bf16 form also at the
+    bucketed main path's 32 and 16 problems of 855 and (last block) 495
+    rows: 14 or 8 64-row tiles, 7 or 4 128-row tiles, a problem."""
     info = {"corr_lookup_moenc_kernel": [2, 93696, 128, 32, 1],
             "window_attention_kernel": [2, 107520, 128, 64, 1],
             "sparse_window_attention_kernel": [2, 107520, 128, 64, 2],
@@ -140,7 +143,17 @@ def test_tensor_core_launch_grids():
         ("window_attention_bf16_kernel", "bf16 main path"): 7 * 64,
         ("deform_conv_bf16_kernel", "generator, bf16"): 102 * 2,
         ("deform_conv_bf16_kernel", "flow completion, bf16"): 51 * 4,
-        ("sparse_window_attention_bf16_kernel", "bf16 main path"): 7 * 64}
+        ("sparse_window_attention_bf16_kernel", "bf16 main path"): 7 * 64,
+        **{("window_attention_kernel",
+            f"bucketed, {g} problems x {rows} rows"): tiles * g
+           for g, rows, tiles in ((32, 855, 14), (16, 855, 14),
+                                  (32, 495, 8), (16, 495, 8))},
+        **{("window_attention_bf16_kernel",
+            f"bf16 bucketed, {g} problems x {rows} rows"): tiles * g
+           for g, rows, tiles in ((32, 855, 7), (16, 855, 7),
+                                  (32, 495, 4), (16, 495, 4))}}
+    assert grids[("window_attention_bf16_kernel",
+                  "bf16 bucketed, 16 problems x 495 rows")] == 64
 
 
 @pytest.mark.parametrize("n_pos, C, slots, want", [
@@ -287,16 +300,102 @@ def test_corr_lookup_bf16_sector_floor_at_the_main_path_shape():
     assert math.isclose(bound_ms, 0.020464, rel_tol=1e-4)
 
 
-def test_main_path_launch_counts():
+@pytest.fixture(scope="module")
+def smoke_plans():
+    """The stage-4 plans a full-size pipeline on the CPU builds for the
+    smoke clip's masks (80 x 240 x 432, dilated by 4), in the smoke's
+    fp32 configurations."""
+    from propainter_tpu_torch.models.flow_completion import (
+        RecurrentFlowCompleteNet)
+    from propainter_tpu_torch.models.propainter import InpaintGenerator
+    from propainter_tpu_torch.models.raft import RAFT
+    from propainter_tpu_torch.pipeline import ProPainterPipeline
+    from propainter_tpu_torch.utils.masks import binary_dilation_cross
+
+    _, mask = chip_smoke._synthetic_clip(80, 240, 432, seed=0)
+    flow_masks = np.stack([binary_dilation_cross(m, 4) for m in mask])
+    plans = {}
+    for name, options in (
+            ("flash", {}), ("pallas", dict(attention_impl="pallas")),
+            ("shard", dict(shard_inference=True, window_batch=4)),
+            ("plain", dict(occupancy_bucketing=False,
+                           encoder_carry=False))):
+        pipe = ProPainterPipeline(RAFT(), RecurrentFlowCompleteNet(),
+                                  InpaintGenerator(),
+                                  PipelineConfig(**options), device="cpu")
+        plans[name] = (pipe, chip_smoke._stage4_plan(pipe, flow_masks))
+    return plans
+
+
+def test_main_path_launch_counts(smoke_plans):
     """80 frames of 432 x 240: 7 RAFT chunks of 20 iterations (140 lookups,
-    K1's or K7's); 16 generator windows (lengths 6, 11 x 14, 10), in 6
-    batches at window_batch 4 (1 + 4 + 1) and 16 at 1."""
+    K1's or K7's). Stage 4 as the pipeline plans it: 16 windows (6, 11 x
+    14 and 10 frames) with 6 6 4 4 4 6 6 6 6 6 8 8 4 4 4 4 of their 16
+    attention windows dirty, so buckets of 8 and 4; the 14-window run
+    splits into sub-runs of 1, 3, 7 and 3 windows (buckets 8, 4, 8, 4),
+    and each sub-run of more than one window carries its encoder features:
+    8 references + 6 + 11 + (6 + 3 x 5) + (6 + 7 x 5) + (6 + 3 x 5) + 10
+    = 118 frames encoded, where every window encoding its own 11 + 8 was
+    298. K4 (or K5) once per block of each of the 16 generator calls, or of
+    the 7 batches of window_batch 4 (one a sub-run, two for the 7)."""
     frames = SimpleNamespace(shape=(80, 240, 432, 3))
-    pipe = SimpleNamespace(config=PipelineConfig(), _window_batch=1)
+    pipe, plan = smoke_plans["flash"]
     assert chip_smoke._raft_launches(pipe, frames) == 140
-    assert chip_smoke._window_batches(80, pipe) == 16
-    pipe._window_batch = 4
-    assert chip_smoke._window_batches(80, pipe) == 6
+    assert [(sr.l_t, len(sr.windows), sr.bucket, sr.carry)
+            for sr in plan.subruns] == [
+        (6, 1, 8, None), (11, 1, 8, None), (11, 3, 4, 5), (11, 7, 8, 5),
+        (11, 3, 4, 5), (10, 1, 4, None)]
+    assert all(sr.masked is not None for sr in plan.subruns)
+    assert plan.ref_union == list(range(0, 80, 10))
+    counts = chip_smoke._plan_counts(plan)
+    assert counts["encoded"] == 118
+    assert counts["tokenized"] == 8 + 6 + 11 * 14 + 10
+    assert sum(len(w[0]) + len(w[1]) for sr in plan.subruns
+               for w in sr.windows) == 298
+    for name, calls in (("flash", 16), ("pallas", 16), ("shard", 7),
+                        ("plain", 16)):
+        pipe, plan = smoke_plans[name]
+        assert chip_smoke._plan_counts(plan)["calls"] == calls
+        assert chip_smoke._plan_launches(plan, pipe)["calls"] == 8 * calls
+    # window_batch 4: no carry; a tail batch is encoded whole
+    shard, plain = (chip_smoke._plan_counts(smoke_plans[name][1])
+                    for name in ("shard", "plain"))
+    assert shard["encoded"] == 8 + 4 * (6 + 11 * (1 + 1 + 2 + 1) + 10)
+    assert plain["encoded"] == 8 + 170
+    assert [sr.bucket for sr in smoke_plans["plain"][1].subruns] == [None] * 3
+
+
+def test_k4_calls_of_the_plan(smoke_plans):
+    """K4's calls by (problems, query rows), as the plan predicts them: 4
+    heads x the bucket; 19 frames' rows (11 local + 8 references) on the
+    first 7 blocks of an 11-frame window, its 11 local frames' on the last
+    (14 / 6 and 18 / 10 at the ends). The smoke's check passes the run's
+    record when it matches (keys from 10 or 9 selected frames) and fails
+    on another shape or a missing `K4_BUCKET_SHAPES` entry."""
+    pipe, plan = smoke_plans["flash"]
+    want = chip_smoke._plan_launches(plan, pipe)
+    assert want["shapes"] == {
+        (32, 14 * 45): 7, (32, 6 * 45): 1, (32, 855): 8 * 7,
+        (32, 495): 8, (16, 855): 6 * 7, (16, 495): 6, (16, 18 * 45): 7,
+        (16, 10 * 45): 1}
+    assert sum(want["shapes"].values()) == want["calls"] == 128
+    record = []
+    for (g, rows), n in want["shapes"].items():
+        # the last block's rows: 9 selected frames; the others' 4 of 7
+        # blocks 10, 3 of 7 blocks 9
+        even = 0 if rows in (270, 495, 450) else n * 4 // 7
+        record += [[g, rows, keys, count]
+                   for keys, count in ((10 * 238, even), (9 * 238, n - even))
+                   if count]
+    chip_smoke._check_k4_calls({"k4_calls": record}, want)
+    bad = [[64 if r[:3] == [32, 855, 2380] else r[0], *r[1:]]
+           for r in record]
+    with pytest.raises(AssertionError, match="other shapes"):
+        chip_smoke._check_k4_calls({"k4_calls": bad}, want)
+    short = [[*r[:2], 2380 if r[:3] == [16, 495, 2142] else r[2], r[3]]
+             for r in record]
+    with pytest.raises(AssertionError, match="not on the main path"):
+        chip_smoke._check_k4_calls({"k4_calls": short}, want)
 
 
 def test_sparse_window_attention_bf16_bound_at_the_main_path_shape():

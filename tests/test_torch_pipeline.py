@@ -77,10 +77,24 @@ def _golden_inputs():
     return frames, mask
 
 
+def _bucket_sizes(generator) -> list:
+    """Records each generator call's masked_windows bucket (None = dense
+    branch A)."""
+    sizes = []
+    generator.register_forward_pre_hook(
+        lambda _, args, kw: sizes.append(
+            None if kw.get("masked_windows") is None
+            else tuple(kw["masked_windows"][0].shape)), with_kwargs=True)
+    return sizes
+
+
 @pytest.mark.parametrize("attention_impl", ["flash", "pallas"])
 def test_golden_pipeline_output(attention_impl):
     """Both attention forms reproduce the golden, which the JAX pipeline
-    froze with its default ('flash')."""
+    froze with its defaults ('flash', occupancy bucketing): each of its
+    three windows (3, 5 and 4 frames) has 4 of its 6 attention windows
+    dirty, so each generator call takes a bucket of 4 (which 'pallas'
+    does not read)."""
     mods = _golden_modules()
     pipe = torch_pipeline.ProPainterPipeline(
         mods["raft"], mods["flowcomp"], mods["inpaint"],
@@ -88,9 +102,11 @@ def test_golden_pipeline_output(attention_impl):
                                       raft_iter=3,
                                       attention_impl=attention_impl),
         device="cpu")
+    buckets = _bucket_sizes(pipe.inpaint)
     frames, mask = _golden_inputs()
     timings = {}
     out = np.stack(pipe.inpaint_video(frames, mask, mask, timings=timings))
+    assert buckets == [(1, 4)] * 3
     golden = np.load(GOLDEN)["out"]
     assert out.shape == golden.shape == (T, H, W, 3)
     assert out.dtype == np.uint8
@@ -124,17 +140,81 @@ def test_golden_with_shard_inference():
         lambda _, args, kw: batches.append((args[0].shape[0],
                                             tuple(kw["frame_valid"].shape))),
         with_kwargs=True)
+    buckets = _bucket_sizes(pipe.inpaint)
     frames, mask = _golden_inputs()
     out = np.stack(pipe.inpaint_video(frames, mask, mask))
     golden = np.load(GOLDEN)["out"]
     assert out.shape == golden.shape and out.dtype == np.uint8
     assert [b for b, _ in batches] == [2] * 6
     assert [fv[0] for _, fv in batches] == [2] * 6
+    # each shard's rows of its batch's bucket (4 of 6 windows dirty)
+    assert buckets == [(2, 4)] * 6
     keep = mask == 0
     np.testing.assert_array_equal(out[keep], frames[keep])
     diff = np.abs(out.astype(int) - golden.astype(int))
     assert diff.max() <= 2, (
         f"max|diff|={diff.max()} mean={diff.mean():.4f}")
+
+
+def test_unchunked_reproduces_the_golden():
+    """unchunked=True ignores a subvideo_length of 4 (stages 2-3 run
+    whole, the references uncapped), so the 6-frame golden, which ran
+    whole at the default of 80, comes back within its 2 LSB; the same
+    subvideo_length without unchunked runs stage 2 in two chunks (of 5
+    flows each: 4 or 1, padded by 5)."""
+    mods = _golden_modules()
+    options = dict(ref_stride=3, neighbor_length=4, raft_iter=3,
+                   subvideo_length=4)
+    pipe = torch_pipeline.ProPainterPipeline(
+        mods["raft"], mods["flowcomp"], mods["inpaint"],
+        torch_pipeline.PipelineConfig(unchunked=True, **options),
+        device="cpu")
+    calls = []
+    pipe.flowcomp.register_forward_pre_hook(
+        lambda _, args: calls.append(args[0].shape[1]))
+    frames, mask = _golden_inputs()
+    out = np.stack(pipe.inpaint_video(frames, mask, mask))
+    assert calls == [T - 1]     # both directions in one call, whole
+    diff = np.abs(out.astype(int) - np.load(GOLDEN)["out"].astype(int))
+    assert diff.max() <= 2, (diff.max(), diff.mean())
+    chunked = torch_pipeline.ProPainterPipeline(
+        mods["raft"], mods["flowcomp"], mods["inpaint"],
+        torch_pipeline.PipelineConfig(**options), device="cpu")
+    calls.clear()
+    flows = torch.zeros(1, T - 1, H, W, 2)
+    with torch.inference_mode():
+        chunked.complete_flows((flows, flows), torch.zeros(1, T, H, W, 1))
+    assert calls == [T - 1, T - 1]
+
+
+def test_raft_clip_len_matches_jax():
+    """raft_clip_len=3 chunks RAFT's 6 frames as 0-2 and 2-5 (one frame
+    of overlap), as the JAX package does: the port's compute_flows against
+    the JAX pipeline's on the golden weights."""
+    mods = _golden_modules()
+    pipe = torch_pipeline.ProPainterPipeline(
+        mods["raft"], mods["flowcomp"], mods["inpaint"],
+        torch_pipeline.PipelineConfig(raft_iter=3, raft_clip_len=3),
+        device="cpu")
+    frames, _ = _golden_inputs()
+    x = (frames.astype(np.float32) / 255.0 * 2.0 - 1.0)[None]
+    chunks = []
+    pipe.raft.fnet.register_forward_pre_hook(
+        lambda _, args: chunks.append(args[0].shape[0]))
+    with torch.inference_mode():
+        got = pipe.compute_flows(torch.from_numpy(x))
+    assert chunks == [3, 4]
+    key = jax.random.PRNGKey(0)
+    params = _seeded_params(jax.eval_shape(lambda: JaxRAFT().init(
+        key, jnp.zeros((1, H, W, 3)), jnp.zeros((1, H, W, 3)),
+        iters=1))["params"], seed=1)
+    want = jax_pipeline.ProPainterPipeline(
+        params, None, None, jax_pipeline.PipelineConfig(
+            raft_iter=3, raft_clip_len=3)).compute_flows(jnp.asarray(x))
+    for g, w in zip(got, want):
+        assert g.shape == (1, T - 1, H, W, 2)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-4 * float(np.abs(w).max()))
 
 
 def test_schedule_helpers_match_jax():
