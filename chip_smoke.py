@@ -45,7 +45,10 @@ Phases:
               bf16 forms and K7's bf16 form also at the far-off 8 x 13
               map and at an 8 x 9 map with every coordinate outside every
               level, K7's bf16 form also at a 9 x 27 map (odd widths),
-              with a sector floor beside its bound;
+              with a sector floor beside its bound; K2 and K1 also at
+              the evaluation protocol's 60-frame RAFT chunks (118
+              pair-directions) and K4 at `K4_EVAL_SHAPE` (each kernel's
+              `eval` record);
   deform_opt  K6's path: the differentiable deform dispatchers
               (`modulated_deform_conv2d_opt` through K6, `_opt2` through
               K3) forward and backward at both call sites' shapes; values
@@ -87,13 +90,33 @@ Phases:
               reported;
   cli         the port's CLI on the fixture clip on the GPU, --weights
               random --bf16 --save_frames (the CLI's I/O needs cv2);
+  eval        the evaluation path through the four evaluation CLIs' main()
+              on a synthetic DAVIS-layout dataset of two 432x240 videos
+              (104 and 73 frames, `EVAL_VIDEOS`) written under build/, with
+              seeded .pth files and a seeded i3d_rgb_imagenet.pt (its
+              logits head dropped by the loader), TF32 flags at PyTorch's
+              defaults (the CLIs must turn TF32 off themselves):
+              `evaluate` at the protocol's settings (unchunked, RAFT chunks
+              of 60, neighbor_length 20, raft_iter 20) with I3D,
+              --warp_error and --profile: finite psnr, ssim, ewarp and
+              vfid, the trace written, avg s/frame and each video's stage
+              seconds; K1, K2, K3 and K4 launched as the protocol's plans
+              say (`_eval_launches`; K4 at the plans' shapes, among them
+              `K4_EVAL_SHAPE`), K5 and K7 never; `evaluate_flow_completion`
+              on the same videos, `compute_flow` on 10 frames and
+              `raft_demo` on the fixture clip (K1 on a 15 x 27 map), each
+              with its launch counts; GPU against CPU: `evaluate`'s PSNR
+              and SSIM on the fixture clip at 96x128, `compute_flow`'s
+              .flo files and I3D's features (`_eval_gpu_vs_cpu`);
   profile     (only when named) the main path under torch.profiler in fp32
               and bf16: device time by kernel, the device's busy share, and
               host and device time by op shape for one RAFT chunk and one
               generator window; the GemmConv2d layers against cuDNN in fp32
               and bf16.
 
-Prints one line per kernel, then the `{"kernels": [...]}` JSON line, the
+Prints one line per kernel, then the `{"kernels": [...]}` JSON line (each
+kernel's `launches` on the main path, 'flash' or the configuration of
+`KERNEL_PATH`, and `eval_launches` on the eval phase's `evaluate`), the
 `nvidia-smi` line, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero, without that line, if any phase fails or there is no GPU.
@@ -117,7 +140,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 PHASES = ("device", "build", "kernels", "deform_opt", "pipeline", "small",
-          "cli")
+          "cli", "eval")
 EXTRA_PHASES = ("profile",)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
 # dense TF32 on the tensor cores and HBM3 bandwidth — the denominators of
@@ -286,6 +309,12 @@ K1_QUERIES = 24 * 30 * 54
 # pooled). The pipeline phase checks that the run launches each.
 K4_BUCKET_SHAPES = ((32, 855, 2380), (16, 855, 2380), (32, 495, 2142),
                     (16, 495, 2142))
+# K4's largest (problems, query rows, keys) under the evaluation protocol
+# (`cli/evaluate.py`: neighbor_length 20, uncapped references) on the eval
+# phase's 104-frame video: 4 heads x a bucket of 8 windows, 32 frames (21
+# local + 11 references) of 45 window tokens, 16 selected frames of 238
+# keys; 63 of the video's 88 calls
+K4_EVAL_SHAPE = (32, 1440, 3808)
 
 
 def _tensor_core_launches(n_sm: int) -> list:
@@ -318,6 +347,11 @@ def _tensor_core_launches(n_sm: int) -> list:
                   (), attention_grid)
                  for lib in ("window_attention", "sparse_window_attention")]
     launches += bucketed("window_attention_kernel")
+    g, rows, _ = K4_EVAL_SHAPE
+    launches.append(("window_attention", "window_attention_kernel",
+                     f"eval, {g} problems x {rows} rows",
+                     "window_attention_launch_info", (),
+                     lambda info: attention_grid(info, rows, g)))
     for site, n_pos, C, cg in DEFORM_SITES:
         launches.append((
             "deform_conv", "deform_conv_kernel", site,
@@ -494,7 +528,7 @@ def phase_kernels(records: dict, state: dict) -> None:
     K7 bf16's sector floor into `state`."""
     import torch
     import torch.nn.functional as F
-    from propainter_tpu_torch.ops import corr, deform, flash_attention
+    from propainter_tpu_torch.ops import flash_attention
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -502,29 +536,18 @@ def phase_kernels(records: dict, state: dict) -> None:
     def randn(*shape, std=1.0):
         return torch.randn(*shape, generator=g, device=dev) * std
 
-    # ---- K2 + K1: one RAFT chunk at 432x240 (12 pairs x 2 directions)
-    B, H8, W8, D = 24, 30, 54, 256
-    fmap1, fmap2 = randn(B, H8, W8, D), randn(B, H8, W8, D)
-    f1 = fmap1.reshape(B, H8 * W8, D) / math.sqrt(D)
-    level0 = torch.bmm(f1, fmap2.reshape(B, H8 * W8, D).transpose(1, 2))
-    level0 = level0.reshape(B * H8 * W8, H8, W8).contiguous()
-    pyr = corr.corr_pyramid_build(level0, 4)
-    ref = corr._corr_pyramid_build_plain(level0, 4)
-    err = max(_compare(f"corr_pyramid_build L{i}", a, b)
-              for i, (a, b) in enumerate(zip(pyr[1:], ref[1:]), 1))
-    ms = _time_ms(lambda: corr.corr_pyramid_build(level0, 4), 20)
-    plain_ms = _time_ms(lambda: corr._corr_pyramid_build_plain(level0, 4), 20)
-    n_pool = sum(p.numel() for p in pyr[1:])
-    bound_ms, bound_by = _bound(_nbytes(*pyr), 4 * n_pool)
-    records["corr_pyramid_build"] = dict(
-        name="corr_pyramid_build", route="cuda",
-        source="propainter_tpu_torch/csrc/corr_pyramid_build.cu",
-        replaces="propainter_tpu/ops/corr_pallas.py:63",
-        shape=f"level0 {tuple(level0.shape)}", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None)
-
+    # ---- K2 + K1: one RAFT chunk at 432x240 (12 pairs x 2 directions),
+    # and one of the evaluation protocol's 60-frame chunks (118)
+    level0 = _level0(randn, 24)
+    pyr, records["corr_pyramid_build"] = _check_k2(level0)
     records["corr_lookup_moenc"] = _check_k1(randn, pyr)
+    level0_eval = _level0(randn, EVAL_RAFT_PAIRS)
+    pyr_eval, k2_eval = _check_k2(level0_eval)
+    records["corr_pyramid_build"]["eval"] = k2_eval
+    records["corr_lookup_moenc"]["eval"] = _check_k1(randn, pyr_eval)
+    del level0_eval, pyr_eval
+    torch.cuda.empty_cache()
+
     records["corr_lookup"] = _check_k7(randn, pyr)
 
     records["modulated_deform_conv2d"], records["deform_sample"] = (
@@ -572,7 +595,9 @@ def phase_kernels(records: dict, state: dict) -> None:
           f"{dense['ms']:.4f} ms (bound {dense['bound_ms']:.4f})")
     records["flash_window_attention"] = _k4_record(
         "flash_window_attention", err, dense,
-        _check_k4_shapes(randn, state))
+        _check_k4_shapes(randn, state),
+        eval=_check_k4_shapes(randn, state, shapes=(K4_EVAL_SHAPE,),
+                              site="eval")[0])
     records["sparse_window_attention"] = _check_k5(randn)
     records.update(_check_bf16(randn, level0, state))
     for r in records.values():
@@ -589,6 +614,41 @@ def phase_kernels(records: dict, state: dict) -> None:
             print(f"  {r['name']}{site}: {rr['ms']:.4f} ms{eager} (plain "
                   f"{rr['plain_ms']:.3f}, bound {rr['bound_ms']:.4f} by "
                   f"{rr['bound_by']}{tc}, library {rr['library_ms']})")
+
+
+def _level0(randn, B: int, H8: int = 30, W8: int = 54, D: int = 256):
+    """RAFT's level-0 correlation volume of B pair-directions at 1/8 of
+    432 x 240: (B * H8 * W8, H8, W8), fmap1 . fmap2 / sqrt(D)."""
+    import torch
+
+    fmap1, fmap2 = randn(B, H8 * W8, D), randn(B, H8 * W8, D)
+    level0 = torch.bmm(fmap1 / math.sqrt(D), fmap2.transpose(1, 2))
+    return level0.reshape(B * H8 * W8, H8, W8).contiguous()
+
+
+def _check_k2(level0):
+    """K2 on `level0` against its plain version, timed beside it, with its
+    bound: (the pyramid, the record)."""
+    from propainter_tpu_torch.ops import corr
+
+    pyr = corr.corr_pyramid_build(level0, 4)
+    ref = corr._corr_pyramid_build_plain(level0, 4)
+    n = level0.shape[0] // (level0.shape[1] * level0.shape[2])
+    err = max(_compare(f"corr_pyramid_build ({n} pair-directions) L{i}",
+                       a, b)
+              for i, (a, b) in enumerate(zip(pyr[1:], ref[1:]), 1))
+    del ref
+    ms = _time_ms(lambda: corr.corr_pyramid_build(level0, 4), 20)
+    plain_ms = _time_ms(lambda: corr._corr_pyramid_build_plain(level0, 4), 20)
+    n_pool = sum(p.numel() for p in pyr[1:])
+    bound_ms, bound_by = _bound(_nbytes(*pyr), 4 * n_pool)
+    return pyr, dict(
+        name="corr_pyramid_build", route="cuda",
+        source="propainter_tpu_torch/csrc/corr_pyramid_build.cu",
+        replaces="propainter_tpu/ops/corr_pallas.py:63",
+        shape=f"level0 {tuple(level0.shape)}", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None)
 
 
 def _lookup_library(pyr, coords):
@@ -1300,11 +1360,13 @@ def _check_bf16(randn, level0, state: dict) -> dict:
     return records
 
 
-def _check_k4_shapes(randn, state: dict, bf16: bool = False) -> list:
-    """K4 (or its bf16 form) at each of `K4_BUCKET_SHAPES` with one padded
-    reference frame's keys masked, against its plain version (REL_TOL, or
-    BF16_REL_TOL), timed beside the plain version and SDPA, with its bound
-    and its grid's waves (from the build phase, when it ran)."""
+def _check_k4_shapes(randn, state: dict, bf16: bool = False,
+                     shapes=K4_BUCKET_SHAPES, site: str = "bucketed") -> list:
+    """K4 (or its bf16 form) at each of `shapes` (the bucketed main path's,
+    or `K4_EVAL_SHAPE` with site "eval") with one padded reference frame's
+    keys masked, against its plain version (REL_TOL, or BF16_REL_TOL),
+    timed beside the plain version and SDPA, with its bound and its grid's
+    waves (from the build phase, when it ran)."""
     import torch
     import torch.nn.functional as F
     from propainter_tpu_torch.ops import flash_attention as fa
@@ -1321,7 +1383,7 @@ def _check_k4_shapes(randn, state: dict, bf16: bool = False) -> list:
     sites = state.get("build", {}).get(symbol, {}).get("sites", {})
     scale = 1.0 / math.sqrt(128)
     out = []
-    for G, Tq, Tk in K4_BUCKET_SHAPES:
+    for G, Tq, Tk in shapes:
         q, k, v = (randn(1, G, n, 128).to(dt) for n in (Tq, Tk, Tk))
         kb = torch.zeros(1, Tk, device=q.device)
         kb[:, -238:] = fa.NEG_INF
@@ -1332,7 +1394,7 @@ def _check_k4_shapes(randn, state: dict, bf16: bool = False) -> list:
         bounds = (_bf16_bounds if bf16 else _tensor_core_bounds)(
             _nbytes(q, k, v, kb, got), G * 4 * Tq * Tk * 128,
             G * 5 * Tq * Tk)
-        site = sites.get(f"{prefix}bucketed, {G} problems x {Tq} rows", {})
+        grid = sites.get(f"{prefix}{site}, {G} problems x {Tq} rows", {})
         rec = dict(shape=f"q {tuple(q.shape)} k {tuple(k.shape)}",
                    max_abs_err=err,
                    ms=_time_ms(lambda: run(q, k, v, kb, scale), 20),
@@ -1344,7 +1406,7 @@ def _check_k4_shapes(randn, state: dict, bf16: bool = False) -> list:
         print(f"  {name}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f}, "
               f"SDPA {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
               f"by {rec['bound_by']}, {rec['bound_ms'] / rec['ms']:.0%} of "
-              f"it; grid {site.get('grid')} blocks, {site.get('waves')} "
+              f"it; grid {grid.get('grid')} blocks, {grid.get('waves')} "
               f"waves)")
         out.append(rec)
     return out
@@ -1910,11 +1972,8 @@ def _measured_run(pipe, frames, flow_masks, smi: str, repeats: int = 1):
 
 def _raft_launches(pipe, frames) -> int:
     """RAFT lookups of one run: one per iteration of each clip chunk."""
-    from propainter_tpu_torch.pipeline import get_short_clip_len
-
     T, W = frames.shape[0], frames.shape[2]
-    clip = pipe.config.raft_clip_len or get_short_clip_len(W)
-    return len(range(0, T, clip)) * pipe.config.raft_iter
+    return _raft_chunks(pipe.config, T, W) * pipe.config.raft_iter
 
 
 def _plan_counts(plan) -> dict:
@@ -1984,10 +2043,12 @@ def _plan_launches(plan, pipe) -> dict:
     return dict(calls=calls, shapes=shapes)
 
 
-def _check_k4_calls(summary: dict, want: dict) -> None:
+def _check_k4_calls(summary: dict, want: dict,
+                    required=K4_BUCKET_SHAPES) -> None:
     """K4's calls by (problems, query rows) in a measured run (its
     `k4_calls`: [problems, query rows, keys, calls]) against the plan's,
-    and `K4_BUCKET_SHAPES` among them."""
+    and the (problems, rows, keys) shapes `required` (the kernels phase's)
+    among them."""
     got: dict = {}
     seen = set()
     for g, q, k, n in summary["k4_calls"]:
@@ -1997,7 +2058,7 @@ def _check_k4_calls(summary: dict, want: dict) -> None:
           f" (the plan's: {dict(sorted(want['shapes'].items()))})")
     if got != want["shapes"]:
         raise AssertionError("K4 ran at other shapes than the plan's")
-    missing = set(K4_BUCKET_SHAPES) - seen
+    missing = set(required) - seen
     if missing:
         raise AssertionError(f"the kernels phase's K4 shapes {missing} are "
                              f"not on the main path")
@@ -2616,6 +2677,546 @@ def _golden_clip_bf16(state: dict) -> list:
     return failures
 
 
+# ---- the evaluation path (`cli/evaluate.py` and the other evaluation CLIs)
+
+# the evaluation protocol's videos at 432 x 240: the longest and the median
+# DAVIS test videos (datasets/davis/test.json: 50 videos of 25-104 frames,
+# median 73); sorted by name the 104-frame video comes first, so --profile
+# traces the 73-frame one
+EVAL_VIDEOS = (("video_104", 104), ("video_73", 73))
+EVAL_SEEDS = {"raft": 41, "flowcomp": 42, "inpaint": 43, "i3d": 44}
+# K1's and K2's pair-directions in one 60-frame RAFT chunk of the
+# evaluation (`raft_clip_len` 60): 59 pairs x 2 directions
+EVAL_RAFT_PAIRS = 118
+# GPU against CPU on the fixture clip (fp32 both): PSNR and SSIM of the
+# evaluation (dB and SSIM units), I3D's features relative to their scale
+EVAL_GPU_CPU_TOL = 1e-3
+
+
+def _write_eval_dataset(root: Path, videos=EVAL_VIDEOS, H=240, W=432):
+    """A DAVIS-layout dataset of `_synthetic_clip` videos: JPEGImages/<v>/
+    %05d.jpg, Annotations/<v>/%05d.png (0 / 255) and test.json."""
+    import cv2
+
+    names = {}
+    for i, (name, T) in enumerate(videos):
+        frames, mask = _synthetic_clip(T, H, W, seed=10 + i)
+        for sub in ("JPEGImages", "Annotations"):
+            (root / sub / name).mkdir(parents=True)
+        for t in range(T):
+            cv2.imwrite(str(root / "JPEGImages" / name / f"{t:05d}.jpg"),
+                        cv2.cvtColor(frames[t], cv2.COLOR_RGB2BGR))
+            cv2.imwrite(str(root / "Annotations" / name / f"{t:05d}.png"),
+                        mask[t] * 255)
+        names[name] = T
+    (root / "test.json").write_text(json.dumps(names))
+
+
+def _write_eval_weights(root: Path) -> None:
+    """The three released checkpoint files of seeded weights (RAFT's keys
+    under DataParallel's `module.`), and a seeded i3d_rgb_imagenet.pt with
+    the released file's `logits.*` head, which the loader drops; I3D's
+    weights are fan-in scaled with batch-norm scales U(0.5, 1.5), so its
+    features stay O(1) through its 57 layers."""
+    import torch
+    from propainter_tpu_torch.cli.inference import CHECKPOINTS
+    from propainter_tpu_torch.models.flow_completion import (
+        RecurrentFlowCompleteNet)
+    from propainter_tpu_torch.models.i3d import InceptionI3d
+    from propainter_tpu_torch.models.layers import FrozenBatchNorm
+    from propainter_tpu_torch.models.propainter import InpaintGenerator
+    from propainter_tpu_torch.models.raft import RAFT
+    from propainter_tpu_torch.weights import seeded_init_
+
+    root.mkdir(parents=True, exist_ok=True)
+    for name, module in (("raft", RAFT()),
+                         ("flowcomp", RecurrentFlowCompleteNet()),
+                         ("inpaint", InpaintGenerator())):
+        sd = seeded_init_(module, EVAL_SEEDS[name]).state_dict()
+        if name == "raft":
+            sd = {"module." + k: v for k, v in sd.items()}
+        torch.save(sd, root / CHECKPOINTS[name])
+    i3d = seeded_init_(InceptionI3d(), EVAL_SEEDS["i3d"], fan_in_scaled=True)
+    gen = torch.Generator().manual_seed(EVAL_SEEDS["i3d"])
+    for bn in i3d.modules():
+        if isinstance(bn, FrozenBatchNorm):
+            bn.weight.data = torch.rand(bn.weight.shape, generator=gen) + 0.5
+    sd = dict(i3d.state_dict())
+    sd["logits.conv3d.weight"] = torch.randn(400, 1024, 1, 1, 1,
+                                             generator=gen) * 0.03
+    sd["logits.conv3d.bias"] = torch.zeros(400)
+    torch.save(sd, root / "i3d_rgb_imagenet.pt")
+
+
+def _eval_pipeline(**options):
+    """A CPU pipeline of `cli.evaluate`'s configuration under the protocol
+    (unchunked, RAFT chunks of 60, neighbor_length 20, ref_stride 10),
+    for its stage-4 plans (masks only)."""
+    from propainter_tpu_torch.models.flow_completion import (
+        RecurrentFlowCompleteNet)
+    from propainter_tpu_torch.models.propainter import InpaintGenerator
+    from propainter_tpu_torch.models.raft import RAFT
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+
+    cfg = dict(neighbor_length=20, ref_stride=10, unchunked=True,
+               raft_clip_len=60, raft_iter=20)
+    cfg.update(options)
+    return ProPainterPipeline(RAFT(), RecurrentFlowCompleteNet(),
+                              InpaintGenerator(), PipelineConfig(**cfg),
+                              device="cpu")
+
+
+def _flow_completion_deforms(n_flows: int, cfg) -> int:
+    """K3's launches in stage 2 over n_flows flows: one per frame but the
+    first of each direction of each call (its recurrent propagation), the
+    call the whole video under `unchunked`, else each subvideo_length
+    chunk with its 5-flow overlap."""
+    sub = cfg.subvideo_length
+    if cfg.unchunked or n_flows <= sub:
+        return 2 * (n_flows - 1)
+    return sum(2 * (min(n_flows, f + sub + 5) - max(0, f - 5) - 1)
+               for f in range(0, n_flows, sub))
+
+
+def _raft_chunks(cfg, T: int, W: int) -> int:
+    """`compute_flows`' RAFT calls on T frames of width W under `cfg`."""
+    from propainter_tpu_torch.pipeline import get_short_clip_len
+
+    return len(range(0, T, cfg.raft_clip_len or get_short_clip_len(W)))
+
+
+def _eval_launches(pipe, T: int, W: int, plan, warp_error: bool) -> dict:
+    """The launches one video of T frames of width W gives in
+    `cli.evaluate` on `pipe`'s configuration: K2 once per RAFT call and K1
+    once per iteration of it (the video's RAFT chunks, twice with
+    --warp_error); K3 in flow completion (`_flow_completion_deforms`) and
+    in the generator's feature propagation (2 x (l_t - 1) a generator
+    call); K4 as `_plan_launches` says; K5 and K7 never."""
+    cfg = pipe.config
+    raft_calls = _raft_chunks(cfg, T, W) * (2 if warp_error else 1)
+    wb = plan.window_batch
+    gen = sum(-(-len(sr.windows) // wb) * 2 * (sr.l_t - 1)
+              for sr in plan.subruns)
+    k4 = _plan_launches(plan, pipe)
+    return dict(corr_pyramid_build=raft_calls,
+                corr_lookup_moenc=raft_calls * cfg.raft_iter,
+                modulated_deform_conv2d=_flow_completion_deforms(T - 1, cfg)
+                + gen,
+                flash_window_attention=k4["calls"], sparse_window_attention=0,
+                corr_lookup=0, k4_shapes=k4["shapes"])
+
+
+@contextlib.contextmanager
+def _tf32_flags(cudnn: bool, matmul: bool):
+    """PyTorch's TF32 flags set as given, restored afterwards."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _check_launches(what: str, got: dict, want: dict) -> None:
+    """The launch counts `want` names (the others: any) in `got`."""
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    print(f"  {what} launches: "
+          + ", ".join(f"{k} {got[k]} (want {v})" for k, v in want.items()))
+    if bad:
+        raise AssertionError(f"{what}: launches (got, want) {bad}")
+
+
+# cuDNN's FFT convolutions: the FFTs, the complex GEMMs between them and
+# their tiling transforms (kernel names of the H100's cuDNN)
+FFT_KERNELS = re.compile(r"fft|cf32|region_transform", re.IGNORECASE)
+
+
+def _trace_summary(path: Path, top: int = 12) -> dict:
+    """Device time by kernel in a torch.profiler chrome trace: the kernels'
+    summed ms, the span from the first kernel's start to the last's end,
+    the busy share of that span, the `top` kernels by time, and the
+    launches and ms of cuDNN's FFT convolution kernels (`FFT_KERNELS`; a
+    launch storm of them is the fp32 failure mode `GemmConv2d` works
+    around), those also by the op that launched them (name, input dims
+    and scalar arguments, when the trace recorded shapes)."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    if not kern:
+        return dict(kernels=0)
+    ops = {e["args"]["External id"]: e for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    by_name: dict = {}
+    by_op: dict = {}
+    for e in kern:
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+        if FFT_KERNELS.search(e["name"]):
+            op = ops.get(e.get("args", {}).get("External id"), {})
+            a = op.get("args", {})
+            key = (f"{op.get('name', '?')} {a.get('Input Dims', '')} "
+                   f"{a.get('Concrete Inputs', '')}")
+            ms, n = by_op.get(key, (0.0, 0))
+            by_op[key] = (ms + e["dur"] / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    span = (max(e["ts"] + e["dur"] for e in kern)
+            - min(e["ts"] for e in kern)) / 1e3
+    fft = [(ms, n) for name, (ms, n) in by_name.items()
+           if FFT_KERNELS.search(name)]
+
+    def ranked(d, n):
+        return [[k[:300], ms, c] for k, (ms, c) in sorted(
+            d.items(), key=lambda kv: -kv[1][0])[:n]]
+
+    return dict(kernels=len(kern), busy_ms=busy, span_ms=span,
+                busy_share=busy / span if span else None,
+                fft_launches=sum(n for _, n in fft),
+                fft_ms=sum(ms for ms, _ in fft),
+                top=ranked(by_name, top), fft_by_op=ranked(by_op, top))
+
+
+def _device_kernels(fn) -> dict:
+    """fn() once under torch.profiler after one warm-up call: its device
+    ms, its kernel launches, and the launches and ms of cuDNN's FFT
+    convolution kernels among them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    fft = [e for e in kern if FFT_KERNELS.search(e.key)]
+    return dict(device_ms=sum(e.self_device_time_total for e in kern) / 1e3,
+                launches=sum(e.count for e in kern),
+                fft_launches=sum(e.count for e in fft),
+                fft_ms=sum(e.self_device_time_total for e in fft) / 1e3)
+
+
+def _metrics_file(path: Path) -> dict:
+    """{name: value} of an evaluation's metrics file."""
+    return dict(line.split(": ", 1)
+                for line in path.read_text().strip().splitlines())
+
+
+def _eval_gpu_vs_cpu(tmp: Path, weights: Path) -> dict:
+    """The evaluation CLIs and I3D on the GPU against the CPU, fp32 both:
+    `evaluate` on the fixture clip (12 frames at 96 x 128, the protocol's
+    other settings) PSNR and SSIM within EVAL_GPU_CPU_TOL; `compute_flow`'s
+    .flo files (3 fixture frames at 128 x 128) within one fp16 step +
+    1e-3 px; I3D's features on a seeded (1, 16, 112, 112) video within
+    EVAL_GPU_CPU_TOL of their scale."""
+    import numpy as np
+    import torch
+    from propainter_tpu_torch.cli import compute_flow, evaluate
+    from propainter_tpu_torch.cli.inference import CHECKPOINTS, load_checkpoint
+    from propainter_tpu_torch.device import fp32_numerics
+    from propainter_tpu_torch.models.i3d import InceptionI3d
+    from propainter_tpu_torch.utils.flow_io import flowread
+
+    clip = Path(__file__).resolve().parent / "assets" / "demo_clip"
+    ds = tmp / "fixture"
+    for sub, src in (("JPEGImages", "frames"), ("Annotations", "masks")):
+        (ds / sub).mkdir(parents=True)
+        (ds / sub / "clip").symlink_to(clip / src)
+    (ds / "test.json").write_text(json.dumps({"clip": 12}))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        res = evaluate.main([
+            "--video_root", str(ds / "JPEGImages"), "--mask_root",
+            str(ds / "Annotations"), "--json_path", str(ds / "test.json"),
+            "--height", "96", "--width", "128", "--weights", str(weights),
+            "--i3d_path", str(tmp / "none.pt"), "--output",
+            str(tmp / f"fixture_{dev}"), "--device", dev])
+        out[dev] = res["metrics"]
+    diff = {k: abs(out["cuda"][k] - out["cpu"][k]) for k in ("psnr", "ssim")}
+    print(f"  evaluate on the fixture clip, GPU vs CPU: psnr "
+          f"{out['cuda']['psnr']:.6f} / {out['cpu']['psnr']:.6f}, ssim "
+          f"{out['cuda']['ssim']:.6f} / {out['cpu']['ssim']:.6f} (limit "
+          f"{EVAL_GPU_CPU_TOL})")
+    if max(diff.values()) > EVAL_GPU_CPU_TOL:
+        raise AssertionError(f"evaluate GPU vs CPU: {diff}")
+
+    vids = tmp / "fixture_flow_in" / "clip"
+    vids.mkdir(parents=True)
+    for i in range(3):
+        (vids / f"{i:05d}.png").symlink_to(clip / "frames" / f"{i:05d}.png")
+    for dev in ("cuda", "cpu"):
+        compute_flow.main([
+            "--root", str(vids.parent), "--save_path",
+            str(tmp / f"flow_{dev}"), "--height", "128", "--width", "128",
+            "--raft_path", str(weights / CHECKPOINTS["raft"]),
+            "--device", dev])
+    flo_err = 0.0
+    for f in sorted((tmp / "flow_cpu" / "clip").glob("*.flo")):
+        a, b = (flowread(str(tmp / f"flow_{d}" / "clip" / f.name))
+                for d in ("cuda", "cpu"))
+        step = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(
+            np.float16)).astype(np.float32)
+        excess = (np.abs(a - b) - step - 1e-3).max()
+        flo_err = max(flo_err, float(np.abs(a - b).max()))
+        if excess > 0:
+            raise AssertionError(f"compute_flow GPU vs CPU: {f.name} beyond "
+                                 f"one fp16 step + 1e-3 px by {excess}")
+    print(f"  compute_flow GPU vs CPU: max {flo_err:.3e} px (limit one "
+          f"fp16 step + 1e-3 px)")
+
+    i3d = load_checkpoint(InceptionI3d(), str(weights / "i3d_rgb_imagenet.pt"),
+                          drop_prefixes=("logits.",)).eval()
+    g = torch.Generator().manual_seed(5)
+    video = torch.rand(1, 16, 112, 112, 3, generator=g) * 2 - 1
+    feats = {}
+    for dev in ("cuda", "cpu"):
+        with torch.inference_mode(), fp32_numerics():
+            feats[dev] = i3d.to(dev)(video.to(dev)).cpu()
+    scale = feats["cpu"].abs().max().item()
+    err = (feats["cuda"] - feats["cpu"]).abs().max().item()
+    print(f"  I3D features (1, 16, 112, 112) GPU vs CPU: max {err:.3e} of "
+          f"scale {scale:.3e} (limit {EVAL_GPU_CPU_TOL} of it)")
+    if err > EVAL_GPU_CPU_TOL * scale:
+        raise AssertionError("I3D features GPU vs CPU disagree")
+    return dict(evaluate=out, flo_max_px=flo_err, i3d_err=err,
+                i3d_scale=scale)
+
+
+def phase_eval(state: dict, smi: str) -> None:
+    """The evaluation path on the card through the four evaluation CLIs'
+    main(), with seeded checkpoint files and a synthetic DAVIS-layout
+    dataset (`EVAL_VIDEOS`, 432 x 240), under PyTorch's own TF32 flags (the
+    CLIs must turn TF32 off themselves):
+    `evaluate` at the protocol's defaults with an I3D checkpoint,
+    --warp_error and --profile: finite psnr, ssim, ewarp and vfid, the
+    trace written, and K1-K4 launched as `_eval_launches` says (K4 at the
+    plans' shapes, `K4_EVAL_SHAPE` among them), K5 and K7 never;
+    `evaluate_flow_completion` on the same videos, `compute_flow` on 10
+    frames and `raft_demo` on the fixture clip (120 x 216, no padding),
+    each with its K1 and K2 (and K3) launches; then `_eval_gpu_vs_cpu`."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from propainter_tpu_torch.cli import (compute_flow, evaluate,
+                                          evaluate_flow_completion, raft_demo)
+    from propainter_tpu_torch.core.dataset import TestDataset
+    from propainter_tpu_torch.pipeline import PipelineConfig
+
+    root = Path(__file__).resolve().parent
+    build = root / "build"
+    build.mkdir(exist_ok=True)
+    report = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp, \
+            _tf32_flags(*state["tf32_defaults"]):
+        tmp = Path(tmp)
+        ds, weights = tmp / "davis", tmp / "weights"
+        t0 = time.perf_counter()
+        _write_eval_dataset(ds)
+        _write_eval_weights(weights)
+        print(f"  dataset {dict(EVAL_VIDEOS)} at 432 x 240 and weights "
+              f"written in {time.perf_counter() - t0:.1f} s")
+        data = ["--video_root", str(ds / "JPEGImages"), "--mask_root",
+                str(ds / "Annotations"), "--json_path", str(ds / "test.json")]
+
+        # expected launches: the protocol's plans on the CPU (masks only)
+        plan_pipe = _eval_pipeline()
+        items = TestDataset(*data[1::2])
+        want = {}
+        for i in range(len(items)):
+            item = items[i]
+            w = _eval_launches(plan_pipe, len(item["frames"]),
+                               item["frames"].shape[2],
+                               _stage4_plan(plan_pipe, item["masks"]), True)
+            for k, v in w.items():
+                if k == "k4_shapes":
+                    shapes = want.setdefault(k, {})
+                    for s, n in v.items():
+                        shapes[s] = shapes.get(s, 0) + n
+                else:
+                    want[k] = want.get(k, 0) + v
+        del plan_pipe
+
+        _zero_launches()
+        k4: dict = {}
+        with _k4_calls(k4):
+            t0 = time.perf_counter()
+            res = evaluate.main(data + [
+                "--weights", str(weights), "--i3d_path",
+                str(weights / "i3d_rgb_imagenet.pt"), "--warp_error",
+                "--profile", str(tmp / "trace"), "--output",
+                str(tmp / "results")])
+            seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        metrics = _metrics_file(tmp / "results" / "davis_rs_10_nl_20"
+                                / "davis_metrics.txt")
+        traces = list((tmp / "trace").glob("*.json"))
+        print(f"  evaluate (2 videos, {sum(n for _, n in EVAL_VIDEOS)} "
+              f"frames): {seconds:.3f} s, avg s/frame "
+              f"{res['metrics']['avg s/frame']:.4f}; metrics {metrics}; on "
+              f"{smi}")
+        for v in res["videos"]:
+            print(f"  {v['name']}: {v['frames']} frames, {v['seconds']:.3f} "
+                  f"s, {v['seconds'] / v['frames']:.4f} s/frame ("
+                  + ", ".join(f"{k} {s:.3f} s" for k, s in v["stages"].items())
+                  + f") on {smi}")
+        bad = [k for k in ("psnr", "ssim", "ewarp", "vfid")
+               if not np.isfinite(float(metrics.get(k, "nan")))]
+        if bad:
+            raise AssertionError(f"metrics missing or not finite: {bad}")
+        if not traces or traces[0].stat().st_size == 0:
+            raise AssertionError("--profile wrote no trace")
+        trace = _trace_summary(traces[0])
+        print(f"  profile trace {traces[0].name}: "
+              f"{traces[0].stat().st_size / 2 ** 20:.1f} MiB, "
+              f"{trace['kernels']} kernels, device busy "
+              f"{trace.get('busy_ms', 0):.1f} ms of a "
+              f"{trace.get('span_ms', 0):.1f} ms span; cuDNN FFT "
+              f"{trace.get('fft_launches')} launches, "
+              f"{trace.get('fft_ms', 0):.1f} ms")
+        for name, ms, n in trace.get("top", []):
+            print(f"    {ms:9.2f} ms x{n:<6d} {name[:100]}")
+        print("  cuDNN FFT kernels by the op that launched them:")
+        for op, ms, n in trace.get("fft_by_op", []):
+            print(f"    {ms:9.2f} ms x{n:<6d} {op}")
+        _check_launches("evaluate", launches,
+                        {k: v for k, v in want.items() if k != "k4_shapes"})
+        _check_k4_calls({"k4_calls": [[*key, n] for key, n in k4.items()]},
+                        {"shapes": want["k4_shapes"]}, (K4_EVAL_SHAPE,))
+        report["evaluate"] = dict(
+            seconds=seconds, metrics=metrics, videos=res["videos"],
+            trace=trace,
+            launches=launches, k4_calls=[[*key, n] for key, n in
+                                         sorted(k4.items())])
+        state.setdefault("launches", {})["eval"] = launches
+
+        # the other CLIs on the card
+        _zero_launches()
+        t0 = time.perf_counter()
+        efc = evaluate_flow_completion.main(data + ["--weights", str(weights)])
+        launches = _read_launches()
+        fc_cfg = PipelineConfig()       # the CLI's: raft_iter 20, chunked
+        n_raft = sum(_raft_chunks(fc_cfg, n, 432) for _, n in EVAL_VIDEOS)
+        _check_launches("evaluate_flow_completion", launches, dict(
+            corr_pyramid_build=n_raft, corr_lookup_moenc=20 * n_raft,
+            modulated_deform_conv2d=sum(
+                _flow_completion_deforms(n - 1, fc_cfg)
+                for _, n in EVAL_VIDEOS),
+            corr_lookup=0))
+        print(f"  evaluate_flow_completion: avg epe {efc['epe']:.4f}, "
+              f"{efc['s_per_frame']:.4f} s/frame "
+              f"({time.perf_counter() - t0:.3f} s with set-up) on {smi}")
+        report["evaluate_flow_completion"] = efc
+
+        flow_in = tmp / "flow_in" / "video_73"
+        flow_in.mkdir(parents=True)
+        for f in sorted((ds / "JPEGImages" / "video_73").iterdir())[:10]:
+            shutil.copy(f, flow_in)
+        _zero_launches()
+        t0 = time.perf_counter()
+        compute_flow.main(["--root", str(tmp / "flow_in"), "--save_path",
+                           str(tmp / "flows"), "--raft_path",
+                           str(weights / "raft-things.pth")])
+        cf_seconds = time.perf_counter() - t0
+        n_flo = len(list((tmp / "flows" / "video_73").glob("*.flo")))
+        _check_launches("compute_flow (10 frames)", _read_launches(),
+                        dict(corr_pyramid_build=18, corr_lookup_moenc=360,
+                             corr_lookup=0))
+        print(f"  compute_flow: {n_flo} .flo files in {cf_seconds:.3f} s")
+        if n_flo != 18:
+            raise AssertionError(f"compute_flow wrote {n_flo} files, not 18")
+
+        _zero_launches()
+        t0 = time.perf_counter()
+        raft_demo.main(["--path", str(root / "assets" / "demo_clip" /
+                                      "frames"), "--output",
+                        str(tmp / "demo"), "--weights",
+                        str(weights / "raft-things.pth"), "--save_flo"])
+        rd_seconds = time.perf_counter() - t0
+        pngs = list((tmp / "demo").glob("*_flow.png"))
+        _check_launches("raft_demo (12 frames of 120 x 216)",
+                        _read_launches(), dict(corr_pyramid_build=11,
+                                               corr_lookup_moenc=220,
+                                               corr_lookup=0))
+        print(f"  raft_demo: {len(pngs)} PNGs in {rd_seconds:.3f} s")
+        if len(pngs) != 11:
+            raise AssertionError(f"raft_demo wrote {len(pngs)} PNGs, not 11")
+        report["compute_flow"] = dict(seconds=cf_seconds, files=n_flo)
+        report["raft_demo"] = dict(seconds=rd_seconds, pngs=len(pngs))
+
+        report["gpu_vs_cpu"] = _eval_gpu_vs_cpu(tmp, weights)
+        report["fp32_convs"] = _eval_conv_shapes(weights, items[0]["frames"])
+    state["eval"] = report
+
+
+def _eval_conv_shapes(weights: Path, video) -> dict:
+    """The evaluation's fp32 convolution shapes that no other phase runs,
+    each profiled for cuDNN FFT kernels (the launch storms `GemmConv2d`
+    works around): RAFT at batch 1 (`compute_flow`, one 432 x 240 pair, 20
+    iterations) and I3D on `video` (the 104-frame ground truth), in the
+    CLIs' numerics."""
+    import torch
+    from propainter_tpu_torch.cli.inference import load_checkpoint
+    from propainter_tpu_torch.device import fp32_numerics
+    from propainter_tpu_torch.models.i3d import InceptionI3d
+    from propainter_tpu_torch.models.raft import RAFT
+
+    raft = load_checkpoint(RAFT(), str(weights / "raft-things.pth"))
+    raft = raft.cuda().eval()
+    i3d = load_checkpoint(InceptionI3d(), str(weights / "i3d_rgb_imagenet.pt"),
+                          drop_prefixes=("logits.",)).cuda().eval()
+    v = torch.from_numpy(video[None]).cuda().float() / 127.5 - 1
+    out = {}
+    with torch.inference_mode(), fp32_numerics():
+        for what, fn in (("RAFT batch 1", lambda: raft(v[:, 0], v[:, 1])),
+                         (f"I3D {tuple(v.shape[:4])}", lambda: i3d(v))):
+            out[what] = r = _device_kernels(fn)
+            print(f"  {what}: device {r['device_ms']:.2f} ms in "
+                  f"{r['launches']} launches; cuDNN FFT {r['fft_launches']}"
+                  f" launches, {r['fft_ms']:.2f} ms")
+        del raft, i3d, v
+        out["fuse A/B"] = _prop_fuse_ab()
+    return out
+
+
+def _prop_fuse_ab() -> list:
+    """The generator's feature-propagation fuse conv (258 -> 128 channels,
+    3 x 3, at 60 x 108) over l_t frames: 11 (the main path's windows), 12,
+    13 (its `GemmConv2d.min_batch`) and 21 (the evaluation protocol's), as
+    one cuDNN call (TF32 off) and as `GemmConv2d`'s im2col GEMM: device ms
+    (CUDA events) and cuDNN's FFT kernels per call."""
+    import torch
+    import torch.nn.functional as F
+    from propainter_tpu_torch.models.layers import GemmConv2d
+
+    rows = []
+    for n in (11, 12, 13, 21):
+        conv = GemmConv2d(258, 128, 3, 1).cuda()
+        x = torch.randn(n, 258, 60, 108, device="cuda")
+
+        def cudnn():
+            return F.conv2d(x, conv.weight, conv.bias, padding=1)
+
+        err = (conv.gemm(x) - cudnn()).abs().max().item()
+        r = dict(frames=n, gemm_ms=_time_ms(lambda: conv.gemm(x), 5),
+                 cudnn_ms=_time_ms(cudnn, 5), max_abs_diff=err,
+                 cudnn_fft_launches=_device_kernels(cudnn)["fft_launches"])
+        rows.append(r)
+        print(f"  propagation fuse conv over {n} frames: GEMM "
+              f"{r['gemm_ms']:.3f} ms, cuDNN {r['cudnn_ms']:.3f} ms "
+              f"({r['cudnn_fft_launches']} FFT kernels a call); max diff "
+              f"{err:.2e}")
+        del conv, x
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_cli(state: dict, out_dir) -> None:
     """The port's CLI as a user runs it on the GPU: `main()` on the
     fixture clip (12 frames of 120 x 216) with --weights random --bf16
@@ -2673,6 +3274,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
+    # PyTorch's own TF32 flags (the eval phase runs the CLIs under them),
+    # then full fp32 for every other phase
+    state: dict = {"tf32_defaults": (torch.backends.cudnn.allow_tf32,
+                                     torch.backends.cuda.matmul.allow_tf32)}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2681,7 +3286,6 @@ def main(argv=None) -> int:
     print(f"device: {kind}, count {torch.cuda.device_count()}; "
           f"nvidia-smi: {smi}", flush=True)
     records: dict = {}
-    state: dict = {}
     failed = []
     for phase in phases:
         if phase == "device":
@@ -2701,6 +3305,8 @@ def main(argv=None) -> int:
                 phase_small(state)
             elif phase == "cli":
                 phase_cli(state, args.out_dir)
+            elif phase == "eval":
+                phase_eval(state, smi)
             elif phase == "profile":
                 phase_profile(state)
         except Exception:  # every phase runs; any failure fails the run
@@ -2712,7 +3318,8 @@ def main(argv=None) -> int:
     kernels = []
     for key, r in records.items():
         kernels.append(dict(r, launches=launches.get(KERNEL_PATH[key], {})
-                            .get(key)))
+                            .get(key), eval_launches=launches.get(
+                                "eval", {}).get(key)))
     for key in ("main_path", "main_path_pallas", "main_path_shard",
                 "main_path_bf16", "main_path_bf16_pallas",
                 "main_path_bf16_shard", "main_path_bf16_fp32_refine"):

@@ -32,11 +32,32 @@ CHECKPOINTS = {"raft": "raft-things.pth",
                "inpaint": "ProPainter.pth"}
 
 
+def load_checkpoint(module, path: str, drop_prefixes=()):
+    """Load the released checkpoint `path` into `module` with strict=True:
+    a `state_dict` wrapper unwrapped, RAFT's DataParallel `module.` prefix
+    stripped, keys under `drop_prefixes` (I3D's unused `logits.` head)
+    dropped, and missing `num_batches_tracked` counters (checkpoints saved
+    before PyTorch kept them) taken from the module, as torch's BatchNorm
+    does. Returns the module."""
+    import torch
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
+        sd = sd["state_dict"]
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    sd = {k: v for k, v in sd.items()
+          if not k.startswith(tuple(drop_prefixes))}
+    for k, v in module.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd.setdefault(k, v)
+    module.load_state_dict(sd, strict=True)
+    return module
+
+
 def load_models(weights: str) -> dict:
     """{'raft', 'flowcomp', 'inpaint'} modules with the released weights
     of the directory `weights`, or seeded random ones for 'random'."""
-    import torch
-
     from propainter_tpu_torch.models.flow_completion import (
         RecurrentFlowCompleteNet)
     from propainter_tpu_torch.models.propainter import InpaintGenerator
@@ -55,12 +76,7 @@ def load_models(weights: str) -> dict:
             raise FileNotFoundError(
                 f"missing {path}; place the released checkpoints in "
                 f"{weights} or pass --weights random")
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
-            sd = sd["state_dict"]
-        sd = {k[len("module."):] if k.startswith("module.") else k: v
-              for k, v in sd.items()}
-        module.load_state_dict(sd, strict=True)
+        load_checkpoint(module, path)
     return models
 
 

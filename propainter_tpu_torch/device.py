@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -19,3 +21,19 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but CUDA is unavailable")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_numerics():
+    """Full fp32 for convolutions and matmuls on the GPU (cuDNN defaults to
+    TF32 for fp32 convolutions); the previous settings are restored. Every
+    entry point that runs a model in fp32 enters it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

@@ -54,17 +54,24 @@ class GemmConv2d(nn.Conv2d):
     there cuDNN's bf16 implicit GEMM on the tensor cores took 0.11-0.98
     ms a call where the unfold + matmul took 0.60-3.61 ms (H100, PERF.md,
     Findings; `chip_smoke.py --phases ...,profile`). On the CPU it
-    computes the same function."""
+    computes the same function.
+
+    min_batch: below this batch the fp32 layer also runs as one cuDNN
+    convolution: where cuDNN's fp32 pick depends on the batch (the
+    generator's propagation fuse conv: an implicit GEMM at 11 and 12
+    frames, faster than the unfold + matmul, an FFT storm of 8326 kernels
+    a call at 13 and 21, 30x slower; PERF.md, Findings, PR 13)."""
 
     MAX_COLS = 1 << 28
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size, padding=0,
-                 groups: int = 1):
+                 groups: int = 1, min_batch: int = 1):
         super().__init__(in_ch, out_ch, kernel_size, 1, padding,
                          groups=groups)
+        self.min_batch = min_batch
 
     def forward(self, x):
-        if x.dtype != torch.float32:
+        if x.dtype != torch.float32 or x.shape[0] < self.min_batch:
             return super().forward(x)
         return self.gemm(x)
 
@@ -140,9 +147,10 @@ class InstanceNorm(nn.Module):
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm2d in eval mode: the running statistics are fixed. Keeps
-    BatchNorm2d's state_dict keys (weight, bias, running_mean, running_var,
-    num_batches_tracked)."""
+    """BatchNorm2d / BatchNorm3d in eval mode: the running statistics are
+    fixed; the channel axis is dim 1 of an input of any rank (NCHW, NCDHW).
+    Keeps BatchNorm's state_dict keys (weight, bias, running_mean,
+    running_var, num_batches_tracked)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -156,8 +164,9 @@ class FrozenBatchNorm(nn.Module):
 
     def forward(self, x):
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean[:, None, None]) * inv[:, None, None]
-                + self.bias[:, None, None])
+        shape = (-1,) + (1,) * (x.dim() - 2)
+        return ((x - self.running_mean.view(shape)) * inv.view(shape)
+                + self.bias.view(shape))
 
 
 def leaky_relu(x, negative_slope: float = 0.2):

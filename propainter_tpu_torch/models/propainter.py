@@ -22,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from propainter_tpu_torch.models.layers import (
-    Deconv, SplitGroupConv2d, conv2d, deform_align)
+    Deconv, GemmConv2d, SplitGroupConv2d, conv2d, deform_align)
 from propainter_tpu_torch.ops.attention import (
     sparse_window_attention, sparse_window_attention_bf16)
 from propainter_tpu_torch.ops.flash_attention import (
@@ -612,8 +612,10 @@ class FeaturePropagation(nn.Module):
                 conv2d(2 * channel + 2, channel, 3, 1, 1),
                 nn.LeakyReLU(0.2, inplace=True),
                 conv2d(channel, channel, 3, 1, 1))
+        # over the window's l_t frames: a GEMM from 13 frames, where fp32
+        # cuDNN turns to FFT (the evaluation protocol's 13-21 frames)
         self.fuse = nn.Sequential(
-            conv2d(2 * channel + 2, channel, 3, 1, 1),
+            GemmConv2d(2 * channel + 2, channel, 3, 1, min_batch=13),
             nn.LeakyReLU(0.2, inplace=True),
             conv2d(channel, channel, 3, 1, 1))
 

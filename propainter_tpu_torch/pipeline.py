@@ -43,7 +43,6 @@ a fixed RAFT chunk, and stages 2-3 whole with uncapped references.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 import time
@@ -51,7 +50,7 @@ import time
 import numpy as np
 import torch
 
-from propainter_tpu_torch.device import resolve_device
+from propainter_tpu_torch.device import fp32_numerics, resolve_device
 from propainter_tpu_torch.models.flow_completion import (
     combine_flow, forward_bidirect_flow)
 from propainter_tpu_torch.models.propainter import (
@@ -224,21 +223,6 @@ class PipelineConfig:
         if self.precision not in ("fp32", "bf16"):
             raise ValueError(f"precision must be 'fp32' or 'bf16', got "
                              f"{self.precision!r}")
-
-
-@contextlib.contextmanager
-def _fp32_numerics():
-    """Full fp32 for convolutions and matmuls on the GPU (cuDNN defaults to
-    TF32 for fp32 convolutions); the previous settings are restored."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 class ProPainterPipeline:
@@ -678,7 +662,7 @@ class ProPainterPipeline:
                                 + time.perf_counter() - t0)
             return out
 
-        with _fp32_numerics():
+        with fp32_numerics():
             ori = upload(frames_np)
             frames = (ori.float() / 255.0 * 2.0 - 1.0)[None]
             flow_masks = upload(flow_masks_np).float()[None, ..., None]

@@ -121,7 +121,8 @@ def test_tensor_core_launch_grids():
     rows x 64 problems on the wgmma tile (one block of 384 threads per SM;
     the launch facts the card reported); K4 and its bf16 form also at the
     bucketed main path's 32 and 16 problems of 855 and (last block) 495
-    rows: 14 or 8 64-row tiles, 7 or 4 128-row tiles, a problem."""
+    rows: 14 or 8 64-row tiles, 7 or 4 128-row tiles, a problem; K4 also
+    at the evaluation protocol's 32 problems of 1440 rows (23 tiles)."""
     info = {"corr_lookup_moenc_kernel": [2, 93696, 128, 32, 1],
             "window_attention_kernel": [2, 107520, 128, 64, 1],
             "sparse_window_attention_kernel": [2, 107520, 128, 64, 2],
@@ -144,6 +145,7 @@ def test_tensor_core_launch_grids():
         ("deform_conv_bf16_kernel", "generator, bf16"): 102 * 2,
         ("deform_conv_bf16_kernel", "flow completion, bf16"): 51 * 4,
         ("sparse_window_attention_bf16_kernel", "bf16 main path"): 7 * 64,
+        ("window_attention_kernel", "eval, 32 problems x 1440 rows"): 23 * 32,
         **{("window_attention_kernel",
             f"bucketed, {g} problems x {rows} rows"): tiles * g
            for g, rows, tiles in ((32, 855, 14), (16, 855, 14),
@@ -420,3 +422,135 @@ def test_sparse_window_attention_bf16_bound_at_the_main_path_shape():
     one = chip_smoke._bf16_bounds(2 * ch * rows, 4 * ch * logits, 5 * logits)
     assert one["bound_basis"] == "bf16 tensor cores"
     assert math.isclose(b["bound_ms"], 1.5 * one["bound_ms"], rel_tol=1e-9)
+
+
+@pytest.fixture(scope="module")
+def eval_plans(tmp_path_factory):
+    """The evaluation protocol's stage-4 plans (a full-size pipeline on the
+    CPU, masks only) for the eval phase's two videos, from the dataset the
+    phase writes, read back by the port's `TestDataset`."""
+    from propainter_tpu_torch.core.dataset import TestDataset
+
+    root = tmp_path_factory.mktemp("eval_ds")
+    chip_smoke._write_eval_dataset(root)
+    ds = TestDataset(str(root / "JPEGImages"), str(root / "Annotations"),
+                     str(root / "test.json"))
+    pipe = chip_smoke._eval_pipeline()
+    items = [ds[i] for i in range(len(ds))]
+    return pipe, [(it, chip_smoke._stage4_plan(pipe, it["masks"]))
+                  for it in items]
+
+
+def test_eval_launch_counts(eval_plans):
+    """The eval phase's `evaluate` (104 and 73 frames at 432 x 240, RAFT
+    chunks of 60, --warp_error): 2 chunks a video, each RAFT'd twice (4 K2
+    and 80 K1 launches a video); K3 2 x (T - 2) in the unchunked flow
+    completion plus 2 x (l_t - 1) a generator call (windows of 11, 9 x 21
+    and 14 local frames at 104 frames; 11, 6 x 21, 13 at 73); K4 once per
+    block of each generator call, 63 of the 104-frame video's 88 at
+    `K4_EVAL_SHAPE`'s 32 problems x 1440 rows (21 local + 11 reference
+    frames), whose keys are 16 selected frames of 238."""
+    pipe, plans = eval_plans
+    assert [(it["video_name"], len(it["frames"])) for it, _ in plans] == \
+        list(chip_smoke.EVAL_VIDEOS)
+    assert [[(sr.l_t, len(sr.windows)) for sr in plan.subruns]
+            for _, plan in plans] == [[(11, 1), (21, 9), (14, 1)],
+                                      [(11, 1), (21, 6), (13, 1)]]
+    got = [chip_smoke._eval_launches(pipe, len(it["frames"]), 432, plan,
+                                     True) for it, plan in plans]
+    for g, T, gen in zip(got, (104, 73),
+                         (2 * 10 + 9 * 2 * 20 + 2 * 13,
+                          2 * 10 + 6 * 2 * 20 + 2 * 12)):
+        assert g["corr_pyramid_build"] == 4
+        assert g["corr_lookup_moenc"] == 80
+        assert g["modulated_deform_conv2d"] == 2 * (T - 2) + gen
+        assert g["sparse_window_attention"] == g["corr_lookup"] == 0
+        assert sum(g["k4_shapes"].values()) == g["flash_window_attention"]
+    assert [g["flash_window_attention"] for g in got] == [88, 64]
+    G, rows, keys = chip_smoke.K4_EVAL_SHAPE
+    assert got[0]["k4_shapes"][(G, rows)] == 63
+    assert rows == (21 + 11) * 45 and keys == 16 * 238
+    assert max(got[0]["k4_shapes"], key=lambda s: s[0] * s[1]) == (G, rows)
+    record = [[*shape, keys if shape == (G, rows) else 1, n]
+              for shape, n in got[0]["k4_shapes"].items()]
+    chip_smoke._check_k4_calls({"k4_calls": record},
+                               {"shapes": got[0]["k4_shapes"]},
+                               (chip_smoke.K4_EVAL_SHAPE,))
+    record = [[*r[:2], 1, r[3]] for r in record]
+    with pytest.raises(AssertionError, match="not on the main path"):
+        chip_smoke._check_k4_calls({"k4_calls": record},
+                                   {"shapes": got[0]["k4_shapes"]},
+                                   (chip_smoke.K4_EVAL_SHAPE,))
+
+
+@pytest.mark.parametrize("unchunked", [True, False])
+def test_flow_completion_deform_count(unchunked, monkeypatch):
+    """`_flow_completion_deforms` against the deform aligns that stage 2
+    really runs on the CPU (12 flows of 32 x 32 at subvideo_length 5: three
+    chunks of 10, 12 and 7 flows with their 5-flow overlaps, or the whole
+    video); and the
+    eval-phase counts: 2 x 102 unchunked at 104 frames, 168 + 54 in
+    chunks of 80 (`evaluate_flow_completion`'s default)."""
+    from propainter_tpu_torch.models import flow_completion
+
+    calls = []
+    real = flow_completion.deform_align
+    monkeypatch.setattr(flow_completion, "deform_align",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    pipe = chip_smoke._eval_pipeline(unchunked=unchunked,
+                                     subvideo_length=5)
+    torch.manual_seed(0)
+    flows = (torch.randn(1, 12, 32, 32, 2), torch.randn(1, 12, 32, 32, 2))
+    masks = (torch.rand(1, 13, 32, 32, 1) > 0.5).float()
+    with torch.inference_mode():
+        pipe.complete_flows(flows, masks)
+    assert len(calls) == chip_smoke._flow_completion_deforms(12, pipe.config)
+    assert len(calls) == (22 if unchunked else 2 * (9 + 11 + 6))
+    assert chip_smoke._flow_completion_deforms(
+        103, PipelineConfig(unchunked=True)) == 204
+    assert chip_smoke._flow_completion_deforms(103, PipelineConfig()) == 222
+    assert chip_smoke._flow_completion_deforms(72, PipelineConfig()) == 142
+
+
+def test_metrics_file_reader(tmp_path):
+    """The eval phase reads the metrics file `cli/evaluate.py` writes."""
+    p = tmp_path / "davis_metrics.txt"
+    p.write_text("task: video_completion\nvideos: 2\navg s/frame: 0.0500\n"
+                 "psnr: 20.1234\nssim: 0.5000\newarp: 0.001000\n"
+                 "vfid: 1.2345\n")
+    m = chip_smoke._metrics_file(p)
+    assert list(m) == ["task", "videos", "avg s/frame", "psnr", "ssim",
+                       "ewarp", "vfid"]
+    assert m["task"] == "video_completion" and float(m["vfid"]) == 1.2345
+
+
+def test_trace_summary(tmp_path):
+    """The eval phase's reader of the CLI's torch.profiler trace: device
+    time by kernel, the busy share of the kernels' span, and cuDNN's FFT
+    convolution kernels (FFTs, complex GEMMs, tiling transforms) by the op
+    that launched them, matched by External id."""
+    import json
+
+    conv = {"ph": "X", "cat": "cpu_op", "name": "aten::cudnn_convolution",
+            "ts": 0, "dur": 50, "args": {"External id": 7,
+                                         "Input Dims": [[1, 8, 9, 9]],
+                                         "Concrete Inputs": ["", "[1, 1]"]}}
+    kernels = [("fft2d_r2c_32x32", 10, 10, 7),
+               ("sm80_xmma_gemm_cf32cf32_f32f32_cf32_tn_n", 20, 30, 7),
+               ("window_attention_kernel", 60, 40, 8),
+               ("region_transform_ABC_val", 110, 10, 9)]
+    events = [conv] + [{"ph": "X", "cat": "kernel", "name": n, "ts": ts,
+                        "dur": dur, "args": {"External id": ext}}
+                       for n, ts, dur, ext in kernels]
+    path = tmp_path / "t.trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    got = chip_smoke._trace_summary(path)
+    assert got["kernels"] == 4
+    assert got["busy_ms"] == pytest.approx(0.09)
+    assert got["span_ms"] == pytest.approx(0.11)
+    assert got["fft_launches"] == 3 and got["fft_ms"] == pytest.approx(0.05)
+    assert got["top"][0] == ["window_attention_kernel", 0.04, 1]
+    (op, ms, n), (other, ms2, n2) = got["fft_by_op"]
+    assert op.startswith("aten::cudnn_convolution [[1, 8, 9, 9]]")
+    assert (ms, n) == (pytest.approx(0.04), 2)
+    assert other.startswith("?") and n2 == 1

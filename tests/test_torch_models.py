@@ -297,3 +297,23 @@ def test_gemm_conv_matches_conv2d(groups, kernel, pad):
     torch.testing.assert_close(conv(x), want, rtol=0, atol=1e-5)
     conv.MAX_COLS = 1   # one sample per slice
     torch.testing.assert_close(conv(x), want, rtol=0, atol=1e-5)
+
+
+def test_gemm_conv_min_batch():
+    """Below `min_batch` the layer is one plain convolution (F.conv2d's
+    result bit for bit), from it on the im2col GEMM (equal to 1e-5); the
+    generator's propagation fuse conv turns to the GEMM at 13 frames."""
+    torch.manual_seed(0)
+    conv = GemmConv2d(16, 24, 3, 1, min_batch=4)
+    for n in (3, 4):
+        x = torch.randn(n, 16, 9, 11)
+        want = torch.nn.functional.conv2d(x, conv.weight, conv.bias,
+                                          padding=1)
+        got = conv(x)
+        if n < 4:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, conv.gemm(x), rtol=0, atol=0)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    fuse = InpaintGenerator().feat_prop_module.fuse[0]
+    assert isinstance(fuse, GemmConv2d) and fuse.min_batch == 13

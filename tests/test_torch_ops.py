@@ -145,10 +145,16 @@ def test_port_imports_without_jax():
                and sys.modules[n] is not None]
         assert not bad, bad
         # the multi-device helpers and the pipeline that uses them, the
-        # CLI and its I/O helpers
+        # CLIs and their I/O helpers, the evaluation's metrics, dataset
+        # and I3D
         for name in ("propainter_tpu_torch.parallel.mesh",
                      "propainter_tpu_torch.pipeline",
                      "propainter_tpu_torch.cli.inference",
+                     "propainter_tpu_torch.cli.evaluate",
+                     "propainter_tpu_torch.cli.compute_flow",
+                     "propainter_tpu_torch.core.metrics",
+                     "propainter_tpu_torch.core.dataset",
+                     "propainter_tpu_torch.models.i3d",
                      "propainter_tpu_torch.utils.video"):
             assert name in sys.modules, name
         print("ok")
