@@ -3,15 +3,16 @@
 recurrent_flow_completion.pth's.
 
 `RecurrentFlowCompleteNet.forward(masked_flows (B, T, H, W, 2), masks
-(B, T, H, W, 1))` -> completed flows (B, T, H, W, 2). The second-order
-propagation is a Python loop over frames; its deformable alignment is
-kernel K3.
+(B, T, H, W, 1), train=False)` -> (completed flows (B, T, H, W, 2), edges
+(B, T, H, W, 1) under train, else None). The second-order propagation is a
+Python loop over frames; its deformable alignment is kernel K3.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from propainter_tpu_torch.models.layers import (
     Conv3d, Deconv, conv2d, deform_align, leaky_relu)
@@ -63,11 +64,16 @@ class SecondOrderDeformableAlignment(nn.Module):
 
 class BidirectionalPropagation3D(nn.Module):
     """Backward then forward second-order propagation + 1x1 fusion.
-    Reference model/recurrent_flow_completion.py:46-124."""
+    Reference model/recurrent_flow_completion.py:46-124.
 
-    def __init__(self, channels: int):
+    remat: under autograd each propagation step is checkpointed (its
+    activations recomputed in the backward pass, K3 among them), as the
+    JAX module's `nn.remat(_PropStep)`; no effect without grad."""
+
+    def __init__(self, channels: int, remat: bool = False):
         super().__init__()
         self.channels = channels
+        self.remat = remat
         self.deform_align = nn.ModuleDict()
         self.backbone = nn.ModuleDict()
         for i, name in enumerate(("backward_", "forward_")):
@@ -78,21 +84,27 @@ class BidirectionalPropagation3D(nn.Module):
                 conv2d(channels, channels, 3, 1, 1))
         self.fusion = conv2d(2 * channels, channels, 1, 1, 0)
 
+    def _step(self, name, cur, extra, prop1, prop2):
+        """One propagation step; prop1 None at the first frame."""
+        if prop1 is not None:
+            cond = torch.cat([prop1, cur, prop2], dim=1)
+            feat_prop = self.deform_align[name](
+                torch.cat([prop1, prop2], dim=1), cond)
+        else:
+            feat_prop = torch.zeros_like(cur)
+        feat = torch.cat([cur] + ([extra] if extra is not None else [])
+                         + [feat_prop], dim=1)
+        return feat_prop + self.backbone[name](feat)
+
     def _run(self, name, frames, extra):
-        zeros = torch.zeros_like(frames[0])
+        remat = self.remat and torch.is_grad_enabled()
         outs = []
         for i, cur in enumerate(frames):
-            prop1 = outs[-1] if i > 0 else zeros
-            prop2 = outs[-2] if i > 1 else zeros
-            if i > 0:
-                cond = torch.cat([prop1, cur, prop2], dim=1)
-                feat_prop = self.deform_align[name](
-                    torch.cat([prop1, prop2], dim=1), cond)
-            else:
-                feat_prop = zeros
-            feat = torch.cat([cur] + ([extra[i]] if extra else [])
-                             + [feat_prop], dim=1)
-            outs.append(feat_prop + self.backbone[name](feat))
+            prop1 = outs[-1] if i > 0 else None
+            prop2 = outs[-2] if i > 1 else torch.zeros_like(cur)
+            args = (name, cur, extra[i] if extra else None, prop1, prop2)
+            outs.append(checkpoint(self._step, *args, use_reentrant=False)
+                        if remat else self._step(*args))
         return outs
 
     def forward(self, x):
@@ -124,9 +136,12 @@ class EdgeDetection(nn.Module):
 
 
 class RecurrentFlowCompleteNet(nn.Module):
-    """Complete masked optical flow. Reference :203-309."""
+    """Complete masked optical flow. Reference :203-309.
 
-    def __init__(self):
+    remat: checkpoint each propagation step under autograd (the trainer's
+    setting, `BidirectionalPropagation3D`)."""
+
+    def __init__(self, remat: bool = False):
         super().__init__()
         self.downsample = nn.Sequential(
             Conv3d(3, 32, (1, 5, 5), (1, 2, 2), (0, 2, 2),
@@ -145,7 +160,7 @@ class RecurrentFlowCompleteNet(nn.Module):
                    dilation=(1, 2, 2)), nn.LeakyReLU(0.2, inplace=True),
             Conv3d(128, 128, (1, 3, 3), padding=(0, 1, 1)),
             nn.LeakyReLU(0.2, inplace=True))
-        self.feat_prop_module = BidirectionalPropagation3D(128)
+        self.feat_prop_module = BidirectionalPropagation3D(128, remat)
         self.decoder2 = nn.Sequential(
             conv2d(128, 128, 3, 1, 1), nn.LeakyReLU(0.2, inplace=True),
             Deconv(128, 64), nn.LeakyReLU(0.2, inplace=True))
@@ -157,8 +172,9 @@ class RecurrentFlowCompleteNet(nn.Module):
             Deconv(32, 2))
         self.edgeDetector = EdgeDetection(2, 1, 16)
 
-    def forward(self, masked_flows, masks):
-        """(B, T, H, W, 2), (B, T, H, W, 1) -> (B, T, H, W, 2)."""
+    def forward(self, masked_flows, masks, train: bool = False):
+        """(B, T, H, W, 2), (B, T, H, W, 1) -> (flows (B, T, H, W, 2),
+        edges (B, T, H, W, 1) of the edge head under train, else None)."""
         B, T, H, W, _ = masked_flows.shape
         x = torch.cat([masked_flows, masks], dim=-1).permute(0, 4, 1, 2, 3)
         x = self.downsample(x)
@@ -173,22 +189,29 @@ class RecurrentFlowCompleteNet(nn.Module):
         d2 = self.decoder2(frames(prop)) + frames(e1)
         d1 = self.decoder1(d2)
         flow = self.upsample(d1)                        # (B*T, 2, H, W)
-        return flow.view(B, T, 2, H, W).permute(0, 1, 3, 4, 2)
+        edge = None
+        if train:
+            edge = self.edgeDetector(flow).view(B, T, 1, H, W).permute(
+                0, 1, 3, 4, 2)
+        return flow.view(B, T, 2, H, W).permute(0, 1, 3, 4, 2), edge
 
 
-def forward_bidirect_flow(model, masked_flows_bi, masks):
+def forward_bidirect_flow(model, masked_flows_bi, masks, train: bool = False):
     """Complete both directions in one batched call (the forward flows
     stacked with the time-reversed backward flows). Reference :312-337.
 
     masked_flows_bi: (flows_f, flows_b), each (B, T-1, H, W, 2);
-    masks: (B, T, H, W, 1). Returns [pred_f, pred_b]."""
+    masks: (B, T, H, W, 1). Returns ([pred_f, pred_b], [edge_f, edge_b]),
+    the edges None unless train."""
     masks_f, masks_b = masks[:, :-1], masks[:, 1:]
     mf = masked_flows_bi[0] * (1 - masks_f)
     mb = masked_flows_bi[1] * (1 - masks_b)
     B = mf.shape[0]
-    pred = model(torch.cat([mf, mb.flip(1)], dim=0),
-                 torch.cat([masks_f, masks_b.flip(1)], dim=0))
-    return [pred[:B], pred[B:].flip(1)]
+    pred, edges = model(torch.cat([mf, mb.flip(1)], dim=0),
+                        torch.cat([masks_f, masks_b.flip(1)], dim=0), train)
+    edges_bi = [None, None] if edges is None else [edges[:B],
+                                                   edges[B:].flip(1)]
+    return [pred[:B], pred[B:].flip(1)], edges_bi
 
 
 def combine_flow(masked_flows_bi, pred_flows_bi, masks):

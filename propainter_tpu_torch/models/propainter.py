@@ -3,13 +3,20 @@
 ProPainter.pth's.
 
 Tokens between SoftSplit and SoftComp are channel-last, (B, T, h, w, C).
-The sparse window attention has two forms (`attention_impl`): 'flash'
+The sparse window attention has three forms (`attention_impl`): 'flash'
 computes branch A (masked windows attend over the selected frames'
 window, rolled-band and pooled tokens) through kernel K4, for every
 window or for a bucket of the dirty ones (`masked_windows`), and branch B
 (within window, same frame) as a plain batched softmax, and selects per
-window by occupancy; 'pallas' lets kernel K5 take each window's branch.
-Feature propagation's deformable alignment is kernel K3.
+window by occupancy; 'xla' computes branch A the same way with a plain,
+differentiable softmax in place of K4 (the JAX package's training form);
+'pallas' lets kernel K5 take each window's branch. Feature propagation's
+deformable alignment is kernel K3.
+
+Training (`InpaintGenerator.forward(..., train=True)`) runs 'flash' as
+'xla', pools the masks of all T frames, and folds and decodes all T frames;
+`remat=True` checkpoints each transformer block and each feature
+propagation step under autograd.
 """
 
 from __future__ import annotations
@@ -20,17 +27,20 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from propainter_tpu_torch.models.layers import (
     Deconv, GemmConv2d, SplitGroupConv2d, conv2d, deform_align)
 from propainter_tpu_torch.ops.attention import (
     sparse_window_attention, sparse_window_attention_bf16)
 from propainter_tpu_torch.ops.flash_attention import (
-    NEG_INF, flash_window_attention, flash_window_attention_bf16)
+    NEG_INF, _flash_window_attention_plain, flash_window_attention,
+    flash_window_attention_bf16)
 from propainter_tpu_torch.ops.interp import max_pool2d, resize
 from propainter_tpu_torch.ops.patches import unfold_output_size
 from propainter_tpu_torch.ops.warp import (
-    fb_consistency_from_warped, flow_warp_bilinear_nearest, flow_warp_nchw)
+    fb_consistency_from_warped, flow_warp, flow_warp_bilinear_nearest,
+    flow_warp_nchw)
 
 KERNEL = (7, 7)
 STRIDE = (3, 3)
@@ -237,15 +247,13 @@ def masked_window_bitmap(masks_in_local, window_size=(5, 9)):
     return window_occupancy(token_masks(ds), window_size) > 0
 
 
+ATTENTION_IMPLS = ("flash", "xla", "pallas")
+
+
 def _check_attention_impl(impl: str) -> None:
-    if impl == "xla":
-        raise NotImplementedError(
-            "attention_impl='xla' is the JAX package's differentiable dense "
-            "form for training; it comes with the training slice "
-            "(ROADMAP.md, modules to port: Training)")
-    if impl not in ("flash", "pallas"):
-        raise ValueError(f"attention_impl must be 'flash' or 'pallas', got "
-                         f"{impl!r}")
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, "
+                         f"got {impl!r}")
 
 
 class SparseWindowAttention(nn.Module):
@@ -258,13 +266,15 @@ class SparseWindowAttention(nn.Module):
                rolled-band and pooled tokens) through kernel K4, for every
                window or a bucket of the dirty ones, branch B (within
                window and frame) a plain batched softmax.
+      'xla'    — the same two branches with branch A a plain softmax over
+               fp32 logits (the JAX module's dense form, which training
+               differentiates); no kernel.
       'pallas' — one kernel, K5, that takes each window's branch itself,
                so branch-A work scales with the dirty windows; its inputs
                are the window partition of q/k/v and of four rolled copies
-               of k/v on the padded token grid.
-    The JAX module's default is 'xla', the dense differentiable form its
-    training uses; the port has no training yet ('xla' raises
-    NotImplementedError), and 'flash' is the JAX pipeline's default."""
+               of k/v on the padded token grid. No gradient.
+    The JAX module's default is 'xla'; the port's is 'flash', the JAX
+    pipeline's default."""
 
     def __init__(self, dim: int = 512, n_head: int = 4,
                  window_size=(5, 9), pool_size=(4, 4),
@@ -293,7 +303,8 @@ class SparseWindowAttention(nn.Module):
         self._gather_idx: dict = {}   # (nwh, nww, device) -> indices
 
     def forward(self, x, mask, static_sel, frame_valid=None,
-                masked_windows=None, q_frames: int | None = None):
+                masked_windows=None, q_frames: int | None = None,
+                attention_impl: str | None = None):
         """x (B, T, H, W, C) tokens; mask (B, l_t, H, W, 1) pooled local
         masks; static_sel (T,) numpy bool — frames visible to branch A (the
         temporal dilation); frame_valid (T,) or (B, T) bool tensor or None
@@ -310,9 +321,11 @@ class SparseWindowAttention(nn.Module):
           as the dense form.
         q_frames: the queries of only the first q_frames frames (keys and
           values still from all T); the output is (B, q_frames, H, W, C),
-          exact for those frames."""
+          exact for those frames.
+        attention_impl: this call's form (None: the module's)."""
+        impl = attention_impl or self.attention_impl
         B, T, H, W, C = x.shape
-        if q_frames is not None and self.attention_impl == "pallas":
+        if q_frames is not None and impl == "pallas":
             raise AssertionError(
                 "q_frames shrink not wired for the opt-in pallas kernel")
         Tq = T if q_frames is None else q_frames
@@ -334,13 +347,13 @@ class SparseWindowAttention(nn.Module):
 
         occ = window_occupancy(mask, self.window_size)          # (B, nW)
 
-        if self.attention_impl == "pallas":
+        if impl == "pallas":
             out = self._sparse_windows(q, k, v, pool_k, pool_v, occ,
                                        static_sel, frame_valid)
         else:
             out = self._dense_windows(q, k, v, pool_k, pool_v, occ,
                                       static_sel, frame_valid,
-                                      masked_windows)
+                                      masked_windows, impl == "xla")
         out = out.reshape(B, nwh, nww, nh, Tq, wh, ww, ch)
         out = out.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(B, Tq, new_h,
                                                           new_w, C)
@@ -349,10 +362,11 @@ class SparseWindowAttention(nn.Module):
         return self.proj(out)
 
     def _dense_windows(self, q, k, v, pool_k, pool_v, occ, static_sel,
-                       frame_valid, masked_windows=None):
-        """'flash': branch A for every window, or for the bucket
-        `masked_windows`, branch B for every window -> (B, nW, head, Tq,
-        win, ch), Tq = q's frames."""
+                       frame_valid, masked_windows=None, plain=False):
+        """'flash' (plain: 'xla'): branch A for every window, or for the
+        bucket `masked_windows`, through K4 (plain: its plain version),
+        branch B for every window -> (B, nW, head, Tq, win, ch), Tq = q's
+        frames."""
         B, Tq, new_h, new_w, C = q.shape
         T = k.shape[1]
         wh, ww = self.window_size
@@ -418,8 +432,12 @@ class SparseWindowAttention(nn.Module):
             fv = frame_valid.to(q.device).expand(B, T).index_select(1, sel)
             bias = torch.where(fv, 0.0, NEG_INF).to(torch.float32)
             bias = bias.repeat_interleave(k_tok, dim=1).contiguous()
-        attend = (flash_window_attention_bf16 if q.dtype == torch.bfloat16
-                  else flash_window_attention)
+        if plain:
+            attend = _flash_window_attention_plain
+        elif q.dtype == torch.bfloat16:
+            attend = flash_window_attention_bf16
+        else:
+            attend = flash_window_attention
         out_a = attend(
             win_q_a.reshape(B, nWa * nh, Tq * win, ch).contiguous(),
             k_all.reshape(B, nWa * nh, Ts * k_tok, ch).contiguous(),
@@ -491,13 +509,14 @@ class TemporalSparseTransformer(nn.Module):
         self.mlp = FusionFeedForward(dim)
 
     def forward(self, x, fold_x_size, mask, static_sel, frame_valid=None,
-                masked_windows=None, out_frames: int | None = None):
+                masked_windows=None, out_frames: int | None = None,
+                attention_impl: str | None = None):
         """out_frames: only the first out_frames frames come out (their
         queries, shortcut and MLP; keys from all frames), exact for
-        those."""
+        those. attention_impl: this call's form (None: the module's)."""
         B, T, H, W, C = x.shape
         att = self.attention(self.norm1(x), mask, static_sel, frame_valid,
-                             masked_windows, out_frames)
+                             masked_windows, out_frames, attention_impl)
         if out_frames is not None:
             x, T = x[:, :out_frames], out_frames
         x = x + att
@@ -506,12 +525,15 @@ class TemporalSparseTransformer(nn.Module):
 
 
 class TemporalSparseTransformerBlock(nn.Module):
-    """Blocks with alternating temporal dilation. Reference :317-344."""
+    """Blocks with alternating temporal dilation. Reference :317-344.
+    remat: under autograd each block is checkpointed (only its input is
+    kept for the backward pass), as the JAX module's `nn.remat`."""
 
     def __init__(self, dim: int = 512, n_head: int = 4, window_size=(5, 9),
                  pool_size=(4, 4), depths: int = 8,
-                 attention_impl: str = "flash"):
+                 attention_impl: str = "flash", remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.transformer = nn.Sequential(*[
             TemporalSparseTransformer(dim, n_head, window_size, pool_size,
                                       attention_impl)
@@ -519,16 +541,21 @@ class TemporalSparseTransformerBlock(nn.Module):
 
     def forward(self, x, fold_x_size, l_mask, t_dilation: int = 2,
                 frame_valid=None, masked_windows=None,
-                out_frames: int | None = None):
+                out_frames: int | None = None,
+                attention_impl: str | None = None):
         """out_frames: the last block emits only the first out_frames
         frames (the decoder reads no others)."""
         T = x.shape[1]
         last = len(self.transformer) - 1
+        remat = self.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.transformer):
             static_sel = np.zeros(T, np.bool_)
             static_sel[i % t_dilation::t_dilation] = True
-            x = block(x, fold_x_size, l_mask, static_sel, frame_valid,
-                      masked_windows, out_frames if i == last else None)
+            args = (x, fold_x_size, l_mask, static_sel, frame_valid,
+                    masked_windows, out_frames if i == last else None,
+                    attention_impl)
+            x = (checkpoint(block, *args, use_reentrant=False) if remat
+                 else block(*args))
         return x
 
 
@@ -537,13 +564,18 @@ class TemporalSparseTransformerBlock(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def image_propagation(x, flows_forward, flows_backward, mask):
+def image_propagation(x, flows_forward, flows_backward, mask,
+                      interpolation: str = "nearest"):
     """Non-learnable bidirectional pixel propagation with forward-backward
-    consistency gating and nearest-mode pixel warps. Reference
-    model/propainter.py:104-190 (learnable=False).
+    consistency gating. Reference model/propainter.py:104-190
+    (learnable=False).
 
     x (B, T, H, W, 3) masked frames; flows (B, T-1, H, W, 2); mask
-    (B, T, H, W, 1). Returns (prop_frames, updated_masks), NHWC."""
+    (B, T, H, W, 1); interpolation: the pixel warp's, 'nearest' or
+    'bilinear' (the flow and mask warps are bilinear either way). Returns
+    (prop_frames, updated_masks), NHWC."""
+    if interpolation not in ("nearest", "bilinear"):
+        raise ValueError(f"unsupported interpolation: {interpolation}")
 
     def run(frames, masks, flows_prop, flows_check):
         feat_prop, mask_prop = frames[0], masks[0]
@@ -551,8 +583,13 @@ def image_propagation(x, flows_forward, flows_backward, mask):
         for i in range(1, len(frames)):
             flow_prop, flow_check = flows_prop[i - 1], flows_check[i - 1]
             bundle = torch.cat([flow_check, mask_prop], dim=-1)
-            warped, feat_warped = flow_warp_bilinear_nearest(
-                bundle, feat_prop, flow_prop)
+            if interpolation == "bilinear":
+                warped = flow_warp(torch.cat([bundle, feat_prop], dim=-1),
+                                   flow_prop)
+                feat_warped = warped[..., 3:]
+            else:
+                warped, feat_warped = flow_warp_bilinear_nearest(
+                    bundle, feat_prop, flow_prop)
             flow_valid = fb_consistency_from_warped(flow_prop,
                                                     warped[..., :2])
             mask_prop_valid = binary_mask(warped[..., 2:3])
@@ -600,10 +637,13 @@ class DeformableAlignment(nn.Module):
 
 class FeaturePropagation(nn.Module):
     """Learnable bidirectional feature propagation. Reference
-    model/propainter.py:72-190 (learnable=True)."""
+    model/propainter.py:72-190 (learnable=True). remat: under autograd
+    each propagation step is checkpointed (K3 runs again in the backward
+    pass), as the JAX module's `nn.remat(_FeatPropStep)`."""
 
-    def __init__(self, channel: int = 128):
+    def __init__(self, channel: int = 128, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.deform_align = nn.ModuleDict()
         self.backbone = nn.ModuleDict()
         for name in ("backward_1", "forward_1"):
@@ -619,27 +659,31 @@ class FeaturePropagation(nn.Module):
             nn.LeakyReLU(0.2, inplace=True),
             conv2d(channel, channel, 3, 1, 1))
 
+    def _step(self, name, cur, m, feat_prop, flow_prop, flow_check):
+        """One propagation step; feat_prop None at the first frame."""
+        if feat_prop is None:
+            feat_prop = cur
+        else:
+            warped = flow_warp_nchw(
+                torch.cat([flow_check.permute(0, 3, 1, 2), feat_prop],
+                          dim=1), flow_prop)
+            flow_valid = fb_consistency_from_warped(
+                flow_prop, warped[:, :2].permute(0, 2, 3, 1))
+            cond = torch.cat([cur, warped[:, 2:],
+                              flow_prop.permute(0, 3, 1, 2),
+                              flow_valid.permute(0, 3, 1, 2), m], dim=1)
+            feat_prop = self.deform_align[name](feat_prop, cond, flow_prop)
+        feat = torch.cat([cur, feat_prop, m], dim=1)
+        return feat_prop + self.backbone[name](feat)
+
     def _run(self, name, frames, masks, flows_prop, flows_check):
+        remat = self.remat and torch.is_grad_enabled()
         outs = []
-        feat_prop = None
         for i, (cur, m) in enumerate(zip(frames, masks)):
-            if i == 0:
-                feat_prop = cur
-            else:
-                flow_prop, flow_check = flows_prop[i - 1], flows_check[i - 1]
-                warped = flow_warp_nchw(
-                    torch.cat([flow_check.permute(0, 3, 1, 2), feat_prop],
-                              dim=1), flow_prop)
-                flow_valid = fb_consistency_from_warped(
-                    flow_prop, warped[:, :2].permute(0, 2, 3, 1))
-                cond = torch.cat([cur, warped[:, 2:],
-                                  flow_prop.permute(0, 3, 1, 2),
-                                  flow_valid.permute(0, 3, 1, 2), m], dim=1)
-                feat_prop = self.deform_align[name](feat_prop, cond,
-                                                    flow_prop)
-            feat = torch.cat([cur, feat_prop, m], dim=1)
-            feat_prop = feat_prop + self.backbone[name](feat)
-            outs.append(feat_prop)
+            args = (name, cur, m) + ((None, None, None) if i == 0 else (
+                outs[-1], flows_prop[i - 1], flows_check[i - 1]))
+            outs.append(checkpoint(self._step, *args, use_reentrant=False)
+                        if remat else self._step(*args))
         return outs
 
     def forward(self, x, flows_forward, flows_backward, mask):
@@ -663,13 +707,16 @@ class FeaturePropagation(nn.Module):
 
 class InpaintGenerator(nn.Module):
     """Encoder -> feature propagation -> sparse transformer -> decoder.
-    Reference model/propainter.py:256-372 (inference forward).
-    attention_impl: the sparse window attention's form, 'flash' or
-    'pallas' (SparseWindowAttention)."""
+    Reference model/propainter.py:256-372.
+    attention_impl: the sparse window attention's form, 'flash', 'xla' or
+    'pallas' (SparseWindowAttention). remat: checkpoint each feature
+    propagation step and each transformer block under autograd (the
+    trainer's setting)."""
 
     def __init__(self, channel: int = 128, hidden: int = 512,
                  depths: int = 8, num_heads: int = 4, window_size=(5, 9),
-                 pool_size=(4, 4), attention_impl: str = "flash"):
+                 pool_size=(4, 4), attention_impl: str = "flash",
+                 remat: bool = False):
         super().__init__()
         self.encoder = Encoder()
         self.decoder = nn.Sequential(
@@ -679,10 +726,10 @@ class InpaintGenerator(nn.Module):
             conv2d(64, 3, 3, 1, 1))
         self.ss = SoftSplit(channel, hidden)
         self.sc = SoftComp(channel, hidden)
-        self.feat_prop_module = FeaturePropagation(channel)
+        self.feat_prop_module = FeaturePropagation(channel, remat)
         self.transformers = TemporalSparseTransformerBlock(
             hidden, num_heads, window_size, pool_size, depths,
-            attention_impl)
+            attention_impl, remat)
 
     def set_attention_impl(self, impl: str) -> None:
         """Switch every transformer block to `impl` (the same weights)."""
@@ -704,12 +751,18 @@ class InpaintGenerator(nn.Module):
     def forward(self, masked_frames, completed_flows, masks_in, masks_updated,
                 num_local_frames: int, t_dilation: int = 2, frame_valid=None,
                 precomputed_enc_feat=None, precomputed_ref_feat=None,
-                precomputed_ref_tokens=None, masked_windows=None):
+                precomputed_ref_tokens=None, masked_windows=None,
+                train: bool = False):
         """masked_frames (B, T, H, W, 3) in [-1, 1]; completed_flows
         (flows_f, flows_b) each (B, l_t-1, H, W, 2); masks_in / masks_updated
         (B, T, H, W, 1); frame_valid (T,) or (B, T) bool or None (False =
         padded reference frame, per batch row when (B, T)). Returns (B,
-        l_t, H, W, 3) in [-1, 1].
+        l_t, H, W, 3) in [-1, 1], under train (B, T, H, W, 3).
+
+        train (`propainter_tpu/models/propainter.py:1058-1121`): the
+        attention masks pool the masks of all T frames, 'flash' runs as
+        'xla', and every frame is folded and decoded; no precomputed
+        inputs.
 
         Stage 4's schedule (`propainter_tpu/models/propainter.py:982-1111`):
         precomputed_enc_feat: (B, T, c, h, w) encoder features of the l_t
@@ -724,6 +777,10 @@ class InpaintGenerator(nn.Module):
           (`SparseWindowAttention`)."""
         l_t = num_local_frames
         B, _, H, W, _ = masks_in.shape
+        if train and any(p is not None for p in (
+                precomputed_enc_feat, precomputed_ref_feat,
+                precomputed_ref_tokens, masked_windows)):
+            raise ValueError("train takes no precomputed inputs")
         if precomputed_enc_feat is not None:
             enc = precomputed_enc_feat
             local, ref = enc[:, :l_t], enc[:, l_t:]
@@ -746,9 +803,11 @@ class InpaintGenerator(nn.Module):
         flows_f, flows_b = completed_flows
         ds_ff = resize(flows_f, (h, w), "bilinear") / 4.0
         ds_fb = resize(flows_b, (h, w), "bilinear") / 4.0
-        ds_mask_in = resize(masks_in[:, :l_t], (h, w), "nearest")
+        ds_mask_in = resize(masks_in if train else masks_in[:, :l_t], (h, w),
+                            "nearest")
         ds_mask_upd = resize(masks_updated[:, :l_t], (h, w), "nearest")
         mask_pool_l = token_masks(ds_mask_in)
+        ds_mask_in = ds_mask_in[:, :l_t]
 
         prop_mask = torch.cat([ds_mask_in, ds_mask_upd], dim=-1)
         local = self.feat_prop_module(local, ds_ff, ds_fb,
@@ -762,13 +821,16 @@ class InpaintGenerator(nn.Module):
         else:
             tokens = self.ss(enc.flatten(0, 1), B)
         # the last block's queries shrink to the local frames, except under
-        # 'pallas' (the JAX package's rule, `propainter.py:1100-1101`)
-        pallas = (self.transformers.transformer[0].attention.attention_impl
-                  == "pallas")
-        tokens = self.transformers(tokens, fold_size, mask_pool_l, t_dilation,
-                                   frame_valid, masked_windows,
-                                   None if pallas else l_t)
-        trans = self.sc(tokens[:, :l_t], fold_size).view(B, l_t, c, h, w)
-        dec_in = (local + trans).flatten(0, 1)
+        # 'pallas' and in training (the JAX package's rule,
+        # `propainter.py:1091-1101`)
+        impl = self.transformers.transformer[0].attention.attention_impl
+        if train and impl == "flash":
+            impl = "xla"
+        tokens = self.transformers(
+            tokens, fold_size, mask_pool_l, t_dilation, frame_valid,
+            masked_windows, None if train or impl == "pallas" else l_t, impl)
+        t_out = tokens.shape[1] if train else l_t
+        trans = self.sc(tokens[:, :t_out], fold_size).view(B, t_out, c, h, w)
+        dec_in = (enc[:, :t_out] + trans).flatten(0, 1)
         out = torch.tanh(self.decoder(dec_in))
-        return out.view(B, l_t, 3, H, W).permute(0, 1, 3, 4, 2)
+        return out.view(B, t_out, 3, H, W).permute(0, 1, 3, 4, 2)

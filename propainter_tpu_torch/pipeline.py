@@ -363,7 +363,8 @@ class ProPainterPipeline:
         dt = self._dtype
         flows = (flows_f.to(dt), flows_b.to(dt))
         masks = flow_masks.to(dt)
-        pred = forward_bidirect_flow(flowcomp or self.flowcomp, flows, masks)
+        pred, _ = forward_bidirect_flow(flowcomp or self.flowcomp, flows,
+                                       masks)
         return combine_flow(flows, pred, masks)
 
     # ---- multi-device chunk splitting (stages 2 and 3) -------------------

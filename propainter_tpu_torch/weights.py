@@ -7,7 +7,10 @@ and seeded random initialisation.
 finds the flax leaf the converter would have produced and undoes the layout
 change (flax Conv HWIO -> OIHW, Conv3d DHWIO -> OIDHW, Dense (in, out) ->
 (out, in), norm 'scale' -> 'weight', FrozenBatchNorm mean/var -> running
-stats). Model-specific renames are copies of the converters' rules.
+stats). Model-specific renames are copies of the converters' rules. The
+training modules have their own: `discriminator_state_dict_from_flax`
+(with the spectral-norm stats), `vgg_state_dict_from_flax` and
+`lpips_state_dict_from_flax`.
 """
 
 from __future__ import annotations
@@ -64,6 +67,13 @@ def _leaf(tree: Mapping, path: list[str]):
     return np.asarray(node)
 
 
+def _tensor(arr, ref: torch.Tensor, key: str) -> torch.Tensor:
+    if tuple(arr.shape) != tuple(ref.shape):
+        raise ValueError(f"{key}: flax shape {arr.shape} != "
+                         f"{tuple(ref.shape)}")
+    return torch.tensor(np.ascontiguousarray(arr), dtype=ref.dtype)
+
+
 def state_dict_from_flax(module: torch.nn.Module, tree: Mapping,
                          renames=()) -> dict[str, torch.Tensor]:
     """A state dict for `module` holding the values of the flax params
@@ -94,10 +104,7 @@ def state_dict_from_flax(module: torch.nn.Module, tree: Mapping,
             arr = _leaf(tree, _flax_path(new_prefix) + ["scale"])
         else:
             arr = _leaf(tree, _flax_path(new_prefix) + [leaf])
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"{key}: flax shape {arr.shape} != "
-                             f"{tuple(ref.shape)}")
-        out[key] = torch.tensor(arr, dtype=ref.dtype)
+        out[key] = _tensor(arr, ref, key)
     return out
 
 
@@ -128,3 +135,67 @@ def seeded_init_(module: torch.nn.Module, seed: int,
             vals = torch.randn(t.shape, generator=gen) * 0.02
         t.copy_(vals.to(t.dtype))
     return module
+
+
+def discriminator_state_dict_from_flax(module: torch.nn.Module,
+                                       params: Mapping,
+                                       batch_stats: Mapping
+                                       ) -> dict[str, torch.Tensor]:
+    """A state dict for the port's `Discriminator` from the JAX module's
+    params and spectral-norm stats (`SpectralNorm_j` / `conv_i/kernel/u`):
+    kernels DHWIO -> OIDHW, each `u` (1, out) as `weight_u`, and as
+    `weight_v` the v of the next power step from that u (the port's
+    step does not read it). Inverts `convert_discriminator_state_dict`,
+    which drops u."""
+    u_of = {name.split("/")[0]: np.asarray(v).reshape(-1)
+            for block in batch_stats.values() for name, v in block.items()
+            if name.endswith("/u")}
+    out = {}
+    for key, ref in module.state_dict().items():
+        prefix, _, leaf = key.rpartition(".")
+        name = _flax_path(prefix)[0]
+        if leaf in ("weight_orig", "weight"):
+            arr = np.asarray(params[name]["kernel"]).transpose(4, 3, 0, 1, 2)
+        elif leaf == "bias":
+            arr = np.asarray(params[name]["bias"])
+        elif leaf == "weight_u":
+            arr = u_of[name]
+        else:   # weight_v, after weight_orig and weight_u
+            wm = out[f"{prefix}.weight_orig"].flatten(1).double()
+            v = wm.t() @ out[f"{prefix}.weight_u"].double()
+            arr = (v / torch.sqrt(torch.sum(v * v) + 1e-12)).numpy()
+        out[key] = _tensor(arr, ref, key)
+    return out
+
+
+def vgg_state_dict_from_flax(module: torch.nn.Module,
+                             tree: Mapping) -> dict[str, torch.Tensor]:
+    """A state dict for the port's `VGGFeatureExtractor` from the JAX
+    module's params ({conv name: {kernel HWIO, bias}}); inverts
+    `convert_vgg_state_dict`."""
+    template = module.state_dict()
+    out = {}
+    for i, name in enumerate(module.names):
+        if name.startswith("conv"):
+            for leaf, arr in (
+                    ("weight", np.asarray(tree[name]["kernel"]).transpose(
+                        3, 2, 0, 1)),
+                    ("bias", np.asarray(tree[name]["bias"]))):
+                key = f"features.{i}.{leaf}"
+                out[key] = _tensor(arr, template[key], key)
+    return out
+
+
+def lpips_state_dict_from_flax(module: torch.nn.Module,
+                               tree: Mapping) -> dict[str, torch.Tensor]:
+    """A state dict for the port's `LPIPSVgg` from the JAX module's params
+    ({'net': VGG16 params, 'lin{i}': (C,)}); inverts
+    `convert_lpips_state_dict`."""
+    out = {f"net.{k}": v for k, v in
+           vgg_state_dict_from_flax(module.net, tree["net"]).items()}
+    template = module.state_dict()
+    for i in range(len(module.TAPS)):
+        key = f"lin{i}.model.1.weight"
+        out[key] = _tensor(np.asarray(tree[f"lin{i}"]).reshape(1, -1, 1, 1),
+                           template[key], key)
+    return out

@@ -324,8 +324,8 @@ def test_flow_completion_bf16_matches_jax():
                                    jnp.asarray(flows, jnp.bfloat16),
                                    jnp.asarray(masks, jnp.bfloat16))[0]
     with torch.no_grad():
-        got = model(torch.from_numpy(flows).to(BF),
-                    torch.from_numpy(masks).to(BF))
+        got, _ = model(torch.from_numpy(flows).to(BF),
+                       torch.from_numpy(masks).to(BF))
     assert got.dtype == torch.bfloat16
     assert _rel_err(got.float().numpy(),
                     np.asarray(want.astype(jnp.float32))) < 5e-2

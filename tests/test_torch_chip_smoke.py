@@ -554,3 +554,109 @@ def test_trace_summary(tmp_path):
     assert op.startswith("aten::cudnn_convolution [[1, 8, 9, 9]]")
     assert (ms, n) == (pytest.approx(0.04), 2)
     assert other.startswith("?") and n2 == 1
+
+
+@pytest.mark.parametrize("stage", ["flowcomp", "propainter"])
+def test_train_launch_counts(stage, monkeypatch):
+    """`_train_launches` against one real train step on the CPU (RAFT
+    with 2 iterations at 64 x 96, l_t 4, a reduced generator), its
+    kernels' calls counted where the wrappers would launch them on the
+    card: K2 once, K1 once per RAFT iteration, K3 in every forward of a
+    deform align, the recomputes under remat among them; K4, K5 and K7
+    never."""
+    from propainter_tpu_torch.models import propainter as gen_module
+    from propainter_tpu_torch.models import raft as raft_module
+    from propainter_tpu_torch.models.propainter import InpaintGenerator
+    from propainter_tpu_torch.ops import corr as corr_module
+
+    calls = dict.fromkeys(chip_smoke._train_launches(stage), 0)
+
+    def counted(module, name, key):
+        real = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            calls[key] += 1
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapper)
+
+    counted(corr_module, "corr_pyramid_build", "corr_pyramid_build")
+    counted(raft_module, "corr_lookup_moenc", "corr_lookup_moenc")
+    counted(raft_module, "corr_lookup", "corr_lookup")
+    counted(deform, "modulated_deform_conv2d", "modulated_deform_conv2d")
+    counted(gen_module, "flash_window_attention", "flash_window_attention")
+    counted(gen_module, "sparse_window_attention", "sparse_window_attention")
+    torch.set_num_threads(1)
+    torch.manual_seed(0)
+    l_t, T, H, W = 4, 4 + (1 if stage == "flowcomp" else 2), 64, 96
+    mods = chip_smoke._train_modules(stage, "cpu", gen=InpaintGenerator(
+        hidden=128, depths=2, remat=True))
+    state, step = chip_smoke._train_state(stage, mods, "cpu", raft_iters=2,
+                                          num_local_frames=l_t)
+    frames = torch.rand(1, T, H, W, 3) * 2 - 1
+    masks = torch.zeros(1, T, H, W, 1)
+    masks[:, :, 20:40, 30:60] = 1.0
+    _, metrics, _ = step(state, {"frames": frames, "masks": masks})
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert calls == chip_smoke._train_launches(stage, l_t, raft_iters=2)
+    assert chip_smoke._train_launches("flowcomp")["modulated_deform_conv2d"] \
+        == 32
+    assert chip_smoke._train_launches("propainter")[
+        "modulated_deform_conv2d"] == 16 + 36
+
+
+def test_train_config_writer_and_dataset(tmp_path):
+    """`_train_config` keeps configs/train_*.json but for the batch per
+    card (1), the synthetic video root, the seeded checkpoints and the
+    run's cadence; `_write_train_dataset` writes a YouTube-VOS layout
+    that the port's TrainDataset reads."""
+    import json
+
+    from propainter_tpu_torch.core.dataset import (TrainDataset,
+                                                   TrainDatasetConfig)
+
+    chip_smoke._write_train_dataset(tmp_path, (("v", 18),), H=32, W=48)
+    weights = tmp_path / "weights"
+    for stage, src in chip_smoke.TRAIN_CONFIGS.items():
+        path = chip_smoke._train_config(stage, tmp_path, weights)
+        assert path.name == f"train_{stage}.json"
+        got = json.loads(path.read_text())
+        want = json.loads((chip_smoke.Path(chip_smoke.__file__).parent
+                           / src).read_text())
+        assert got["trainer"]["batch_size"] == 1
+        assert want["trainer"]["batch_size"] == 8
+        assert {k: v for k, v in got["trainer"].items()
+                if k not in ("batch_size", "num_workers", "log_freq",
+                             "save_freq")} == {
+            k: v for k, v in want["trainer"].items()
+            if k not in ("batch_size", "num_workers", "log_freq",
+                         "save_freq")}
+        assert got["train_data_loader"]["video_root"] == str(
+            tmp_path / "videos")
+        assert {k: v for k, v in got["train_data_loader"].items()
+                if k != "video_root"} == {
+            k: v for k, v in want["train_data_loader"].items()
+            if k != "video_root"}
+        assert got["model"]["raft_path"] == str(weights / "raft-things.pth")
+        assert got["losses"] == want["losses"]
+    ds = TrainDataset(TrainDatasetConfig(
+        video_root=str(tmp_path / "videos"),
+        json_path=str(tmp_path / "datasets" / "youtube-vos" / "train.json"),
+        num_local_frames=10, num_ref_frames=6, w=48, h=32))
+    item = ds[0]
+    assert item["frames"].shape == (16, 32, 48, 3)
+    assert item["masks"].shape == (16, 32, 48, 1)
+
+
+def test_train_metrics_reader(tmp_path):
+    """`_metrics_jsonl` reads the rows the CLI's MetricLogger writes."""
+    from propainter_tpu_torch.utils.tb import MetricLogger
+
+    log = MetricLogger(str(tmp_path), use_tensorboard=False)
+    for step in (1, 2):
+        log.add("loss/gen_loss", 0.5 / step)
+        log.flush_scalars(step)
+    log.close()
+    rows = chip_smoke._metrics_jsonl(tmp_path / "metrics.jsonl")
+    assert [r["step"] for r in rows] == [1, 2]
+    assert rows[1]["loss/gen_loss"] == 0.25

@@ -122,7 +122,8 @@ def test_flow_completion_matches_jax():
     masks = (rng.uniform(size=(2, 4, 64, 96, 1)) > 0.7).astype(np.float32)
     want, _ = JaxFlowComplete().apply({"params": tree}, flows, masks)
     with torch.no_grad():
-        got = model(torch.from_numpy(flows), torch.from_numpy(masks))
+        got, edge = model(torch.from_numpy(flows), torch.from_numpy(masks))
+    assert edge is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=2e-5)
 

@@ -130,24 +130,36 @@ def test_mask_helpers_match():
 
 def test_port_imports_without_jax():
     """The port and every module in it (`parallel/` and `cli/` among them)
-    import with jax and the JAX package unavailable."""
+    import with jax, flax, optax, orbax and the JAX package unavailable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        for name in ("jax", "jaxlib", "flax", "propainter_tpu"):
+        for name in ("jax", "jaxlib", "flax", "optax", "orbax",
+                     "propainter_tpu"):
             sys.modules[name] = None
         import propainter_tpu_torch
         for m in pkgutil.walk_packages(propainter_tpu_torch.__path__,
                                        "propainter_tpu_torch."):
             importlib.import_module(m.name)
         bad = [n for n in sys.modules
-               if n.split(".")[0] in ("jax", "jaxlib", "flax",
-                                      "propainter_tpu")
+               if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                      "orbax", "propainter_tpu")
                and sys.modules[n] is not None]
         assert not bad, bad
         # the multi-device helpers and the pipeline that uses them, the
         # CLIs and their I/O helpers, the evaluation's metrics, dataset
-        # and I3D
-        for name in ("propainter_tpu_torch.parallel.mesh",
+        # and I3D, and training: its steps, losses, Canny, the
+        # discriminator, VGG / LPIPS, mask synthesis, the checkpoints, the
+        # metric logger and the train CLI
+        for name in ("propainter_tpu_torch.core.trainer",
+                     "propainter_tpu_torch.core.losses",
+                     "propainter_tpu_torch.core.mask_synthesis",
+                     "propainter_tpu_torch.ops.canny",
+                     "propainter_tpu_torch.models.discriminator",
+                     "propainter_tpu_torch.models.vgg",
+                     "propainter_tpu_torch.checkpoints",
+                     "propainter_tpu_torch.utils.tb",
+                     "propainter_tpu_torch.cli.train",
+                     "propainter_tpu_torch.parallel.mesh",
                      "propainter_tpu_torch.pipeline",
                      "propainter_tpu_torch.cli.inference",
                      "propainter_tpu_torch.cli.evaluate",
