@@ -122,6 +122,30 @@ Phases:
               overfit halving the loss; the train CLI for 2 steps of each
               stage on a synthetic YouTube-VOS-layout set written under
               build/, and its resume at step 2;
+  dist        data-parallel training (`phase_dist`), both stages at the
+              configs' full widths on a global batch of 2 whose holes
+              cover 2.3% and 40.5% of the frame: (a) the step in an NCCL
+              group of one rank against the plain one-process step
+              (within 1e-6), timed at batch 2, and an NCCL all-reduce of
+              the trainee's gradients; (b) two gloo ranks on the one card,
+              a sample each (rank 1 from other weights, rank 0's reaching
+              it by broadcast), against the one-process step on the batch
+              of 2 (losses within 1e-5 relative, parameters within 1e-4
+              of scale where Adam's update is determined), each rank's ms
+              a step, all-reduce ms a step, peak memory and K1, K2 and K3
+              launches as `_train_launches` says; (c) NCCL with one rank
+              per GPU where two or more are visible (else one line says
+              it was not run); (d) the train CLI under torchrun's
+              environment at world size 1: 2 steps, the step-2
+              checkpoint from rank 0, the resume;
+  flow_data   RAFT's training data (`phase_flow_data`): synthetic
+              FlyingChairs, Sintel, FlyingThings3D, KITTI and HD1K
+              layouts at their own frame sizes under build/, each
+              curriculum stage's `fetch_flow_dataset` at its crop through
+              two shards of `PrefetchLoader` (disjoint), the port's RAFT
+              on a batch of 2 (K2 once, K1 20 times), and K1 and K2 at
+              each crop's 1/8 map against their plain versions; the
+              loader's and RAFT's ms a batch;
   profile     (only when named) the main path under torch.profiler in fp32
               and bf16: device time by kernel, the device's busy share, and
               host and device time by op shape for one RAFT chunk and one
@@ -130,8 +154,10 @@ Phases:
 
 Prints one line per kernel, then the `{"kernels": [...]}` JSON line (each
 kernel's `launches` on the main path, 'flash' or the configuration of
-`KERNEL_PATH`, `eval_launches` on the eval phase's `evaluate`, and
-`train_launches`, each stage's launches in one train step), the
+`KERNEL_PATH`, `eval_launches` on the eval phase's `evaluate`,
+`train_launches`, each stage's launches in one train step,
+`dist_launches`, rank 0's in one step of the two gloo ranks, and
+`flow_data`, K1's and K2's times at the four RAFT crops), the
 `nvidia-smi` line, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero, without that line, if any phase fails or there is no GPU.
@@ -155,7 +181,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 PHASES = ("device", "build", "kernels", "deform_opt", "pipeline", "small",
-          "cli", "eval", "train")
+          "cli", "eval", "train", "dist", "flow_data")
 EXTRA_PHASES = ("profile",)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
 # dense TF32 on the tensor cores and HBM3 bandwidth — the denominators of
@@ -3770,6 +3796,616 @@ def phase_train(state: dict, smi: str) -> None:
     state["train"] = report
 
 
+# data-parallel training (`phase_dist`): one NCCL rank against the plain
+# one-process step (losses relative, parameters of scale; its gradients
+# within DIST_GRAD_TOL of scale, beside a second plain step's: the
+# backward's atomics move them by ~1e-6 of scale from run to run); two
+# gloo ranks against the one-process step on their batch of 2 (the
+# training tests' tolerances: losses relative, parameters of scale where
+# their gradient is at least 1e-4 of its tensor's largest and 1e-5, 1000
+# x Adam's eps: below either, Adam's first update lr g / (|g| + eps)
+# turns on the gradient's rounding)
+DIST_ONE_RANK_TOL, DIST_GRAD_TOL = 1e-6, 1e-5
+DIST_LOSS_TOL, DIST_PARAM_TOL = 1e-5, 1e-4
+DIST_STEPS = 3
+# the two samples' holes (y, x, h, w) at 432 x 240: 2.3% and 40.5% of the
+# frame, so a normaliser taken per rank would differ from the batch's
+DIST_HOLES = ((100, 180, 40, 60), (45, 70, 150, 280))
+
+
+def _dist_batch(stage: str, root: Path) -> dict:
+    """The global batch of 2 at the stage's full width: items 0 and 1 of
+    the synthetic train set (`_write_train_dataset`), their masks
+    replaced by the `DIST_HOLES` rectangles on every frame; CPU
+    tensors."""
+    import random
+
+    import numpy as np
+    import torch
+    from propainter_tpu_torch.core.dataset import (TrainDataset,
+                                                   TrainDatasetConfig)
+
+    data = json.loads((Path(__file__).resolve().parent
+                       / TRAIN_CONFIGS[stage]).read_text())["train_data_loader"]
+    ds = TrainDataset(TrainDatasetConfig(
+        video_root=str(root / "videos"),
+        json_path=str(root / "datasets" / "youtube-vos" / "train.json"),
+        num_local_frames=data["num_local_frames"],
+        num_ref_frames=data["num_ref_frames"], w=data["w"], h=data["h"]))
+    random.seed(0)
+    np.random.seed(0)
+    items = [ds[i] for i in range(2)]
+    batch = {k: torch.from_numpy(np.stack([it[k] for it in items]))
+             for k in items[0]}
+    batch["masks"].zero_()
+    for i, (y, x, h, w) in enumerate(DIST_HOLES):
+        batch["masks"][i, :, y:y + h, x:x + w] = 1
+    return batch
+
+
+def _dist_trained(stage: str, mods: dict) -> dict:
+    return {n: mods[n] for n in ("trainee", "dis") if n in mods}
+
+
+def _dist_step(stage: str, batch: dict, device,
+               other_weights: bool = False) -> tuple:
+    """One train step of the stage (`_train_modules`, `_train_state`) on
+    `batch` from the seeded weights (other seeds with `other_weights`):
+    (result, state, step, batch on the device, mods); result holds the
+    metrics, and each trained model's gradients and parameters after the
+    step on the CPU."""
+    from propainter_tpu_torch.weights import seeded_init_
+
+    l_t = json.loads((Path(__file__).resolve().parent / TRAIN_CONFIGS[stage])
+                     .read_text())["train_data_loader"]["num_local_frames"]
+    mods = _train_modules(stage, device)
+    if other_weights:
+        for i, m in enumerate(mods.values()):
+            seeded_init_(m, 90 + i)
+    state, step = _train_state(stage, mods, device, num_local_frames=l_t)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    _, metrics, _ = step(state, batch)
+    trained = _dist_trained(stage, mods)
+    result = dict(
+        metrics={k: float(v) for k, v in metrics.items()},
+        grads={n: {k: p.grad.detach().to("cpu", copy=True)
+                   for k, p in m.named_parameters() if p.grad is not None}
+               for n, m in trained.items()},
+        params={n: {k: p.detach().to("cpu", copy=True)
+                    for k, p in m.named_parameters()}
+                for n, m in trained.items()})
+    return result, state, step, batch, mods
+
+
+def _loss_err(metrics: dict, want: dict) -> float:
+    """The largest relative difference of two steps' losses."""
+    return max(abs(metrics[k] - v) / max(abs(v), 1e-12)
+               for k, v in want.items())
+
+
+def _compare_steps(got: dict, want: dict) -> dict:
+    """Two steps' results (`_dist_step`): the losses' largest relative
+    difference; each model's gradients' (of each tensor's largest, or of
+    1e-4 of the model's largest where that is more); its parameters'
+    after the step where the gradient is at least 1e-4 of its tensor's
+    largest and 1e-5 (of each tensor's largest parameter), with the
+    tensor."""
+    import torch
+
+    out = {"loss": _loss_err(got["metrics"], want["metrics"])}
+    for name, grads in want["grads"].items():
+        floor = 1e-4 * max(g.abs().max().item() for g in grads.values())
+        out[f"{name} grad"] = max(
+            ((got["grads"][name][k] - g).abs().max().item()
+             / max(g.abs().max().item(), floor), k)
+            for k, g in grads.items())
+        errs = []
+        for k, p in want["params"][name].items():
+            g = grads.get(k)
+            sure = (torch.ones_like(p, dtype=torch.bool) if g is None
+                    else g.abs() >= max(1e-4 * g.abs().max().item(), 1e-5))
+            diff = (got["params"][name][k] - p).abs()[sure]
+            errs.append((diff.max().item() if diff.numel() else 0.0)
+                        / max(p.abs().max().item(), 1e-12))
+        out[f"{name} param"] = max(zip(errs, want["params"][name]))
+    return out
+
+
+def _timed_steps(stage: str, state, step, batch) -> dict:
+    """DIST_STEPS more steps after a warm-up: seconds a step (host clock
+    around a synchronize), the all-reduce of the gradients a step
+    (`trainer._average_grads` timed on the host around synchronizes),
+    peak memory, and the last step's launches."""
+    import torch
+    from propainter_tpu_torch.core import trainer as TT
+
+    average = TT._average_grads
+    reduce_s = []
+
+    def timed(module):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average(module)
+        torch.cuda.synchronize()
+        reduce_s[-1] += time.perf_counter() - t0
+
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    TT._average_grads = timed
+    try:
+        for i in range(DIST_STEPS):
+            reduce_s.append(0.0)
+            if i == DIST_STEPS - 1:
+                _zero_launches()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        launches = _read_launches()
+    finally:
+        TT._average_grads = average
+    return dict(step_ms=1e3 * statistics.median(seconds),
+                step_ms_all=[1e3 * x for x in seconds],
+                allreduce_ms=1e3 * statistics.median(reduce_s),
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches)
+
+
+def _dist_rank(rank: int, world: int, init: str, out_dir: str,
+               backend: str, batches: dict) -> None:
+    """A spawned rank of `phase_dist`: one GPU (its own under NCCL, the
+    one card under gloo), the group at `init`, then for each stage one
+    step on its sample of the saved batch of 2 from the seeded weights
+    (rank 1 starts from other weights: rank 0's reach it by broadcast),
+    `_timed_steps`; rank 0 saves its results, every rank its timings and
+    a sum of each parameter (equal across ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=init, world_size=world,
+                            rank=rank)
+    try:
+        out = {}
+        for stage, path in batches.items():
+            batch = torch.load(path)
+            per = 2 // world
+            shard = {k: v[rank * per:(rank + 1) * per]
+                     for k, v in batch.items()}
+            result, state, step, shard, mods = _dist_step(
+                stage, shard, "cuda", other_weights=rank > 0)
+            sums = {n: {k: float(p.double().sum()) for k, p in ps.items()}
+                    for n, ps in result["params"].items()}
+            timing = _timed_steps(stage, state, step, shard)
+            out[stage] = dict(timing, sums=sums, **(
+                result if rank == 0 else {"metrics": result["metrics"]}))
+            del state, step, shard, mods, result
+            torch.cuda.empty_cache()
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_ranks(world: int, backend: str, batches: dict, tmp: Path) -> list:
+    """`_dist_rank` on `world` spawned processes; each rank's saved
+    output."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out = tmp / f"{backend}_{world}"
+    out.mkdir()
+    mp.start_processes(_dist_rank, args=(
+        world, f"file://{tmp / f'init_{backend}_{world}'}", str(out),
+        backend, batches), nprocs=world, start_method="spawn")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _check_ranks(label: str, ranks: list, refs: dict, smi: str) -> dict:
+    """Each stage of the ranks' run against the one-process step on the
+    batch of 2: every rank's losses, rank 0's gradients and parameters,
+    every rank's parameter sums equal to rank 0's; prints each rank's
+    ms a step, all-reduce ms a step, peak GiB and launches."""
+    report = {}
+    for stage, ref in refs.items():
+        rows = [r[stage] for r in ranks]
+        err = _compare_steps(rows[0], ref)
+        err["loss"] = max(_loss_err(r["metrics"], ref["metrics"])
+                          for r in rows)
+        same = all(r["sums"] == rows[0]["sums"] for r in rows)
+        print(f"  {label} {stage}: losses within {err['loss']:.2e} "
+              f"relative (limit {DIST_LOSS_TOL}); "
+              + "; ".join(f"{k} {v[0]:.2e} of scale ({v[1]})"
+                          for k, v in err.items() if k != "loss")
+              + f" (parameters' limit {DIST_PARAM_TOL}); the ranks' "
+              f"parameters {'equal' if same else 'DIFFER'}")
+        for r, row in enumerate(rows):
+            _check_launches(f"{label} {stage} rank {r}", row["launches"],
+                            _train_launches(stage))
+            print(f"  {label} {stage} rank {r}: {row['step_ms']:.1f} ms a "
+                  f"step (median of {DIST_STEPS}: "
+                  + ", ".join(f"{x:.1f}" for x in row["step_ms_all"])
+                  + f"), all-reduce {row['allreduce_ms']:.1f} ms a step, "
+                  f"peak {row['peak_bytes'] / 2 ** 30:.2f} GiB; on {smi}")
+        report[stage] = dict(
+            errors={k: v if k == "loss" else v[0] for k, v in err.items()},
+            ranks=[{k: row[k] for k in ("step_ms", "step_ms_all",
+                                        "allreduce_ms", "peak_bytes",
+                                        "launches", "metrics")}
+                   for row in rows])
+        params = [v[0] for k, v in err.items() if k.endswith("param")]
+        if (not same or err["loss"] > DIST_LOSS_TOL
+                or max(params) > DIST_PARAM_TOL):
+            raise AssertionError(f"{label} {stage}: the ranks disagree "
+                                 f"with the one-process step: {err}")
+    return report
+
+
+def _dist_cli(root: Path, weights: Path, smi: str) -> dict:
+    """The train CLI (flow completion stage) under torchrun's environment
+    at world size 1 (MASTER_ADDR, MASTER_PORT, RANK, LOCAL_RANK,
+    WORLD_SIZE: an NCCL group of one): 2 steps with the step-2
+    checkpoint, then a rerun to 3 that resumes at step 2."""
+    import os
+
+    from propainter_tpu_torch.cli import train
+    from propainter_tpu_torch.parallel import mesh
+
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(mesh.free_port()),
+               RANK="0", LOCAL_RANK="0", WORLD_SIZE="1")
+    saved = {k: os.environ.get(k) for k in env}
+    cwd = os.getcwd()
+    os.environ.update(env)
+    os.chdir(root)
+    try:
+        cfg = str(_train_config("flowcomp", root, weights))
+        t0 = time.perf_counter()
+        first = train.main(["-c", cfg, "--max_iters", "2"])
+        resumed = train.main(["-c", cfg, "--max_iters", "3"])
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    run = root / first["save_dir"]
+    rows = _metrics_jsonl(run / "logs" / "metrics.jsonl")
+    files = sorted(p.name for p in (run / "ckpt").iterdir())
+    print(f"  cli under torchrun's environment (world size 1, NCCL): "
+          f"resumed at {resumed['start']}; metrics steps "
+          f"{[r['step'] for r in rows]}; checkpoints {files}; "
+          f"{seconds:.1f} s with set-up; on {smi}")
+    if (resumed["start"] != 2 or [r["step"] for r in rows] != [1, 2, 3]
+            or not {"gen_000002.pth", "opt_000002.pth"} <= set(files)):
+        raise AssertionError("cli under torchrun: logs, checkpoint or "
+                             "resume missing")
+    return dict(rows=rows, files=files, seconds=seconds)
+
+
+def phase_dist(state: dict, smi: str) -> None:
+    """Data-parallel training on the card at the configs' full widths
+    (432 x 240, l_t 10, RAFT 20 iterations, fp32, TF32 off), both
+    stages, on a global batch of 2 whose holes cover 2.3% and 40.5% of
+    the frame (`_dist_batch`): (a) the step inside an NCCL group of one
+    rank against the plain one-process step (losses and parameters
+    within DIST_ONE_RANK_TOL, gradients within DIST_GRAD_TOL, a second
+    plain step's differences beside), timed, and an NCCL all-reduce of
+    the trainee's gradients at world size 1; (b) two gloo ranks on the
+    one card, a sample each, against the one-process step on the batch
+    of 2 (`_check_ranks`); (c) NCCL
+    with one rank per GPU where two or more are visible; (d) the train
+    CLI under torchrun's environment (`_dist_cli`). K1, K2 and K3 launch
+    per rank as `_train_launches` says."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from propainter_tpu_torch import _build
+    from propainter_tpu_torch.models.flow_completion import (
+        RecurrentFlowCompleteNet)
+    from propainter_tpu_torch.models.raft import RAFT
+    from propainter_tpu_torch.parallel import mesh
+    from propainter_tpu_torch.weights import seeded_init_
+
+    _build.build()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    report = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        _write_train_dataset(tmp)
+        refs, batches, one = {}, {}, {}
+        for stage in TRAIN_CONFIGS:
+            batch = _dist_batch(stage, tmp)
+            batches[stage] = str(tmp / f"batch_{stage}.pt")
+            torch.save(batch, batches[stage])
+            refs[stage] = _dist_step(stage, batch, "cuda")[0]
+            torch.cuda.empty_cache()
+            noise = _compare_steps(_dist_step(stage, batch, "cuda")[0],
+                                   refs[stage])
+            torch.cuda.empty_cache()
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://localhost:{mesh.free_port()}",
+                world_size=1, rank=0)
+            try:
+                got, st, step, b, mods = _dist_step(stage, batch, "cuda")
+                err = _compare_steps(got, refs[stage])
+                timing = _timed_steps(stage, st, step, b)
+                grads = [p.grad for p in mods["trainee"].parameters()
+                         if p.grad is not None]
+                nccl_ms = _time_ms(lambda: mesh._flat_collective(
+                    grads, dist.all_reduce), 5)
+            finally:
+                dist.destroy_process_group()
+            del st, step, b, mods, grads
+            torch.cuda.empty_cache()
+            print(f"  (a) one NCCL rank, {stage}: losses within "
+                  f"{err['loss']:.2e} relative; "
+                  + "; ".join(f"{k} {v[0]:.2e} of scale"
+                              for k, v in err.items() if k != "loss")
+                  + f" (limits {DIST_ONE_RANK_TOL}, gradients "
+                  f"{DIST_GRAD_TOL}); a second plain step: losses "
+                  f"{noise['loss']:.2e}, "
+                  + "; ".join(f"{k} {v[0]:.2e}"
+                              for k, v in noise.items() if k != "loss")
+                  + "; batch 2: "
+                  f"{timing['step_ms']:.1f} ms a step, peak "
+                  f"{timing['peak_bytes'] / 2 ** 30:.2f} GiB; an NCCL "
+                  f"all-reduce of the trainee's gradients (world size 1) "
+                  f"{nccl_ms:.3f} ms; on {smi}")
+            _check_launches(f"(a) {stage}", timing["launches"],
+                            _train_launches(stage))
+            if (max([err["loss"]] + [v[0] for k, v in err.items()
+                                     if k.endswith("param")])
+                    > DIST_ONE_RANK_TOL
+                    or max(v[0] for k, v in err.items()
+                           if k.endswith("grad")) > DIST_GRAD_TOL):
+                raise AssertionError(f"(a) {stage}: {err}")
+            one[stage] = dict(timing, nccl_allreduce_ms=nccl_ms,
+                              errors={k: v if k == "loss" else v[0]
+                                      for k, v in err.items()},
+                              plain_noise={k: v if k == "loss" else v[0]
+                                           for k, v in noise.items()})
+        report["one_rank_nccl"] = one
+        report["two_ranks_gloo"] = _check_ranks(
+            "(b) two gloo ranks on one card",
+            _dist_ranks(2, "gloo", batches, tmp), refs, smi)
+        if torch.cuda.device_count() >= 2:
+            report["two_ranks_nccl"] = _check_ranks(
+                "(c) NCCL, one rank per GPU",
+                _dist_ranks(2, "nccl", batches, tmp), refs, smi)
+        else:
+            print(f"  (c) NCCL with one rank per GPU: not run, "
+                  f"{torch.cuda.device_count()} GPU visible")
+        weights = tmp / "weights"
+        weights.mkdir()
+        raft = seeded_init_(RAFT(), TRAIN_SEEDS["raft"], fan_in_scaled=True)
+        torch.save({f"module.{k}": v for k, v in raft.state_dict().items()},
+                   weights / "raft-things.pth")
+        torch.save(seeded_init_(RecurrentFlowCompleteNet(),
+                                TRAIN_SEEDS["flowcomp"],
+                                fan_in_scaled=True).state_dict(),
+                   weights / "recurrent_flow_completion.pth")
+        report["cli"] = _dist_cli(tmp, weights, smi)
+    state["dist"] = report
+    state.setdefault("launches", {}).update({
+        f"dist_{stage}": report["two_ranks_gloo"][stage]["ranks"][0]
+        ["launches"] for stage in TRAIN_CONFIGS})
+
+
+# RAFT's training data (`core/flow_datasets.py`): each dataset's own frame
+# size (W x H) and the reference's crop (H x W) of each curriculum stage
+# (RAFT/train.py's stage flags); the synthetic layouts written under build/
+FLOW_FRAMES = {"chairs": (512, 384), "sintel": (1024, 436),
+               "things": (960, 540), "kitti": (1242, 375),
+               "hd1k": (2560, 1080)}
+FLOW_CROPS = {"chairs": (368, 496), "things": (400, 720),
+              "sintel": (368, 768), "kitti": (288, 960)}
+FLOW_RAFT_ITERS = 20
+
+
+def _write_flow_datasets(root: Path) -> dict:
+    """Miniature FlyingChairs (5 training pairs), MPI-Sintel (one scene
+    of 5 frames, clean and final), FlyingThings3D (one sequence of 4
+    frames, both passes, both directions), KITTI-2015 (4 pairs) and HD1K
+    (one sequence of 2 frames) in their own layouts and frame sizes
+    (`FLOW_FRAMES`), seeded images (8 x 8 texture blocks) and smooth
+    flows (.flo, 3-channel .pfm, KITTI 16-bit PNG with 70% valid); the
+    roots `fetch_flow_dataset` takes."""
+    import cv2
+    import numpy as np
+    from propainter_tpu_torch.utils.flow_io import (flowwrite,
+                                                    write_flow_kitti,
+                                                    write_pfm)
+
+    rng = np.random.default_rng(70)
+    r = {k: root / k for k in FLOW_FRAMES}
+
+    def image(path: Path, kind: str):
+        W, H = FLOW_FRAMES[kind]
+        path.parent.mkdir(parents=True, exist_ok=True)
+        base = rng.integers(0, 255, (-(-H // 8), -(-W // 8), 3), np.uint8)
+        cv2.imwrite(str(path), np.kron(base, np.ones((8, 8, 1), np.uint8))
+                    [:H, :W])
+
+    def flow(kind: str, channels: int = 2):
+        W, H = FLOW_FRAMES[kind]
+        small = rng.normal(0, 8, (6, 10, channels)).astype(np.float32)
+        return cv2.resize(small, (W, H), interpolation=cv2.INTER_LINEAR
+                          ).reshape(H, W, channels)
+
+    def sparse(path: Path, kind: str):
+        f = flow(kind)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_flow_kitti(f, str(path),
+                         (rng.random(f.shape[:2]) < 0.7).astype(np.float32))
+
+    for i in range(5):
+        for k in (1, 2):
+            image(r["chairs"] / f"{i:05d}_img{k}.ppm", "chairs")
+        flowwrite(flow("chairs"), str(r["chairs"] / f"{i:05d}_flow.flo"))
+    np.savetxt(r["chairs"] / "chairs_split.txt", [1] * 5, fmt="%d")
+    for i in range(5):
+        for dstype in ("clean", "final"):
+            image(r["sintel"] / "training" / dstype / "alley_1"
+                  / f"frame_{i:04d}.png", "sintel")
+    for i in range(4):
+        flowwrite(flow("sintel"), str(r["sintel"] / "training" / "flow"
+                                      / "alley_1" / f"frame_{i:04d}.flo"))
+    seq = Path("TRAIN") / "A" / "0000"
+    for dstype in ("frames_cleanpass", "frames_finalpass"):
+        for i in range(4):
+            image(r["things"] / dstype / seq / "left" / f"{i:04d}.png",
+                  "things")
+    for direction in ("into_future", "into_past"):
+        for i in range(4):
+            path = (r["things"] / "optical_flow" / seq / direction / "left"
+                    / f"{i:04d}.pfm")
+            path.parent.mkdir(parents=True, exist_ok=True)
+            write_pfm(flow("things", 3), str(path))
+    for i in range(4):
+        for k in (10, 11):
+            image(r["kitti"] / "training" / "image_2" / f"{i:06d}_{k}.png",
+                  "kitti")
+        sparse(r["kitti"] / "training" / "flow_occ" / f"{i:06d}_10.png",
+               "kitti")
+    for i in range(2):
+        image(r["hd1k"] / "hd1k_input" / "image_2" / f"000000_{i:02d}.png",
+              "hd1k")
+        sparse(r["hd1k"] / "hd1k_flow_gt" / "flow_occ"
+               / f"000000_{i:02d}.png", "hd1k")
+    return {k: str(v) for k, v in r.items()}
+
+
+def _shard_batches(dataset_fn, batch: int = 2) -> tuple:
+    """One batch of `batch` from each of two shards of `PrefetchLoader`
+    (one worker, a dataset each from `dataset_fn`), the indices each
+    drew, and the loader's ms a batch (the first batch of each shard,
+    from the loader's start: reads, decodes and augments at the
+    datasets' own frame sizes)."""
+    from propainter_tpu_torch.core.dataset import PrefetchLoader
+
+    class Recorded(PrefetchLoader):
+        def _next_indices(self):
+            idxs = super()._next_indices()
+            self.drawn = getattr(self, "drawn", []) + [idxs]
+            return idxs
+
+    batches, drawn, ms = [], [], []
+    for shard in (0, 1):
+        t0 = time.perf_counter()
+        loader = Recorded(dataset_fn(), batch, num_workers=1, prefetch=1,
+                          seed=0, shard_index=shard, num_shards=2)
+        try:
+            batches.append(loader.next())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            drawn.append(loader.drawn[0])
+        finally:
+            loader.stop()
+    return batches, drawn, ms
+
+
+def _check_k1_k2_at(randn, B: int, H8: int, W8: int) -> dict:
+    """K2 and K1 on a random level-0 volume of B pair-directions at an
+    H8 x W8 map against their plain versions, timed beside them, with
+    their bounds (`_check_k2`, `_check_k1`)."""
+    pyr, k2 = _check_k2(_level0(randn, B, H8, W8))
+    k1 = _check_k1(randn, pyr)
+    del pyr
+    keep = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {"corr_pyramid_build": {k: k2[k] for k in keep},
+            "corr_lookup_moenc": {k: k1[k] for k in keep}}
+
+
+def phase_flow_data(state: dict, smi: str) -> None:
+    """RAFT's training data on the card: `_write_flow_datasets` under
+    build/, then for each curriculum stage (`FLOW_CROPS`: chairs, things,
+    sintel with its KITTI and HD1K mixture, kitti) `fetch_flow_dataset`
+    at the stage's crop, one batch of 2 from each of two shards of
+    `PrefetchLoader` (the shards' indices disjoint; images, flow and
+    valid of the crop's shape, finite), the port's RAFT (seeded, fp32,
+    20 iterations) on shard 0's batch with K2 launched once and K1 once
+    an iteration, finite flow of the crop's shape; and K2 and K1 at each
+    crop's 1/8 map (2 pair-directions) against their plain versions
+    (`_check_k1_k2_at`). Prints the loader's and RAFT's ms a batch."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from propainter_tpu_torch.core import flow_datasets
+    from propainter_tpu_torch.device import fp32_numerics
+    from propainter_tpu_torch.models.raft import RAFT
+    from propainter_tpu_torch.weights import seeded_init_
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    raft = seeded_init_(RAFT(), TRAIN_SEEDS["raft"], fan_in_scaled=True)
+    raft = raft.cuda().eval().requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(71)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    report, kernels = {}, {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.perf_counter()
+        roots = _write_flow_datasets(Path(tmp))
+        print(f"  synthetic flow datasets written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for stage, crop in FLOW_CROPS.items():
+            n = len(flow_datasets.fetch_flow_dataset(stage, crop,
+                                                     roots=roots))
+            batches, drawn, loader_ms = _shard_batches(
+                lambda: flow_datasets.fetch_flow_dataset(
+                    stage, crop, roots=roots, seed=1))
+            if set(drawn[0]) & set(drawn[1]):
+                raise AssertionError(f"{stage}: shards overlap {drawn}")
+            for b in batches:
+                want = {"image1": (2, *crop, 3), "image2": (2, *crop, 3),
+                        "flow": (2, *crop, 2), "valid": (2, *crop)}
+                got = {k: v.shape for k, v in b.items()}
+                if got != want or not all(np.isfinite(v).all()
+                                          for v in b.values()):
+                    raise AssertionError(f"{stage}: batch {got}")
+            im1, im2 = (torch.from_numpy(batches[0][k]).cuda() / 127.5 - 1
+                        for k in ("image1", "image2"))
+            with torch.no_grad(), fp32_numerics():
+                raft(im1, im2, FLOW_RAFT_ITERS)          # warm-up
+                _zero_launches()
+                _, flow = raft(im1, im2, FLOW_RAFT_ITERS)
+                launches = _read_launches()
+                raft_ms = _time_ms(lambda: raft(im1, im2, FLOW_RAFT_ITERS),
+                                   3, warmup=0)
+            _check_launches(f"flow_data {stage} RAFT", launches, dict(
+                corr_pyramid_build=1, corr_lookup_moenc=FLOW_RAFT_ITERS,
+                corr_lookup=0))
+            if (tuple(flow.shape) != (2, *crop, 2)
+                    or not torch.isfinite(flow).all()):
+                raise AssertionError(f"{stage}: RAFT flow {flow.shape}")
+            H8, W8 = crop[0] // 8, crop[1] // 8
+            kernels[stage] = _check_k1_k2_at(randn, 2, H8, W8)
+            k2 = kernels[stage]["corr_pyramid_build"]
+            k1 = kernels[stage]["corr_lookup_moenc"]
+            print(f"  flow_data {stage}: {n} items, crop {crop[0]} x "
+                  f"{crop[1]} (map {H8} x {W8}); shards drew {drawn}; "
+                  f"loader {loader_ms[0]:.1f} / {loader_ms[1]:.1f} ms a "
+                  f"batch of 2 (first batch, two shards); RAFT "
+                  f"{raft_ms:.1f} ms a batch of 2 ({FLOW_RAFT_ITERS} "
+                  f"iterations); K2 {k2['ms']:.4f} ms (plain "
+                  f"{k2['plain_ms']:.3f}, bound {k2['bound_ms']:.4f}), K1 "
+                  f"{k1['ms']:.4f} ms (plain {k1['plain_ms']:.3f}, bound "
+                  f"{k1['bound_ms']:.4f}); on {smi}")
+            report[stage] = dict(items=n, crop=crop, drawn=drawn,
+                                 loader_ms=loader_ms, raft_ms=raft_ms,
+                                 launches=launches)
+    state["flow_data"] = dict(report, kernels=kernels)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3830,6 +4466,10 @@ def main(argv=None) -> int:
                 phase_eval(state, smi)
             elif phase == "train":
                 phase_train(state, smi)
+            elif phase == "dist":
+                phase_dist(state, smi)
+            elif phase == "flow_data":
+                phase_flow_data(state, smi)
             elif phase == "profile":
                 phase_profile(state)
         except Exception:  # every phase runs; any failure fails the run
@@ -3845,7 +4485,14 @@ def main(argv=None) -> int:
                                 "eval", {}).get(key),
                             train_launches={
                                 stage: launches.get(f"train_{stage}", {})
-                                .get(key) for stage in TRAIN_CONFIGS}))
+                                .get(key) for stage in TRAIN_CONFIGS},
+                            dist_launches={
+                                stage: launches.get(f"dist_{stage}", {})
+                                .get(key) for stage in TRAIN_CONFIGS},
+                            flow_data={
+                                stage: k[key] for stage, k in state.get(
+                                    "flow_data", {}).get("kernels", {})
+                                .items() if key in k} or None))
     for key in ("main_path", "main_path_pallas", "main_path_shard",
                 "main_path_bf16", "main_path_bf16_pallas",
                 "main_path_bf16_shard", "main_path_bf16_fp32_refine"):

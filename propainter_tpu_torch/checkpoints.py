@@ -6,6 +6,11 @@ directories are not read). The files are the reference's
 networks' state dicts (the discriminator's spectral-norm u and v among
 them), `opt_%06d.pth` the optimizers and schedulers as optimG / optimD /
 scheG / scheD with the iteration, and `latest.ckpt` the latest iteration.
+
+Across ranks (`parallel.mesh`) rank 0 alone writes, as the JAX CLI saves
+only from its main process, and a barrier follows each save, so no rank
+reads a file still being written; every rank restores from the same
+files.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from __future__ import annotations
 import os
 
 import torch
+
+from propainter_tpu_torch.parallel.mesh import barrier, is_main
 
 
 class TrainCheckpointManager:
@@ -23,7 +30,9 @@ class TrainCheckpointManager:
     def __init__(self, directory: str, max_to_keep: int | None = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        if is_main():
+            os.makedirs(self.directory, exist_ok=True)
+        barrier()
 
     def _path(self, kind: str, step: int) -> str:
         return os.path.join(self.directory, f"{kind}_{step:06d}.pth")
@@ -33,6 +42,13 @@ class TrainCheckpointManager:
                       if f.startswith("opt_") and f.endswith(".pth"))
 
     def save(self, step: int, state) -> None:
+        """Rank 0 writes step `step` of `state`; every rank then waits
+        for it."""
+        if is_main():
+            self._write(step, state)
+        barrier()
+
+    def _write(self, step: int, state) -> None:
         items = state.checkpoint_items()
         torch.save(items["gen"].state_dict(), self._path("gen", step))
         if items["dis"] is not None:

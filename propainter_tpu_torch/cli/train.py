@@ -4,6 +4,7 @@ with `--device` in place of `--platform`:
   python -m propainter_tpu_torch.cli.train -c configs/train_flowcomp.json
   python -m propainter_tpu_torch.cli.train -c configs/train_propainter.json \\
       [--max_iters N] [--device cuda|cpu]
+  torchrun --nproc_per_node N -m propainter_tpu_torch.cli.train -c ...
 
 The config files are the JAX CLI's. Run from the directory that holds
 `datasets/<train_data_loader.name>/train.json`; the frames are under
@@ -18,11 +19,20 @@ ProPainter stage warm-starts the generator and discriminator from
 given. The frozen networks load from `model.raft_path` and
 `model.flowcomp_path`, RAFT's DataParallel `module.` prefix stripped.
 
-One process trains on one device, the config's `trainer.batch_size` at a
-time. The JAX CLI's multi-host flags are accepted and raise
-NotImplementedError: multi-card training is ROADMAP.md queue 1 item 4.
-The default device is the GPU: without one this raises unless --device cpu
-is given.
+Data parallelism: `trainer.batch_size` is the global batch, which must
+divide over the ranks; each rank is one process on one device, loads
+`batch_size / ranks` samples a step from its own stride of each epoch's
+permutation, and the steps average their gradients
+(`core/trainer.py`). Ranks come from `torchrun`'s environment, from
+JAX_COORDINATOR_ADDRESS / COORDINATOR_ADDRESS, or from the JAX CLI's
+flags (`--coordinator_address host:port --num_processes N --process_id
+i [--local_device_ids g]`; `parallel.mesh.maybe_initialize_distributed`).
+Without them, on a machine with several GPUs, the CLI starts one rank
+per GPU on the largest number of GPUs that divides the batch (the JAX
+CLI's device count); with one GPU it trains in this process. Only rank
+0 writes logs and checkpoints; every rank resumes from the same
+checkpoint. The default device is the GPU: without one this raises
+unless --device cpu is given (gloo ranks on the CPU).
 """
 
 from __future__ import annotations
@@ -31,52 +41,130 @@ import argparse
 import json
 import logging
 import os
+import sys
 import time
 
 import numpy as np
 
-MULTI_CARD = ("multi-card and multi-host training are not ported "
-              "(ROADMAP.md, queue 1 item 4): the port trains in one process "
-              "on one device")
 
-
-def main(argv=None) -> dict:
+def _parse(argv):
     p = argparse.ArgumentParser()
     p.add_argument("-c", "--config", required=True)
     p.add_argument("--max_iters", type=int, default=None,
                    help="override config iterations (for smoke runs)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    for flag in ("--coordinator_address", "--num_processes", "--process_id",
-                 "--local_device_ids"):
-        p.add_argument(flag, default=None, help=MULTI_CARD)
-    args = p.parse_args(argv)
-    if any(getattr(args, f) is not None for f in (
-            "coordinator_address", "num_processes", "process_id",
-            "local_device_ids")):
-        raise NotImplementedError(MULTI_CARD)
+    # multi-process bootstrap, the JAX CLI's flags (reference core/dist.py
+    # env discovery + train.py:41-45 init_process_group)
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0 for torch.distributed; also "
+                        "honors JAX_COORDINATOR_ADDRESS and torchrun's "
+                        "environment")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--local_device_ids", type=str, default=None,
+                   help="this rank's GPU index")
+    return p.parse_args(argv)
+
+
+def data_parallel_devices(batch_size: int, avail: int) -> int:
+    """The JAX CLI's device count: the largest one that divides the
+    global batch, at most `avail` (propainter_tpu/cli/train.py:93-106)."""
+    return next(n for n in range(min(avail, batch_size), 0, -1)
+                if batch_size % n == 0)
+
+
+def main(argv=None) -> dict:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parse(argv)
+
+    import torch
+    import torch.distributed as dist
 
     from propainter_tpu_torch.device import resolve_device
+    from propainter_tpu_torch.parallel import mesh
 
     device = resolve_device(args.device)
     with open(args.config) as f:
         config = json.load(f)
-    save_dir = os.path.join(
+    distributed = mesh.maybe_initialize_distributed(
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes, process_id=args.process_id,
+        local_device_ids=args.local_device_ids, device=device.type)
+    try:
+        batch_size = config["trainer"]["batch_size"]
+        if distributed:
+            n_proc = mesh.world_size()
+            if mesh.is_main():
+                print(f"torch.distributed initialized: {n_proc} ranks",
+                      flush=True)
+        elif device.type == "cuda" and torch.cuda.device_count() > 1:
+            avail = torch.cuda.device_count()
+            n_dev = data_parallel_devices(batch_size, avail)
+            if n_dev != avail:
+                print(f"using {n_dev}/{avail} devices (batch {batch_size})")
+            if n_dev > 1:
+                return _spawn_ranks(n_dev, argv, config, args.config)
+            n_proc = 1
+        else:
+            n_proc = 1
+        if batch_size % n_proc:
+            raise ValueError(f"global batch {batch_size} must divide over "
+                             f"{n_proc} processes")
+        return _run(args, config, device, batch_size // n_proc)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _save_dir(config: dict, config_path: str) -> str:
+    return os.path.join(
         "experiments_model",
-        f"{config['model']['net']}_{os.path.basename(args.config)[:-5]}")
-    os.makedirs(save_dir, exist_ok=True)
+        f"{config['model']['net']}_{os.path.basename(config_path)[:-5]}")
+
+
+def _rank_main(local_rank: int, world: int, port: int, argv: list) -> None:
+    """One spawned rank: torchrun's environment, then `main`."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(local_rank), LOCAL_RANK=str(local_rank),
+                      WORLD_SIZE=str(world))
+    main(argv)
+
+
+def _spawn_ranks(n_dev: int, argv: list, config: dict,
+                 config_path: str) -> dict:
+    """Train on GPUs 0..n_dev-1, one spawned process each, and wait."""
+    import torch.multiprocessing as mp
+
+    from propainter_tpu_torch.parallel.mesh import free_port
+
+    mp.start_processes(_rank_main, args=(n_dev, free_port(), argv),
+                       nprocs=n_dev, start_method="spawn")
+    return dict(save_dir=_save_dir(config, config_path), ranks=n_dev)
+
+
+def _run(args, config: dict, device, rank_batch: int) -> dict:
+    """Train in this process, rank 0 logging to train.log."""
+    from propainter_tpu_torch.parallel import mesh
+
+    save_dir = _save_dir(config, args.config)
     log = logging.getLogger(__name__)
     log.setLevel(logging.INFO)
-    log_file = logging.FileHandler(os.path.join(save_dir, "train.log"))
-    log_file.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-    log.addHandler(log_file)
+    log_file = None
+    if mesh.is_main():
+        os.makedirs(save_dir, exist_ok=True)
+        log_file = logging.FileHandler(os.path.join(save_dir, "train.log"))
+        log_file.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
+        log.addHandler(log_file)
     try:
-        return _train(args, config, save_dir, device, log)
+        return _train(args, config, save_dir, device, log, rank_batch)
     finally:
-        log.removeHandler(log_file)
-        log_file.close()
+        if log_file is not None:
+            log.removeHandler(log_file)
+            log_file.close()
 
 
-def _train(args, config: dict, save_dir: str, device, log) -> dict:
+def _train(args, config: dict, save_dir: str, device, log,
+           rank_batch: int) -> dict:
     import torch
 
     from propainter_tpu_torch.checkpoints import TrainCheckpointManager
@@ -84,6 +172,7 @@ def _train(args, config: dict, save_dir: str, device, log) -> dict:
     from propainter_tpu_torch.core.dataset import (
         PrefetchLoader, TrainDataset, TrainDatasetConfig)
     from propainter_tpu_torch.models.raft import RAFT
+    from propainter_tpu_torch.parallel import mesh
     from propainter_tpu_torch.utils.flow_viz import flow_to_image
     from propainter_tpu_torch.utils.tb import MetricLogger
 
@@ -155,26 +244,36 @@ def _train(args, config: dict, save_dir: str, device, log) -> dict:
             tcfg, raft_iters=raft_iters,
             use_precomputed_flows=ds_cfg.load_flow, lpips=lpips)
 
+    main_rank = mesh.is_main()
     latest = ckpt.latest_step()
     if latest is not None:
         ckpt.restore(state)
-        print(f"resumed from step {latest}")
+        if main_rank:
+            print(f"resumed from step {latest}")
     elif trainer_version != "trainer_flow_w_edge":
-        # warm start from released checkpoints
+        # warm start from released checkpoints, on every rank
         # (reference core/trainer.py:248-268 gen_path / dis_path)
         if model_args.get("gen_path"):
             load_checkpoint(state.gen, model_args["gen_path"])
-            print(f"warm-started G from {model_args['gen_path']}")
+            if main_rank:
+                print(f"warm-started G from {model_args['gen_path']}")
         if model_args.get("dis_path") and state.dis is not None:
             load_checkpoint(state.dis, model_args["dis_path"])
-            print(f"warm-started D from {model_args['dis_path']}")
+            if main_rank:
+                print(f"warm-started D from {model_args['dis_path']}")
 
     save_freq = int(train_args.get("save_freq", 10000))
     log_freq = int(train_args.get("log_freq", 100))
     viz_freq = int(train_args.get("viz_freq", 200))
-    loader = PrefetchLoader(dataset, train_args["batch_size"],
-                            num_workers=train_args.get("num_workers", 4))
-    tb = MetricLogger(os.path.join(save_dir, "logs"))
+    # this rank's stride of each epoch's permutation (DistributedSampler
+    # semantics; the JAX CLI passes no shard and every process reads the
+    # same samples, ROADMAP.md section 3)
+    loader = PrefetchLoader(dataset, rank_batch,
+                            num_workers=train_args.get("num_workers", 4),
+                            shard_index=mesh.rank(),
+                            num_shards=mesh.world_size())
+    # the steps' metrics are the ranks' means: rank 0 logs them
+    tb = MetricLogger(os.path.join(save_dir, "logs")) if main_rank else None
 
     t0 = time.time()
     start = state.step
@@ -183,6 +282,10 @@ def _train(args, config: dict, save_dir: str, device, log) -> dict:
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in loader.next().items()}
             state, metrics, viz = step_fn(state, batch)
+            if (it + 1) % save_freq == 0:
+                ckpt.save(it + 1, state)
+            if not main_rank:
+                continue
             for k, v in metrics.items():
                 tb.add(f"loss/{k}", v)
             if (it + 1) % log_freq == 0:
@@ -207,12 +310,12 @@ def _train(args, config: dict, save_dir: str, device, log) -> dict:
                     tb.add_images("img/pred_edge_f",
                                   np.repeat(v["pred_edge_f"][0], 3, -1),
                                   it + 1)
-            if (it + 1) % save_freq == 0:
-                ckpt.save(it + 1, state)
     finally:
         loader.stop()
-        tb.close()
-    print("End training.")
+        if tb is not None:
+            tb.close()
+    if main_rank:
+        print("End training.")
     return dict(save_dir=save_dir, start=start, iterations=iterations)
 
 

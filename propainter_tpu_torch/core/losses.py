@@ -7,6 +7,12 @@
     smoothness, ternary census warp (model/modules/flow_comp_raft.py:59-204,
     flow_loss_utils.py:89-141),
   * pos/neg-weighted edge BCE (model/modules/flow_comp_raft.py:207-244).
+
+Under data parallelism (`parallel.mesh`) each rank holds a shard of the
+batch. The JAX steps take these losses over the whole batch, so the
+losses divided by a mask's mean divide by its mean over every rank's
+shard (`batch_mean`); every other term is a mean over the batch, which
+the trainer's gradient average makes global.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from propainter_tpu_torch.ops.warp import flow_warp
+from propainter_tpu_torch.parallel.mesh import all_reduce_mean, world_size
 
 
 # ---------------------------------------------------------------------------
@@ -27,10 +34,19 @@ def l1(x, y):
     return torch.mean(torch.abs(x - y))
 
 
+def batch_mean(x):
+    """torch.mean(x) over the whole batch: on one rank torch.mean itself;
+    across ranks (equal shards) the mean of every rank's mean. For masks,
+    which carry no gradient."""
+    if world_size() == 1:
+        return torch.mean(x)
+    return all_reduce_mean([torch.mean(x.detach())])[0]
+
+
 def hole_valid_l1(pred, gt, mask, hole_weight=1.0, valid_weight=1.0):
     """ProPainter generator reconstruction losses (core/trainer.py:403-412)."""
-    hole = l1(pred * mask, gt * mask) / torch.mean(mask)
-    valid = l1(pred * (1 - mask), gt * (1 - mask)) / torch.mean(1 - mask)
+    hole = l1(pred * mask, gt * mask) / batch_mean(mask)
+    valid = l1(pred * (1 - mask), gt * (1 - mask)) / batch_mean(1 - mask)
     return hole_weight * hole + valid_weight * valid, hole, valid
 
 
@@ -208,7 +224,7 @@ def ternary_loss(flow_comp, flow_gt, mask, current_frame, shift_frame):
     warped_comp_sc = flow_warp(shift_frame, flow_comp)
     dist = hamming_distance(ternary_transform(current_frame),
                             ternary_transform(warped_comp_sc))
-    return torch.mean(dist * noc_mask * mask) / torch.mean(mask)
+    return torch.mean(dist * noc_mask * mask) / batch_mean(mask)
 
 
 def flow_loss(pred_flows, gt_flows, masks, frames):
@@ -228,10 +244,10 @@ def flow_loss(pred_flows, gt_flows, masks, frames):
     for i in range(2):
         combined = pred_flows[i] * m[i] + gt_flows[i] * (1 - m[i])
         l1_loss = (l1(pred_flows[i] * m[i], gt_flows[i] * m[i])
-                   / torch.mean(m[i]))
+                   / batch_mean(m[i]))
         l1_loss = l1_loss + (
             l1(pred_flows[i] * (1 - m[i]), gt_flows[i] * (1 - m[i]))
-            / torch.mean(1 - m[i]))
+            / batch_mean(1 - m[i]))
         cf = combined.reshape(-1, H, W, 2)
         mf = m[i].reshape(-1, H, W, 1)
         loss = loss + l1_loss + smoothness_loss(cf, mf) + second_order_loss(

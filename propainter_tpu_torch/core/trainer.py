@@ -8,14 +8,25 @@ core/trainer.py (the ProPainter GAN stage) and core/trainer_flow_w_edge.py
   * Adam(beta1=0, beta2=0.99, eps=1e-8) under the JAX package's schedules
     (optax's piecewise-constant multistep and the cosine restarts), the
     learning rate of update n being the schedule at n, as optax counts;
-  * one process on one device: the JAX trainer's data parallelism over a
-    mesh is not ported (ROADMAP.md, queue 1 item 4).
+  * data parallelism over ranks (`parallel.mesh`: one process per device)
+    in place of the JAX trainer's batch sharded over a mesh: each rank
+    steps on its shard of the batch; `init_*_state` broadcasts rank 0's
+    parameters and buffers; each gradient is averaged over the ranks
+    after its backward and before its optimizer step (one flat buffer a
+    model, an explicit all-reduce rather than DistributedDataParallel,
+    whose hooks fire once per parameter and backward: the discriminator
+    runs twice a step and remat recomputes forwards); the loss
+    normalisers (`losses.batch_mean`) and the Canny targets' flow peak
+    are taken over every rank's shard, as the JAX step takes them over
+    the whole batch; the reported metrics are averaged over the ranks.
+    With one rank (or no process group) none of this runs.
 
-A step takes a batch dict of tensors on the state's device: frames (B, T,
+A step takes a batch dict of tensors on the state's device (this rank's
+shard of the batch, B = the global batch over the ranks): frames (B, T,
 H, W, 3) in [-1, 1], masks (B, T, H, W, 1), and with precomputed flows
 flows_f / flows_b (B, l_t-1, H, W, 2). It updates the state in place and
-returns (state, metrics, viz): metrics are detached scalar tensors, viz
-detached tensors of the whole batch. Every step runs under
+returns (state, metrics, viz): metrics are detached scalar tensors (the
+ranks' mean), viz detached tensors of this rank's batch. Every step runs under
 `device.fp32_numerics`.
 """
 
@@ -36,6 +47,8 @@ from propainter_tpu_torch.models.flow_completion import (
 from propainter_tpu_torch.models.propainter import (
     InpaintGenerator, image_propagation)
 from propainter_tpu_torch.ops.canny import canny_edges
+from propainter_tpu_torch.parallel.mesh import (
+    all_reduce_max, all_reduce_mean, broadcast_modules)
 
 
 def multistep_lr(base_lr: float, milestones: dict) -> Callable[[int], float]:
@@ -93,6 +106,20 @@ def make_optimizer(params, lr: float, milestones: dict | None = None,
 
 def _frozen(module: torch.nn.Module, device) -> torch.nn.Module:
     return module.to(device).eval().requires_grad_(False)
+
+
+def _average_grads(module: torch.nn.Module) -> None:
+    """The module's gradients averaged over the ranks (the JAX step's
+    gradient of the whole batch's loss)."""
+    all_reduce_mean([p.grad for p in module.parameters()
+                     if p.grad is not None])
+
+
+def _metrics(metrics: dict) -> dict:
+    """Detached copies of the step's scalars, averaged over the ranks."""
+    out = {k: v.detach().clone() for k, v in metrics.items()}
+    all_reduce_mean(list(out.values()))
+    return out
 
 
 def _gt_flows(batch, raft, gt_local, use_precomputed_flows: bool,
@@ -169,7 +196,8 @@ def init_propainter_state(config: PropainterTrainConfig, raft, flowcomp,
     """The train state on `device` (None: the GPU): the generator
     (default `InpaintGenerator(remat=True)`) and, with use_discriminator,
     the discriminator (default per config) with their optimizers; raft
-    (None with precomputed flows) and flowcomp frozen."""
+    (None with precomputed flows) and flowcomp frozen. Across ranks every
+    model takes rank 0's parameters and buffers."""
     dev = resolve_device(device)
     gen = (gen or InpaintGenerator(remat=True)).to(dev).train()
     g_opt, g_sched = make_optimizer(gen.parameters(), config.lr,
@@ -179,12 +207,14 @@ def init_propainter_state(config: PropainterTrainConfig, raft, flowcomp,
         dis = (dis or _make_discriminator(config)).to(dev).train()
         d_opt, d_sched = make_optimizer(dis.parameters(), config.lr,
                                         config.milestones)
-    return PropainterTrainState(
+    state = PropainterTrainState(
         step=0, gen=gen, gen_opt=g_opt, gen_sched=g_sched,
         dis=dis if config.use_discriminator else None, dis_opt=d_opt,
         dis_sched=d_sched,
         raft=None if raft is None else _frozen(raft, dev),
         flowcomp=_frozen(flowcomp, dev))
+    broadcast_modules(state.gen, state.dis, state.raft, state.flowcomp)
+    return state
 
 
 def make_propainter_train_step(config: PropainterTrainConfig,
@@ -258,6 +288,7 @@ def make_propainter_train_step(config: PropainterTrainConfig,
             g_loss = g_loss + config.adversarial_weight * gan
             metrics["gan_loss"] = gan
         g_loss.backward()
+        _average_grads(state.gen)
         state.gen_opt.step()
         state.gen_sched.step()
         metrics["gen_loss"] = g_loss
@@ -271,6 +302,7 @@ def make_propainter_train_step(config: PropainterTrainConfig,
             d_loss = L.adversarial_d_loss(real_logits, fake_logits,
                                           config.gan_type)
             d_loss.backward()
+            _average_grads(dis)
             state.dis_opt.step()
             state.dis_sched.step()
             metrics["dis_loss"] = d_loss
@@ -280,7 +312,7 @@ def make_propainter_train_step(config: PropainterTrainConfig,
                "masked_local": masked_frames[:, :l_t],
                "gt_local": gt_local,
                "pred_flow_f": pred_flows_bi[0]}
-        return (state, {k: v.detach() for k, v in metrics.items()},
+        return (state, _metrics(metrics),
                 {k: v.detach() for k, v in viz.items()})
 
     return train_step
@@ -322,23 +354,27 @@ def init_flow_state(config: FlowTrainConfig, raft,
                     device=None) -> FlowTrainState:
     """The train state on `device` (None: the GPU): the flow completion
     (default `RecurrentFlowCompleteNet(remat=True)`) and its optimizer;
-    raft (None with precomputed flows) frozen."""
+    raft (None with precomputed flows) frozen. Across ranks both models
+    take rank 0's parameters and buffers."""
     dev = resolve_device(device)
     model = (model or RecurrentFlowCompleteNet(remat=True)).to(dev).train()
     opt, sched = make_optimizer(model.parameters(), config.lr,
                                 config.milestones)
-    return FlowTrainState(step=0, model=model, opt=opt, sched=sched,
-                          raft=None if raft is None else _frozen(raft, dev))
+    state = FlowTrainState(step=0, model=model, opt=opt, sched=sched,
+                           raft=None if raft is None else _frozen(raft, dev))
+    broadcast_modules(state.model, state.raft)
+    return state
 
 
 def flow_edges(flows):
     """Canny edges (sigma 2, trainer_flow_w_edge.py:60) of the flow
     magnitude over its peak, zero when the peak is below 1
-    (trainer_flow_w_edge.py:261-273): (B, T, H, W, 2) -> (B, T, H, W, 1)."""
+    (trainer_flow_w_edge.py:261-273): (B, T, H, W, 2) -> (B, T, H, W, 1).
+    The peak is the whole batch's, over every rank's shard."""
     B, T, H, W, _ = flows.shape
     mag = torch.sqrt(torch.sum(torch.square(flows.reshape(-1, H, W, 2)),
                                dim=-1, keepdim=True))
-    peak = torch.max(mag)
+    peak = all_reduce_max(torch.max(mag))
     mag = torch.where(peak < 1, torch.zeros_like(mag), mag / peak)
     return canny_edges(mag, sigma=2.0).reshape(B, T, H, W, 1)
 
@@ -374,6 +410,7 @@ def make_flow_train_step(config: FlowTrainConfig, raft_iters: int = 20,
         loss = (config.flow_weight * fl + config.warp_weight * warp
                 + config.edge_weight * el)
         loss.backward()
+        _average_grads(state.model)
         state.opt.step()
         state.sched.step()
         state.step += 1
@@ -381,7 +418,7 @@ def make_flow_train_step(config: FlowTrainConfig, raft_iters: int = 20,
                    "loss": loss}
         viz = {"pred_flow_f": pred_flows_bi[0], "gt_flow_f": gt_flows_bi[0],
                "pred_edge_f": pred_edges_bi[0]}
-        return (state, {k: v.detach() for k, v in metrics.items()},
+        return (state, _metrics(metrics),
                 {k: v.detach() for k, v in viz.items()})
 
     return train_step

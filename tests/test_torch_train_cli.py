@@ -3,8 +3,9 @@ a user runs it: the JAX CLI's config layout over a synthetic
 YouTube-VOS-layout dataset, seeded RAFT and flow completion checkpoints in
 the released layout, two steps of each stage, then a rerun that resumes
 from the checkpoint; the ProPainter stage warm-started from gen_path and
-dis_path. Without a GPU the default device raises, and the multi-host
-flags raise."""
+dis_path. Without a GPU the default device raises, and a global batch
+that does not divide over the ranks raises. (Training on several ranks:
+tests/test_torch_distributed.py.)"""
 
 import json
 
@@ -123,12 +124,27 @@ def test_train_cli_two_steps_then_resumes(stage, train_root, monkeypatch,
 
 def test_train_cli_guards(train_root, monkeypatch):
     """The default device is the GPU: without one the CLI raises rather
-    than training on the CPU. The JAX CLI's multi-host flags raise
-    NotImplementedError naming the roadmap item."""
+    than training on the CPU. The JAX CLI's multi-host flags reach the
+    process group (gloo on the CPU), and a global batch of 1 over 2 ranks
+    raises with the JAX CLI's message before any training."""
+    import torch.distributed as dist
+
+    from propainter_tpu_torch.parallel import mesh
+
     monkeypatch.chdir(train_root)
     cfg = _config(train_root, "flowcomp")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(["-c", cfg, "--max_iters", "1"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        train.main(["-c", cfg, "--num_processes", "2", "--device", "cpu"])
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda **kw: calls.append(kw))
+    monkeypatch.setattr(dist, "destroy_process_group", lambda: None)
+    monkeypatch.setattr(mesh, "world_size", lambda: 2)
+    with pytest.raises(ValueError,
+                       match="global batch 1 must divide over 2 processes"):
+        train.main(["-c", cfg, "--coordinator_address", "localhost:1",
+                    "--num_processes", "2", "--process_id", "0",
+                    "--device", "cpu"])
+    assert calls == [dict(backend="gloo", init_method="tcp://localhost:1",
+                          world_size=2, rank=0)]
