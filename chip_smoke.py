@@ -146,6 +146,18 @@ Phases:
               on a batch of 2 (K2 once, K1 20 times), and K1 and K2 at
               each crop's 1/8 map against their plain versions; the
               loader's and RAFT's ms a batch;
+  demo        the demo's click-to-mask path (`phase_demo`): SAM vit_h at
+              1024x1024 in fp32 with seeded weights through `SamSegmenter`
+              and `SamControler` on a synthetic 480x854 frame with two
+              positive clicks and one negative: the encoder's ms a frame
+              (median and min-max) against its fp32 bound, the decoder's
+              ms a click, first_frame_click's ms, the peak memory, no
+              launch of K1-K7; GPU against the same model on the CPU
+              (1e-3 of scale): the tokens after block 7, the embedding
+              (all 32 blocks unless the CPU's projected time is over
+              `DEMO_CPU_BUDGET_S`, then the cut is printed), the decoder's
+              4 mask logits and IoUs, first_frame_click's logit, and its
+              mask wherever |logit| is above the tolerance;
   profile     (only when named) the main path under torch.profiler in fp32
               and bf16: device time by kernel, the device's busy share, and
               host and device time by op shape for one RAFT chunk and one
@@ -181,7 +193,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 PHASES = ("device", "build", "kernels", "deform_opt", "pipeline", "small",
-          "cli", "eval", "train", "dist", "flow_data")
+          "cli", "eval", "train", "dist", "flow_data", "demo")
 EXTRA_PHASES = ("profile",)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
 # dense TF32 on the tensor cores and HBM3 bandwidth — the denominators of
@@ -2923,8 +2935,9 @@ def _trace_summary(path: Path, top: int = 12) -> dict:
 
 def _device_kernels(fn) -> dict:
     """fn() once under torch.profiler after one warm-up call: its device
-    ms, its kernel launches, and the launches and ms of cuDNN's FFT
-    convolution kernels among them."""
+    ms, its kernel launches, the launches and ms of cuDNN's FFT
+    convolution kernels among them, and the six kernels with the most
+    device ms (name, ms, launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2937,10 +2950,13 @@ def _device_kernels(fn) -> dict:
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     fft = [e for e in kern if FFT_KERNELS.search(e.key)]
+    ranked = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     return dict(device_ms=sum(e.self_device_time_total for e in kern) / 1e3,
                 launches=sum(e.count for e in kern),
                 fft_launches=sum(e.count for e in fft),
-                fft_ms=sum(e.self_device_time_total for e in fft) / 1e3)
+                fft_ms=sum(e.self_device_time_total for e in fft) / 1e3,
+                top=[[e.key[:100], e.self_device_time_total / 1e3, e.count]
+                     for e in ranked])
 
 
 def _metrics_file(path: Path) -> dict:
@@ -4406,6 +4422,293 @@ def phase_flow_data(state: dict, smi: str) -> None:
     state["flow_data"] = dict(report, kernels=kernels)
 
 
+# the demo phase: SAM vit_h at 1024x1024, fp32 (`phase_demo`)
+DEMO_MODEL = "vit_h"
+DEMO_SEED = 71
+DEMO_FRAME = (480, 854)          # DAVIS's frame size (H, W)
+# (x, y) clicks on the frame: two positive, one negative; the last click is
+# positive, so first_frame_click runs its dense-prompt refine pass
+DEMO_CLICKS = ((300.0, 200.0), (610.0, 330.0), (500.0, 260.0))
+DEMO_LABELS = (1, 0, 1)
+DEMO_CUT_BLOCKS = 8              # blocks 0-7: windowed ones and global 7
+DEMO_CPU_BUDGET_S = 40.0         # the CPU's whole-encoder projection limit
+DEMO_REPEATS = 5
+
+
+def _sam_model(cfg, seed: int):
+    """A seeded SAM on the CPU: `seeded_init_(fan_in_scaled=True)` over a
+    meta-built model, then every LayerNorm weight 1 + N(0, 0.1^2) (at
+    N(0, 0.1^2) each mask comes out one sign)."""
+    import torch
+    from propainter_tpu_torch.models.sam import LayerNorm2d, Sam
+    from propainter_tpu_torch.weights import seeded_init_
+
+    with torch.device("meta"):
+        model = Sam(cfg)
+    model = seeded_init_(model.to_empty(device="cpu"), seed,
+                         fan_in_scaled=True).eval()
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.LayerNorm, LayerNorm2d)):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape,
+                                                     generator=gen))
+    return model
+
+
+def _sam_frame(H: int, W: int, seed: int):
+    """A synthetic RGB frame: a smooth gradient with three bright blobs and
+    noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    img = np.stack([40 + 80 * x / W, 60 + 60 * y / H,
+                    np.full_like(x, 90)], -1)
+    for cx, cy, r, color in ((300, 200, 90, (230, 60, 50)),
+                             (620, 330, 70, (40, 200, 80)),
+                             (480, 120, 50, (250, 240, 90))):
+        inside = (x - cx) ** 2 + (y - cy) ** 2 < r * r
+        img[inside] = color
+    img += rng.normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _sam_encoder_work(cfg, n_params: int) -> dict:
+    """The image encoder's fp32 operations (2 per multiply-add) and bytes
+    (its `n_params` weights and the input read once, the embedding written
+    once) at 1024x1024:
+    the patch conv, each block's qkv and proj on its padded tokens
+    (windowed: 70x70 at window 14), attention products 4 N L C over
+    windows of L tokens, the decomposed relative positions, the MLP on the
+    64x64 tokens, and the neck."""
+    g, C, ws = cfg.grid, cfg.embed_dim, cfg.window_size
+    N = g * g
+    hidden = int(C * cfg.mlp_ratio)
+    ops = 2 * N * C * 3 * cfg.patch_size ** 2
+    per_block = []
+    for i in range(cfg.depth):
+        if i in cfg.global_attn_indexes:
+            side, Np, L = g, N, N
+        else:
+            side = ws
+            Np = (-(-g // ws) * ws) ** 2
+            L = ws * ws
+        block = (2 * Np * C * 3 * C + 4 * Np * L * C + 2 * 2 * Np * side * C
+                 + 2 * Np * C * C + 2 * 2 * N * C * hidden)
+        per_block.append(block)
+    ops += sum(per_block)
+    ops += 2 * N * C * cfg.out_chans + 2 * N * cfg.out_chans ** 2 * 9
+    n_bytes = 4 * (n_params + 3 * cfg.img_size ** 2 + N * cfg.out_chans)
+    return dict(ops=ops, bytes=n_bytes, per_block=per_block)
+
+
+def _rel_err(got, want) -> tuple[float, float]:
+    """(max |got - want| / max |want|, max |want|)."""
+    scale = want.float().abs().max().item()
+    return (got.float().cpu() - want.float().cpu()).abs().max().item() / \
+        scale, scale
+
+
+def phase_demo(state: dict, smi: str) -> None:
+    """The demo's click-to-mask path (`SamSegmenter`, `SamControler`) at
+    SAM vit_h, 1024x1024, fp32, seeded weights (`_sam_model`), on a
+    synthetic 480x854 frame (`_sam_frame`) with two positive and one
+    negative click (`DEMO_CLICKS`). On the GPU: the encoder's ms a frame
+    (CUDA events; median and min-max of `DEMO_REPEATS` runs after a
+    warm-up) beside its fp32 bound (`_sam_encoder_work`) and its device
+    time by kernel (`_device_kernels`), the decoder's ms a click (prompt
+    encoder and mask decoder), first_frame_click's ms with the image
+    embedded (two decoder passes, the upsampling, the painted preview)
+    beside one predict's, the peak memory, and no launch of K1-K7. Against
+    the same model on the CPU, each within STAGE_REL_TOL of its scale: the
+    tokens after block 7 (`DEMO_CUT_BLOCKS`), the embedding (when the
+    CPU's projected whole-encoder time is within `DEMO_CPU_BUDGET_S`; else
+    the cut is printed and the CPU decodes the GPU's embedding), the
+    decoder's 4 mask logits and IoUs, and first_frame_click's logit; its
+    mask must equal the CPU's wherever |logit| is above the tolerance."""
+    import numpy as np
+    import torch
+    from propainter_tpu_torch.demo import SamControler, SamSegmenter
+    from propainter_tpu_torch.device import fp32_numerics
+    from propainter_tpu_torch.models.sam import sam_config_registry
+
+    cfg = sam_config_registry[DEMO_MODEL]()
+    t0 = time.perf_counter()
+    cpu_model = _sam_model(cfg, DEMO_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    seg = SamSegmenter(cpu_model.state_dict(), config=cfg, device="cuda")
+    n_params = sum(p.numel() for p in seg.model.parameters())
+    print(f"  SAM {DEMO_MODEL} ({n_params / 1e6:.1f} M parameters) seeded "
+          f"and on the GPU in {time.perf_counter() - t0:.1f} s")
+    work = _sam_encoder_work(cfg, sum(
+        p.numel() for p in seg.model.image_encoder.parameters()))
+    bound_ms, bound_by = _bound(work["bytes"], work["ops"])
+    frame = _sam_frame(*DEMO_FRAME, seed=DEMO_SEED)
+    clicks = np.array(DEMO_CLICKS, np.float32)
+    labels = np.array(DEMO_LABELS, np.int32)
+    failures = []
+    report: dict = dict(model=DEMO_MODEL, img_size=cfg.img_size,
+                        frame=list(DEMO_FRAME), precision="fp32")
+
+    _zero_launches()
+    enc = seg.model.image_encoder
+    cut = DEMO_CUT_BLOCKS - 1
+    captured: dict = {}
+    hooks = [enc.register_forward_pre_hook(
+                 lambda m, args: captured.setdefault("x", args[0])),
+             enc.blocks[cut].register_forward_hook(
+                 lambda m, args, out: captured.setdefault("tokens", out))]
+    seg.set_image(frame)
+    for hook in hooks:
+        hook.remove()
+    emb_gpu, x_gpu = seg._embedding, captured["x"]
+    with torch.no_grad(), fp32_numerics():
+        enc_ms = []
+        for _ in range(DEMO_REPEATS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            seg.model.encode_image(x_gpu)
+            end.record()
+            torch.cuda.synchronize()
+            enc_ms.append(start.elapsed_time(end))
+        breakdown = _device_kernels(lambda: seg.model.encode_image(x_gpu))
+    enc_t = _spread(enc_ms)
+    print(f"  encoder {DEMO_MODEL} {cfg.img_size}x{cfg.img_size} fp32: "
+          f"{enc_t['median']:.2f} ms a frame ({enc_t['min']:.2f}-"
+          f"{enc_t['max']:.2f}, {DEMO_REPEATS} runs); bound {bound_ms:.2f} "
+          f"ms ({bound_by}: {work['ops'] / 1e12:.3f} TFLOP at "
+          f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32, TF32 off), "
+          f"{bound_ms / enc_t['median']:.1%} of it; on {smi}")
+    print(f"  encoder device time (torch.profiler, one pass): "
+          f"{breakdown['device_ms']:.2f} ms in {breakdown['launches']} "
+          f"launches; largest: " + "; ".join(
+              f"{name} {ms:.2f} ms ({n})" for name, ms, n in breakdown["top"]))
+
+    # the same encoder on the CPU, block by block, timed
+    enc_cpu = cpu_model.image_encoder
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h = enc_cpu.patch_embed(x_gpu.cpu())
+        h = h + enc_cpu.pos_embed[:, :h.shape[1], :h.shape[2]]
+        for i in range(DEMO_CUT_BLOCKS):
+            h = enc_cpu.blocks[i](h)
+    t_cut = time.perf_counter() - t0
+    err_cut, scale_cut = _rel_err(captured["tokens"], h)
+    print(f"  tokens after block {cut} (windowed blocks and global block "
+          f"{cut}) GPU vs CPU: {err_cut:.3e} of scale {scale_cut:.3f} "
+          f"(limit {STAGE_REL_TOL}); CPU {t_cut:.1f} s")
+    report["tokens_block_rel_err"] = {str(cut): err_cut}
+    if err_cut > STAGE_REL_TOL:
+        failures.append(f"encoder tokens after block {cut} disagree")
+    projected = t_cut * work["ops"] / (
+        2 * 3 * cfg.patch_size ** 2 * cfg.grid ** 2 * cfg.embed_dim
+        + sum(work["per_block"][:DEMO_CUT_BLOCKS]))
+    if projected <= DEMO_CPU_BUDGET_S:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for blk in enc_cpu.blocks[DEMO_CUT_BLOCKS:]:
+                h = blk(h)
+            emb_cpu = enc_cpu.neck(h.permute(0, 3, 1, 2))
+        t_cpu = t_cut + time.perf_counter() - t0
+        err, scale = _rel_err(emb_gpu, emb_cpu)
+        print(f"  embedding ({cfg.depth} blocks and the neck) GPU vs CPU: "
+              f"{err:.3e} of scale {scale:.3f} (limit {STAGE_REL_TOL}); "
+              f"CPU encoder {t_cpu:.1f} s")
+        report.update(embedding_rel_err=err, cpu_encoder_s=t_cpu,
+                      cpu_blocks=cfg.depth)
+        if err > STAGE_REL_TOL:
+            failures.append("the image embedding disagrees")
+    else:
+        emb_cpu = emb_gpu.cpu()
+        print(f"  CUT: the CPU runs only blocks 0-{cut} (projected "
+              f"{projected:.0f} s for all {cfg.depth}, over "
+              f"{DEMO_CPU_BUDGET_S:.0f} s); the CPU decodes the GPU's "
+              f"embedding")
+        report.update(cpu_blocks=DEMO_CUT_BLOCKS, cpu_projected_s=projected)
+
+    # the decoder: all 4 mask logits and IoUs, GPU vs CPU
+    coords, labs = seg._pack_points(clicks, labels)
+    with torch.no_grad(), fp32_numerics():
+        masks_gpu, iou_gpu = seg.model.decode(emb_gpu, coords, labs)
+        dec_ms = _time_ms(lambda: seg.model.decode(emb_gpu, coords, labs),
+                          reps=20)
+        masks_cpu, iou_cpu = cpu_model.decode(emb_cpu, coords.cpu(),
+                                              labs.cpu())
+    for name, got, want in (("mask logits", masks_gpu, masks_cpu),
+                            ("IoU", iou_gpu, iou_cpu)):
+        err, scale = _rel_err(got, want)
+        print(f"  decoder {name} {tuple(got.shape)} GPU vs CPU: {err:.3e} "
+              f"of scale {scale:.3f} (limit {STAGE_REL_TOL})")
+        report[f"decoder_{name.split()[0].lower()}_rel_err"] = err
+        if err > STAGE_REL_TOL:
+            failures.append(f"decoder {name} disagree")
+
+    # first_frame_click, the image embedded: GPU (timed, and one predict
+    # alone: decode, upsampling, readback) vs CPU
+    ctrl = SamControler(seg)
+    ctrl.first_frame_click(frame, clicks, labels)
+    click_ms, predict_ms = [], []
+    prompts = {"point_coords": clicks, "point_labels": labels}
+    for _ in range(DEMO_REPEATS):
+        t0 = time.perf_counter()
+        mask_g, logit_g, painted = ctrl.first_frame_click(frame, clicks,
+                                                          labels)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        seg.predict(prompts, "point")
+        torch.cuda.synchronize()
+        click_ms.append((t1 - t0) * 1e3)
+        predict_ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = _read_launches()
+    # the CPU segmenter's encoder returns the CPU's embedding from above
+    # (the GPU's, when the CPU ran only the first blocks)
+    given = torch.nn.Module()
+    given.forward = lambda x: emb_cpu
+    cpu_model.image_encoder = given
+    seg_cpu = SamSegmenter(cpu_model, device="cpu")
+    mask_c, logit_c, _ = SamControler(seg_cpu).first_frame_click(
+        frame, clicks, labels)
+    err, scale = _rel_err(torch.from_numpy(logit_g),
+                          torch.from_numpy(logit_c))
+    sure = np.abs(logit_c) > STAGE_REL_TOL * scale
+    flipped = int((mask_g != mask_c)[sure].sum())
+    print(f"  first_frame_click {DEMO_FRAME[1]}x{DEMO_FRAME[0]}, clicks "
+          f"{list(DEMO_LABELS)}: mask {mask_g.mean():.1%} of the frame; "
+          f"logit GPU vs CPU {err:.3e} of scale {scale:.3f} (limit "
+          f"{STAGE_REL_TOL}); masks differ at {flipped} pixels outside "
+          f"|logit| <= {STAGE_REL_TOL * scale:.3e} "
+          f"({int((~sure).sum())} pixels inside)")
+    if (mask_g.shape != DEMO_FRAME or painted.shape != frame.shape
+            or not np.isfinite(logit_g).all()):
+        failures.append("first_frame_click output shapes or values")
+    if err > STAGE_REL_TOL or flipped:
+        failures.append("first_frame_click disagrees with the CPU")
+    if any(launches.values()):
+        failures.append(f"SAM launched a port kernel: {launches}")
+    clk, pred = _spread(click_ms), _spread(predict_ms)
+    print(f"  demo {DEMO_MODEL}: encoder {enc_t['median']:.2f} ms a frame "
+          f"({bound_ms / enc_t['median']:.1%} of its {bound_ms:.2f} ms "
+          f"bound), decoder {dec_ms:.3f} ms a click, first_frame_click "
+          f"{clk['median']:.2f} ms ({clk['min']:.2f}-{clk['max']:.2f}; one "
+          f"predict {pred['median']:.2f} ms), peak "
+          f"{peak:.2f} GiB; K1-K7 launches {sum(launches.values())}; on "
+          f"{smi}")
+    report.update(encoder_ms=enc_t, encoder_bound_ms=bound_ms,
+                  encoder_bound_by=bound_by, encoder_tflop=work["ops"] / 1e12,
+                  encoder_share=bound_ms / enc_t["median"], decoder_ms=dec_ms,
+                  first_frame_click_ms=clk, predict_ms=pred,
+                  encoder_kernels=breakdown, peak_gib=peak,
+                  mask_fraction=float(mask_g.mean()),
+                  logit_rel_err=err, mask_pixels_flipped=flipped,
+                  launches=launches, smi=smi)
+    state["demo"] = report
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4470,6 +4773,8 @@ def main(argv=None) -> int:
                 phase_dist(state, smi)
             elif phase == "flow_data":
                 phase_flow_data(state, smi)
+            elif phase == "demo":
+                phase_demo(state, smi)
             elif phase == "profile":
                 phase_profile(state)
         except Exception:  # every phase runs; any failure fails the run

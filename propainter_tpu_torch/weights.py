@@ -7,10 +7,10 @@ and seeded random initialisation.
 finds the flax leaf the converter would have produced and undoes the layout
 change (flax Conv HWIO -> OIHW, Conv3d DHWIO -> OIDHW, Dense (in, out) ->
 (out, in), norm 'scale' -> 'weight', FrozenBatchNorm mean/var -> running
-stats). Model-specific renames are copies of the converters' rules. The
-training modules have their own: `discriminator_state_dict_from_flax`
-(with the spectral-norm stats), `vgg_state_dict_from_flax` and
-`lpips_state_dict_from_flax`.
+stats). Model-specific renames are copies of the converters' rules. SAM
+and the training modules have their own: `sam_state_dict_from_flax`,
+`discriminator_state_dict_from_flax` (with the spectral-norm stats),
+`vgg_state_dict_from_flax` and `lpips_state_dict_from_flax`.
 """
 
 from __future__ import annotations
@@ -81,29 +81,84 @@ def state_dict_from_flax(module: torch.nn.Module, tree: Mapping,
     template = module.state_dict()
     bn_prefixes = {k[:-len(".running_mean")] for k in template
                    if k.endswith(".running_mean")}
+    return {key: _from_flax(key, ref, tree, renames, bn_prefixes)
+            for key, ref in template.items()}
+
+
+def _from_flax(key: str, ref: torch.Tensor, tree: Mapping, renames,
+               bn_prefixes=frozenset(), aliases=ALIASES) -> torch.Tensor:
+    """The value of `key` (template `ref`) from the flax tree, as the
+    generic converter's rules place it."""
+    if any(re.search(p, key) for p in MODULE_OWNED):
+        return ref.clone()
+    src = key
+    for pat, repl in aliases:
+        src = re.sub(pat, repl, src)
+    prefix, _, leaf = src.rpartition(".")
+    renamed = src
+    for pat, repl in renames:
+        renamed = re.sub(pat, repl, renamed)
+    new_prefix = renamed.rpartition(".")[0]
+    if prefix in bn_prefixes:
+        arr = _leaf(tree, _flax_path(new_prefix) + [_BN_LEAVES[leaf]])
+    elif leaf == "weight" and ref.ndim in (2, 4, 5):
+        arr = _leaf(tree, _flax_path(new_prefix) + ["kernel"])
+        perm = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[ref.ndim]
+        arr = arr.transpose(perm)
+    elif leaf == "weight":
+        arr = _leaf(tree, _flax_path(new_prefix) + ["scale"])
+    else:
+        arr = _leaf(tree, _flax_path(new_prefix) + [leaf])
+    return _tensor(arr, ref, key)
+
+
+# SAM (`convert_sam_state_dict`): the Sequential indices and the LayerNorm2d
+# `ln` submodule, renamed as the converter renames them
+SAM_RENAMES = (
+    (r"\.patch_embed\.proj\.", r".patch_embed_proj."),
+    (r"\.neck\.(\d+)\.", r".neck_\1."),
+    (r"\.mask_downscaling\.(\d+)\.", r".mask_downscaling_\1."),
+    (r"\.output_upscaling\.(\d+)\.", r".output_upscaling_\1."),
+    (r"\.output_hypernetworks_mlps\.(\d+)\.",
+     r".output_hypernetworks_mlps_\1."),
+    (r"\.(neck_1|neck_3|mask_downscaling_1|mask_downscaling_4|"
+     r"output_upscaling_1)\.(weight|bias)$", r".\1.ln.\2"),
+)
+# released SAM keys the converter stores as flat leaves, unchanged
+SAM_FLAT = {
+    "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix":
+        ("prompt_encoder", "pe_layer_positional_encoding_gaussian_matrix"),
+    "prompt_encoder.not_a_point_embed.weight":
+        ("prompt_encoder", "pe_not_a_point"),
+    "prompt_encoder.no_mask_embed.weight": ("prompt_encoder",
+                                            "no_mask_embed"),
+    "mask_decoder.iou_token.weight": ("mask_decoder", "iou_token"),
+    "mask_decoder.mask_tokens.weight": ("mask_decoder", "mask_tokens"),
+}
+
+
+def sam_state_dict_from_flax(module: torch.nn.Module,
+                             tree: Mapping) -> dict[str, torch.Tensor]:
+    """A state dict for the port's `Sam` from the JAX `Sam`'s params;
+    inverts `convert_sam_state_dict`: the prompt embeddings and output
+    tokens are flat leaves (`pe_points_i`, `pe_not_a_point`, ...), the
+    output upscaling's transposed-conv kernels (kh, kw, I, O) -> (I, O,
+    kh, kw); every other key by the generic rules and `SAM_RENAMES`."""
     out = {}
-    for key, ref in template.items():
-        if any(re.search(p, key) for p in MODULE_OWNED):
-            out[key] = ref.clone()
-            continue
-        src = key
-        for pat, repl in ALIASES:
-            src = re.sub(pat, repl, src)
-        prefix, _, leaf = src.rpartition(".")
-        renamed = src
-        for pat, repl in renames:
-            renamed = re.sub(pat, repl, renamed)
-        new_prefix = renamed.rpartition(".")[0]
-        if prefix in bn_prefixes:
-            arr = _leaf(tree, _flax_path(new_prefix) + [_BN_LEAVES[leaf]])
-        elif leaf == "weight" and ref.ndim in (2, 4, 5):
-            arr = _leaf(tree, _flax_path(new_prefix) + ["kernel"])
-            perm = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[ref.ndim]
-            arr = arr.transpose(perm)
-        elif leaf == "weight":
-            arr = _leaf(tree, _flax_path(new_prefix) + ["scale"])
+    for key, ref in module.state_dict().items():
+        point = re.fullmatch(r"prompt_encoder\.point_embeddings\.(\d+)"
+                             r"\.weight", key)
+        if key in SAM_FLAT:
+            arr = _leaf(tree, list(SAM_FLAT[key]))
+        elif point:
+            arr = _leaf(tree, ["prompt_encoder", f"pe_points_{point[1]}"])
+        elif ".output_upscaling." in key and ref.ndim == 4:
+            path = _flax_path(re.sub(r"\.output_upscaling\.(\d+)\.",
+                                     r".output_upscaling_\1.", key))
+            arr = _leaf(tree, path[:-1] + ["kernel"]).transpose(2, 3, 0, 1)
         else:
-            arr = _leaf(tree, _flax_path(new_prefix) + [leaf])
+            out[key] = _from_flax(key, ref, tree, SAM_RENAMES, aliases=())
+            continue
         out[key] = _tensor(arr, ref, key)
     return out
 

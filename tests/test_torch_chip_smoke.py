@@ -660,3 +660,25 @@ def test_train_metrics_reader(tmp_path):
     rows = chip_smoke._metrics_jsonl(tmp_path / "metrics.jsonl")
     assert [r["step"] for r in rows] == [1, 2]
     assert rows[1]["loss/gen_loss"] == 0.25
+
+
+def test_sam_encoder_work_counts_every_product():
+    """The demo phase's bound: `_sam_encoder_work` at vit_h, 1024x1024
+    (the windowed blocks on their 70x70 padded tokens) equals PyTorch's
+    own count of the encoder's matmul and convolution FLOPs on the meta
+    device, ~5.96 TFLOP, which at 67 TFLOP/s is ~89 ms."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from propainter_tpu_torch.models.sam import Sam, sam_config_registry
+
+    cfg = sam_config_registry["vit_h"]()
+    with torch.device("meta"):
+        enc = Sam(cfg).image_encoder
+        with FlopCounterMode(display=False) as flops, torch.no_grad():
+            enc(torch.zeros(1, 3, cfg.img_size, cfg.img_size))
+    n_params = sum(p.numel() for p in enc.parameters())
+    work = chip_smoke._sam_encoder_work(cfg, n_params)
+    assert work["ops"] == flops.get_total_flops()
+    assert len(work["per_block"]) == 32
+    assert work["bytes"] == 4 * (n_params + 3 * 1024 ** 2 + 64 * 64 * 256)
+    bound_ms, by = chip_smoke._bound(work["bytes"], work["ops"])
+    assert by == "operations" and bound_ms == pytest.approx(88.97, abs=0.01)

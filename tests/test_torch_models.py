@@ -36,6 +36,18 @@ from propainter_tpu_torch.weights import (
 KEY = jax.random.PRNGKey(0)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One PyTorch intra-op thread per test: the suite runs this file beside
+    other pytest-xdist workers, and PyTorch's default of one OpenMP thread
+    per core in every worker oversubscribes the host (these tests took 20x
+    their time alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fill(shapes, seed):
     rng = np.random.default_rng(seed)
 

@@ -29,6 +29,18 @@ from propainter_tpu_torch.weights import FLOWCOMP_RENAMES, seeded_init_
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One PyTorch intra-op thread per test: the suite runs this file beside
+    other pytest-xdist workers, and PyTorch's default of one OpenMP thread
+    per core in every worker oversubscribes the host (these tests took 20x
+    their time alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pipeline(config, mesh=None, flowcomp=None):
     """Fan-in scaled seeded weights (a 2-block generator), or the given
     flow completion."""

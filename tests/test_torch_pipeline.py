@@ -33,6 +33,18 @@ from propainter_tpu_torch.weights import (
     FLOWCOMP_RENAMES, INPAINT_RENAMES, RAFT_RENAMES, state_dict_from_flax)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One PyTorch intra-op thread per test: the suite runs this file beside
+    other pytest-xdist workers, and PyTorch's default of one OpenMP thread
+    per core in every worker oversubscribes the host (these tests took 20x
+    their time alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _golden_modules():
     """The golden run's seeded JAX params, loaded into the port's modules.
     The flow completion's edge head (training only, absent from the golden

@@ -7,6 +7,7 @@ pytest-xdist's loadfile distribution.
 """
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -19,6 +20,18 @@ from tests.test_torch_pipeline import (
 
 from propainter_tpu_torch import pipeline as torch_pipeline
 from propainter_tpu_torch.parallel import make_mesh
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One PyTorch intra-op thread per test: the suite runs this file beside
+    other pytest-xdist workers, and PyTorch's default of one OpenMP thread
+    per core in every worker oversubscribes the host (these tests took 20x
+    their time alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_golden_with_shard_inference():
