@@ -158,6 +158,32 @@ Phases:
               `DEMO_CPU_BUDGET_S`, then the cut is printed), the decoder's
               4 mask logits and IoUs, first_frame_click's logit, and its
               mask wherever |logit| is above the tolerance;
+  track       the demo's second part (`phase_track`) on a synthetic 480x854
+              clip (DAVIS's size) of a textured background and two moving
+              objects, seeded weights: `CutieTracker` with the release's
+              Cutie (resnet50, nothing cut; norm scales 1 + N(0, 0.1^2),
+              its key projection scaled) on 2 objects over 28 frames, so
+              the first FIFO trim fires (frame 25) and frames 26-27 read
+              the trimmed memory: ms a frame and its split (encode, memory
+              read, segment, memory write), memory tokens per write and
+              at the trim, peak memory, no launch of K1-K7, its kernels by
+              device time, GPU against CPU step by step from the GPU's
+              state and on its top-k and foreground decisions (where the
+              CPU's own differ, ties within TIE_TOL), the first frames,
+              the writes at 5 and 25 (the trim) and the reads after
+              them first, the rest as the CPU's budget allows
+              (probabilities within STAGE_REL_TOL, masks equal where the
+              winner leads by more); `FlowMaskTracker` with
+              RAFT in fp32 at raft_iter 20: ms a frame, K1 / K2 launches a
+              frame (counters and the profiler) against RAFT's 20 and 1 a
+              pair batch, one pair's flow GPU against CPU; then
+              `TrackingFacade` end to end: SAM vit_h's click, Cutie's
+              track, the bf16 inpaint, with K1-K4's bf16 launches against
+              the pipeline's plan and every frame outside the dilated
+              mask equal to the (resized) input; then the inpaint again
+              with each of K1-K4's bf16 wrappers held against its plain
+              version at every distinct shape the video gives it
+              (BF16_REL_TOL of scale);
   profile     (only when named) the main path under torch.profiler in fp32
               and bf16: device time by kernel, the device's busy share, and
               host and device time by op shape for one RAFT chunk and one
@@ -168,8 +194,11 @@ Prints one line per kernel, then the `{"kernels": [...]}` JSON line (each
 kernel's `launches` on the main path, 'flash' or the configuration of
 `KERNEL_PATH`, `eval_launches` on the eval phase's `evaluate`,
 `train_launches`, each stage's launches in one train step,
-`dist_launches`, rank 0's in one step of the two gloo ranks, and
-`flow_data`, K1's and K2's times at the four RAFT crops), the
+`dist_launches`, rank 0's in one step of the two gloo ranks,
+`flow_data`, K1's and K2's times at the four RAFT crops, and
+`track_launches`, the track phase's, summed: the flow tracker's fp32 K1 /
+K2 over its TRACK_FLOW_FRAMES - 2 = 3 timed frames and the facade's bf16
+inpaint of its 28 frames, timed once), the
 `nvidia-smi` line, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero, without that line, if any phase fails or there is no GPU.
@@ -193,7 +222,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 PHASES = ("device", "build", "kernels", "deform_opt", "pipeline", "small",
-          "cli", "eval", "train", "dist", "flow_data", "demo")
+          "cli", "eval", "train", "dist", "flow_data", "demo", "track")
 EXTRA_PHASES = ("profile",)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
 # dense TF32 on the tensor cores and HBM3 bandwidth — the denominators of
@@ -4709,6 +4738,681 @@ def phase_demo(state: dict, smi: str) -> None:
         raise AssertionError("; ".join(failures))
 
 
+TRACK_SEED = 81
+TRACK_FRAMES = 28               # memory frames 0, 5, ..., 25: the trim at 25
+TRACK_CORE = dict(mem_every=5, max_mem_frames=5, top_k=30,
+                  stagger_updates=5)          # the demo's CutieCoreConfig
+TRACK_CPU_BUDGET_S = 40.0       # the CPU engine's projected time limit
+TRACK_FLOW_FRAMES = 5
+# Cutie's two hard decisions, replayed on the CPU from the GPU: the top-k
+# token set of each pixel's memory read and the query transformer's
+# foreground mask (`>=` against the max of the aggregated logits). Where
+# the CPU's own decision differs, the CPU's values must lie within this
+# share of their scale of its decision's boundary (fp32 rounding through a
+# few dozen layers is 1e-7-1e-5 of it): a near-tie flips either way, and a
+# flip moved a step's output by up to 5.5e-3 on the card (PERF.md,
+# Findings)
+TIE_TOL = 1e-5
+# the facade's (x, y) clicks on 480x854: on the first object, on the
+# second (negative), on the first again
+TRACK_CLICKS = ((240.0, 200.0), (600.0, 120.0), (255.0, 215.0))
+TRACK_LABELS = (1, 0, 1)
+TRACK_INPAINT = dict(ratio=1.0, dilate_radius=4, raft_iter=20,
+                     subvideo_length=80, neighbor_length=10, ref_stride=10)
+# K1 and K2's fp32 kernels by name in a profiler trace (the bf16 forms'
+# names end in _bf16_kernel)
+K1_KERNEL = re.compile(r"corr_lookup_moenc_kernel")
+K2_KERNEL = re.compile(r"corr_pyramid_build_kernel")
+
+
+def _track_clip(T: int, H: int, W: int, seed: int):
+    """A smooth textured background panning 2 px a frame, a red disk
+    moving right and a green textured box moving down-left (placed for
+    480x854, scaled to H x W); (frames (T, H, W, 3) uint8, the first
+    frame's masks (2, H, W))."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    y, x = y * 480 / H, x * 854 / W
+    bg = np.stack([110 + 50 * np.sin(x / (31 + 7 * c) + c)
+                   * np.cos(y / (23 + 5 * c)) for c in range(3)], -1)
+    tex = rng.normal(0, 12, (H, W, 3)).astype(np.float32)
+    frames, masks = [], None
+    for t in range(T):
+        img = np.roll(bg + tex, 2 * t, axis=1)
+        disk = (x - (240 + 6 * t)) ** 2 + (y - 210) ** 2 < 70 ** 2
+        box = (abs(x - (620 - 4 * t)) < 80) & (abs(y - (150 + 3 * t)) < 55)
+        img[disk] = (220, 60, 50) + tex[disk] * 0.5
+        img[box] = (40, 190, 90) + tex[box]
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+        if t == 0:
+            masks = np.stack([disk & ~box, box]).astype(np.float32)
+    return np.stack(frames), masks
+
+
+def _cutie_model(seed: int):
+    """The release's Cutie on the CPU, seeded: `seeded_init_(fan_in_scaled
+    =True)` over a meta-built model, every batch-norm and LayerNorm weight
+    1 + N(0, 0.1^2) (at N(0, 0.1^2) the features fade through the trunks
+    and the masks come out one sign), and its key projection scaled:
+    d_proj x0.05 (shrinkage ~1), key_proj x3. At the JAX parity test's
+    x0.3 the affinity over the top 30 tokens is nearly flat here, so a
+    near-tie at the 30th token moves a pixel's readout as much as any
+    token does (two correct fp32 tracks parted by 0.695, PERF.md,
+    Findings); at x3 it is spread but not flat, most pixels' top weight still
+    below 0.9 (the phase checks it)."""
+    import torch
+    from propainter_tpu_torch.models.cutie import CUTIE, CutieConfig
+    from propainter_tpu_torch.models.layers import FrozenBatchNorm
+    from propainter_tpu_torch.weights import seeded_init_
+
+    with torch.device("meta"):
+        model = CUTIE(CutieConfig())
+    model = seeded_init_(model.to_empty(device="cpu"), seed,
+                         fan_in_scaled=True).eval()
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.LayerNorm, FrozenBatchNorm)):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape,
+                                                     generator=gen))
+        kp = model.key_proj
+        kp.d_proj.weight.mul_(0.05)
+        kp.d_proj.bias.mul_(0.05)
+        kp.key_proj.weight.mul_(3.0)
+    return model
+
+
+# CutieCore's state between steps
+CORE_STATE = ("curr_ti", "last_mem_ti", "engaged", "mem_key",
+              "mem_shrinkage", "mem_value", "perm_tokens", "obj_v",
+              "sensory", "last_mask")
+
+
+def _core_state(core) -> dict:
+    """A copy of `core`'s memory and counters on the CPU."""
+    import torch
+
+    return {k: (v.cpu().clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in ((k, getattr(core, k)) for k in CORE_STATE)}
+
+
+def _timed_parts(core, marks: list) -> None:
+    """Wrap `core`'s model passes with CUDA events, appending (part, start,
+    end) to `marks`: encode (encode_image, transform_key), read (the
+    top-k readout and read_first), segment, write (_add_memory)."""
+    import torch
+
+    def wrap(obj, name, part):
+        fn = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            marks.append((part, start, end))
+            return out
+
+        setattr(obj, name, timed)
+
+    wrap(core.model, "encode_image", "encode")
+    wrap(core.model, "transform_key", "encode")
+    wrap(core, "_read_visual", "read")
+    wrap(core.model, "read_first", "read")
+    wrap(core.model, "segment", "segment")
+    wrap(core, "_add_memory", "write")
+
+
+def _margin_sure(prob, tol: float):
+    """Pixels whose winning probability leads the next by more than tol."""
+    import numpy as np
+
+    top2 = np.sort(prob, axis=0)[-2:]
+    return top2[1] - top2[0] > tol
+
+
+def _topk_inversion(sim, idx):
+    """How far the token sets `idx` (..., k) are from a top-k of `sim`
+    (..., N) along the last axis: the largest value left out less the
+    smallest taken, 0 where none left out is larger. A token dropped from
+    the top counts as much as one taken from below."""
+    left = sim.scatter(-1, idx, float("-inf")).max(dim=-1).values
+    return (left - sim.gather(-1, idx).min(dim=-1).values).clamp_min(0)
+
+
+def _foreground_margin(logits, selector):
+    """(each object's distance from `_aux_mask`'s foreground boundary, the
+    aggregated logits (B, N + 1, H * W)): object n is foreground where its
+    aggregated logit is the max, so its margin is that logit against the
+    largest other channel, background included, whichever side it is on."""
+    import torch
+    from propainter_tpu_torch.models.cutie import aggregate
+
+    B, N = logits.shape[:2]
+    prob = torch.sigmoid(logits)
+    if selector is not None:
+        prob = prob * selector
+    agg = aggregate(prob, dim=1).view(B, N + 1, -1)
+    top2 = agg.topk(2, dim=1).values
+    obj = agg[:, 1:]
+    other = torch.where(obj >= top2[:, :1], top2[:, 1:], top2[:, :1])
+    return (obj - other).abs(), agg
+
+
+@contextlib.contextmanager
+def _decision_hooks(topk, aux):
+    """CutieCore's top-k softmax and the query transformer's `_aux_mask`
+    replaced by `topk` and `aux` (same signatures, each given the real
+    function first); restored afterwards."""
+    from propainter_tpu_torch.demo import cutie_core
+    from propainter_tpu_torch.models.cutie import QueryTransformer
+
+    real_topk = cutie_core.topk_softmax
+    real_aux = QueryTransformer._aux_mask
+    cutie_core.topk_softmax = lambda *a: topk(real_topk, *a)
+    QueryTransformer._aux_mask = lambda self, *a: aux(real_aux, self, *a)
+    try:
+        yield
+    finally:
+        cutie_core.topk_softmax = real_topk
+        QueryTransformer._aux_mask = real_aux
+
+
+def _track_cutie(frames, masks0, cpu_model, failures: list) -> dict:
+    """Cutie over the clip on the GPU twice: a timed pass (ms a frame and
+    by part, memory tokens, the trim, launches, peak) and a checked pass
+    recording the state before each step, each read's top-k choice and
+    its affinity's spread; then the same engine on the CPU, step by step
+    from the checked pass's states and top-k choices."""
+    import numpy as np
+    import torch
+    from propainter_tpu_torch.demo.cutie_core import (CutieCore,
+                                                      CutieCoreConfig)
+
+    torch.cuda.reset_peak_memory_stats()
+    core = CutieCore(cpu_model.state_dict(), config=CutieCoreConfig(
+        **TRACK_CORE), device="cuda")
+    marks, tokens, trims = [], [], []
+    _timed_parts(core, marks)
+    add = core._add_memory
+
+    def counting(*args, **kwargs):
+        before = 0 if core.mem_key is None else core.mem_key.shape[-1]
+        add(*args, **kwargs)
+        tokens.append(core.mem_key.shape[-1])
+        hw = args[3].shape[-2] * args[3].shape[-1]
+        if before + hw != tokens[-1]:
+            trims.append((core.curr_ti, before + hw, tokens[-1]))
+
+    core._add_memory = counting
+    _zero_launches()
+    frame_ms, parts = [], []
+    for t, f in enumerate(frames):
+        marks.clear()
+        t0 = time.perf_counter()
+        core.step(f, masks0 if t == 0 else None)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        split = {}
+        for part, start, end in marks:
+            split[part] = split.get(part, 0.0) + start.elapsed_time(end)
+        parts.append(split)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hw = core.mem_key.shape[-1] // TRACK_CORE["max_mem_frames"]
+    for obj, names in ((core.model, ("encode_image", "transform_key",
+                                     "read_first", "segment")),
+                       (core, ("_read_visual", "_add_memory"))):
+        for name in names:
+            delattr(obj, name)          # the class's methods again
+    kernels = _device_kernels(lambda: core.step(frames[-1]))
+    later = frame_ms[1:]
+    # frame 1 is the first read (cuDNN's algorithm search); the write runs
+    # on every fifth frame
+    split = {k: statistics.median(p[k] for p in parts[2:])
+             for k in ("encode", "read", "segment")}
+    split["write"] = statistics.mean(p["write"] for p in parts[1:]
+                                     if "write" in p)
+    print(f"  Cutie (release config) {frames.shape[2]}x{frames.shape[1]}, "
+          f"2 objects, {len(frames)} frames: {statistics.median(later):.2f} "
+          f"ms a frame ({min(later):.2f}-{max(later):.2f}); stream ms (median "
+          f"from frame 2; write: mean of the writes): " + ", ".join(f"{k} {v:.2f}"
+                                             for k, v in split.items())
+          + f"; memory tokens after each write {tokens} ({hw} a frame); "
+          f"trims (frame, before, after) {trims}; peak {peak:.2f} GiB; "
+          f"K1-K7 launches {sum(launches.values())}")
+    print(f"  Cutie device time (one step, torch.profiler): "
+          f"{kernels['device_ms']:.2f} ms in {kernels['launches']} launches, "
+          f"cuDNN FFT {kernels['fft_launches']} ({kernels['fft_ms']:.2f} "
+          f"ms); largest: " + "; ".join(f"{n} {ms:.2f} ms ({c})"
+                                       for n, ms, c in kernels["top"]))
+    if any(launches.values()):
+        failures.append(f"Cutie launched a port kernel: {launches}")
+    if not trims or trims[0][0] != 25 or trims[0][2] != 5 * hw:
+        failures.append(f"the FIFO trim is not the expected one: {trims}")
+
+    # the checked pass
+    core = CutieCore(cpu_model.state_dict(), config=CutieCoreConfig(
+        **TRACK_CORE), device="cuda")
+    chosen, spread, aux = {}, [], {}
+
+    def record_topk(real, similarity, top_k):
+        k = min(top_k, similarity.shape[1])
+        chosen[core.curr_ti] = torch.topk(similarity.transpose(1, 2), k,
+                                          dim=-1).indices
+        aff = real(similarity, top_k)
+        spread.append((aff.max(dim=1).values < 0.9).float().mean())
+        return aff
+
+    def record_aux(real, qt, logits, selector):
+        mask = real(qt, logits, selector)
+        aux.setdefault(core.curr_ti, []).append(mask)
+        return mask
+
+    probs, before = [], []
+    with _decision_hooks(record_topk, record_aux):
+        for t, f in enumerate(frames):
+            before.append(_core_state(core))
+            probs.append(core.step(f, masks0 if t == 0 else None))
+    chosen = {t: i.cpu() for t, i in chosen.items()}
+    aux = {t: [m.cpu() for m in ms] for t, ms in aux.items()}
+    spread = [x.item() for x in spread]
+    fg = [float((p.argmax(0) > 0).mean()) for p in probs]
+    print(f"  reads with most pixels' top affinity < 0.9: "
+          f"{sum(x > 0.5 for x in spread)} of {len(spread)} (shares "
+          f"{min(spread):.2f}-{max(spread):.2f}); foreground share a frame "
+          f"{min(fg):.3f}-{max(fg):.3f}")
+    if not all(0.0 < x < 1.0 for x in fg):
+        failures.append("a tracked mask is empty or full")
+    if sum(x > 0.5 for x in spread) < len(spread) / 2:
+        failures.append("the top-k affinity is near one-hot")
+
+    # the CPU, step by step from the GPU's state before each step and on
+    # its two hard decisions (two free-running tracks of random weights
+    # part after a few memory frames: PERF.md, Findings), the frames the
+    # budget allows, through the first read after the trim (26) where it
+    # can
+    cpu = CutieCore(cpu_model, config=CutieCoreConfig(**TRACK_CORE),
+                    device="cpu")
+    ties = dict(topk_pixels=0, topk_worst=0.0, aux_pixels=0, aux_worst=0.0)
+    calls: list = []
+
+    def replay_topk(real, similarity, top_k):
+        sim = similarity.transpose(1, 2)
+        idx = chosen[cpu.curr_ti]
+        vals = sim.gather(-1, idx)
+        gap = _topk_inversion(sim, idx)
+        ties["topk_pixels"] += int((gap > 0).sum())
+        ties["topk_worst"] = max(ties["topk_worst"], gap.max().item()
+                                 / sim.abs().max().item())
+        x = torch.exp(vals - vals.max(dim=-1, keepdim=True).values)
+        x = x / x.sum(dim=-1, keepdim=True)
+        return torch.zeros_like(sim).scatter_(-1, idx, x).transpose(1, 2)
+
+    def replay_aux(real, qt, logits, selector):
+        gpu = aux[cpu.curr_ti][len(calls)]
+        calls.append(1)
+        own = real(qt, logits, selector)
+        B, N, H, W = logits.shape
+        diff = (own != gpu).view(B, N, -1, H * W).any(dim=2)
+        if diff.any():
+            gap, agg = _foreground_margin(logits, selector)
+            ties["aux_pixels"] += int(diff.sum())
+            ties["aux_worst"] = max(ties["aux_worst"], gap[diff].max().item()
+                                    / agg.abs().max().item())
+        return gpu
+
+    # each step starts from the GPU's state, so any frame can be checked
+    # alone: the first ones, the memory writes at 5 and 25 (the trim) and
+    # the reads after them first, then the rest while the budget lasts
+    order = [0, 1, 2, 5, 6, 25, 26, 27]
+    order += [t for t in range(len(frames)) if t not in order]
+    errs, flipped, unsure, t_cpu, checked = [], 0, 0, [], []
+    with _decision_hooks(replay_topk, replay_aux):
+        for t in order:
+            if len(t_cpu) > 2 and (sum(t_cpu) + statistics.mean(t_cpu[1:])
+                                   > TRACK_CPU_BUDGET_S):
+                break
+            for k, v in before[t].items():
+                setattr(cpu, k, v)
+            calls.clear()
+            t0 = time.perf_counter()
+            p = cpu.step(frames[t], masks0 if t == 0 else None)
+            t_cpu.append(time.perf_counter() - t0)
+            checked.append(t)
+            errs.append(float(np.abs(p - probs[t]).max()))
+            sure = _margin_sure(p, STAGE_REL_TOL)
+            flipped += int((p.argmax(0) != probs[t].argmax(0))[sure].sum())
+            unsure += int((~sure).sum())
+    left = sorted(set(range(len(frames))) - set(checked))
+    cut = f"; CUT: frames {left} not checked (CPU budget " \
+        f"{TRACK_CPU_BUDGET_S:.0f} s)" if left else ""
+    worst = checked[int(np.argmax(errs))]
+    print(f"  Cutie GPU vs CPU, each step from the GPU's state and on its "
+          f"top-k and foreground decisions, {len(checked)} frames: "
+          f"probabilities max {max(errs):.3e} (frame {worst}; limit "
+          f"{STAGE_REL_TOL}); masks differ at {flipped} pixels where the "
+          f"winner leads by more than {STAGE_REL_TOL} ({unsure} pixels "
+          f"within); the CPU's own decisions differ at "
+          f"{ties['topk_pixels']} top-k reads and {ties['aux_pixels']} "
+          f"foreground pixels, each a tie within {ties['topk_worst']:.1e} / "
+          f"{ties['aux_worst']:.1e} of scale (limit {TIE_TOL}); CPU "
+          f"{sum(t_cpu):.1f} s{cut}")
+    if max(errs) > STAGE_REL_TOL or flipped:
+        failures.append("Cutie disagrees with the CPU")
+    if 26 not in checked:
+        failures.append("the CPU did not reach the read after the trim")
+    if max(ties["topk_worst"], ties["aux_worst"]) > TIE_TOL:
+        failures.append("the GPU's top-k or foreground decisions are not "
+                        "the CPU's up to ties")
+    return dict(ms_a_frame=_spread(later), split_ms=split,
+                memory_tokens=tokens, tokens_a_frame=hw, trims=trims,
+                peak_gib=peak, launches=launches, device=kernels,
+                affinity_spread=spread, foreground_share=fg,
+                cpu_frames=checked, cpu_s=sum(t_cpu),
+                gpu_vs_cpu=dict(zip(checked, errs)),
+                topk_ties=ties,
+                mask_pixels_flipped=flipped), core
+
+
+def _track_flow(frames, template, raft, failures: list) -> dict:
+    """FlowMaskTracker with RAFT in fp32 at raft_iter 20 on the GPU: ms a
+    frame, K1 / K2 launches a frame by the counters and by the profiler,
+    one pair's flows against the CPU."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from propainter_tpu_torch.demo.tracking import FlowMaskTracker
+
+    tracker = FlowMaskTracker(raft, raft_iter=20, device="cuda")
+    tracker.track(frames[0], template)
+    tracker.track(frames[1])                    # warm-up
+    _zero_launches()
+    ms, area = [], []
+    for f in frames[2:]:
+        t0 = time.perf_counter()
+        mask, _, _ = tracker.track(f)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        area.append(float(mask.mean()))
+    launches = _read_launches()
+    n = len(frames) - 2
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tracker._raft_pair(frames[-1], frames[-2])
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    k1 = sum(e.count for e in kern if K1_KERNEL.search(e.key))
+    k2 = sum(e.count for e in kern if K2_KERNEL.search(e.key))
+    pair_ms = _time_ms(lambda: tracker._raft_pair(frames[-1], frames[-2]),
+                       reps=3, warmup=0)
+    t0 = time.perf_counter()
+    cpu = FlowMaskTracker(raft, raft_iter=20, device="cpu")
+    want = cpu._raft_pair(frames[-1], frames[-2])
+    t_cpu = time.perf_counter() - t0
+    got = tracker._raft_pair(frames[-1], frames[-2])
+    errs = [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got, want)]
+    print(f"  FlowMaskTracker (RAFT fp32, raft_iter 20) "
+          f"{frames.shape[2]}x{frames.shape[1]}: "
+          f"{statistics.median(ms):.2f} ms a frame ({min(ms):.2f}-"
+          f"{max(ms):.2f}, {n} frames; RAFT's pair {pair_ms:.2f} ms, the "
+          f"rest host: warp, gate, GrabCut); mask share "
+          f"{min(area):.3f}-{max(area):.3f}; K1 / K2 a frame: counters "
+          f"{launches['corr_lookup_moenc'] / n:g} / "
+          f"{launches['corr_pyramid_build'] / n:g}, profiler {k1} / {k2} "
+          f"(RAFT on a pair batch of 2: 20 / 1); one pair's flows GPU vs "
+          f"CPU {max(errs):.3e} of scale (limit {STAGE_REL_TOL}; CPU "
+          f"{t_cpu:.1f} s)")
+    want_l = {k: 0 for k in launches}
+    want_l.update(corr_lookup_moenc=20 * n, corr_pyramid_build=n)
+    _check_launches("FlowMaskTracker", launches, want_l)
+    if (k1, k2) != (20, 1):
+        failures.append(f"the profiler saw K1 / K2 {k1} / {k2} in a pair")
+    if max(errs) > STAGE_REL_TOL:
+        failures.append("the flow tracker's flows disagree with the CPU")
+    return dict(ms_a_frame=_spread(ms), raft_pair_ms=pair_ms,
+                launches=launches, profiler_k1_k2=[k1, k2],
+                flow_rel_err=max(errs), cpu_s=t_cpu, mask_share=area)
+
+
+def _facade_want(pipe, frames, masks) -> tuple:
+    """What the facade's bf16 inpaint of `masks` launches, and the frames
+    and dilated masks the pipeline receives: `ProInpainter.inpaint`'s
+    resize to multiples of 8 and dilation, then `_eval_launches`' counts
+    (RAFT chunks, flow completion and generator deforms, the stage-4
+    plan's K4 calls) in the bf16 forms, every other form 0."""
+    import cv2
+    import numpy as np
+    from propainter_tpu_torch.utils.masks import binary_dilation_cross
+
+    T, H, W = masks.shape
+    h, w = H // 8 * 8, W // 8 * 8
+    fr = np.stack([cv2.resize(f, (w, h), interpolation=cv2.INTER_LINEAR)
+                   for f in frames])
+    ms = np.stack([cv2.resize(m.astype(np.uint8), (w, h),
+                              interpolation=cv2.INTER_NEAREST)
+                   for m in masks])
+    dil = np.stack([binary_dilation_cross(m, TRACK_INPAINT["dilate_radius"])
+                    for m in ms])
+    plan = _stage4_plan(pipe, dil)
+    ev = _eval_launches(pipe, T, w, plan, warp_error=False)
+    want = {k: 0 for k in _launch_counters()}
+    want.update(corr_pyramid_build_bf16=ev["corr_pyramid_build"],
+                corr_lookup_moenc_bf16=ev["corr_lookup_moenc"],
+                modulated_deform_conv2d_bf16=ev["modulated_deform_conv2d"],
+                flash_window_attention_bf16=ev["flash_window_attention"])
+    return want, fr, dil
+
+
+def _facade_kernels() -> dict:
+    """The bf16 wrappers the facade's inpaint launches, each with its plain
+    version: name -> (wrapper, plain)."""
+    from propainter_tpu_torch.ops import corr, deform, flash_attention as fa
+
+    return {
+        "corr_pyramid_build_bf16": (corr.corr_pyramid_build_bf16,
+                                    corr._corr_pyramid_build_bf16_plain),
+        "corr_lookup_moenc_bf16": (corr.corr_lookup_moenc_bf16,
+                                   corr._corr_lookup_moenc_bf16_plain),
+        "modulated_deform_conv2d_bf16": (
+            deform.modulated_deform_conv2d_bf16,
+            deform._modulated_deform_conv2d_bf16_plain),
+        "flash_window_attention_bf16": (fa.flash_window_attention_bf16,
+                                        fa._flash_window_attention_bf16_plain),
+    }
+
+
+def _shape_key(v):
+    """Shapes and dtypes of a call's tensors (nested in lists), other
+    arguments as they are."""
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return tuple(v.shape), str(v.dtype)
+    if isinstance(v, (list, tuple)):
+        return tuple(_shape_key(x) for x in v)
+    return v
+
+
+def _lead_shape(key):
+    """The first tensor's shape in a `_shape_key`."""
+    while not (isinstance(key, tuple) and len(key) == 2
+               and isinstance(key[1], str)):
+        key = key[0]
+    return key[0]
+
+
+@contextlib.contextmanager
+def _checked_wrappers(wrappers: dict, found: dict):
+    """Each of `wrappers` (name -> (wrapper, plain)) replaced, wherever a
+    module of the port binds it, by a call that holds the wrapper's output
+    at the first call of each distinct input shape against its plain
+    version on the same tensors: found[name][shape key] = (max abs error,
+    tolerance), the tolerance BF16_REL_TOL of the plain output's scale as
+    in `_compare`.
+    A wrapper counts its launch on the name it is bound to in its module,
+    so this pass's launches go to the hooks' own counters and the
+    wrappers' counts stay as they were; all restored after."""
+    import inspect
+
+    def checked(name, real, plain):
+        sig = inspect.signature(real)
+        params = list(inspect.signature(plain).parameters)
+
+        def call(*args, **kwargs):
+            out = real(*args, **kwargs)
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            inputs = [bound.arguments[p] for p in params]
+            key = _shape_key(inputs)
+            seen = found.setdefault(name, {})
+            if key not in seen:
+                want = plain(*inputs)
+                pairs = (list(zip(out, want)) if isinstance(out, list)
+                         else [(out, want)])
+                err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in pairs)
+                scale = max([1.0] + [w.float().abs().max().item()
+                                     for _, w in pairs])
+                seen[key] = (err, BF16_REL_TOL * scale)
+            return out
+
+        call.launches = 0
+        return call
+
+    patched = []
+    for name, (real, plain) in wrappers.items():
+        hook = checked(name, real, plain)
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("propainter_tpu_torch"):
+                for attr, v in list(vars(mod).items()):
+                    if v is real:
+                        setattr(mod, attr, hook)
+                        patched.append((mod, attr, real))
+    try:
+        yield
+    finally:
+        for mod, attr, real in patched:
+            setattr(mod, attr, real)
+
+
+def phase_track(state: dict, smi: str) -> None:
+    """The demo's second part at DAVIS's 480x854 with seeded weights
+    (`_track_clip`, `_cutie_model`, `_models`, `_sam_model`): Cutie over
+    28 frames through its first FIFO trim (`_track_cutie`), the RAFT flow
+    tracker (`_track_flow`), then `TrackingFacade` end to end on the GPU:
+    SAM vit_h's first_frame_click, Cutie's generator, the bf16 inpaint,
+    with K1-K4's bf16 launches against the pipeline's plan
+    (`_facade_want`) and every output frame equal to its (resized) input
+    outside the dilated mask (the pipeline's compositing keeps those
+    pixels: pipeline.generate); seconds a step and the peak memory; then
+    the inpaint again, each bf16 kernel against its plain version at each
+    of its shapes (`_checked_wrappers`)."""
+    import numpy as np
+    import torch
+    from propainter_tpu_torch.demo.tracking import TrackingFacade
+    from propainter_tpu_torch.models.sam import sam_config_registry
+
+    frames, masks0 = _track_clip(TRACK_FRAMES, *DEMO_FRAME, seed=TRACK_SEED)
+    failures: list = []
+    report: dict = dict(frame=list(DEMO_FRAME), frames=TRACK_FRAMES,
+                        core=TRACK_CORE, smi=smi)
+    cpu_cutie = _cutie_model(TRACK_SEED)
+    report["cutie"], core = _track_cutie(frames, masks0, cpu_cutie,
+                                         failures)
+    mods = _models(seed=TRACK_SEED + 2)
+    report["flow"] = _track_flow(frames[:TRACK_FLOW_FRAMES], masks0[0],
+                                 mods["raft"], failures)
+
+    # the facade: SAM vit_h (the demo phase's seeded model), this Cutie,
+    # the seeded inpainting models in bf16
+    t0 = time.perf_counter()
+    sam = _sam_model(sam_config_registry[DEMO_MODEL](), DEMO_SEED)
+    t_sam = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    facade = TrackingFacade(dict(mods, sam=sam, cutie=core.model),
+                            precision="bf16", sam_model_type=DEMO_MODEL,
+                            device="cuda")
+    _zero_launches()
+    t0 = time.perf_counter()
+    scale = np.array([DEMO_FRAME[1] / 854, DEMO_FRAME[0] / 480], np.float32)
+    mask, _, _ = facade.first_frame_click(
+        frames[0], np.array(TRACK_CLICKS, np.float32) * scale,
+        np.array(TRACK_LABELS, np.int32))
+    t_click = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    masks, _, _ = facade.generator(list(frames), mask)
+    t_track = time.perf_counter() - t0
+    masks = np.stack(masks)
+    seg_launches = _read_launches()
+    pipe = facade.inpainter._pipeline(
+        TRACK_INPAINT["ref_stride"], TRACK_INPAINT["neighbor_length"],
+        TRACK_INPAINT["subvideo_length"], TRACK_INPAINT["raft_iter"])
+    want, resized, dilated = _facade_want(pipe, frames, masks)
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = facade.inpaint(frames, masks, **TRACK_INPAINT)
+    t_inpaint = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    share = masks.reshape(len(masks), -1).mean(1)
+    keep = dilated == 0
+    changed = int((out != resized)[keep].sum())
+    inside = int((out != resized).any(-1)[~keep].sum())
+    print(f"  facade: SAM {DEMO_MODEL} seeded on the CPU in {t_sam:.1f} s; "
+          f"first_frame_click (embedding + click) {t_click:.2f} s, mask "
+          f"{mask.mean():.1%} of the frame; generator (Cutie, "
+          f"{len(frames)} frames) {t_track:.2f} s, mask share a frame "
+          f"{share.min():.3f}-{share.max():.3f}; inpaint (bf16, "
+          f"{out.shape[2]}x{out.shape[1]}, first call) {t_inpaint:.2f} s; "
+          f"peak {peak:.2f} GiB; output pixels changed outside the dilated "
+          f"mask {changed}, inside {inside} of {int((~keep).sum())}; on "
+          f"{smi}")
+    _check_launches("facade inpaint (bf16)", launches, want)
+    # the same inpaint again, each bf16 kernel held against its plain
+    # version at every distinct shape this video gives it
+    found: dict = {}
+    with _checked_wrappers(_facade_kernels(), found):
+        facade.inpaint(frames, masks, **TRACK_INPAINT)
+    kernel_errs = {}
+    for name in _facade_kernels():
+        seen = found.get(name, {})
+        worst = max(seen.values(), key=lambda e: e[0] / e[1],
+                    default=(math.inf, 0.0))
+        lead = [_lead_shape(k) for k in seen]
+        kernel_errs[name] = dict(shapes=lead, max_abs_err=worst[0],
+                                 tolerance=worst[1])
+        print(f"  facade {name} against its plain version at {len(seen)} "
+              f"shapes (first input {', '.join(map(str, lead))}): worst "
+              f"max_abs_err {worst[0]:.3e} (tolerance {worst[1]:.3e})")
+        if not seen or any(e > tol for e, tol in seen.values()):
+            failures.append(f"the facade's {name} disagrees with its plain "
+                            f"version, or did not run")
+    if any(seg_launches.values()):
+        failures.append(f"SAM or Cutie launched a port kernel: "
+                        f"{seg_launches}")
+    if not (0.0 < share.min() and share.max() < 1.0):
+        failures.append("a tracked facade mask is empty or full")
+    if out.shape != resized.shape or out.dtype != np.uint8:
+        failures.append(f"inpaint output {out.shape} {out.dtype}")
+    elif changed or not inside:
+        failures.append("the inpaint changed pixels outside the dilated "
+                        "mask, or none inside")
+    report["facade"] = dict(
+        click_s=t_click, track_s=t_track, inpaint_s=t_inpaint, sam_seed_s=t_sam,
+        peak_gib=peak, mask_share=[float(share.min()), float(share.max())],
+        launches=launches, want=want, outside_changed=changed,
+        inside_changed=inside, kernels_vs_plain=kernel_errs)
+    state.setdefault("launches", {})["track"] = {
+        k: report["flow"]["launches"][k] + launches[k] for k in launches}
+    state["track"] = report
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4775,6 +5479,8 @@ def main(argv=None) -> int:
                 phase_flow_data(state, smi)
             elif phase == "demo":
                 phase_demo(state, smi)
+            elif phase == "track":
+                phase_track(state, smi)
             elif phase == "profile":
                 phase_profile(state)
         except Exception:  # every phase runs; any failure fails the run
@@ -4797,7 +5503,9 @@ def main(argv=None) -> int:
                             flow_data={
                                 stage: k[key] for stage, k in state.get(
                                     "flow_data", {}).get("kernels", {})
-                                .items() if key in k} or None))
+                                .items() if key in k} or None,
+                            track_launches=launches.get("track", {})
+                            .get(key)))
     for key in ("main_path", "main_path_pallas", "main_path_shard",
                 "main_path_bf16", "main_path_bf16_pallas",
                 "main_path_bf16_shard", "main_path_bf16_fp32_refine"):

@@ -10,7 +10,8 @@ change (flax Conv HWIO -> OIHW, Conv3d DHWIO -> OIDHW, Dense (in, out) ->
 stats). Model-specific renames are copies of the converters' rules. SAM
 and the training modules have their own: `sam_state_dict_from_flax`,
 `discriminator_state_dict_from_flax` (with the spectral-norm stats),
-`vgg_state_dict_from_flax` and `lpips_state_dict_from_flax`.
+`vgg_state_dict_from_flax`, `lpips_state_dict_from_flax` and
+`cutie_state_dict_from_flax`.
 """
 
 from __future__ import annotations
@@ -253,4 +254,62 @@ def lpips_state_dict_from_flax(module: torch.nn.Module,
         key = f"lin{i}.model.1.weight"
         out[key] = _tensor(np.asarray(tree[f"lin{i}"]).reshape(1, -1, 1, 1),
                            template[key], key)
+    return out
+
+
+# Cutie (`convert_cutie_state_dict`): its renames, on the released keys
+CUTIE_RENAMES = (
+    (r"^(pixel_encoder|mask_encoder)\.(conv1|bn1|res2|layer1|layer2|layer3)"
+     r"\.", r"\1.trunk.\2."),
+    (r"\.feature_pred\.0\.", r".feature_pred_0."),
+    (r"\.feature_pred\.2\.", r".feature_pred_2."),
+    (r"\.weights_pred\.0\.", r".weights_pred_0."),
+    (r"\.weights_pred\.2\.", r".weights_pred_2."),
+    (r"\.mask_pred\.(\d+)\.1\.", r".mask_pred_\1."),
+    (r"\.decoder_feat_proc\.transforms\.(\d+)\.", r".decoder_feat_proc_\1."),
+    (r"\.distributor\.x_transform\.", r".distributor_x_transform."),
+    (r"\.distributor\.g_transform\.", r".distributor_g_transform."),
+    (r"\.downsample\.0\.", r".downsample_0."),
+    (r"\.downsample\.1\.", r".downsample_1."),
+)
+
+
+def _cutie_path(key: str) -> list[str]:
+    for pat, repl in CUTIE_RENAMES:
+        key = re.sub(pat, repl, key)
+    return _flax_path(key)
+
+
+def cutie_state_dict_from_flax(module: torch.nn.Module,
+                               tree: Mapping) -> dict[str, torch.Tensor]:
+    """A state dict for the port's `CUTIE` from the JAX `CUTIE`'s params;
+    inverts `convert_cutie_state_dict`: attention's q / k / v projections
+    (Dense (in, out)) back into the fused `in_proj_weight` (3E, E) and
+    `in_proj_bias`, the query tables `query_init_embedding` /
+    `query_emb_embedding` into `query_init.weight` / `query_emb.weight`,
+    each eca `eca_kernel` (k,) into its Conv1d's `conv.weight` (1, 1, k);
+    every other key by the generic rules and `CUTIE_RENAMES`."""
+    template = module.state_dict()
+    bn_prefixes = {k[:-len(".running_mean")] for k in template
+                   if k.endswith(".running_mean")}
+    out = {}
+    for key, ref in template.items():
+        base, _, leaf = key.rpartition(".")
+        if leaf in ("in_proj_weight", "in_proj_bias"):
+            parts = [_leaf(tree, _cutie_path(f"{base}.{p}_proj".lstrip("."))
+                           + ["kernel" if leaf == "in_proj_weight"
+                              else "bias"]) for p in "qkv"]
+            arr = np.concatenate([a.T for a in parts] if leaf ==
+                                 "in_proj_weight" else parts)
+        elif re.search(r"\.(query_init|query_emb)\.weight$", key):
+            arr = _leaf(tree, _cutie_path(f"{base}_embedding"))
+        elif ref.ndim == 3 and key.endswith(".conv.weight"):
+            arr = _leaf(tree, _cutie_path(base[:-len(".conv")]
+                                          + ".eca_kernel"))
+            arr = arr.reshape(1, 1, -1)
+        else:
+            out[key] = _from_flax(key, ref, tree, CUTIE_RENAMES, bn_prefixes,
+                                  aliases=())
+            continue
+        out[key] = _tensor(arr, ref, key)
     return out

@@ -682,3 +682,114 @@ def test_sam_encoder_work_counts_every_product():
     assert work["bytes"] == 4 * (n_params + 3 * 1024 ** 2 + 64 * 64 * 256)
     bound_ms, by = chip_smoke._bound(work["bytes"], work["ops"])
     assert by == "operations" and bound_ms == pytest.approx(88.97, abs=0.01)
+
+
+def _facade_calls(rn):
+    """One call of each of the facade's bf16 kernels through the bindings
+    the models use, K2 at two grids and twice at the first."""
+    from propainter_tpu_torch.models import propainter, raft
+
+    bf = torch.bfloat16
+    for H, W in ((8, 8), (8, 8), (8, 16)):
+        pyr = corr.corr_pyramid(rn(1, H, W, 16), rn(1, H, W, 16), 4,
+                                out_dtype=bf)
+    coords = (rn(1, 8, 16, 2, std=3.0) + torch.stack(torch.meshgrid(
+        torch.arange(16.0), torch.arange(8.0), indexing="xy"), -1))
+    raft.corr_lookup_moenc_bf16(pyr, coords, rn(324, 32, std=0.02),
+                                rn(32, std=0.02))
+    x, off, msk, wt, bs = chip_smoke._deform_inputs(rn, 1, 5, 7, 32, 4, 2.0)
+    deform.modulated_deform_conv2d_opt2(*(t.to(bf) for t in (x, off, msk, wt,
+                                                             bs)))
+    q, k, v = (rn(1, 2, n, 16).to(bf) for n in (5, 9, 9))
+    propainter.flash_window_attention_bf16(q, k, v, None, 0.25)
+
+
+def test_checked_wrappers_hold_each_shape_against_its_plain_version(
+        monkeypatch):
+    """The track phase's `_checked_wrappers`: every binding of the facade's
+    four bf16 wrappers in the port's modules is hooked inside the block
+    and restored after; the first call at each distinct shape is held
+    against the plain version (on the CPU the wrapper computes its plain
+    version: error 0) and a repeated shape is not; a wrapper that
+    disagrees shows an error over its tolerance."""
+    from propainter_tpu_torch.models import propainter, raft
+
+    g = torch.Generator().manual_seed(0)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g) * std
+
+    wrappers = chip_smoke._facade_kernels()
+    before = corr.corr_pyramid_build_bf16.launches
+    found = {}
+    with chip_smoke._checked_wrappers(wrappers, found):
+        assert (raft.corr_lookup_moenc_bf16
+                is not wrappers["corr_lookup_moenc_bf16"][0])
+        # a wrapper on a CUDA tensor adds to the counter its module binds
+        corr.corr_pyramid_build_bf16.launches += 1
+        _facade_calls(rn)
+    assert raft.corr_lookup_moenc_bf16 is wrappers["corr_lookup_moenc_bf16"][0]
+    assert (propainter.flash_window_attention_bf16
+            is wrappers["flash_window_attention_bf16"][0])
+    assert chip_smoke._facade_kernels() == wrappers
+    assert corr.corr_pyramid_build_bf16.launches == before
+    assert {k: len(v) for k, v in found.items()} == {
+        "corr_pyramid_build_bf16": 2, "corr_lookup_moenc_bf16": 1,
+        "modulated_deform_conv2d_bf16": 1, "flash_window_attention_bf16": 1}
+    assert sorted(chip_smoke._lead_shape(k)
+                  for k in found["corr_pyramid_build_bf16"]) == [
+        (64, 8, 8), (128, 8, 16)]
+    assert [chip_smoke._lead_shape(k) for k in found[
+        "flash_window_attention_bf16"]] == [(1, 2, 5, 16)]
+    assert all(err == 0.0 and tol >= chip_smoke.BF16_REL_TOL
+               for seen in found.values() for err, tol in seen.values())
+
+    real = corr.corr_pyramid_build_bf16
+    monkeypatch.setattr(corr, "corr_pyramid_build_bf16",
+                        lambda level0, num_levels=4: [
+                            lvl * 1.1 for lvl in real(level0, num_levels)])
+    found = {}
+    with chip_smoke._checked_wrappers(chip_smoke._facade_kernels(), found):
+        _facade_calls(rn)
+    assert all(err > tol for err, tol
+               in found["corr_pyramid_build_bf16"].values())
+
+
+def test_topk_inversion_counts_tokens_dropped_from_the_top():
+    """The track phase's top-k tie measure: 0 for the CPU's own top-k set
+    in any order and for a swap of exactly tied tokens; a set that drops
+    the largest token for the next one below the k-th is off by the gap
+    from the dropped token, not by the small gap below the k-th."""
+    sim = torch.tensor([[5.0, 4.0, 3.0, 2.75, 1.0, 1.0]])
+    gap = lambda *idx: chip_smoke._topk_inversion(sim, torch.tensor([idx]))
+    assert gap(0, 1, 2).item() == 0.0 and gap(2, 0, 1).item() == 0.0
+    assert chip_smoke._topk_inversion(
+        sim, torch.tensor([[0, 1, 2, 3, 4]])).item() == 0.0
+    assert gap(1, 2, 3).item() == 5.0 - 2.75
+    assert gap(0, 1, 3).item() == 3.0 - 2.75
+    assert gap(0, 1, 2, 3, 5).item() == 0.0
+
+
+def test_foreground_margin_measures_both_directions():
+    """The track phase's foreground tie measure: each object's aggregated
+    logit against the largest other channel, so a pixel where the object
+    is the max (a GPU dropping it to the background) has the same margin
+    as one where it is not (a GPU taking it), and an exact tie has 0."""
+    from propainter_tpu_torch.models.cutie import aggregate
+
+    logits = torch.tensor([[[[3.0, -2.0, 0.5, 1.0]], [[-1.0, 2.5, 0.5,
+                                                        -4.0]]]])
+    margin, agg = chip_smoke._foreground_margin(logits, None)
+    want = aggregate(torch.sigmoid(logits), dim=1).view(1, 3, -1)
+    torch.testing.assert_close(agg, want)
+    for n in range(2):
+        rest = torch.cat([want[:, :n + 1], want[:, n + 2:]], 1)
+        torch.testing.assert_close(
+            margin[:, n], (want[:, n + 1] - rest.max(dim=1).values).abs())
+    fg = want[:, 1:] >= want.max(dim=1, keepdim=True).values
+    assert fg[0, 0, 0] and margin[0, 0, 0] > 1.0
+    assert margin[0, 0, 2] == 0.0 and margin[0, 1, 2] == 0.0
+    sel = torch.tensor([1.0, 0.0])[None, :, None, None]
+    margin, agg = chip_smoke._foreground_margin(logits, sel)
+    torch.testing.assert_close(agg, aggregate(torch.sigmoid(logits) * sel,
+                                              dim=1).view(1, 3, -1))

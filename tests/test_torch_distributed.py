@@ -150,7 +150,7 @@ def test_one_rank_group_leaves_the_step_unchanged(tmp_path):
         if group:
             dist.init_process_group(
                 "gloo", init_method=f"file://{tmp_path / 'one'}",
-                world_size=1, rank=0)
+                world_size=1, rank=0, timeout=worker.RANK_TIMEOUT)
         try:
             mods = worker.models("flow")
             state, step = worker.state_and_step("flow", mods)

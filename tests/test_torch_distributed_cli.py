@@ -16,7 +16,6 @@ import torch
 import torch.multiprocessing as mp
 
 import torch_dist_worker as worker
-from propainter_tpu_torch.parallel.mesh import free_port
 
 
 @pytest.fixture(autouse=True)
@@ -84,7 +83,7 @@ def test_train_cli_two_ranks_under_torchrun_env(cli_root, tmp_path):
     argvs = [["-c", cfg, "--max_iters", n, "--device", "cpu"]
              for n in ("2", "3")]
     ranks = worker.spawn(tmp_path, "train_cli", group=False, argvs=argvs,
-                   port=free_port(), cwd=str(cli_root))()
+                         rdzv_dir=str(tmp_path), cwd=str(cli_root))()
     for r, res in enumerate(ranks):
         assert [o["start"] for o in res["outs"]] == [0, 2]
         assert res["shards"] == [(r, 2), (r, 2)]

@@ -7,11 +7,17 @@ seconds; not collected by pytest.
 rendezvous (or leaves that to the function it runs), runs one function
 with one intra-op thread, and saves what it returns as `rank<r>.pt` in
 the output directory.
+
+Every wait has a deadline: a rank's rendezvous `RANK_TIMEOUT`, the
+caller's wait for the ranks `JOIN_DEADLINE_S`, after which the ranks are
+terminated and the test fails instead of hanging.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
+import time
 
 import numpy as np
 import torch
@@ -25,6 +31,11 @@ from propainter_tpu_torch.models.propainter import InpaintGenerator
 from propainter_tpu_torch.weights import seeded_init_
 
 T, L_T, H, W = 4, 3, 32, 48
+# a rank's wait for its peers at a rendezvous, and the caller's wait for
+# the ranks to finish: a few times a rank's normal 10-40 s on a loaded
+# host, far below the whole suite's limit
+RANK_TIMEOUT = datetime.timedelta(seconds=120)
+JOIN_DEADLINE_S = 300.0
 # what configures a process group (parallel.mesh.maybe_initialize_distributed)
 ENV = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
        "JAX_PROCESS_ID", "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
@@ -136,11 +147,18 @@ def train_step(rank: int, world: int, stage: str) -> dict:
         after={n: _numpy(mods[n].state_dict()) for n in trained})
 
 
-def train_cli(rank: int, world: int, argvs: list, port: int,
+def train_cli(rank: int, world: int, argvs: list, rdzv_dir: str,
               cwd: str) -> dict:
     """The train CLI under torchrun's environment, once per argv (it
     makes its own process group each time); the shards this rank's
-    loaders were given and the indices they drew."""
+    loaders were given and the indices they drew.
+
+    Each call gets a store of its own: rank 0 hosts it on a port the OS
+    picks and publishes the port in `rdzv_dir` only once its previous
+    call has returned; the CLI's env:// rendezvous on rank 0 reuses the
+    store (torch's TCPStore server is multi-tenant per process and port),
+    so no port is chosen, released and bound again, and no call meets the
+    keys of another call's rendezvous."""
     import propainter_tpu_torch.core.dataset as dataset
     from propainter_tpu_torch.cli import train
 
@@ -157,12 +175,42 @@ def train_cli(rank: int, world: int, argvs: list, port: int,
             return idxs
 
     dataset.PrefetchLoader = Recorder
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      RANK=str(rank), LOCAL_RANK=str(rank),
-                      WORLD_SIZE=str(world))
+    os.environ.update(MASTER_ADDR="localhost", RANK=str(rank),
+                      LOCAL_RANK=str(rank), WORLD_SIZE=str(world))
     os.chdir(cwd)
-    outs = [train.main(argv) for argv in argvs]
+    outs = []
+    for i, argv in enumerate(argvs):
+        store = None
+        if rank == 0:
+            store = dist.TCPStore("localhost", 0, world, True,
+                                  timeout=RANK_TIMEOUT, multi_tenant=True,
+                                  wait_for_workers=False)
+            _publish(rdzv_dir, f"port{i}", store.port)
+        os.environ["MASTER_PORT"] = str(
+            store.port if store is not None
+            else _await(rdzv_dir, f"port{i}"))
+        outs.append(train.main(argv))
+        del store
     return dict(outs=outs, shards=shards, drawn=drawn)
+
+
+def _publish(directory: str, name: str, value: int) -> None:
+    tmp = os.path.join(directory, f".{name}.tmp")
+    with open(tmp, "w") as f:
+        f.write(str(value))
+    os.replace(tmp, os.path.join(directory, name))
+
+
+def _await(directory: str, name: str) -> int:
+    """The value `_publish` wrote, waiting up to RANK_TIMEOUT for it."""
+    path = os.path.join(directory, name)
+    deadline = time.monotonic() + RANK_TIMEOUT.total_seconds()
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} not written within {RANK_TIMEOUT}")
+        time.sleep(0.05)
+    with open(path) as f:
+        return int(f.read())
 
 
 def run(rank: int, world: int, init_file: str | None, out_dir: str, fn: str,
@@ -172,7 +220,8 @@ def run(rank: int, world: int, init_file: str | None, out_dir: str, fn: str,
     torch.set_num_threads(1)
     if init_file is not None:
         dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                                world_size=world, rank=rank)
+                                world_size=world, rank=rank,
+                                timeout=RANK_TIMEOUT)
     try:
         result = globals()[fn](rank, world, **kwargs)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -193,8 +242,17 @@ def spawn(tmp_path, fn: str, world: int = 2, group: bool = True,
                              nprocs=world, join=False, start_method="spawn")
 
     def results() -> list:
-        while not ctx.join():
-            pass
+        deadline = time.monotonic() + JOIN_DEADLINE_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.terminate()
+                for p in ctx.processes:
+                    p.join(10)
+                    if p.is_alive():
+                        p.kill()
+                raise AssertionError(f"{fn}: the ranks did not finish "
+                                     f"within {JOIN_DEADLINE_S:.0f} s")
         return [torch.load(out / f"rank{r}.pt", weights_only=False)
                 for r in range(world)]
 
