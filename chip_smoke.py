@@ -59,9 +59,13 @@ Phases:
               'pallas', and shard_inference with window_batch 4 on the
               card's one-device mesh, the same three in bf16
               (shard_inference with raft_bf16_refine=False), and bf16
-              'flash' with raft_bf16_refine=False; fp32 'flash' measured
-              3 times and bf16 'flash' 5 times (each stage's median and
-              min-max), then both once more on the plain stage-4 schedule
+              'flash' with raft_bf16_refine=False; each warmed up until
+              its CUDA graphs are captured (two videos) and measured once
+              (phase `graphs` times fp32 and bf16 'flash' in pairs), each
+              of the five others then against one eager run of its
+              configuration (outputs, launches, graphs as in phase
+              `graphs`), each pipeline's graphs released after its turn;
+              then fp32 and bf16 'flash' on the plain stage-4 schedule
               (occupancy_bucketing and encoder_carry off) for their stage
               times and output differences (reported, not gated); each
               configuration's stage-4 plan printed (frames encoded and
@@ -76,6 +80,26 @@ Phases:
               fp32 ones, and no fp32 form), the fp32 outputs within 12
               max / 0.5 mean LSB of 'flash' (bf16's differences reported,
               not gated);
+  graphs      the main path's stages replayed from CUDA graphs
+              (`pipeline.ProPainterPipeline(cuda_graphs=...)`,
+              `graphs.StageGraphs`) against eager on the pipeline phase's
+              clip and weights: in its seven configurations one graphed
+              and one eager run after their warm-ups, the uint8 outputs
+              equal (or within 12 max / 0.5 mean LSB, reported), the launch
+              counts and K4's calls by shape equal, the graphs by stage
+              against the plan's call keys (`_graph_keys`), and the
+              graphed run's kernels in a profiler trace against its launch
+              counts (a replay's counts are accounting); fp32 and bf16
+              'flash' on new pipelines: each one's first video, graphs by
+              stage, capture seconds and the graphs' GiB against the eager
+              peak, the graphs replayed on a second clip of the same
+              shape and plan (other frames) against eager, then 3 / 5
+              alternating pairs with each stage's decision (graphed median
+              below the eager minimum), and one profiled run of each: the
+              device's busy share; the evaluation protocol (fp32) over
+              videos of four lengths, then the first two again, through
+              one pipeline against eager: each video's output, seconds,
+              graphs and GiB held;
   small       a 6-frame 144x160 clip on the GPU (kernels) and on the CPU
               (plain versions), fan-in scaled weights, in the three
               configurations ('flash' through `ProInpainter`): uint8
@@ -221,8 +245,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-PHASES = ("device", "build", "kernels", "deform_opt", "pipeline", "small",
-          "cli", "eval", "train", "dist", "flow_data", "demo", "track")
+PHASES = ("device", "build", "kernels", "deform_opt", "pipeline", "graphs",
+          "small", "cli", "eval", "train", "dist", "flow_data", "demo",
+          "track")
 EXTRA_PHASES = ("profile",)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
 # dense TF32 on the tensor cores and HBM3 bandwidth — the denominators of
@@ -1968,28 +1993,20 @@ def phase_deform_opt(state: dict) -> None:
 
 @contextlib.contextmanager
 def _k4_calls(record: dict):
-    """While active, counts K4's calls from the generator by (problems,
-    query rows, keys) into `record` (both forms; each still counts its own
-    launch)."""
-    from propainter_tpu_torch.models import propainter as gen_module
+    """While active, counts K4's launches by (problems, query rows, keys)
+    into `record` (both forms), from the wrappers' `shapes` tallies, which
+    a CUDA-graph replay advances as it does their launch counts."""
+    from propainter_tpu_torch.ops import flash_attention as fa
 
-    names = ("flash_window_attention", "flash_window_attention_bf16")
-    saved = [getattr(gen_module, n) for n in names]
-
-    def recorder(fn):
-        def call(q, k, v, key_bias, scale):
-            key = (q.shape[1], q.shape[2], k.shape[2])
-            record[key] = record.get(key, 0) + 1
-            return fn(q, k, v, key_bias, scale)
-        return call
-
-    for n, fn in zip(names, saved):
-        setattr(gen_module, n, recorder(fn))
+    fns = (fa.flash_window_attention, fa.flash_window_attention_bf16)
+    before = [dict(fn.shapes) for fn in fns]
     try:
         yield record
     finally:
-        for n, fn in zip(names, saved):
-            setattr(gen_module, n, fn)
+        for fn, was in zip(fns, before):
+            for key, n in fn.shapes.items():
+                if n != was.get(key, 0):
+                    record[key] = record.get(key, 0) + n - was.get(key, 0)
 
 
 def _spread(values) -> dict:
@@ -1997,26 +2014,36 @@ def _spread(values) -> dict:
                 max=max(values))
 
 
+def _warm_up(p, frames, flow_masks) -> None:
+    """Run `p` on the clip until every call key of its graphed stages is
+    captured (two videos from new: the first sights, then the stages that
+    run once a video), so a measured run replays only."""
+    p.inpaint_video(frames, flow_masks, flow_masks)
+    while p.graphs.stages and (sum(p.graphs.counts().values())
+                               < len(p.graphs.keys())):
+        p.inpaint_video(frames, flow_masks, flow_masks)
+
+
+def _release(p) -> None:
+    """Drop `p`'s graphs and their pool (one pipeline's graphs hold about
+    its eager peak: phase `graphs`), so the pipelines a phase keeps do not
+    add up on the card."""
+    p.graphs.clear()
+    _graph_memory()
+
+
 def _measured_run(pipe, frames, flow_masks, smi: str, repeats: int = 1):
     """`repeats` main-path runs, each with the launch counts zeroed just
     before and read just after (they must agree), K4's calls by shape
-    recorded over the first: (uint8 output of the last, launches, stage
-    summary with each stage's median and min-max over the runs)."""
+    recorded over the first (`_graph_run`): (uint8 output of the last,
+    launches, stage summary with each stage's median and min-max over the
+    runs)."""
     import numpy as np
-    import torch
 
     T, H, W = frames.shape[:3]
-    runs, k4 = [], {}
-    for i in range(repeats):
-        _zero_launches()
-        timings: dict = {}
-        torch.cuda.synchronize()
-        with _k4_calls(k4 if i == 0 else {}):
-            t0 = time.perf_counter()
-            out = np.stack(pipe.inpaint_video(frames, flow_masks, flow_masks,
-                                              timings=timings))
-            total = time.perf_counter() - t0
-        runs.append((total, timings, _read_launches()))
+    graphed = [_graph_run(pipe, frames, flow_masks) for _ in range(repeats)]
+    out, k4 = graphed[-1]["out"], graphed[0]["k4"]
+    runs = [(r["wall"], r["stages"], r["launches"]) for r in graphed]
     launches = runs[0][2]
     cfg = pipe.config
     impl = (f"shard_inference, window_batch {cfg.window_batch}, mesh of "
@@ -2075,6 +2102,37 @@ def _plan_counts(plan) -> dict:
             else n * wb * sr.l_t for sr, n in zip(plan.subruns, batches)),
         tokenized=n_ref + sum(n * wb * sr.l_t
                               for sr, n in zip(plan.subruns, batches)))
+
+
+def _graph_keys(pipe, plan, T: int, W: int) -> dict:
+    """The call keys of `pipe.graphs` one T-frame video of width W gives
+    each stage: RAFT's distinct chunk lengths, the distinct chunk lengths
+    of flow completion and image propagation (one each when a stage runs
+    the video whole), and stage 4's distinct (l_t, masked bucket width,
+    carry) over the plan's sub-runs (its calls' operands are gathered per
+    window: window_batch and the reference count are the plan's, and a
+    tail batch has its sub-run's shapes)."""
+    from propainter_tpu_torch.pipeline import get_short_clip_len
+
+    cfg = pipe.config
+
+    def chunks(n, sub, pad):
+        if cfg.unchunked or n <= sub:
+            return {n}
+        return {min(n, f + sub + pad) - max(0, f - pad)
+                for f in range(0, n, sub)}
+
+    clip = cfg.raft_clip_len or get_short_clip_len(W)
+    raft = {T} if T <= clip else {min(T, f + clip) - (f if f == 0 else f - 1)
+                                  for f in range(0, T, clip)}
+    generation = {(sr.l_t, None if sr.masked is None
+                   else sr.masked[0].shape[1], sr.carry)
+                  for sr in plan.subruns}
+    return {"raft": len(raft),
+            "flow_completion": len(chunks(T - 1, cfg.subvideo_length, 5)),
+            "image_propagation": len(chunks(
+                T, min(100, cfg.subvideo_length), 10)),
+            "generation": len(generation)}
 
 
 def _stage4_plan(pipe, flow_masks):
@@ -2150,10 +2208,12 @@ def phase_pipeline(state: dict, smi: str) -> None:
     """The main path at full size in its fp32 configurations on the same
     weights and clip ('flash', 'pallas', and shard_inference with
     window_batch 4 on the card's one-device mesh), then bf16 'flash' and
-    the other bf16 configurations (`_bf16_other_configs`), each once to
-    warm up (cuDNN plans, lazy module loading), then measured (fp32
-    'flash' 3 times, bf16 'flash' 5 times); then fp32 and bf16 'flash'
-    with occupancy_bucketing and encoder_carry off (the plain stage-4
+    the other bf16 configurations (`_bf16_other_configs`), each warmed
+    up until its graphs are captured (`_warm_up`: cuDNN plans, lazy
+    module loading, two videos), then measured once, the five others also
+    against an eager run (`_versus_eager`), each pipeline's graphs then
+    released (`_release`); then fp32 and bf16 'flash' with
+    occupancy_bucketing and encoder_carry off (the plain stage-4
     schedule, `_schedule_ab`). Every kernel of each path must launch in
     its measured run, K1 under 'flash' and 'pallas' and K7 under
     shard_inference once per RAFT iteration, the other never; K4 and K5 as
@@ -2165,10 +2225,12 @@ def phase_pipeline(state: dict, smi: str) -> None:
     want_lookups = _raft_launches(pipe, frames)
     state["main_path"] = (pipe, frames, flow_masks)
     t0 = time.perf_counter()
-    pipe.inpaint_video(frames, flow_masks, flow_masks)
-    print(f"  warm-up run: {time.perf_counter() - t0:.3f} s")
+    _warm_up(pipe, frames, flow_masks)
+    print(f"  warm-up runs (graphs captured): {time.perf_counter() - t0:.3f} "
+          f"s")
     out, launches, state["pipeline"] = _measured_run(pipe, frames,
-                                                     flow_masks, smi, 3)
+                                                     flow_masks, smi)
+    _release(pipe)
     plan = _stage4_plan(pipe, flow_masks)
     want = _plan_launches(plan, pipe)
     state["pipeline"]["plan"] = _plan_counts(plan)
@@ -2187,9 +2249,12 @@ def phase_pipeline(state: dict, smi: str) -> None:
 
     sparse = _pallas_pipeline(pipe)
     state["main_path_pallas"] = sparse
-    sparse.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
+    _warm_up(sparse, frames, flow_masks)
     out_p, launches, state["pipeline_pallas"] = _measured_run(
         sparse, frames, flow_masks, smi)
+    _versus_eager(state, "pallas", sparse, frames, flow_masks,
+                  _as_graph_run(out_p, launches, state["pipeline_pallas"]))
+    _release(sparse)
     state["launches"]["pallas"] = launches
     # one K5 launch per transformer block of every generator call
     want_k5 = _plan_launches(_stage4_plan(sparse, flow_masks),
@@ -2214,9 +2279,12 @@ def phase_pipeline(state: dict, smi: str) -> None:
 
     shard = _shard_pipeline(pipe)
     state["main_path_shard"] = shard
-    shard.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
+    _warm_up(shard, frames, flow_masks)
     out_s, launches, state["pipeline_shard"] = _measured_run(
         shard, frames, flow_masks, smi)
+    _versus_eager(state, "shard", shard, frames, flow_masks,
+                  _as_graph_run(out_s, launches, state["pipeline_shard"]))
+    _release(shard)
     state["launches"]["shard"] = launches
     # one K4 launch per transformer block of every window batch of the plan
     want_s = _plan_launches(_stage4_plan(shard, flow_masks), shard)
@@ -2242,9 +2310,10 @@ def phase_pipeline(state: dict, smi: str) -> None:
 
     bf16 = _bf16_pipeline(pipe)
     state["main_path_bf16"] = bf16
-    bf16.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
+    _warm_up(bf16, frames, flow_masks)
     out_b, launches, state["pipeline_bf16"] = _measured_run(
-        bf16, frames, flow_masks, smi, 5)
+        bf16, frames, flow_masks, smi)
+    _release(bf16)
     state["launches"]["bf16"] = launches
     # the bf16 forms launch as often as the fp32 ones under 'flash'; no
     # fp32 form of them launches
@@ -2295,9 +2364,12 @@ def _bf16_other_configs(state, frames, flow_masks, out, out_b,
     for name, make in runs:
         p = make(pipe)
         state[f"main_path_{name}"] = p
-        p.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
+        _warm_up(p, frames, flow_masks)
         out_x, launches, state[f"pipeline_{name}"] = _measured_run(
             p, frames, flow_masks, smi)
+        _versus_eager(state, name, p, frames, flow_masks, _as_graph_run(
+            out_x, launches, state[f"pipeline_{name}"]))
+        _release(p)
         state["launches"][name] = launches
         calls = _plan_launches(_stage4_plan(p, flow_masks), p)["calls"]
         if name == "bf16_pallas":
@@ -2347,8 +2419,8 @@ def _bf16_other_configs(state, frames, flow_masks, out, out_b,
 def _schedule_ab(state, frames, flow_masks, out, out_b, smi) -> None:
     """fp32 and bf16 'flash' on the plain stage-4 schedule
     (occupancy_bucketing and encoder_carry off: every window encodes its
-    local frames, branch A over every window), once to warm up, then
-    measured (3 and 5 times, as the scheduled runs): stage times beside
+    local frames, branch A over every window), warmed up, then measured
+    once, as the scheduled runs: stage times beside
     the scheduled runs', and the outputs' differences from them (reported,
     not gated); K4 once per block of every window."""
     import numpy as np
@@ -2358,16 +2430,17 @@ def _schedule_ab(state, frames, flow_masks, out, out_b, smi) -> None:
 
     pipe = state["main_path"][0]
     for name, precision, repeats, scheduled in (
-            ("plain_schedule", "fp32", 3, out),
-            ("bf16_plain_schedule", "bf16", 5, out_b)):
+            ("plain_schedule", "fp32", 1, out),
+            ("bf16_plain_schedule", "bf16", 1, out_b)):
         p = ProPainterPipeline(pipe.raft, pipe.flowcomp, pipe.inpaint,
                                PipelineConfig(precision=precision,
                                               occupancy_bucketing=False,
                                               encoder_carry=False),
                                device="cuda")
-        p.inpaint_video(frames, flow_masks, flow_masks)    # warm-up
+        _warm_up(p, frames, flow_masks)
         out_x, launches, summary = _measured_run(p, frames, flow_masks, smi,
                                                  repeats)
+        _release(p)
         plan = _stage4_plan(p, flow_masks)
         key = ("flash_window_attention" if precision == "fp32"
                else "flash_window_attention_bf16")
@@ -2390,15 +2463,451 @@ def _schedule_ab(state, frames, flow_masks, out, out_b, smi) -> None:
                                  f"{launches[key]} times, want {want}")
 
 
-def _profile_run(pipe, frames, flow_masks, label: str):
-    """One main-path run of `pipe` under torch.profiler: (report lines,
-    device ms of the port's kernels, wall ms, device busy ms)."""
+# each launch counter's kernel symbol in a profiler trace (K1 over a bf16
+# volume is an instance of K1 bf16's kernel)
+TRACE_KERNELS = {
+    "corr_pyramid_build": "corr_pyramid_build_kernel",
+    "corr_lookup_moenc": "corr_lookup_moenc_kernel",
+    "corr_lookup": "corr_lookup_kernel",
+    "modulated_deform_conv2d": "deform_conv_kernel",
+    "flash_window_attention": "window_attention_kernel",
+    "sparse_window_attention": "sparse_window_attention_kernel",
+    "corr_pyramid_build_bf16": "corr_pyramid_build_bf16_kernel",
+    "corr_lookup_moenc_bf16": "corr_lookup_moenc_bf16_kernel",
+    "modulated_deform_conv2d_bf16": "deform_conv_bf16_kernel",
+    "flash_window_attention_bf16": "window_attention_bf16_kernel",
+    "sparse_window_attention_bf16": "sparse_window_attention_bf16_kernel",
+    "corr_lookup_bf16": "corr_lookup_bf16_kernel"}
+# counters whose launches show in a trace under another counter's symbol
+TRACE_SHARED = {"corr_lookup_moenc_bf16_volume": "corr_lookup_moenc_bf16"}
+
+
+def _trace_counters(launches: dict) -> dict:
+    """A run's launch counts as a profiler trace can show them: by
+    `TRACE_KERNELS`' keys, with `TRACE_SHARED`'s folded in."""
+    out = {k: launches[k] for k in TRACE_KERNELS}
+    for k, into in TRACE_SHARED.items():
+        out[into] += launches[k]
+    return out
+
+
+# the graphed main path against eager (phase `graphs`): alternating pairs
+# in fp32 and bf16 'flash' (a stage's graph is kept when its graphed
+# median is below its eager minimum), one run each of the other five
+# configurations, and the evaluation protocol over four video lengths
+# through one reused pipeline
+GRAPH_PAIRS = {"flash": 3, "bf16": 5}
+GRAPH_CONFIGS = (("pallas", _pallas_pipeline), ("shard", _shard_pipeline),
+                 ("bf16_pallas", _bf16_pallas_pipeline),
+                 ("bf16_shard", _bf16_shard_pipeline),
+                 ("bf16_fp32_refine", _bf16_fp32_refine_pipeline))
+GRAPH_EVAL_CONFIG = dict(neighbor_length=20, ref_stride=10, unchunked=True,
+                         raft_clip_len=60, raft_iter=20)
+# phase eval's two lengths, then two more: an evaluation set's videos come
+# in many lengths
+GRAPH_EVAL_LENGTHS = (104, 73, 90, 66)
+# the seed of the second clip a graphed pipeline replays (the main path's
+# clip is seed 0; the masks do not depend on the seed)
+SECOND_CLIP_SEED = 7
+
+
+def _twin(p, cuda_graphs):
+    """A pipeline of `p`'s configuration on `p`'s modules (a bf16 one
+    copies them again) whose graphed stages are `cuda_graphs`."""
+    from propainter_tpu_torch.pipeline import ProPainterPipeline
+
+    return ProPainterPipeline(p.raft, p.flowcomp, p.inpaint, p.config,
+                              device="cuda", cuda_graphs=cuda_graphs)
+
+
+def _graph_run(p, frames, flow_masks) -> dict:
+    """One main-path run of `p`, its launch counts zeroed just before and
+    read just after: uint8 output, wall s, stage s, launches, K4's calls by
+    shape."""
+    import numpy as np
+    import torch
+
+    _zero_launches()
+    timings: dict = {}
+    k4: dict = {}
+    torch.cuda.synchronize()
+    with _k4_calls(k4):
+        t0 = time.perf_counter()
+        out = np.stack(p.inpaint_video(frames, flow_masks, flow_masks,
+                                       timings=timings))
+        wall = time.perf_counter() - t0
+    return dict(out=out, wall=wall, stages=timings, launches=_read_launches(),
+                k4=k4)
+
+
+def _stage_diffs(p, eager, frames, flow_masks) -> dict:
+    """Where a graphed pipeline's output parts from its eager twin's: each
+    stage of both on the same inputs (the eager pipeline's earlier stages'
+    outputs), the largest absolute difference of its outputs."""
+    import torch
+
+    from propainter_tpu_torch.device import fp32_numerics
+
+    diffs = {}
+    with torch.inference_mode(), fp32_numerics():
+        ori = torch.from_numpy(frames).to(p.device)
+        x = (ori.float() / 255.0 * 2.0 - 1.0)[None]
+        m = torch.from_numpy(flow_masks).to(p.device).float()[
+            None, ..., None]
+        calls = (
+            ("raft", lambda q: q.compute_flows(x)),
+            ("flow_completion", lambda q: q.complete_flows(outs["raft"], m)),
+            ("image_propagation", lambda q: q.propagate_images(
+                x, outs["flow_completion"], m)),
+            ("generation", lambda q: (q.generate(
+                outs["image_propagation"][0], outs["flow_completion"], m,
+                outs["image_propagation"][1], ori),)))
+        outs = {}
+        for stage, call in calls:
+            for _ in range(2):      # the graphed side's capture, then replay
+                got = call(p)
+            outs[stage] = want = call(eager)
+            diffs[stage] = max(float((g.float() - w.float()).abs().max())
+                               for g, w in zip(got, want))
+    return diffs
+
+
+def _same_run(name: str, got: dict, want: dict, p=None, eager=None,
+              frames=None, flow_masks=None) -> dict:
+    """A graphed run against an eager one: the uint8 outputs (identical,
+    or within the 'pallas'-against-'flash' limits, each stage's difference
+    then reported by `_stage_diffs` when the pipelines are given), the
+    launch counts and K4's calls by shape (equal)."""
+    d = abs(got["out"].astype(int) - want["out"].astype(int))
+    same = dict(identical=bool(d.max() == 0), max_lsb=int(d.max()),
+                mean_lsb=float(d.mean()),
+                launches_equal=got["launches"] == want["launches"],
+                k4_equal=got["k4"] == want["k4"])
+    if d.max() and p is not None:
+        same["stage_diffs"] = _stage_diffs(p, eager, frames, flow_masks)
+        print(f"  {name}: graphed and eager outputs differ (max {d.max()} "
+              f"LSB, {int((d > 0).sum())} values); each stage's largest "
+              f"difference on the same inputs: {same['stage_diffs']}")
+    if not (same["launches_equal"] and same["k4_equal"]):
+        raise AssertionError(f"{name}: graphed launches {got['launches']} "
+                             f"{got['k4']}, eager {want['launches']} "
+                             f"{want['k4']}")
+    if d.max() > SMALL_MAX_LSB or d.mean() > SMALL_MEAN_LSB:
+        raise AssertionError(f"{name}: graphed and eager outputs differ by "
+                             f"{d.max()} / {d.mean():.4f} LSB")
+    return same
+
+
+def _graph_memory() -> float:
+    """GiB the caching allocator holds after releasing what it can: the
+    live tensors, the graphs' pools and their static inputs."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2 ** 30
+
+
+def _check_graph_keys(name: str, p, frames, flow_masks) -> dict:
+    """`p`'s graphs by stage against the call keys its plan gives its
+    graphed stages (`_graph_keys`), every key captured."""
+    counts = p.graphs.counts()
+    expect = {k: v for k, v in _graph_keys(
+        p, _stage4_plan(p, flow_masks), frames.shape[0],
+        frames.shape[2]).items() if k in p.graphs.stages}
+    if counts != expect:
+        raise AssertionError(f"{name}: graphs {counts}, keys {expect}")
+    return counts
+
+
+def _held_to_trace(name: str, p, frames, flow_masks, counters: dict,
+                   trace: dict | None = None) -> list:
+    """A graphed run of `p`'s kernels in a profiler trace against its
+    launch counts (`counters`, `_trace_counters`): a replay's counts
+    are the capture's, added back by `graphs.StageGraphs`, and the trace
+    shows what ran. `trace`: the counts of a profiled run already taken,
+    else one is. A trace can lose kernel records (an H100 trace of a
+    graphed bf16 run once held 126 of its 128 K4 launches while the
+    replays gave eager's output bit for bit), so a trace that differs is
+    taken again, and the second must agree. Returns the traces."""
+    def profiled(label):
+        return _profile_run(p, frames, flow_masks, label, show=0,
+                            host=False)[4]
+
+    traces = [trace if trace is not None else profiled(f"{name} graphed")]
+    if traces[0] != counters:
+        traces.append(profiled(f"{name} graphed, again"))
+    shown = [k for k in TRACE_KERNELS
+             if counters[k] or any(t[k] for t in traces)]
+    print(f"  {name} graphed: kernels in the trace "
+          + " then ".join(str({k: t[k] for k in shown}) for t in traces)
+          + f", launch counts {({k: counters[k] for k in shown})}")
+    if traces[-1] != counters:
+        raise AssertionError(f"{name}: the trace's kernels differ from the "
+                             f"launch counts")
+    return traces
+
+
+def _graph_ab(name: str, p, frames, flow_masks, smi: str) -> dict:
+    """fp32 or bf16 'flash' graphed against eager on new pipelines of
+    `p`'s configuration and modules: each one's first video (the graphed
+    one's warm-up and in-video captures) and the graphed one's second
+    (stages 2 and 3 captured), graphs by stage against the plan's keys,
+    capture seconds, the graphs' GiB against the eager run's peak; the
+    graphs replayed on a second clip of the same shape and masks (so the
+    same plan and keys; frames of another seed) against eager on it; then
+    GRAPH_PAIRS[name] alternating pairs (graphed first in even pairs),
+    outputs and launches checked in each (`_same_run`), with each stage's
+    decision; then one profiled run of each: the device's busy share, and
+    the graphed run's kernels in the trace against its launch counts
+    (`_held_to_trace`)."""
+    import torch
+
+    from propainter_tpu_torch.graphs import STAGES
+
+    eager, graphed = _twin(p, ()), _twin(p, STAGES)
+    base = _graph_memory()
+    torch.cuda.reset_peak_memory_stats()
+    first_e = _graph_run(eager, frames, flow_masks)
+    peak_e = torch.cuda.max_memory_allocated() / 2 ** 30
+    first_g = _graph_run(graphed, frames, flow_masks)
+    second_g = _graph_run(graphed, frames, flow_masks)
+    gib = _graph_memory() - base
+    same = _same_run(name, second_g, first_e, graphed, eager, frames,
+                     flow_masks)
+    _same_run(name, first_g, first_e)
+    counts = _check_graph_keys(name, graphed, frames, flow_masks)
+    frames2 = _synthetic_clip(*frames.shape[:3], seed=SECOND_CLIP_SEED)[0]
+    n_keys = len(graphed.graphs.keys())
+    other = _same_run(f"{name} second clip",
+                      _graph_run(graphed, frames2, flow_masks),
+                      _graph_run(eager, frames2, flow_masks), graphed,
+                      eager, frames2, flow_masks)
+    if (graphed.graphs.counts() != counts
+            or len(graphed.graphs.keys()) != n_keys):
+        raise AssertionError(f"{name}: the second clip did not replay only "
+                             f"the first clip's graphs")
+    print(f"  {name}: first video eager {first_e['wall']:.3f} s, graphed "
+          f"{first_g['wall']:.3f} s (warm-up and in-video captures), second "
+          f"{second_g['wall']:.3f} s; outputs identical {same['identical']} "
+          f"(max {same['max_lsb']} LSB), launches and K4 calls equal; a "
+          f"second clip (seed {SECOND_CLIP_SEED}) replayed: identical to "
+          f"eager {other['identical']} (max {other['max_lsb']} LSB); graphs "
+          f"by stage {counts} (the plan's keys), capture "
+          f"{graphed.graphs.capture_seconds:.3f} s; graphs' memory "
+          f"{gib:.2f} GiB (eager peak allocated {peak_e:.2f} GiB) on {smi}")
+    runs = {"graphed": [], "eager": []}
+    for i in range(GRAPH_PAIRS[name]):
+        order = ("graphed", "eager") if i % 2 == 0 else ("eager", "graphed")
+        for side in order:
+            run = _graph_run(graphed if side == "graphed" else eager, frames,
+                             flow_masks)
+            _same_run(name, run, first_e)
+            runs[side].append(dict(wall=run["wall"], stages=run["stages"]))
+    decisions = {}
+    for stage in ("total",) + STAGES:
+        def times(side):
+            return [r["wall"] if stage == "total" else r["stages"][stage]
+                    for r in runs[side]]
+        g, e = times("graphed"), times("eager")
+        decisions[stage] = dict(graphed=_spread(g), eager=_spread(e),
+                                keep=statistics.median(g) < min(e))
+        print(f"  {name} {stage}: graphed median {statistics.median(g):.4f} "
+              f"s ({min(g):.4f}-{max(g):.4f}), eager min {min(e):.4f} s "
+              f"(median {statistics.median(e):.4f}) over "
+              f"{GRAPH_PAIRS[name]} pairs: "
+              + ("keep the graph" if decisions[stage]["keep"] else
+                 "stays eager"))
+    busy, traces = {}, []
+    counters = _trace_counters(second_g["launches"])
+    for side, q in (("graphed", graphed), ("eager", eager)):
+        _, _, wall_ms, busy_ms, trace = _profile_run(
+            q, frames, flow_masks, f"{name} {side}", show=4, host=False)
+        busy[side] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                          share=busy_ms / wall_ms)
+        if side == "graphed":
+            traces = _held_to_trace(name, graphed, frames, flow_masks,
+                                    counters, trace)
+    print(f"  {name}: device busy graphed {100 * busy['graphed']['share']:.1f}"
+          f"% of {busy['graphed']['wall_ms']:.1f} ms, eager "
+          f"{100 * busy['eager']['share']:.1f}% of "
+          f"{busy['eager']['wall_ms']:.1f} ms")
+    result = dict(same, first_video_eager_s=first_e["wall"],
+                  first_video_graphed_s=first_g["wall"],
+                  second_video_graphed_s=second_g["wall"],
+                  second_clip=other, graphs=counts,
+                  capture_s=graphed.graphs.capture_seconds,
+                  graphs_gib=gib, eager_peak_gib=peak_e, pairs=runs,
+                  decisions=decisions, busy=busy, traces=traces)
+    del graphed, eager
+    _graph_memory()
+    return result
+
+
+def _graph_eval(pipe, smi: str) -> dict:
+    """The evaluation protocol (`GRAPH_EVAL_CONFIG`, fp32 as
+    `cli/evaluate.py`) over videos of GRAPH_EVAL_LENGTHS, then the first
+    two again, in three passes: an eager pipeline, a graphed one (the
+    default stages) reused across the videos as the CLI reuses its
+    pipeline, and an eager one again (process-wide cuDNN and cuBLAS plans
+    warm in both). Each graphed video's uint8 output against the eager
+    passes' (`_same_run`); each video's seconds; after each graphed
+    video, the graphs by stage, capture seconds and the GiB the pipeline
+    holds (its cache keeps the last video's keys); each pass's peak
+    allocated GiB; the graphed total against the faster eager one."""
+    import numpy as np
+    import torch
+
+    from propainter_tpu_torch.pipeline import (PipelineConfig,
+                                               ProPainterPipeline)
+    from propainter_tpu_torch.utils.masks import binary_dilation_cross
+
+    clips = {}
+    for T in GRAPH_EVAL_LENGTHS:
+        frames, mask = _synthetic_clip(T, 240, 432, seed=T)
+        clips[T] = (frames, np.stack([binary_dilation_cross(m, 4)
+                                      for m in mask]))
+    order = GRAPH_EVAL_LENGTHS + GRAPH_EVAL_LENGTHS[:2]
+    cfg = PipelineConfig(**GRAPH_EVAL_CONFIG)
+    passes, want, rows = {}, {}, []
+    for side in ("eager", "graphed", "eager again"):
+        q = ProPainterPipeline(pipe.raft, pipe.flowcomp, pipe.inpaint, cfg,
+                               device="cuda", **(
+                                   {} if side == "graphed"
+                                   else dict(cuda_graphs=())))
+        base = _graph_memory()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for i, T in enumerate(order):
+            run = _graph_run(q, *clips[T])
+            walls.append(run["wall"])
+            if side != "graphed":
+                want.setdefault(T, run)
+                continue
+            same = _same_run(f"eval protocol, {T} frames", run, want[T])
+            rows.append(dict(frames=T, wall=run["wall"],
+                             eager_wall=want[T]["wall"],
+                             identical=same["identical"],
+                             max_lsb=same["max_lsb"],
+                             graphs=q.graphs.counts(),
+                             keys=len(q.graphs.keys()),
+                             capture_s=q.graphs.capture_seconds,
+                             graphs_gib=_graph_memory() - base))
+            print(f"  eval protocol, video {i + 1} ({T} frames): graphed "
+                  f"{run['wall']:.3f} s (first eager pass "
+                  f"{want[T]['wall']:.3f} s), identical {same['identical']} "
+                  f"(max {same['max_lsb']} LSB); graphs by stage "
+                  f"{rows[-1]['graphs']} of {rows[-1]['keys']} keys held, "
+                  f"capture {rows[-1]['capture_s']:.3f} s so far, graphs' "
+                  f"memory {rows[-1]['graphs_gib']:.2f} GiB")
+        passes[side] = dict(
+            walls=walls, total=sum(walls),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del q
+        _graph_memory()
+    eager_min = min(passes["eager"]["total"], passes["eager again"]["total"])
+    pays = passes["graphed"]["total"] < eager_min
+    print(f"  eval protocol over {len(order)} videos ({order} frames): "
+          + ", ".join(f"{k} {v['total']:.3f} s (peak allocated "
+                      f"{v['peak_gib']:.2f} GiB)" for k, v in passes.items())
+          + f": graphs {'pay' if pays else 'do not pay'} on {smi}")
+    return dict(order=list(order), runs=rows, passes=passes, graphs_pay=pays)
+
+
+def _versus_eager(state: dict, name: str, p, frames, flow_masks,
+                  got: dict) -> None:
+    """`got`, a graphed run of `p` with every call key captured (its
+    output, launches and K4's calls), against one eager run of its
+    configuration (`_twin` with no stage graphed): `_same_run`, the
+    graphs by stage against the plan's call keys, and a graphed run's
+    kernels in a profiler trace against `got`'s launch counts
+    (`_held_to_trace`), into state["graphs"]["configs"][name]."""
+    eager = _twin(p, ())
+    want = _graph_run(eager, frames, flow_masks)
+    same = _same_run(name, got, want, p, eager, frames, flow_masks)
+    del eager
+    counts = _check_graph_keys(name, p, frames, flow_masks)
+    capture_s = p.graphs.capture_seconds
+    print(f"  {name} graphed against eager: {got['wall']:.3f} s against "
+          f"{want['wall']:.3f} s; outputs identical {same['identical']} "
+          f"(max {same['max_lsb']} LSB, mean {same['mean_lsb']:.4f}); "
+          f"launches and K4 calls equal; graphs by stage {counts} (the "
+          f"plan's keys), capture {capture_s:.3f} s")
+    traces = _held_to_trace(name, p, frames, flow_masks,
+                            _trace_counters(got["launches"]))
+    state.setdefault("graphs", {}).setdefault("configs", {})[name] = dict(
+        same, graphed_s=got["wall"], eager_s=want["wall"], graphs=counts,
+        capture_s=capture_s, traces=traces)
+
+
+def _as_graph_run(out, launches, summary) -> dict:
+    """A `_measured_run`'s first run as `_graph_run` gives it."""
+    return dict(out=out, launches=launches, wall=summary["runs"][0]["seconds"],
+                k4={tuple(c[:3]): c[3] for c in summary["k4_calls"]})
+
+
+def phase_graphs(state: dict, smi: str) -> None:
+    """The main path's stages from CUDA graphs (`graphs.StageGraphs`)
+    against eager (`_twin` with no stage graphed) on the pipeline phase's
+    clip and weights, in its seven configurations: fp32 and bf16 'flash'
+    measured in pairs (`_graph_ab`); the five others of `GRAPH_CONFIGS`
+    (the pipeline phase's pipelines, else new ones) warmed up until every
+    key is captured, then one graphed and one eager run; in each the
+    uint8 outputs and the launch counts and K4's calls equal
+    (`_same_run`), the graphs by stage against the plan's call keys, the
+    graphed run's kernels in a trace against its launch counts
+    (`_held_to_trace`); then the evaluation protocol over four lengths
+    (`_graph_eval`). The pipeline
+    phase, when it ran, compared the five others after its measured runs
+    (`_versus_eager`). Each pipeline's graphs are released after its
+    turn."""
+    if "main_path" not in state:
+        state["main_path"] = _main_path_inputs()
+    pipe, frames, flow_masks = state["main_path"]
+    report = state.setdefault("graphs", {})
+    parts = report["seconds"] = {}
+    for name in GRAPH_PAIRS:
+        t0 = time.perf_counter()
+        p = pipe if name == "flash" else state.get(f"main_path_{name}")
+        if p is None:
+            p = state[f"main_path_{name}"] = _bf16_pipeline(pipe)
+        report[name] = _graph_ab(name, p, frames, flow_masks, smi)
+        parts[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, make in GRAPH_CONFIGS:
+        if name in report.get("configs", {}):
+            continue
+        key = f"main_path_{name}"
+        p = state.get(key)
+        if p is None:
+            p = state[key] = make(pipe)
+        _warm_up(p, frames, flow_masks)
+        _versus_eager(state, name, p, frames, flow_masks,
+                      _graph_run(p, frames, flow_masks))
+        _release(p)
+    parts["configs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["eval"] = _graph_eval(pipe, smi)
+    parts["eval"] = time.perf_counter() - t0
+    print("  graphs phase seconds by part: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+
+
+def _profile_run(pipe, frames, flow_masks, label: str,
+                 show: int = 21, host: bool = True):
+    """One main-path run of `pipe` under torch.profiler (host=False: the
+    device's activity only, a smaller trace): (report lines, device ms of
+    the port's kernels, wall ms, device busy ms, the kernels' launches in
+    the trace by launch counter, `TRACE_KERNELS`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     timings: dict = {}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host else [])) as prof:
         t0 = time.perf_counter()
         pipe.inpaint_video(frames, flow_masks, flow_masks, timings=timings)
         wall = time.perf_counter() - t0
@@ -2421,10 +2930,12 @@ def _profile_run(pipe, frames, flow_masks, label: str):
                  f"{k} {v:.3f}" for k, v in timings.items())]
     lines += [f"{ms:10.2f} ms {100 * ms / busy:5.1f}% x{n:<7d} {name[:100]}"
               for name, ms, n in kern]
-    for line in lines[:21]:
+    for line in lines[:show]:
         print("  " + line)
     print(f"  {label} port kernels (ms): {ours}")
-    return lines, ours, wall * 1e3, busy
+    counts = {k: sum(r[2] for r in kern if re.search(rf"\b{sym}\b", r[0]))
+              for k, sym in TRACE_KERNELS.items()}
+    return lines, ours, wall * 1e3, busy, counts
 
 
 def _gemm_conv_ab() -> list:
@@ -2474,18 +2985,16 @@ def phase_profile(state: dict) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     if "main_path" not in state:
-        pipe, frames, flow_masks = _main_path_inputs()
-        pipe.inpaint_video(frames, flow_masks, flow_masks)   # warm-up
-    else:
-        pipe, frames, flow_masks = state["main_path"]
-    bf16 = state.get("main_path_bf16")
-    if bf16 is None:
-        bf16 = _bf16_pipeline(pipe)
-        bf16.inpaint_video(frames, flow_masks, flow_masks)   # warm-up
+        state["main_path"] = _main_path_inputs()
+    pipe, frames, flow_masks = state["main_path"]
+    bf16 = state.get("main_path_bf16") or _bf16_pipeline(pipe)
+    for p in (pipe, bf16):
+        _warm_up(p, frames, flow_masks)
     report = []
     runs = {}
     for label, p in (("fp32 'flash'", pipe), ("bf16 'flash'", bf16)):
-        lines, ours, wall, busy = _profile_run(p, frames, flow_masks, label)
+        lines, ours, wall, busy, _ = _profile_run(p, frames, flow_masks,
+                                                  label)
         report += lines
         runs[label] = dict(wall_ms=wall, device_busy_ms=busy,
                            kernels_ms=ours)
@@ -2506,10 +3015,11 @@ def phase_profile(state: dict) -> None:
                                  frame_valid=valid)
 
     sparse = state.get("main_path_pallas") or _pallas_pipeline(pipe)
-    work = {"RAFT chunk": lambda: pipe.compute_flows(x[:, :13]),
+    iters = pipe.config.raft_iter
+    work = {"RAFT chunk": lambda: pipe._raft_bi(x[:, :13], iters),
             "generator window": window(pipe.inpaint),
             "generator window ('pallas')": window(sparse.inpaint),
-            "RAFT chunk (bf16)": lambda: bf16.compute_flows(x[:, :13]),
+            "RAFT chunk (bf16)": lambda: bf16._raft_bi(x[:, :13], iters),
             "generator window (bf16)": window(bf16.inpaint, torch.bfloat16)}
     ops = ("aten::convolution", "aten::linear", "aten::matmul", "aten::bmm",
            "aten::col2im", "aten::im2col")
@@ -5281,6 +5791,7 @@ def _checked_wrappers(wrappers: dict, found: dict):
             return out
 
         call.launches = 0
+        call.shapes = {}    # K4's forms count by shape too
         return call
 
     patched = []
@@ -5373,8 +5884,13 @@ def phase_track(state: dict, smi: str) -> None:
           f"{smi}")
     _check_launches("facade inpaint (bf16)", launches, want)
     # the same inpaint again, each bf16 kernel held against its plain
-    # version at every distinct shape this video gives it
+    # version at every distinct shape this video gives it, on an eager
+    # pipeline of the same configuration: the check reads each kernel's
+    # output inside the call, where a CUDA-graph capture has run nothing
     found: dict = {}
+    facade.inpainter._pipelines[tuple(TRACK_INPAINT[k] for k in (
+        "ref_stride", "neighbor_length", "subvideo_length",
+        "raft_iter"))] = _twin(pipe, ())
     with _checked_wrappers(_facade_kernels(), found):
         facade.inpaint(frames, masks, **TRACK_INPAINT)
     kernel_errs = {}
@@ -5465,6 +5981,8 @@ def main(argv=None) -> int:
                 phase_deform_opt(state)
             elif phase == "pipeline":
                 phase_pipeline(state, smi)
+            elif phase == "graphs":
+                phase_graphs(state, smi)
             elif phase == "small":
                 phase_small(state)
             elif phase == "cli":
@@ -5483,6 +6001,7 @@ def main(argv=None) -> int:
                 phase_track(state, smi)
             elif phase == "profile":
                 phase_profile(state)
+            _graph_memory()     # what the phase's pipelines and graphs held
         except Exception:  # every phase runs; any failure fails the run
             traceback.print_exc()
             failed.append(phase)

@@ -97,7 +97,10 @@ def main(argv=None) -> dict:
     models = load_models(args.weights)
     # reference eval protocol: whole-video stages 2+3 + uncapped refs
     # (unchunked=True), RAFT chunked by 60 frames
-    # (scripts/evaluate_propainter.py:29-34,108,127-137)
+    # (scripts/evaluate_propainter.py:29-34,108,127-137). The stages run
+    # eagerly: each video is seen once and its lengths rarely recur, and
+    # with CUDA graphs the protocol ran slower (`chip_smoke.py` phase
+    # `graphs`, PERF.md section 5)
     unchunked = args.subvideo_length <= 0
     pipe = ProPainterPipeline(
         models["raft"], models["flowcomp"], models["inpaint"],
@@ -107,7 +110,8 @@ def main(argv=None) -> dict:
                                         else args.subvideo_length),
                        unchunked=unchunked,
                        raft_clip_len=60 if unchunked else None,
-                       raft_iter=args.raft_iter), device=device)
+                       raft_iter=args.raft_iter), device=device,
+        cuda_graphs=())
 
     i3d = None
     if args.task == "video_completion" and os.path.exists(args.i3d_path):

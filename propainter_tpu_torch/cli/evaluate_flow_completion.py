@@ -59,9 +59,11 @@ def main(argv=None) -> dict:
     dataset = TestDataset(args.video_root, args.mask_root, json_path,
                           w=args.width, h=args.height)
     models = load_models(args.weights)
+    # eager stages, as `evaluate`'s: each video once, in many lengths
     pipe = ProPainterPipeline(
         models["raft"], models["flowcomp"], models["inpaint"],
-        PipelineConfig(raft_iter=args.raft_iter), device=device)
+        PipelineConfig(raft_iter=args.raft_iter), device=device,
+        cuda_graphs=())
 
     epes = []
     total_frames, total_time = 0, 0.0

@@ -122,23 +122,67 @@ def _save_dir(config: dict, config_path: str) -> str:
         f"{config['model']['net']}_{os.path.basename(config_path)[:-5]}")
 
 
+# a spawned rank's wait to reach the parent's rendezvous store, and the
+# parent's wait for every rank to reach it (a rank starts in seconds)
+RENDEZVOUS_TIMEOUT_S = 300.0
+_JOINED = "propainter/ranks_joined"
+
+
 def _rank_main(local_rank: int, world: int, port: int, argv: list) -> None:
-    """One spawned rank: torchrun's environment, then `main`."""
+    """One spawned rank: torchrun's environment with the parent's store as
+    its agent store (every rank, 0 included, a client of it), then
+    `main`."""
+    import datetime
+
+    import torch.distributed as dist
+
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       RANK=str(local_rank), LOCAL_RANK=str(local_rank),
-                      WORLD_SIZE=str(world))
+                      WORLD_SIZE=str(world),
+                      TORCHELASTIC_USE_AGENT_STORE="True")
+    dist.TCPStore("localhost", port, world, False,
+                  timeout=datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_S)
+                  ).add(_JOINED, 1)
     main(argv)
 
 
 def _spawn_ranks(n_dev: int, argv: list, config: dict,
                  config_path: str) -> dict:
-    """Train on GPUs 0..n_dev-1, one spawned process each, and wait."""
+    """Train on GPUs 0..n_dev-1, one spawned process each, and wait.
+
+    This process hosts the ranks' rendezvous store on a port the OS picks
+    and holds it until the ranks end, so no port is chosen, released and
+    bound again by another. Every rank must reach the store within
+    RENDEZVOUS_TIMEOUT_S, else the ranks are stopped and this raises;
+    then the wait lasts as long as training does, and a rank that fails
+    ends it (`torch.multiprocessing` stops the others and raises)."""
+    import datetime
+
+    import torch.distributed as dist
     import torch.multiprocessing as mp
 
-    from propainter_tpu_torch.parallel.mesh import free_port
-
-    mp.start_processes(_rank_main, args=(n_dev, free_port(), argv),
-                       nprocs=n_dev, start_method="spawn")
+    store = dist.TCPStore(
+        "localhost", 0, n_dev, True, wait_for_workers=False,
+        timeout=datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_S))
+    ctx = mp.start_processes(_rank_main, args=(n_dev, store.port, argv),
+                             nprocs=n_dev, join=False, start_method="spawn")
+    try:
+        deadline = time.monotonic() + RENDEZVOUS_TIMEOUT_S
+        while store.add(_JOINED, 0) < n_dev:
+            if ctx.join(timeout=0.5):
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"{store.add(_JOINED, 0)} of {n_dev} ranks reached the "
+                    f"rendezvous within {RENDEZVOUS_TIMEOUT_S:.0f} s")
+        while not ctx.join():
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        for p in ctx.processes:
+            p.join(10)
     return dict(save_dir=_save_dir(config, config_path), ranks=n_dev)
 
 

@@ -21,6 +21,7 @@ propagation step under autograd.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -195,6 +196,20 @@ def _window_gather_indices(nwh, nww, window, expand, valid_idx) -> np.ndarray:
                  ).reshape(-1) for sy, sx in shifts])[valid_idx]
             idx.append(np.concatenate([center, rolled]))
     return np.asarray(idx, np.int64)
+
+
+@functools.cache
+def _frame_selection(static_sel: bytes, device, as_index: bool):
+    """A block's temporal dilation (`static_sel`, a (T,) bool array's
+    bytes) on `device`: its frame indices, or the (T,) bool mask. Made
+    once per (selection, device) outside inference mode, so an attention
+    call in a captured CUDA graph makes no host data into a tensor and
+    training may index with it. Never evicted: a captured graph reads the
+    tensor by address for as long as it lives."""
+    sel = np.frombuffer(static_sel, np.bool_)
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.nonzero(sel)[0] if as_index
+                               else sel.copy(), device=device)
 
 
 def _window_partition(x, window, n_head):
@@ -400,7 +415,7 @@ class SparseWindowAttention(nn.Module):
         # band and pooled tokens (kernel K4) for the bucket's windows, or
         # for every window (the bucket of all nW, its dirty slots valid),
         # gathered row by row from the flat token grid
-        sel = torch.as_tensor(np.nonzero(static_sel)[0], device=q.device)
+        sel = _frame_selection(static_sel.tobytes(), q.device, True)
         Ts = sel.numel()
         if masked_windows is None:
             masked_windows = (torch.arange(nW, device=q.device).expand(B, nW),
@@ -482,8 +497,8 @@ class SparseWindowAttention(nn.Module):
             p = p.reshape(B, T, p.shape[2], nh, ch).permute(0, 3, 1, 2, 4)
             return p.reshape(B * nh, T, -1, ch).contiguous()
 
-        frame_select = torch.as_tensor(static_sel, device=q.device)
-        frame_select = frame_select.expand(B, T)          # K5's (B, T)
+        frame_select = _frame_selection(static_sel.tobytes(), q.device,
+                                        False).expand(B, T)   # K5's (B, T)
         if frame_valid is not None:
             frame_select = frame_select & frame_valid.to(q.device).expand(
                 B, T)

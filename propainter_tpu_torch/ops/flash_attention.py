@@ -57,10 +57,13 @@ def flash_window_attention(q, k, v, key_bias, scale: float):
                   v.data_ptr(), bias_ptr, out.data_ptr(), B * G, G, Tq, Tk,
                   float(scale))
     flash_window_attention.launches += 1
+    shapes = flash_window_attention.shapes
+    shapes[(G, Tq, Tk)] = shapes.get((G, Tq, Tk), 0) + 1
     return out
 
 
 flash_window_attention.launches = 0
+flash_window_attention.shapes = {}  # launches by (problems, query rows, keys)
 
 
 def _flash_window_attention_bf16_plain(q, k, v, key_bias, scale):
@@ -114,7 +117,10 @@ def flash_window_attention_bf16(q, k, v, key_bias, scale: float):
                   v.data_ptr(), bias_ptr, out.data_ptr(), B * G, G, Tq, Tk,
                   float(scale))
     flash_window_attention_bf16.launches += 1
+    shapes = flash_window_attention_bf16.shapes
+    shapes[(G, Tq, Tk)] = shapes.get((G, Tq, Tk), 0) + 1
     return out
 
 
 flash_window_attention_bf16.launches = 0
+flash_window_attention_bf16.shapes = {}  # as flash_window_attention's

@@ -8,6 +8,8 @@ pixel for any size ratio.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -19,6 +21,17 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum(idx, in_size - 1)
 
 
+@functools.cache
+def _nearest_index_on(in_size: int, out_size: int, device) -> torch.Tensor:
+    """`_nearest_index` on `device`, made once per (sizes, device) outside
+    inference mode: a resize in a captured CUDA graph makes no host data
+    into a tensor, and training may index with it. Never evicted: a
+    captured graph reads the tensor by address for as long as it lives."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_nearest_index(in_size, out_size),
+                               device=device)
+
+
 def resize(x, size, method: str = "bilinear", align_corners: bool = False):
     """Resize (..., H, W, C) to (..., size[0], size[1], C)."""
     *lead, H, W, C = x.shape
@@ -27,8 +40,8 @@ def resize(x, size, method: str = "bilinear", align_corners: bool = False):
         return x
     xb = x.reshape(-1, H, W, C)
     if method == "nearest":
-        iy = torch.as_tensor(_nearest_index(H, Ho), device=x.device)
-        ix = torch.as_tensor(_nearest_index(W, Wo), device=x.device)
+        iy = _nearest_index_on(H, Ho, x.device)
+        ix = _nearest_index_on(W, Wo, x.device)
         out = xb.index_select(1, iy).index_select(2, ix)
     elif method == "bilinear":
         out = F.interpolate(xb.permute(0, 3, 1, 2), size=(Ho, Wo),

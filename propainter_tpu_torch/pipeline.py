@@ -39,18 +39,28 @@ schedule, and so do the port's (`tests/test_torch_stage4.py`).
 
 `raft_clip_len` and `unchunked` are the JAX package's evaluation protocol:
 a fixed RAFT chunk, and stages 2-3 whole with uncapped references.
+
+On CUDA each stage call is replayed from a CUDA graph for every call shape
+that recurs (`graphs.StageGraphs`; `cuda_graphs` names the stages), the
+counterpart of the JAX pipeline's per-shape `jax.jit` executables: a RAFT
+chunk, a flow-completion or image-propagation call, and one stage-4
+generator call on its windows' gathered operands (composited after it).
+On the CPU, and over a mesh of more than one device, the stages run
+eagerly.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import time
 
 import numpy as np
 import torch
 
 from propainter_tpu_torch.device import fp32_numerics, resolve_device
+from propainter_tpu_torch.graphs import STAGES, StageGraphs
 from propainter_tpu_torch.models.flow_completion import (
     combine_flow, forward_bidirect_flow)
 from propainter_tpu_torch.models.propainter import (
@@ -145,6 +155,49 @@ def get_ref_index(mid_neighbor_id, neighbor_ids, length, ref_stride=10,
     return ref_index
 
 
+def window_images(pred, masks, ori):
+    """Stage 4's frames of a generator call's windows before the blend:
+    pred (wb, l_t, H, W, 3) in [-1, 1]; masks (wb, l_t, H, W, 1) binary;
+    ori (wb, l_t, H, W, 3) uint8. The reference's operations in its order
+    (`propainter_tpu/pipeline.py:504-518`):
+
+        img = floor((pred + 1) / 2 * 255) clipped to [0, 255]
+        img = img * m + ori * (1 - m)
+
+    Returns img (wb, l_t, H, W, 3) fp32."""
+    img8 = torch.floor((pred.float() + 1.0) / 2.0 * 255.0).clamp(0.0, 255.0)
+    return img8 * masks + ori.float() * (1.0 - masks)
+
+
+def composite_windows(comp, img, nb, revisit, n_real: int):
+    """The first n_real windows of `window_images`' img into comp (T, H,
+    W, 3) fp32, in window order, as the JAX pipeline's `upd`: each
+    window's frames nb[w] gathered, blended where `revisit[w]` marks an
+    earlier visit, written back:
+
+        comp = floor(0.5 * comp + 0.5 * img)  on a revisit, else img
+
+    Windows past n_real (a tail batch's repeats, weight 0) write nothing.
+    Writes comp in place and returns it."""
+    for w in range(n_real):
+        ids = nb[w]
+        blend = torch.floor(0.5 * comp[ids] + 0.5 * img[w])
+        comp.index_copy_(0, ids, torch.where(revisit[w][:, None, None, None],
+                                             blend, img[w]))
+    return comp
+
+
+def _upload(arrays: list, device) -> list:
+    """numpy arrays of one dtype -> views on `device` of one upload."""
+    flat = torch.as_tensor(np.concatenate([a.ravel() for a in arrays]),
+                           device=device)
+    out, offset = [], 0
+    for a in arrays:
+        out.append(flat[offset:offset + a.size].view(a.shape))
+        offset += a.size
+    return out
+
+
 @dataclasses.dataclass
 class SubRun:
     """Consecutive stage-4 windows of one length run the same way.
@@ -225,6 +278,12 @@ class PipelineConfig:
                              f"{self.precision!r}")
 
 
+# the stages replayed from CUDA graphs by default, in both precisions:
+# those whose graphed median the card measured below the eager minimum
+# (`chip_smoke.py` phase `graphs`; PERF.md section 7)
+CUDA_GRAPHS = STAGES
+
+
 class ProPainterPipeline:
     """The three models and the four stages.
 
@@ -239,11 +298,19 @@ class ProPainterPipeline:
     mesh: the devices `shard_inference` splits over (`parallel.make_mesh`;
     None = every visible GPU, or the CPU once when `device` is the CPU).
     Each distinct device holds a replica of the models; with one device
-    nothing is split."""
+    nothing is split.
+
+    cuda_graphs: the stages (of `graphs.STAGES`) replayed from CUDA graphs
+    on CUDA with a one-device mesh; () runs every stage eagerly. It has no
+    effect on the CPU. The default, `CUDA_GRAPHS`, is the stages the card
+    measured faster than eager. A pipeline's graphs and their memory pool
+    live as long as it does, and it keeps the graphs of the shapes its
+    last video used (`StageGraphs.begin_video`): reuse one pipeline across
+    videos."""
 
     def __init__(self, raft, flowcomp, inpaint,
                  config: PipelineConfig | None = None, *, device=None,
-                 mesh=None):
+                 mesh=None, cuda_graphs=CUDA_GRAPHS):
         self.config = config or PipelineConfig()
         bf16 = self.config.precision == "bf16"
         if (bf16 and self.config.shard_inference
@@ -293,6 +360,9 @@ class ProPainterPipeline:
                 self._raft_bf16.corr_volume_dtype = torch.bfloat16
         self._replicas = {name: replicate(getattr(self, name), self.mesh)
                           for name in ("raft", "flowcomp", "inpaint")}
+        self.graphs = StageGraphs(
+            cuda_graphs if self.device.type == "cuda" and len(self.mesh) == 1
+            else ())
 
     def _sync(self):
         for dev in set(self.mesh) | {self.device}:
@@ -349,12 +419,17 @@ class ProPainterPipeline:
         T, W = frames.shape[1], frames.shape[3]
         clip = self.config.raft_clip_len or get_short_clip_len(W)
         iters = self.config.raft_iter
+
+        def raft_bi(chunk):
+            return self.graphs("raft", lambda x: self._raft_bi(x, iters),
+                               (chunk,), (iters,))
+
         if T <= clip:
-            return self._raft_bi(frames, iters)
+            return raft_bi(frames)
         fs, bs = [], []
         for f in range(0, T, clip):
             s = f if f == 0 else f - 1
-            ff, fb = self._raft_bi(frames[:, s:min(T, f + clip)], iters)
+            ff, fb = raft_bi(frames[:, s:min(T, f + clip)])
             fs.append(ff)
             bs.append(fb)
         return torch.cat(fs, dim=1), torch.cat(bs, dim=1)
@@ -415,15 +490,19 @@ class ProPainterPipeline:
                               flow_masks[:, s:e + 1]))
             if out is not None:
                 return out
+
+        def complete(*chunk):
+            return self.graphs("flow_completion", self._complete_flow, chunk)
+
         if unchunked or n <= sub:
-            return self._complete_flow(flows_f, flows_b, flow_masks)
+            return complete(flows_f, flows_b, flow_masks)
         pred_f, pred_b = [], []
         pad = 5
         for f in range(0, n, sub):
             s, e = max(0, f - pad), min(n, f + sub + pad)
             ps, pe = f - s, e - min(n, f + sub)
-            pf, pb = self._complete_flow(flows_f[:, s:e], flows_b[:, s:e],
-                                         flow_masks[:, s:e + 1])
+            pf, pb = complete(flows_f[:, s:e], flows_b[:, s:e],
+                              flow_masks[:, s:e + 1])
             pred_f.append(pf[:, ps:e - s - pe])
             pred_b.append(pb[:, ps:e - s - pe])
         return torch.cat(pred_f, dim=1), torch.cat(pred_b, dim=1)
@@ -451,16 +530,19 @@ class ProPainterPipeline:
                               flows_b[:, s:e - 1], masks_dilated[:, s:e]))
             if out is not None:
                 return out
+
+        def propagate(*chunk):
+            return self.graphs("image_propagation", self._img_prop, chunk)
+
         if unchunked or T <= sub:
-            return self._img_prop(frames, flows_f, flows_b, masks_dilated)
+            return propagate(frames, flows_f, flows_b, masks_dilated)
         upd_frames, upd_masks = [], []
         pad = 10
         for f in range(0, T, sub):
             s, e = max(0, f - pad), min(T, f + sub + pad)
             ps, pe = f - s, e - min(T, f + sub)
-            uf, um = self._img_prop(frames[:, s:e], flows_f[:, s:e - 1],
-                                    flows_b[:, s:e - 1],
-                                    masks_dilated[:, s:e])
+            uf, um = propagate(frames[:, s:e], flows_f[:, s:e - 1],
+                               flows_b[:, s:e - 1], masks_dilated[:, s:e])
             upd_frames.append(uf[:, ps:e - s - pe])
             upd_masks.append(um[:, ps:e - s - pe])
         return torch.cat(upd_frames, dim=1), torch.cat(upd_masks, dim=1)
@@ -559,74 +641,127 @@ class ProPainterPipeline:
         frames) frame_valid, the batch (with its references' features and
         tokens and its bucket rows) split over the mesh; a tail batch is
         padded by repeating its windows with weight 0, and the compositing
-        skips them. A carried sub-run runs one window a call.
+        skips them. A carried sub-run runs one window a call. The plan's
+        index tensors and revisit masks reach the device in one upload a
+        video (`_plan_tensors`); each generator call is one call of the
+        "generation" stage on operands gathered per window (`_window`),
+        keyed by the plan's shapes, and is composited in window order
+        after it (`composite_windows`).
 
         ori_frames: (T, H, W, 3) uint8 tensor on the device. Returns
         (T, H, W, 3) uint8 on the device."""
         _, T, H, W, _ = updated_frames.shape
         plan = self.stage4_plan(masks_dilated)
         dt = self._dtype
-        dev = self.device
         uf, md, um = (x[0].to(dt) for x in (updated_frames, masks_dilated,
                                             updated_masks))
         ff, fb = (x[0].to(dt) for x in pred_flows_bi)
         masks_bin = masks_dilated[0]
         gen = self.inpaint
-
-        def encode(ids):
-            return gen.encode(uf[ids], md[ids], um[ids])
-
-        ru = torch.as_tensor(plan.ref_union, device=dev)
-        ref_feat = encode(ru)
+        ru, subruns = self._plan_tensors(plan, T)
+        ref_feat = gen.encode(uf[ru], md[ru], um[ru])
         ref_tok = gen.tokenize(ref_feat)
-        comp = torch.zeros((T, H, W, 3), dtype=torch.float32, device=dev)
-        visited = torch.zeros(T, dtype=torch.bool)
-        ori = ori_frames.float()
-        wb = plan.window_batch
-        for sr in plan.subruns:
-            l_t, s = sr.l_t, sr.carry
+        comp = torch.zeros((T, H, W, 3), dtype=torch.float32,
+                           device=self.device)
+        for sr, (seed, batches) in zip(plan.subruns, subruns):
+            s = sr.carry
             if s:   # the seed: the first window's first l_t - s frames
-                carry = encode(torch.as_tensor(sr.windows[0][0][:l_t - s],
-                                               device=dev))
+                carry = gen.encode(uf[seed], md[seed], um[seed])
+            fn = functools.partial(self._window, sr.l_t, s)
+            for n_real, (nb, rp, valid, revisit, *mw) in batches:
+                pairs = nb[:, :-1]
+                args = (uf[nb], ff[pairs], fb[pairs], md[nb], um[nb], valid,
+                        ref_feat[rp], ref_tok[rp], masks_bin[nb],
+                        ori_frames[nb], *mw)
+                if s:
+                    img, carry = self.graphs("generation", fn,
+                                             args + (carry,), (sr.l_t, s))
+                else:
+                    img = self.graphs("generation", fn, args, (sr.l_t, s))
+                comp = composite_windows(comp, img, nb, revisit, n_real)
+        return comp.to(torch.uint8)
+
+    def _plan_tensors(self, plan: Stage4Plan, T: int):
+        """The plan's index tensors on the device, from one upload of its
+        integers and one of its booleans: (reference union rows, [(carry
+        seed frames or None, [(n_real, (nb, rp, valid, revisit, *bucket))
+        per generator call])] per sub-run). nb (wb, l_t) frame ids, rp (wb,
+        ref_pad) union rows, valid (wb, l_t + ref_pad) frame_valid, bucket
+        (idx, valid) (wb, m_b) when the sub-run has one; revisit (n_real,
+        l_t): whether each real window's frame was composited by an
+        earlier window, in the plan's order (visits depend on the plan
+        alone)."""
+        wb = plan.window_batch
+        ints, bools = [np.asarray(plan.ref_union, np.int64)], []
+        layout = []
+        visited = np.zeros(T, np.bool_)
+        for sr in plan.subruns:
+            seed = None
+            if sr.carry:
+                seed = len(ints)
+                ints.append(np.asarray(sr.windows[0][0][:sr.l_t - sr.carry],
+                                       np.int64))
+            batches = []
             for start in range(0, len(sr.windows), wb):
                 rows = list(range(start, min(start + wb, len(sr.windows))))
                 n_real = len(rows)
                 rows = (rows * wb)[:wb]   # tail: repeats of weight 0
-                batch = [sr.windows[i] for i in rows]
-                nb, rp, valid = (torch.as_tensor([w[i] for w in batch],
-                                                 device=dev)
-                                 for i in range(3))
-                mw = () if sr.masked is None else tuple(
-                    torch.as_tensor(a[rows], device=dev) for a in sr.masked)
-                if s:
-                    local = torch.cat([carry, encode(nb[0, l_t - s:])])
-                    carry = local[s:]
-                    pred = gen(None, (ff[nb[:, :-1]], fb[nb[:, :-1]]),
-                               md[nb], um[nb], l_t, frame_valid=valid,
-                               precomputed_enc_feat=torch.cat(
-                                   [local[None], ref_feat[rp]], dim=1),
-                               precomputed_ref_tokens=ref_tok[rp],
-                               masked_windows=mw or None)
-                else:
-                    (pred,) = self._sharded(
-                        "inpaint", lambda m, x, f_, b_, mi, mu, fv, rf, rt,
-                        *mw_: (m(x, (f_, b_), mi, mu, l_t, frame_valid=fv,
-                                 precomputed_ref_feat=rf,
-                                 precomputed_ref_tokens=rt,
-                                 masked_windows=mw_ or None),),
-                        uf[nb], ff[nb[:, :-1]], fb[nb[:, :-1]], md[nb],
-                        um[nb], valid, ref_feat[rp], ref_tok[rp], *mw)
-                img8 = torch.floor((pred.float() + 1.0) / 2.0 * 255.0).clamp(
-                    0.0, 255.0)
+                nb = np.asarray([sr.windows[i][0] for i in rows], np.int64)
+                revisit = np.zeros((n_real, sr.l_t), np.bool_)
                 for w in range(n_real):
-                    for j, t in enumerate(batch[w][0]):
-                        m = masks_bin[t]
-                        img = img8[w, j] * m + ori[t] * (1.0 - m)
-                        if visited[t]:
-                            img = torch.floor(0.5 * comp[t] + 0.5 * img)
-                        comp[t] = img
-                        visited[t] = True
-        return comp.to(torch.uint8)
+                    revisit[w] = visited[nb[w]]
+                    visited[nb[w]] = True
+                idx = [("i", len(ints)), ("i", len(ints) + 1),
+                       ("b", len(bools)), ("b", len(bools) + 1)]
+                ints += [nb, np.asarray([sr.windows[i][1] for i in rows],
+                                        np.int64)]
+                bools += [np.asarray([sr.windows[i][2] for i in rows],
+                                     np.bool_), revisit]
+                if sr.masked is not None:
+                    idx += [("i", len(ints)), ("b", len(bools))]
+                    ints.append(sr.masked[0][rows])
+                    bools.append(sr.masked[1][rows])
+                batches.append((n_real, idx))
+            layout.append((seed, batches))
+        dev = {"i": _upload(ints, self.device), "b": _upload(bools,
+                                                              self.device)}
+        return dev["i"][0], [
+            (None if seed is None else dev["i"][seed],
+             [(n_real, tuple(dev[kind][i] for kind, i in idx))
+              for n_real, idx in batches])
+            for seed, batches in layout]
+
+    def _window(self, l_t: int, s: int | None, x, f_, b_, mi, mu, fv, rf,
+                rt, masks, ori, *rest):
+        """Stage 4's graphed region: one generator call on a batch of
+        windows, from operands gathered per window (frames, flow pairs,
+        masks, frame_valid, the references' features and tokens, the
+        binary masks and original frames of `window_images`; rest: the
+        bucket's (idx, valid) if the sub-run has one, then, with the carry
+        stride s, the carried encoder features), so its key is the plan's
+        and not the video's. Returns `window_images`, and with s also the
+        next window's carry."""
+        gen = self.inpaint
+        carry = rest[-1] if s else None
+        mw = rest[:-1] if s else rest
+        if s:
+            new = slice(l_t - s, None)
+            local = torch.cat([carry, gen.encode(x[0, new], mi[0, new],
+                                                 mu[0, new])])
+            pred = gen(None, (f_, b_), mi, mu, l_t, frame_valid=fv,
+                       precomputed_enc_feat=torch.cat([local[None], rf],
+                                                      dim=1),
+                       precomputed_ref_tokens=rt, masked_windows=mw or None)
+        else:
+            (pred,) = self._sharded(
+                "inpaint", lambda m, x, f_, b_, mi, mu, fv, rf, rt,
+                *mw_: (m(x, (f_, b_), mi, mu, l_t, frame_valid=fv,
+                         precomputed_ref_feat=rf,
+                         precomputed_ref_tokens=rt,
+                         masked_windows=mw_ or None),),
+                x, f_, b_, mi, mu, fv, rf, rt, *mw)
+        img = window_images(pred, masks, ori)
+        return (img, local[s:]) if s else img
 
     # ---- whole pipeline --------------------------------------------------
 
@@ -663,6 +798,7 @@ class ProPainterPipeline:
                                 + time.perf_counter() - t0)
             return out
 
+        self.graphs.begin_video()
         with fp32_numerics():
             ori = upload(frames_np)
             frames = (ori.float() / 255.0 * 2.0 - 1.0)[None]

@@ -14,6 +14,20 @@ import chip_smoke
 from propainter_tpu_torch.ops import corr, deform
 from propainter_tpu_torch.pipeline import PipelineConfig
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch intra-op thread for the file, its module-scoped fixtures
+    included (an autouse fixture is set up before the others of its
+    scope): the suite runs this file beside other pytest-xdist workers,
+    and PyTorch's default of one OpenMP thread per core in every worker
+    oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123window_attention_kernelEPKfS2_S2_S2_Pfiiif' for 'sm_90a'
@@ -793,3 +807,37 @@ def test_foreground_margin_measures_both_directions():
     margin, agg = chip_smoke._foreground_margin(logits, sel)
     torch.testing.assert_close(agg, aggregate(torch.sigmoid(logits) * sel,
                                               dim=1).view(1, 3, -1))
+
+
+def test_k4_calls_reads_the_wrappers_shape_tallies(monkeypatch):
+    """`_k4_calls` counts K4's launches by (problems, query rows, keys)
+    from both forms' `shapes` tallies, only those made while it is
+    active, including what a CUDA-graph replay adds (`graphs._add`)."""
+    from propainter_tpu_torch import graphs
+    from propainter_tpu_torch.ops import flash_attention as fa
+
+    for fn in (fa.flash_window_attention, fa.flash_window_attention_bf16):
+        monkeypatch.setattr(fn, "shapes", {(4, 8, 16): 3})
+        monkeypatch.setattr(fn, "launches", 0)
+    record = {}
+    with chip_smoke._k4_calls(record):
+        graphs._add([(fa.flash_window_attention, 2, {(4, 8, 16): 2}),
+                     (fa.flash_window_attention_bf16, 1, {(8, 4, 4): 1})])
+    assert record == {(4, 8, 16): 2, (8, 4, 4): 1}
+
+
+def test_trace_counters_fold_the_forms_that_share_a_kernel():
+    """A run's launch counts as a profiler trace shows them: every counter
+    with a kernel symbol of its own kept, and K1 over a bf16 volume, an
+    instance of K1 bf16's kernel, counted with K1 bf16."""
+    launches = {k: i + 1 for i, k in enumerate(chip_smoke._launch_counters())}
+    got = chip_smoke._trace_counters(launches)
+    assert set(got) == set(chip_smoke.TRACE_KERNELS)
+    assert got["corr_lookup_moenc_bf16"] == (
+        launches["corr_lookup_moenc_bf16"]
+        + launches["corr_lookup_moenc_bf16_volume"])
+    assert all(got[k] == launches[k] for k in got
+               if k != "corr_lookup_moenc_bf16")
+    assert set(chip_smoke.TRACE_SHARED) == (
+        set(chip_smoke._launch_counters()) - set(chip_smoke.TRACE_KERNELS)
+        - {"deform_sample"})

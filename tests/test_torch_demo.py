@@ -31,12 +31,13 @@ from propainter_tpu_torch.demo import painters as torch_painters
 from propainter_tpu_torch.demo import session as torch_session
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    """One PyTorch intra-op thread per test: the suite runs this file beside
-    other pytest-xdist workers, and PyTorch's default of one OpenMP thread
-    per core in every worker oversubscribes the host (these tests took 20x
-    their time alone)."""
+    """One PyTorch intra-op thread for the file, its module-scoped fixtures
+    included (an autouse fixture is set up before the others of its
+    scope): the suite runs this file beside other pytest-xdist workers,
+    and PyTorch's default of one OpenMP thread per core in every worker
+    oversubscribes the host."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

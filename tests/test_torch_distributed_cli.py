@@ -8,6 +8,7 @@ tests/torch_dist_worker.py, as in tests/test_torch_distributed.py.
 
 import json
 import random
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -18,10 +19,13 @@ import torch.multiprocessing as mp
 import torch_dist_worker as worker
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    """One PyTorch intra-op thread per test (pytest-xdist runs this file
-    beside other workers; see tests/test_torch_cli.py)."""
+    """One PyTorch intra-op thread for the file, its module-scoped fixtures
+    included (an autouse fixture is set up before the others of its
+    scope): the suite runs this file beside other pytest-xdist workers,
+    and PyTorch's default of one OpenMP thread per core in every worker
+    oversubscribes the host."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -115,9 +119,11 @@ def test_cli_starts_a_rank_per_gpu_by_the_jax_rule(cli_root, monkeypatch,
     spawned = []
     monkeypatch.chdir(cli_root)
     monkeypatch.setattr(train, "_run", lambda *a: pytest.fail("no spawn"))
+    # the ranks "finish" at once: no rank reaches the parent's store
     monkeypatch.setattr(mp, "start_processes",
-                        lambda fn, args, nprocs, start_method:
-                        spawned.append((fn, args, nprocs)))
+                        lambda fn, args, nprocs, join, start_method:
+                        spawned.append((fn, args, nprocs)) or SimpleNamespace(
+                            join=lambda timeout=None: True, processes=[]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
     for name in worker.ENV:
@@ -128,7 +134,57 @@ def test_cli_starts_a_rank_per_gpu_by_the_jax_rule(cli_root, monkeypatch,
     assert out["ranks"] == 2 and len(spawned) == 1
     fn, (world, port, child_argv), nprocs = spawned[0]
     assert fn is train._rank_main and (world, nprocs) == (2, 2)
-    assert child_argv == argv
+    assert child_argv == argv and 0 < port < 2 ** 16
+
+
+def test_spawned_ranks_meet_at_the_parents_store(cli_root, tmp_path,
+                                                 monkeypatch):
+    """`_spawn_ranks` on two gloo ranks (the CLI reaches it only with
+    several GPUs; `--device cpu` makes the ranks gloo ranks): the parent
+    hosts the store on a port the OS picks, both ranks join it as
+    torchrun's agent store and train a step, rank 0 writes the step's
+    metrics. The test's own deadline stops the ranks and fails."""
+    import threading
+
+    from propainter_tpu_torch.cli import train
+
+    (tmp_path / "datasets").symlink_to(cli_root / "datasets")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    for name in worker.ENV:
+        monkeypatch.delenv(name, raising=False)
+    contexts = []
+    start = mp.start_processes
+    monkeypatch.setattr(mp, "start_processes", lambda *a, **kw: (
+        contexts.append(start(*a, **kw)) or contexts[-1]))
+    cfg = str(cli_root / "train_dist.json")
+    argv = ["-c", cfg, "--max_iters", "1", "--device", "cpu"]
+    result = {}
+
+    def spawn():
+        try:
+            result["out"] = train._spawn_ranks(2, argv, json.loads(
+                (cli_root / "train_dist.json").read_text()), cfg)
+        except BaseException as e:  # re-raised below
+            result["error"] = e
+
+    thread = threading.Thread(target=spawn)
+    thread.start()
+    thread.join(worker.JOIN_DEADLINE_S)
+    if thread.is_alive():
+        for p in contexts[0].processes:
+            p.kill()
+        thread.join(30)
+        pytest.fail(f"the ranks did not finish within "
+                    f"{worker.JOIN_DEADLINE_S:.0f} s")
+    if "error" in result:
+        raise result["error"]
+    assert result["out"]["ranks"] == 2
+    assert all(p.exitcode == 0 for p in contexts[0].processes)
+    run = tmp_path / result["out"]["save_dir"]
+    rows = [json.loads(line) for line in
+            (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+    assert [row["step"] for row in rows] == [1]
 
 
 # ---------------------------------------------------------------------------

@@ -36,10 +36,13 @@ CLIP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "assets", "demo_clip")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    """One PyTorch intra-op thread per test: the suite runs this file beside
-    other pytest-xdist workers (see tests/test_torch_cli.py)."""
+    """One PyTorch intra-op thread for the file, its module-scoped fixtures
+    included (an autouse fixture is set up before the others of its
+    scope): the suite runs this file beside other pytest-xdist workers,
+    and PyTorch's default of one OpenMP thread per core in every worker
+    oversubscribes the host."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -34,12 +34,13 @@ TINY = torch_sam.SamConfig(**{
 RTOL = 1e-4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    """One PyTorch intra-op thread per test: the suite runs this file beside
-    other pytest-xdist workers, and PyTorch's default of one OpenMP thread
-    per core in every worker oversubscribes the host (these tests took 20x
-    their time alone)."""
+    """One PyTorch intra-op thread for the file, its module-scoped fixtures
+    included (an autouse fixture is set up before the others of its
+    scope): the suite runs this file beside other pytest-xdist workers,
+    and PyTorch's default of one OpenMP thread per core in every worker
+    oversubscribes the host."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

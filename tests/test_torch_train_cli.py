@@ -24,10 +24,13 @@ from propainter_tpu_torch.weights import seeded_init_
 H, W = 64, 96
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    """One PyTorch intra-op thread per test (pytest-xdist runs this file
-    beside other workers; see tests/test_torch_cli.py)."""
+    """One PyTorch intra-op thread for the file, its module-scoped fixtures
+    included (an autouse fixture is set up before the others of its
+    scope): the suite runs this file beside other pytest-xdist workers,
+    and PyTorch's default of one OpenMP thread per core in every worker
+    oversubscribes the host."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
