@@ -181,7 +181,16 @@ Phases:
               (all 32 blocks unless the CPU's projected time is over
               `DEMO_CPU_BUDGET_S`, then the cut is printed), the decoder's
               4 mask logits and IoUs, first_frame_click's logit, and its
-              mask wherever |logit| is above the tolerance;
+              mask wherever |logit| is above the tolerance; SAM's two
+              CUDA-graph regions (`SamSegmenter(cuda_graphs=...)`)
+              against eager in alternating rounds, in the demo's click
+              sequence (3 frames, on each the clicks growing 1, 2, 3; a
+              new segmenter a sequence, captures included): the encoder,
+              the decoder with `points_bucket` None and 8, each one's
+              keep or drop on the segmenter's ms over the sequence, the
+              GiB its graphs hold against the eager peak, every mask and
+              logit graphed = eager bit for bit, the default regions
+              failing if the rule drops one;
   track       the demo's second part (`phase_track`) on a synthetic 480x854
               clip (DAVIS's size) of a textured background and two moving
               objects, seeded weights: `CutieTracker` with the release's
@@ -197,11 +206,24 @@ Phases:
               the writes at 5 and 25 (the trim) and the reads after
               them first, the rest as the CPU's budget allows
               (probabilities within STAGE_REL_TOL, masks equal where the
-              winner leads by more); `FlowMaskTracker` with
-              RAFT in fp32 at raft_iter 20: ms a frame, K1 / K2 launches a
-              frame (counters and the profiler) against RAFT's 20 and 1 a
-              pair batch, one pair's flow GPU against CPU; then
-              `TrackingFacade` end to end: SAM vit_h's click, Cutie's
+              winner leads by more), these passes eager; Cutie's three
+              CUDA-graph regions (`CutieCore(cuda_graphs=...)`) against
+              eager over 60 frames in alternating pairs: ms a frame, after
+              the first trim too, each region's replay ms and keep or
+              drop (a default region dropped fails), the device's busy
+              share in a read frame, captures,
+              capture s and the graphs' GiB against the eager peak, the
+              probabilities graphed = eager bit for bit, also on a second
+              clip replayed on the same graphs; `FlowMaskTracker` with
+              RAFT in fp32 at raft_iter 20 over 8 frames, its two regions
+              against eager in alternating pairs (ms a frame, each
+              region's keep or drop, a default one dropped failing, masks
+              graphed = eager bit for bit),
+              K1 / K2 launches a frame by the counters against RAFT's 20
+              and 1 a pair batch and a replayed frame's in a profiler
+              trace, one pair's flow GPU against CPU; then
+              `TrackingFacade` end to end with the owners' default
+              regions: SAM vit_h's click, Cutie's
               track, the bf16 inpaint, with K1-K4's bf16 launches against
               the pipeline's plan and every frame outside the dilated
               mask equal to the (resized) input; then the inpaint again
@@ -221,8 +243,8 @@ kernel's `launches` on the main path, 'flash' or the configuration of
 `dist_launches`, rank 0's in one step of the two gloo ranks,
 `flow_data`, K1's and K2's times at the four RAFT crops, and
 `track_launches`, the track phase's, summed: the flow tracker's fp32 K1 /
-K2 over its TRACK_FLOW_FRAMES - 2 = 3 timed frames and the facade's bf16
-inpaint of its 28 frames, timed once), the
+K2 over the TRACK_FLOW_FRAMES - 1 = 7 tracked frames of its first graphed
+track and the facade's bf16 inpaint of its 28 frames, timed once), the
 `nvidia-smi` line, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero, without that line, if any phase fails or there is no GPU.
@@ -5049,6 +5071,297 @@ def _rel_err(got, want) -> tuple[float, float]:
         scale, scale
 
 
+# the demo's CUDA-graph regions against eager (`_pairs`, `_decide`): a
+# region is kept where its graphed median over REGION_PAIRS alternating
+# pairs in one process lies below its eager minimum (PERF.md section 7)
+REGION_PAIRS = 3
+# the demo's click sequence (`_sam_graphs`, `_sam_session`): SAM_APP_IMAGES
+# frames (seeds DEMO_SEED, DEMO_SEED + 1, ...), on each the clicks growing
+# one at a time (DEMO_CLICKS' first n for n in DEMO_CLICK_COUNTS); the
+# configurations graphed, (points_bucket, regions), each against the eager
+# segmenter of its points_bucket
+SAM_APP_IMAGES = 3
+DEMO_CLICK_COUNTS = (1, 2, 3)
+SAM_CONFIGS = ((None, ("encode",)), (None, ("decode",)), (8, ("decode",)))
+
+
+class _RegionTimes:
+    """An owner's `graphs` (a `graphs.StageGraphs`) with each region call
+    between two CUDA events; `take()` gives the ms of the calls since the
+    last take, by region. Around a replay the events time the replay,
+    its inputs' copies and its outputs' clones; around an eager call, its
+    launches as the device ran them, gaps waiting on the host included."""
+
+    def __init__(self, graphs):
+        self.graphs, self.marks = graphs, []
+
+    def __call__(self, region, fn, tensors, static=()):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.graphs(region, fn, tensors, static)
+        end.record()
+        self.marks.append((region, start, end))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.graphs, name)
+
+    def take(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out: dict = {}
+        for region, start, end in self.marks:
+            out.setdefault(region, []).append(start.elapsed_time(end))
+        self.marks = []
+        return out
+
+
+def _timed_regions(owners: dict) -> dict:
+    """Each owner (a `CutieCore`, `FlowMaskTracker` or `SamSegmenter`)
+    with its graphs wrapped in `_RegionTimes`."""
+    for owner in owners.values():
+        owner.graphs = _RegionTimes(owner.graphs)
+    return owners
+
+
+def _pairs(run, owners: dict, pairs: int = REGION_PAIRS) -> dict:
+    """`pairs` alternating runs of run(owner) on owners["graphed"] and
+    owners["eager"], graphed first in even pairs: {side: [runs]}."""
+    runs: dict = {"graphed": [], "eager": []}
+    for i in range(pairs):
+        order = ("graphed", "eager") if i % 2 == 0 else ("eager", "graphed")
+        for side in order:
+            runs[side].append(run(owners[side]))
+    return runs
+
+
+def _decide(name: str, runs: dict, parts, smi: str) -> dict:
+    """Each part's graphed runs against its eager ones (`_pairs`; each
+    run a dict with one number per part, ms): kept where the graphed
+    median lies below the eager minimum."""
+    decisions = {}
+    for part in parts:
+        g = [r[part] for r in runs["graphed"]]
+        e = [r[part] for r in runs["eager"]]
+        keep = statistics.median(g) < min(e)
+        decisions[part] = dict(graphed=_spread(g), eager=_spread(e),
+                               keep=keep)
+        print(f"  {name} {part}: graphed median {statistics.median(g):.4f} "
+              f"ms ({min(g):.4f}-{max(g):.4f}), eager min {min(e):.4f} ms "
+              f"(median {statistics.median(e):.4f}) over {len(g)} pairs: "
+              + ("keep the graph" if keep else "stays eager") + f"; on {smi}")
+    return decisions
+
+
+def _busy(step) -> dict:
+    """step() once under torch.profiler (the device's activity only): wall
+    ms, the device's busy ms (its kernels and copies), the busy share and
+    the launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    return dict(wall_ms=wall, busy_ms=busy, share=busy / wall,
+                launches=sum(e.count for e in kern))
+
+
+def _same_arrays(what: str, got: list, want: list, failures: list) -> bool:
+    """Arrays (or tuples of arrays) equal bit for bit, item by item; a
+    difference is added to `failures` with the items it is in."""
+    import numpy as np
+
+    def equal(a, b):
+        if isinstance(a, tuple):
+            return all(equal(x, y) for x, y in zip(a, b))
+        return np.array_equal(a, b)
+
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if not equal(g, w)]
+    if bad or len(got) != len(want):
+        failures.append(f"{what}: graphed and eager differ at items "
+                        f"{bad[:12]} of {len(want)}")
+    return not bad
+
+
+def _check_defaults(name: str, owner_cls, decisions: dict,
+                    failures: list) -> None:
+    """Each region `owner_cls` graphs by default must be kept by this run's
+    rule (`decisions[region]["keep"]`), else a failure; a region the rule
+    keeps that is off by default is printed. The default is the
+    owner's `cuda_graphs` default."""
+    import inspect
+
+    default = tuple(inspect.signature(owner_cls).parameters[
+        "cuda_graphs"].default)
+    dropped = [r for r in default if not decisions[r]["keep"]]
+    if dropped:
+        failures.append(f"{name}: the default regions {dropped} failed the "
+                        f"keep-or-drop rule")
+    extra = [r for r, d in decisions.items()
+             if d["keep"] and r not in default]
+    print(f"  {name} default regions {list(default)}: kept by the rule "
+          f"{not dropped}" + (f"; kept by the rule, off by default: {extra}"
+                              if extra else ""))
+
+
+def _sam_session(model, bucket, regions, frames, clicks, labels) -> dict:
+    """The demo's click sequence on a new `SamControler` of `model` (a new
+    app): on each of `frames` the image reset, then first_frame_click with
+    the first n clicks for each n in DEMO_CLICK_COUNTS (the first click
+    embeds the frame; the app's on_click). Each click's wall ms, painted
+    preview included, and the segmenter's part of it (set_image and
+    predict; predict reads its results back); each region call's event
+    ms by image (`_RegionTimes`); the masks and logits; the graphs'
+    captures and capture s; the GiB the segmenter holds after the
+    sequence (its graphs' pool and static inputs, the embedding) and its
+    peak allocated, both above what was held before it."""
+    import torch
+    from propainter_tpu_torch.demo import SamControler, SamSegmenter
+
+    base = _graph_memory()
+    base_alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seg = SamSegmenter(model, points_bucket=bucket, device="cuda",
+                       cuda_graphs=regions)
+    seg.graphs = _RegionTimes(seg.graphs)
+    sam_ms = []
+    for method in ("set_image", "predict"):
+        def timed(*args, _fn=getattr(seg, method), **kw):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            sam_ms[-1] += (time.perf_counter() - t0) * 1e3
+            return out
+        setattr(seg, method, timed)
+    ctrl = SamControler(seg)
+    out, click_ms, region_ms = [], [], []
+    for frame in frames:
+        seg.reset_image()
+        for n in DEMO_CLICK_COUNTS:
+            sam_ms.append(0.0)
+            t0 = time.perf_counter()
+            mask, logit, _ = ctrl.first_frame_click(frame, clicks[:n],
+                                                    labels[:n])
+            click_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append((mask, logit))
+        region_ms.append(seg.graphs.take())
+    k = len(DEMO_CLICK_COUNTS)
+    last = region_ms[-1]
+    run = dict(sam=sum(sam_ms), click=sum(click_ms),
+               sam_images=[sum(sam_ms[i:i + k])
+                           for i in range(0, len(sam_ms), k)],
+               worst_click=max(click_ms),
+               last_image_ms_a_call={r: statistics.mean(v)
+                                     for r, v in last.items()},
+               graphs=seg.graphs.counts(),
+               capture_s=seg.graphs.capture_seconds,
+               peak_gib=(torch.cuda.max_memory_allocated() - base_alloc)
+               / 2 ** 30)
+    run["held_gib"] = _graph_memory() - base
+    del seg, ctrl
+    _graph_memory()
+    return dict(run, out=out)
+
+
+def _sam_graphs(model, frames: list, clicks, labels, smi: str,
+                failures: list) -> dict:
+    """SAM's two regions from CUDA graphs against eager in the demo's own
+    click sequence (`_sam_session`: SAM_APP_IMAGES frames, the clicks
+    growing on each, a new segmenter a sequence), for each configuration
+    of SAM_CONFIGS against the eager segmenter of its `points_bucket`,
+    REGION_PAIRS rounds of every configuration in alternating order. With
+    `points_bucket` None (the default) a click count recurs only on the
+    next frame: the graphs capture on the second frame and replay from
+    the third. Each configuration's decision on the segmenter's ms over
+    the sequence, captures included (`_decide`); the whole clicks' ms,
+    the segmenter's ms by frame, each region's event ms a call on the last
+    frame, the captures, capture s and the GiB the graphs hold against
+    the eager peak; every mask and logit of a graphed sequence equal to
+    the eager one's bit for bit; SAM's default regions against the
+    decisions of `points_bucket` None (`_check_defaults`)."""
+    from propainter_tpu_torch.demo.segmenter import SamSegmenter
+
+    buckets = list(dict.fromkeys(b for b, _ in SAM_CONFIGS))
+    eager_of = {b: "eager" if b is None else f"eager_bucket{b}"
+                for b in buckets}
+    # each eager segmenter before the graphed ones in the first round
+    configs = [(eager_of[b], b, ()) for b in buckets] + [
+        ("+".join(regions) + ("" if bucket is None else f"_bucket{bucket}"),
+         bucket, regions) for bucket, regions in SAM_CONFIGS]
+    runs: dict = {name: [] for name, _, _ in configs}
+    want: dict = {}
+    for i in range(REGION_PAIRS):
+        for name, bucket, regions in (configs if i % 2 == 0
+                                      else configs[::-1]):
+            run = _sam_session(model, bucket, regions, frames, clicks,
+                               labels)
+            out = run.pop("out")
+            if regions:
+                _same_arrays(f"SAM {name}", out, want[bucket], failures)
+            else:
+                want.setdefault(bucket, out)
+            runs[name].append(run)
+    decisions, report = {}, dict(images=len(frames),
+                                 clicks=list(DEMO_CLICK_COUNTS), configs={})
+    for name, bucket, regions in configs:
+        if not regions:
+            continue
+        eager = eager_of[bucket]
+        got = _decide(f"SAM {name} over the click sequence",
+                      dict(graphed=runs[name], eager=runs[eager]),
+                      ("sam",), smi)["sam"]
+        if bucket is None and len(regions) == 1:
+            decisions[regions[0]] = got
+
+        def med(side, pick):
+            return statistics.median(pick(r) for r in runs[side])
+
+        def per_image(side):
+            return " / ".join(f"{med(side, lambda r: r['sam_images'][j]):.2f}"
+                              for j in range(len(frames)))
+
+        def calls(side):
+            return ", ".join(
+                f"{r} {med(side, lambda x: x['last_image_ms_a_call'][r]):.3f}"
+                for r in regions)
+
+        g = runs[name][0]
+        print(f"  SAM {name} (points_bucket {bucket}), {len(frames)} frames "
+              f"x clicks {list(DEMO_CLICK_COUNTS)}, medians: the "
+              f"segmenter's ms by frame graphed {per_image(name)} against "
+              f"eager {per_image(eager)}; whole clicks (painted preview "
+              f"included) {med(name, lambda r: r['click']):.2f} against "
+              f"{med(eager, lambda r: r['click']):.2f} ms a sequence, worst "
+              f"click {med(name, lambda r: r['worst_click']):.2f} against "
+              f"{med(eager, lambda r: r['worst_click']):.2f}; on the last "
+              f"frame ms a call "
+              f"{calls(name)} against eager {calls(eager)}; graphs "
+              f"{g['graphs']}, capture {g['capture_s']:.3f} s; held after "
+              f"the sequence {g['held_gib']:.3f} GiB (eager "
+              f"{runs[eager][0]['held_gib']:.3f}), peak allocated "
+              f"{g['peak_gib']:.3f} GiB against eager "
+              f"{runs[eager][0]['peak_gib']:.3f}; on {smi}")
+        report["configs"][name] = dict(bucket=bucket, regions=list(regions),
+                                       runs=runs[name], eager=runs[eager],
+                                       decision=got)
+    _check_defaults("SamSegmenter", SamSegmenter, decisions, failures)
+    print(f"  SAM regions: masks and logits graphed = eager bit for bit "
+          f"{not any(f.startswith('SAM') for f in failures)}; on {smi}")
+    report["decisions"] = decisions
+    return report
+
+
 def phase_demo(state: dict, smi: str) -> None:
     """The demo's click-to-mask path (`SamSegmenter`, `SamControler`) at
     SAM vit_h, 1024x1024, fp32, seeded weights (`_sam_model`), on a
@@ -5065,7 +5378,11 @@ def phase_demo(state: dict, smi: str) -> None:
     CPU's projected whole-encoder time is within `DEMO_CPU_BUDGET_S`; else
     the cut is printed and the CPU decodes the GPU's embedding), the
     decoder's 4 mask logits and IoUs, and first_frame_click's logit; its
-    mask must equal the CPU's wherever |logit| is above the tolerance."""
+    mask must equal the CPU's wherever |logit| is above the tolerance.
+    The segmenter runs its default CUDA-graph regions (none); then the
+    encoder and the decoder graphed against eager in the demo's click
+    sequence over SAM_APP_IMAGES frames, each region's keep or drop
+    (`_sam_graphs`)."""
     import numpy as np
     import torch
     from propainter_tpu_torch.demo import SamControler, SamSegmenter
@@ -5243,6 +5560,10 @@ def phase_demo(state: dict, smi: str) -> None:
                   mask_fraction=float(mask_g.mean()),
                   logit_rel_err=err, mask_pixels_flipped=flipped,
                   launches=launches, smi=smi)
+    report["graphs"] = _sam_graphs(
+        seg.model, [frame] + [_sam_frame(*DEMO_FRAME, seed=DEMO_SEED + i)
+                              for i in range(1, SAM_APP_IMAGES)],
+        clicks, labels, smi, failures)
     state["demo"] = report
     if failures:
         raise AssertionError("; ".join(failures))
@@ -5253,7 +5574,13 @@ TRACK_FRAMES = 28               # memory frames 0, 5, ..., 25: the trim at 25
 TRACK_CORE = dict(mem_every=5, max_mem_frames=5, top_k=30,
                   stagger_updates=5)          # the demo's CutieCoreConfig
 TRACK_CPU_BUDGET_S = 40.0       # the CPU engine's projected time limit
-TRACK_FLOW_FRAMES = 5
+TRACK_FLOW_FRAMES = 8
+# Cutie graphed against eager (`_cutie_graphs`): every memory length (1-5
+# frames' tokens) by frame 21, the first trim at 25 (`TRACK_CORE`), then
+# 34 frames of the steady state from CUTIE_STEADY
+CUTIE_GRAPH_FRAMES = 60
+CUTIE_STEADY = TRACK_CORE["mem_every"] * TRACK_CORE["max_mem_frames"] + 1
+CUTIE_SECOND_SEED = TRACK_SEED + 1
 # Cutie's two hard decisions, replayed on the CPU from the GPU: the top-k
 # token set of each pixel's memory read and the query transformer's
 # foreground mask (`>=` against the max of the aggregated logits). Where
@@ -5432,11 +5759,13 @@ def _decision_hooks(topk, aux):
 
 
 def _track_cutie(frames, masks0, cpu_model, failures: list) -> dict:
-    """Cutie over the clip on the GPU twice: a timed pass (ms a frame and
-    by part, memory tokens, the trim, launches, peak) and a checked pass
-    recording the state before each step, each read's top-k choice and
-    its affinity's spread; then the same engine on the CPU, step by step
-    from the checked pass's states and top-k choices."""
+    """Cutie over the clip on the GPU twice, eagerly (`cuda_graphs=()`:
+    the passes wrap methods a CUDA-graph replay never calls): a timed
+    pass (ms a frame and by part, memory tokens, the trim, launches,
+    peak) and a checked pass recording the state before each step, each
+    read's top-k choice and its affinity's spread; then the same engine
+    on the CPU, step by step from the checked pass's states and top-k
+    choices."""
     import numpy as np
     import torch
     from propainter_tpu_torch.demo.cutie_core import (CutieCore,
@@ -5444,7 +5773,7 @@ def _track_cutie(frames, masks0, cpu_model, failures: list) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     core = CutieCore(cpu_model.state_dict(), config=CutieCoreConfig(
-        **TRACK_CORE), device="cuda")
+        **TRACK_CORE), device="cuda", cuda_graphs=())
     marks, tokens, trims = [], [], []
     _timed_parts(core, marks)
     add = core._add_memory
@@ -5505,7 +5834,7 @@ def _track_cutie(frames, masks0, cpu_model, failures: list) -> dict:
 
     # the checked pass
     core = CutieCore(cpu_model.state_dict(), config=CutieCoreConfig(
-        **TRACK_CORE), device="cuda")
+        **TRACK_CORE), device="cuda", cuda_graphs=())
     chosen, spread, aux = {}, [], {}
 
     def record_topk(real, similarity, top_k):
@@ -5627,65 +5956,253 @@ def _track_cutie(frames, masks0, cpu_model, failures: list) -> dict:
                 mask_pixels_flipped=flipped), core
 
 
-def _track_flow(frames, template, raft, failures: list) -> dict:
-    """FlowMaskTracker with RAFT in fp32 at raft_iter 20 on the GPU: ms a
-    frame, K1 / K2 launches a frame by the counters and by the profiler,
-    one pair's flows against the CPU."""
-    import numpy as np
+def _cutie_run(core, frames, masks0) -> dict:
+    """One track of `core` (its graphs `_RegionTimes`): the probabilities
+    a frame, the ms a frame on the host's clock (a step returns its
+    probabilities on the host) over every frame after the first
+    (`frame`) and after the first FIFO trim (`steady`), and each region's
+    mean ms a call."""
+    core.clear_memory()
+    core.graphs.take()
+    probs, ms = [], []
+    for t, f in enumerate(frames):
+        t0 = time.perf_counter()
+        probs.append(core.step(f, masks0 if t == 0 else None))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    regions = core.graphs.take()
+    return dict(probs=probs, ms=ms, frame=statistics.mean(ms[1:]),
+                steady=statistics.mean(ms[CUTIE_STEADY:]),
+                **{r: statistics.mean(v) for r, v in regions.items()})
+
+
+def _cutie_graphs(cpu_model, failures: list, smi: str) -> dict:
+    """Cutie's three regions from CUDA graphs against eager: two
+    `CutieCore`s of the release's Cutie (`cpu_model`'s weights), graphed
+    (`CUTIE_REGIONS`) and eager (`cuda_graphs=()`), on 2 objects over
+    CUTIE_GRAPH_FRAMES frames of 480x854 (`_track_clip`), each region
+    timed by events (`_RegionTimes`): the eager track (the reference, its
+    peak memory), the graphed one's first track (its first sights and
+    captures: encode 1, read one a memory length, write 1, every key
+    captured within it), then REGION_PAIRS alternating pairs, every
+    graphed track's probabilities equal to the eager reference bit for
+    bit; a second clip (another seed) replayed on the same graphs
+    against eager on it, with no new key; one profiled read frame each
+    way (the device's busy share); captures, capture s and the graphs'
+    GiB (pool and static inputs) against the eager peak; each region's
+    and the frame's decision."""
+    import torch
+    from propainter_tpu_torch.demo.cutie_core import (
+        CUTIE_REGIONS, CutieCore, CutieCoreConfig)
+
+    frames, masks0 = _track_clip(CUTIE_GRAPH_FRAMES, *DEMO_FRAME,
+                                 seed=TRACK_SEED)
+    sd = cpu_model.state_dict()
+    cores = _timed_regions({side: CutieCore(
+        sd, config=CutieCoreConfig(**TRACK_CORE), device="cuda",
+        cuda_graphs=regions) for side, regions in (
+            ("eager", ()), ("graphed", CUTIE_REGIONS))})
+    graphs = cores["graphed"].graphs
+    base = _graph_memory()
+    torch.cuda.reset_peak_memory_stats()
+    want = _cutie_run(cores["eager"], frames, masks0)
+    peak_e = torch.cuda.max_memory_allocated() / 2 ** 30
+    first = _cutie_run(cores["graphed"], frames, masks0)
+    _same_arrays("Cutie's first graphed track", first["probs"],
+                 want["probs"], failures)
+    counts, keys = graphs.counts(), graphs.keys()
+    expect = dict(encode=1, read=TRACK_CORE["max_mem_frames"], write=1)
+    if counts != expect or len(keys) != sum(expect.values()):
+        failures.append(f"Cutie's graphs {counts} of {len(keys)} keys, "
+                        f"expected {expect}")
+
+    def track(core):
+        run = _cutie_run(core, frames, masks0)
+        if core is cores["graphed"]:
+            _same_arrays("Cutie graphed", run["probs"], want["probs"],
+                         failures)
+        return {k: v for k, v in run.items() if k != "probs"}
+
+    runs = _pairs(track, cores)
+    frames2, masks2 = _track_clip(CUTIE_GRAPH_FRAMES, *DEMO_FRAME,
+                                  seed=CUTIE_SECOND_SEED)
+    other = [_cutie_run(cores[side], frames2, masks2)["probs"]
+             for side in ("graphed", "eager")]
+    second_same = _same_arrays("Cutie's second clip", *other, failures)
+    if graphs.counts() != counts or graphs.keys() != keys:
+        failures.append("Cutie's second clip did not replay only the "
+                        "first clip's graphs")
+    busy = {}
+    for side, core in cores.items():
+        core.step(frames[-1])       # frame 60, a memory write
+        busy[side] = _busy(lambda: core.step(frames[-2]))   # a read
+    for core in cores.values():
+        core.clear_memory()         # the graphs of the last track stay
+    gib = _graph_memory() - base
+    decisions = _decide("Cutie", runs, ("frame", "steady") + CUTIE_REGIONS,
+                        smi)
+    _check_defaults("CutieCore", CutieCore,
+                    {r: decisions[r] for r in CUTIE_REGIONS}, failures)
+    med = {k: statistics.median(r[k] for r in runs["graphed"])
+           for k in ("frame", "steady") + CUTIE_REGIONS}
+    print(f"  Cutie graphed {DEMO_FRAME[1]}x{DEMO_FRAME[0]}, 2 objects, "
+          f"{CUTIE_GRAPH_FRAMES} frames: {med['frame']:.2f} ms a frame, "
+          f"{med['steady']:.2f} after the first trim (frames "
+          f"{CUTIE_STEADY}-{CUTIE_GRAPH_FRAMES - 1}); replays (ms a call) "
+          + ", ".join(f"{r} {med[r]:.3f}" for r in CUTIE_REGIONS)
+          + f"; eager {statistics.median(r['frame'] for r in runs['eager']):.2f}"
+          f" / {statistics.median(r['steady'] for r in runs['eager']):.2f} "
+          f"ms; first graphed track {first['frame']:.2f} ms a frame "
+          f"(captures); graphs by region {counts}, capture "
+          f"{graphs.capture_seconds:.3f} s, graphs' memory {gib:.2f} GiB "
+          f"(eager peak allocated {peak_e:.2f} GiB); device busy in a read "
+          f"frame graphed {100 * busy['graphed']['share']:.1f}% of "
+          f"{busy['graphed']['wall_ms']:.2f} ms ({busy['graphed']['launches']}"
+          f" launches), eager {100 * busy['eager']['share']:.1f}% of "
+          f"{busy['eager']['wall_ms']:.2f} ms ({busy['eager']['launches']}); "
+          f"probabilities graphed = eager bit for bit over every track and "
+          f"a second clip (seed {CUTIE_SECOND_SEED}): "
+          f"{not any(f.startswith('Cutie') for f in failures)}; on {smi}")
+    report = dict(frames=CUTIE_GRAPH_FRAMES, runs=runs, decisions=decisions,
+                  first_track_ms=first["frame"], graphs=counts,
+                  capture_s=graphs.capture_seconds, graphs_gib=gib,
+                  eager_peak_gib=peak_e, busy=busy,
+                  second_clip_identical=second_same)
+    del cores, graphs
+    _graph_memory()
+    return report
+
+
+def _flow_run(tracker, frames, template) -> dict:
+    """One track of `tracker` (its graphs `_RegionTimes`): each frame's
+    mask and soft mask, the ms a frame on the host's clock over the
+    tracked frames (`frame`), and each region's mean ms a call. OpenCV's
+    RNG is seeded first: GrabCut's k-means draws from it, so two tracks
+    of one process otherwise part by a few pixels."""
+    import cv2
+
+    cv2.setRNGSeed(0)
+    tracker.clear_memory()
+    tracker.graphs.take()
+    out, ms = [], []
+    for t, f in enumerate(frames):
+        t0 = time.perf_counter()
+        mask, soft, _ = tracker.track(f, template if t == 0 else None)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append((mask, soft))
+    regions = tracker.graphs.take()
+    return dict(out=out, ms=ms, frame=statistics.mean(ms[1:]),
+                **{r: statistics.mean(v) for r, v in regions.items()})
+
+
+def _flow_trace(tracker, frame) -> tuple:
+    """One more tracked frame of `tracker` under torch.profiler: (K1, K2)
+    kernels in the trace, (K1, K2) by the launch counters."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from propainter_tpu_torch.demo.tracking import FlowMaskTracker
 
-    tracker = FlowMaskTracker(raft, raft_iter=20, device="cuda")
-    tracker.track(frames[0], template)
-    tracker.track(frames[1])                    # warm-up
     _zero_launches()
-    ms, area = [], []
-    for f in frames[2:]:
-        t0 = time.perf_counter()
-        mask, _, _ = tracker.track(f)
-        ms.append((time.perf_counter() - t0) * 1e3)
-        area.append(float(mask.mean()))
-    launches = _read_launches()
-    n = len(frames) - 2
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tracker._raft_pair(frames[-1], frames[-2])
+        tracker.track(frame)
         torch.cuda.synchronize()
+    n = _read_launches()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    k1 = sum(e.count for e in kern if K1_KERNEL.search(e.key))
-    k2 = sum(e.count for e in kern if K2_KERNEL.search(e.key))
-    pair_ms = _time_ms(lambda: tracker._raft_pair(frames[-1], frames[-2]),
-                       reps=3, warmup=0)
+    return ((sum(e.count for e in kern if K1_KERNEL.search(e.key)),
+             sum(e.count for e in kern if K2_KERNEL.search(e.key))),
+            (n["corr_lookup_moenc"], n["corr_pyramid_build"]))
+
+
+def _track_flow(frames, template, raft, failures: list, smi: str) -> dict:
+    """FlowMaskTracker with RAFT in fp32 at raft_iter 20 on the GPU, its
+    two regions from CUDA graphs (`FLOW_TRACKER_REGIONS`) against an eager
+    twin (`cuda_graphs=()`), each region timed by events
+    (`_RegionTimes`): the eager track (the reference), the graphed one's
+    first (first sights and captures; its K1 / K2 launches by the
+    counters against 20 / 1 a frame), REGION_PAIRS alternating pairs,
+    every graphed track's masks and soft masks equal to the eager ones
+    bit for bit, each region's and the frame's decision; a replayed
+    frame's K1 / K2 in a profiler trace against its counters (20 / 1);
+    one pair's flows against the CPU."""
+    import numpy as np
+    from propainter_tpu_torch.demo.tracking import (FLOW_TRACKER_REGIONS,
+                                                    FlowMaskTracker)
+
+    trackers = _timed_regions({side: FlowMaskTracker(
+        raft, raft_iter=20, device="cuda", cuda_graphs=regions)
+        for side, regions in (("eager", ()),
+                              ("graphed", FLOW_TRACKER_REGIONS))})
+    graphed = trackers["graphed"]
+    want = _flow_run(trackers["eager"], frames, template)
+    _zero_launches()
+    first = _flow_run(graphed, frames, template)
+    launches = _read_launches()
+    _same_arrays("the flow tracker's first graphed track", first["out"],
+                 want["out"], failures)
+    n = len(frames) - 1
+
+    def track(tracker):
+        run = _flow_run(tracker, frames, template)
+        if tracker is graphed:
+            _same_arrays("the flow tracker graphed", run["out"], want["out"],
+                         failures)
+        return {k: v for k, v in run.items() if k != "out"}
+
+    runs = _pairs(track, trackers)
+    traces = [_flow_trace(graphed, frames[-1])]
+    if traces[0][0] != traces[0][1]:    # a trace can lose records
+        traces.append(_flow_trace(graphed, frames[-2]))
+    (k1, k2), counted = traces[-1]
+    decisions = _decide("FlowMaskTracker", runs,
+                        ("frame",) + FLOW_TRACKER_REGIONS, smi)
+    _check_defaults("FlowMaskTracker", FlowMaskTracker,
+                    {r: decisions[r] for r in FLOW_TRACKER_REGIONS},
+                    failures)
     t0 = time.perf_counter()
     cpu = FlowMaskTracker(raft, raft_iter=20, device="cpu")
-    want = cpu._raft_pair(frames[-1], frames[-2])
+    want_flow = cpu._raft_pair(frames[-1], frames[-2])
     t_cpu = time.perf_counter() - t0
-    got = tracker._raft_pair(frames[-1], frames[-2])
+    got = graphed._raft_pair(frames[-1], frames[-2])
     errs = [float(np.abs(g - w).max() / np.abs(w).max())
-            for g, w in zip(got, want)]
+            for g, w in zip(got, want_flow)]
+    area = [float(m.mean()) for m, _ in first["out"]]
+    med = {side: {k: statistics.median(r[k] for r in runs[side])
+                  for k in ("frame",) + FLOW_TRACKER_REGIONS}
+           for side in runs}
     print(f"  FlowMaskTracker (RAFT fp32, raft_iter 20) "
-          f"{frames.shape[2]}x{frames.shape[1]}: "
-          f"{statistics.median(ms):.2f} ms a frame ({min(ms):.2f}-"
-          f"{max(ms):.2f}, {n} frames; RAFT's pair {pair_ms:.2f} ms, the "
-          f"rest host: warp, gate, GrabCut); mask share "
-          f"{min(area):.3f}-{max(area):.3f}; K1 / K2 a frame: counters "
-          f"{launches['corr_lookup_moenc'] / n:g} / "
-          f"{launches['corr_pyramid_build'] / n:g}, profiler {k1} / {k2} "
-          f"(RAFT on a pair batch of 2: 20 / 1); one pair's flows GPU vs "
-          f"CPU {max(errs):.3e} of scale (limit {STAGE_REL_TOL}; CPU "
-          f"{t_cpu:.1f} s)")
+          f"{frames.shape[2]}x{frames.shape[1]}, {n} tracked frames, medians"
+          f" (ms): " + "; ".join(
+              f"{side} {m['frame']:.2f} a frame, RAFT's pair "
+              f"{m['raft_pair']:.2f}, gate {m['gate']:.3f}"
+              for side, m in med.items())
+          + f"; the rest host: GrabCut and the transfers; mask share "
+          f"{min(area):.3f}-{max(area):.3f}; graphs by region "
+          f"{graphed.graphs.counts()}, capture "
+          f"{graphed.graphs.capture_seconds:.3f} s; masks graphed = eager "
+          f"bit for bit {not any(f.startswith('the flow') for f in failures)}"
+          f"; K1 / K2 a frame: counters {launches['corr_lookup_moenc'] / n:g}"
+          f" / {launches['corr_pyramid_build'] / n:g}, a replayed frame's "
+          f"trace {k1} / {k2} against its counters {counted[0]} / "
+          f"{counted[1]} (RAFT on a pair batch of 2: 20 / 1); one pair's "
+          f"flows GPU vs CPU {max(errs):.3e} of scale (limit "
+          f"{STAGE_REL_TOL}; CPU {t_cpu:.1f} s); on {smi}")
     want_l = {k: 0 for k in launches}
     want_l.update(corr_lookup_moenc=20 * n, corr_pyramid_build=n)
-    _check_launches("FlowMaskTracker", launches, want_l)
-    if (k1, k2) != (20, 1):
-        failures.append(f"the profiler saw K1 / K2 {k1} / {k2} in a pair")
+    _check_launches("FlowMaskTracker (graphed)", launches, want_l)
+    if (k1, k2) != counted or counted != (20, 1):
+        failures.append(f"a replayed frame's trace K1 / K2 {k1} / {k2}, "
+                        f"counters {counted}")
     if max(errs) > STAGE_REL_TOL:
         failures.append("the flow tracker's flows disagree with the CPU")
-    return dict(ms_a_frame=_spread(ms), raft_pair_ms=pair_ms,
-                launches=launches, profiler_k1_k2=[k1, k2],
-                flow_rel_err=max(errs), cpu_s=t_cpu, mask_share=area)
+    report = dict(ms_a_frame=_spread([r["frame"] for r in runs["graphed"]]),
+                  runs=runs, decisions=decisions, medians=med,
+                  launches=launches,
+                  traces=traces, graphs=graphed.graphs.counts(),
+                  capture_s=graphed.graphs.capture_seconds,
+                  flow_rel_err=max(errs), cpu_s=t_cpu, mask_share=area)
+    del trackers, graphed
+    _graph_memory()
+    return report
 
 
 def _facade_want(pipe, frames, masks) -> tuple:
@@ -5813,9 +6330,12 @@ def _checked_wrappers(wrappers: dict, found: dict):
 def phase_track(state: dict, smi: str) -> None:
     """The demo's second part at DAVIS's 480x854 with seeded weights
     (`_track_clip`, `_cutie_model`, `_models`, `_sam_model`): Cutie over
-    28 frames through its first FIFO trim (`_track_cutie`), the RAFT flow
-    tracker (`_track_flow`), then `TrackingFacade` end to end on the GPU:
-    SAM vit_h's first_frame_click, Cutie's generator, the bf16 inpaint,
+    28 frames through its first FIFO trim, eagerly, against the CPU
+    (`_track_cutie`), Cutie's CUDA-graph regions against eager over 60
+    frames (`_cutie_graphs`), the RAFT flow tracker's against eager
+    (`_track_flow`), then `TrackingFacade` end to end on the GPU with its
+    owners' default regions: SAM vit_h's first_frame_click, Cutie's
+    generator, the bf16 inpaint,
     with K1-K4's bf16 launches against the pipeline's plan
     (`_facade_want`) and every output frame equal to its (resized) input
     outside the dilated mask (the pipeline's compositing keeps those
@@ -5834,9 +6354,10 @@ def phase_track(state: dict, smi: str) -> None:
     cpu_cutie = _cutie_model(TRACK_SEED)
     report["cutie"], core = _track_cutie(frames, masks0, cpu_cutie,
                                          failures)
+    report["cutie_graphs"] = _cutie_graphs(cpu_cutie, failures, smi)
     mods = _models(seed=TRACK_SEED + 2)
     report["flow"] = _track_flow(frames[:TRACK_FLOW_FRAMES], masks0[0],
-                                 mods["raft"], failures)
+                                 mods["raft"], failures, smi)
 
     # the facade: SAM vit_h (the demo phase's seeded model), this Cutie,
     # the seeded inpainting models in bf16
@@ -5857,6 +6378,8 @@ def phase_track(state: dict, smi: str) -> None:
     t0 = time.perf_counter()
     masks, _, _ = facade.generator(list(frames), mask)
     t_track = time.perf_counter() - t0
+    owner_graphs = dict(sam=facade.segmenter.sam_controler.graphs.counts(),
+                        cutie=facade.tracker._core.graphs.counts())
     masks = np.stack(masks)
     seg_launches = _read_launches()
     pipe = facade.inpainter._pipeline(
@@ -5880,8 +6403,9 @@ def phase_track(state: dict, smi: str) -> None:
           f"{share.min():.3f}-{share.max():.3f}; inpaint (bf16, "
           f"{out.shape[2]}x{out.shape[1]}, first call) {t_inpaint:.2f} s; "
           f"peak {peak:.2f} GiB; output pixels changed outside the dilated "
-          f"mask {changed}, inside {inside} of {int((~keep).sum())}; on "
-          f"{smi}")
+          f"mask {changed}, inside {inside} of {int((~keep).sum())}; the "
+          f"demo's graphs by region after the click and the track "
+          f"{owner_graphs}; on {smi}")
     _check_launches("facade inpaint (bf16)", launches, want)
     # the same inpaint again, each bf16 kernel held against its plain
     # version at every distinct shape this video gives it, on an eager
@@ -5921,7 +6445,8 @@ def phase_track(state: dict, smi: str) -> None:
         click_s=t_click, track_s=t_track, inpaint_s=t_inpaint, sam_seed_s=t_sam,
         peak_gib=peak, mask_share=[float(share.min()), float(share.max())],
         launches=launches, want=want, outside_changed=changed,
-        inside_changed=inside, kernels_vs_plain=kernel_errs)
+        inside_changed=inside, kernels_vs_plain=kernel_errs,
+        graphs=owner_graphs)
     state.setdefault("launches", {})["track"] = {
         k: report["flow"]["launches"][k] + launches[k] for k in launches}
     state["track"] = report

@@ -14,19 +14,40 @@ stagger_updates=5), with every object registered on the first frame:
 The memory stays on the device as tensors; keys (1, Ck, T), shrinkage
 (1, 1, T), values (1, N_obj, Cv, T). Model passes run under
 `device.fp32_numerics()`.
+
+On CUDA a step's model passes run as three regions, each replayed from a
+CUDA graph per call key (`graphs.StageGraphs`), the counterpart of the
+JAX core's six jit sites in their three groups:
+  encode  encode_image + transform_key, every frame; key: the padded
+          frame's shape;
+  read    the top-k memory read, read_first and segment, every frame
+          after the first; key: the memory length T (at most
+          max_mem_frames distinct values) and update_sensory;
+  write   encode_mask, on memory frames; key: the frame's shape and the
+          number of objects.
+The memory append and FIFO trim, the first frame's softmax and the
+transfers stay eager. Each region reads only its arguments and the
+model's parameters.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from propainter_tpu_torch.device import fp32_numerics, resolve_device
+from propainter_tpu_torch.graphs import StageGraphs
 from propainter_tpu_torch.models.cutie import (
     CUTIE, CutieConfig, aggregate, get_similarity, readout, topk_softmax)
+
+# every region is replayed from CUDA graphs by default: the card measured
+# each one's graphed median below its eager minimum (`chip_smoke.py` phase
+# `track`; PERF.md section 7)
+CUTIE_REGIONS = ("encode", "read", "write")
 
 
 def pad_divide_by(x: np.ndarray, d: int = 16):
@@ -61,12 +82,19 @@ class CutieCore:
 
     `cutie` is a `CUTIE` or a state dict with the released keys (a `CUTIE`
     of `model_config` is built for it). `device` defaults to the GPU and
-    raises without one; pass "cpu" to run on the CPU."""
+    raises without one; pass "cpu" to run on the CPU.
+
+    cuda_graphs: the regions (of `CUTIE_REGIONS`) replayed from CUDA
+    graphs on CUDA; () runs eagerly; no effect on the CPU. The graphs of
+    the keys the last track used are kept (`clear_memory` starts a
+    track)."""
 
     def __init__(self, cutie, model_config: CutieConfig | None = None,
-                 config: CutieCoreConfig | None = None, device=None):
+                 config: CutieCoreConfig | None = None, device=None,
+                 cuda_graphs=CUTIE_REGIONS):
         self.cfg = config or CutieCoreConfig()
         self.device = resolve_device(device)
+        self.graphs = StageGraphs(cuda_graphs, CUTIE_REGIONS, self.device)
         if isinstance(cutie, CUTIE):
             model = cutie
         else:
@@ -87,6 +115,7 @@ class CutieCore:
     # ---- state -----------------------------------------------------------
 
     def clear_memory(self):
+        self.graphs.begin_video()
         self.curr_ti = -1
         self.last_mem_ti = 0
         self.engaged = False
@@ -100,14 +129,33 @@ class CutieCore:
 
     # ---- memory ops ------------------------------------------------------
 
-    def _read_visual(self, key, selection):
+    def _encode(self, image):
+        """Region `encode`: (f16, f8, f4, pix_feat, key, shrinkage,
+        selection)."""
+        (f16, f8, f4), pix_feat = self.model.encode_image(image)
+        return (f16, f8, f4, pix_feat) + tuple(self.model.transform_key(f16))
+
+    def _read_visual(self, key, selection, mem_key, mem_shrinkage,
+                     mem_value):
         """Each pixel's top-k readout of the memory values:
         (1, N_obj, Cv, h, w)."""
         h, w = key.shape[-2:]
-        sim = get_similarity(self.mem_key, self.mem_shrinkage,
-                             key.flatten(2), selection.flatten(2))
-        out = readout(topk_softmax(sim, self.cfg.top_k), self.mem_value)
+        sim = get_similarity(mem_key, mem_shrinkage, key.flatten(2),
+                             selection.flatten(2))
+        out = readout(topk_softmax(sim, self.cfg.top_k), mem_value)
         return out.view(out.shape[:3] + (h, w))
+
+    def _read(self, f16, f8, f4, pix_feat, key, selection, mem_key,
+              mem_shrinkage, mem_value, sensory, last_mask, obj_v, *,
+              update_sensory: bool):
+        """Region `read`: the memory read and the segmentation,
+        (sensory, prob with background (1, N+1, Hp, Wp))."""
+        visual = self._read_visual(key, selection, mem_key, mem_shrinkage,
+                                   mem_value)
+        mem_readout = self.model.read_first(pix_feat, visual, sensory,
+                                            last_mask, obj_v[:, :, None])
+        return self.model.segment(f16, f8, f4, mem_readout, sensory,
+                                  update_sensory)
 
     def _add_memory(self, image, pix_feat, prob, key, shrinkage,
                     is_deep_update: bool = True):
@@ -119,8 +167,9 @@ class CutieCore:
             self.sensory = torch.zeros(
                 (1, prob.shape[1], self.model.config.sensory_dim, h, w),
                 device=self.device)
-        value, sensory, summaries = self.model.encode_mask(
-            image, pix_feat, self.sensory, prob)
+        value, sensory, summaries = self.graphs(
+            "write", self.model.encode_mask,
+            (image, pix_feat, self.sensory, prob))
         if is_deep_update:
             self.sensory = sensory
 
@@ -179,17 +228,18 @@ class CutieCore:
                           in self._stagger_ti)
 
         with fp32_numerics():
-            (f16, f8, f4), pix_feat = self.model.encode_image(image_t)
-            key, shrinkage, selection = self.model.transform_key(f16)
+            f16, f8, f4, pix_feat, key, shrinkage, selection = self.graphs(
+                "encode", self._encode, (image_t,))
 
             if need_segment:
                 assert self.engaged, "call step(image, mask) first"
-                visual = self._read_visual(key, selection)
-                mem_readout = self.model.read_first(
-                    pix_feat, visual, self.sensory, self.last_mask,
-                    self.obj_v[:, :, None])
-                sensory, prob_with_bg = self.model.segment(
-                    f16, f8, f4, mem_readout, self.sensory, update_sensory)
+                sensory, prob_with_bg = self.graphs(
+                    "read", functools.partial(self._read,
+                                              update_sensory=update_sensory),
+                    (f16, f8, f4, pix_feat, key, selection, self.mem_key,
+                     self.mem_shrinkage, self.mem_value, self.sensory,
+                     self.last_mask, self.obj_v),
+                    (update_sensory,))
                 if update_sensory:
                     self.sensory = sensory
                 pred_prob_with_bg = prob_with_bg[0]  # (N+1, Hp, Wp)

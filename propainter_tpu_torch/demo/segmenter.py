@@ -9,6 +9,14 @@ one pad point by default, the reference SamPredictor's scheme, or, with
 decoder's attention and move the masks slightly). Masks are upsampled
 (256 -> 1024 -> the original size) on the device with the port's
 `ops.interp.resize`. Model passes run under `device.fp32_numerics()`.
+
+On CUDA the encoder and the decoder can replay from CUDA graphs per call
+key (`graphs.StageGraphs`; off by default, see `SamSegmenter`), the JAX
+segmenter's two jitted functions:
+`encode` (key: the img_size input, so captured on the second
+`set_image`) and `decode` (key: the padded point count and whether a mask
+is given; each new click count is a new key unless `points_bucket` pads
+the counts to one).
 """
 
 from __future__ import annotations
@@ -19,9 +27,12 @@ import numpy as np
 import torch
 
 from propainter_tpu_torch.device import fp32_numerics, resolve_device
+from propainter_tpu_torch.graphs import StageGraphs
 from propainter_tpu_torch.models.sam import (
     SAM_PIXEL_MEAN, SAM_PIXEL_STD, Sam, SamConfig, sam_config_registry)
 from propainter_tpu_torch.ops.interp import resize
+
+SAM_REGIONS = ("encode", "decode")
 
 
 class SamSegmenter:
@@ -31,12 +42,25 @@ class SamSegmenter:
 
     `sam` is a `Sam` or a state dict with the released keys (a `Sam` of
     `model_type`, or of `config`, is built for it). `device` defaults to the
-    GPU and raises without one; pass "cpu" to run on the CPU."""
+    GPU and raises without one; pass "cpu" to run on the CPU.
+
+    cuda_graphs: the regions (of `SAM_REGIONS`) replayed from CUDA graphs
+    on CUDA; no effect on the CPU. The graphs of the keys used since the
+    last `reset_image` are kept. The default, (), runs eagerly: in the
+    demo's click sequence (an image embedded on its first click, then the
+    clicks growing one at a time) a key recurs only on a later image; the
+    encoder's capture there costs more than its replays save, and its
+    graph holds its activations for the segmenter's life; the decoder's
+    gain lies within the host's noise over a click sequence, with or
+    without `points_bucket` (`chip_smoke.py` phase `demo`; PERF.md
+    section 7)."""
 
     def __init__(self, sam, model_type: str = "vit_h",
                  points_bucket: Optional[int] = None,
-                 config: Optional[SamConfig] = None, device=None):
+                 config: Optional[SamConfig] = None, device=None,
+                 cuda_graphs=()):
         self.device = resolve_device(device)
+        self.graphs = StageGraphs(cuda_graphs, SAM_REGIONS, self.device)
         if isinstance(sam, Sam):
             model = sam
         else:
@@ -77,12 +101,14 @@ class SamSegmenter:
         pad[:nh, :nw] = x
         x = torch.from_numpy(pad).permute(2, 0, 1)[None].to(self.device)
         with fp32_numerics():
-            self._embedding = self.model.encode_image(x)
+            self._embedding = self.graphs("encode", self.model.encode_image,
+                                          (x,))
         self.original_size = (H, W)
         self.input_size = (nh, nw)
         self.embedded = True
 
     def reset_image(self):
+        self.graphs.begin_video()
         self._embedding = None
         self.embedded = False
 
@@ -129,9 +155,11 @@ class SamSegmenter:
         if mode in ("mask", "both"):
             mi = np.array(prompts["mask_input"], np.float32)
             mask_input = torch.from_numpy(mi)[:, None].to(self.device)
+        tensors = (self._embedding, coords, labels) + (
+            () if mask_input is None else (mask_input,))
         with fp32_numerics():
-            low_res, iou = self.model.decode(self._embedding, coords, labels,
-                                             mask_input)
+            low_res, iou = self.graphs("decode", self.model.decode, tensors,
+                                       (mask_input is not None,))
         sl = slice(1, None) if multimask else slice(0, 1)
         low_res = low_res[0, sl]    # (n, 256, 256)
         iou = iou[0, sl]

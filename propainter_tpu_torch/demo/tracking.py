@@ -27,6 +27,12 @@ import numpy as np
 import torch
 
 from propainter_tpu_torch.device import fp32_numerics, resolve_device
+from propainter_tpu_torch.graphs import StageGraphs
+
+# every region is replayed from CUDA graphs by default: the card measured
+# each one's graphed median below its eager minimum (`chip_smoke.py` phase
+# `track`; PERF.md section 7)
+FLOW_TRACKER_REGIONS = ("raft_pair", "gate")
 
 
 class ClickSegmenter:
@@ -105,21 +111,33 @@ class FlowMaskTracker:
     the flows cropped back; the JAX tracker runs RAFT on the frame as it
     is, and there RAFT's stride-8 flow comes back wider than the mask
     (856 for 854) and the warp fails.
+
+    On CUDA two regions replay from CUDA graphs per call key
+    (`graphs.StageGraphs`), the JAX tracker's two jitted functions:
+    `raft_pair` (the padded frames to the flows; key: the padded shape and
+    raft_iter) and `gate` (the warp and consistency gate; key: the frame's
+    shape). The flows go to the host between them, as in the JAX tracker.
     """
 
     def __init__(self, raft=None, raft_iter: int = 20,
                  threshold: float = 0.5, close_kernel: int = 5,
                  reanchor: bool = True, flow_fn=None,
                  fb_alpha1: float = 0.01, fb_alpha2: float = 0.5,
-                 device=None):
+                 device=None, cuda_graphs=FLOW_TRACKER_REGIONS):
         """raft: a `RAFT` or a state dict with raft-things.pth's keys; the
         tracker runs its own fp32 copy ('flat' lookup, fp32 volume), so a
         pipeline sharing the module cannot change its kernels.
         flow_fn: optional override `(frame_a, frame_b) -> (H, W, 2)` pixel
         flow a->b (e.g. a classical estimator for weight-free
         environments); when given, raft is unused. device: None = the GPU
-        (raises without one); 'cpu' runs the plain PyTorch versions."""
+        (raises without one); 'cpu' runs the plain PyTorch versions.
+        cuda_graphs: the regions (of `FLOW_TRACKER_REGIONS`) replayed from
+        CUDA graphs on CUDA; () runs eagerly; no effect on the CPU. The
+        graphs of the keys the last track used are kept (`clear_memory`
+        starts a track)."""
         self.device = resolve_device(device)
+        self.graphs = StageGraphs(cuda_graphs, FLOW_TRACKER_REGIONS,
+                                  self.device)
         self.raft_iter = raft_iter
         self.threshold = threshold
         self.close_kernel = close_kernel
@@ -150,10 +168,16 @@ class FlowMaskTracker:
         a, b = (torch.from_numpy(np.pad(x, pad, mode="edge")[None].astype(
             np.float32) / 255 * 2 - 1).to(self.device) for x in (a8, b8))
         with fp32_numerics():
-            flow = self.raft(torch.cat([a, b]), torch.cat([b, a]),
-                             iters=self.raft_iter)[1]
+            flow = self.graphs("raft_pair", self._raft_flow, (a, b),
+                               (self.raft_iter,))
         f = flow[:, :H, :W].cpu().numpy()
         return f[0], f[1]
+
+    def _raft_flow(self, a, b):
+        """Region `raft_pair`: RAFT's flows a -> b and b -> a, (2, H, W,
+        2), in one call of batch 2."""
+        return self.raft(torch.cat([a, b]), torch.cat([b, a]),
+                         iters=self.raft_iter)[1]
 
     def _gate(self, mask, flow_ab, flow_ba):
         """Warp the mask along a->b flow and fb-consistency-gate it
@@ -172,6 +196,7 @@ class FlowMaskTracker:
 
     def clear_memory(self):
         """Reset tracking state (reference BaseTracker.clear_memory)."""
+        self.graphs.begin_video()
         self._prev_frame = None
         self._mask = None
 
@@ -229,9 +254,11 @@ class FlowMaskTracker:
 
         assert self._mask is not None, "call track(frame, template) first"
         flow_ab, flow_ba = self._pair_flows(frame, self._prev_frame)
-        soft, valid = self._gate(
-            *(torch.from_numpy(np.asarray(x, np.float32)).to(self.device)
-              for x in (self._mask, flow_ab, flow_ba)))
+        soft, valid = self.graphs(
+            "gate", self._gate,
+            tuple(torch.from_numpy(np.asarray(x, np.float32)).to(self.device)
+                  for x in (self._mask, flow_ab, flow_ba)),
+            (self.fb_alpha1, self.fb_alpha2))
         soft_np = soft.cpu().numpy()
         valid_np = valid.cpu().numpy()
         # consistent pixels vote hard; occluded ones keep a weaker vote so

@@ -1,9 +1,14 @@
-"""CUDA graphs of the pipeline's stages: the counterpart of the JAX
-pipeline's per-shape `jax.jit` executables and its one-dispatch window
-groups (`propainter_tpu/pipeline.py:264-275`, the scan at `:528`).
+"""CUDA graphs of the pipeline's stages and the demo's regions: the
+counterpart of the JAX package's per-shape `jax.jit` executables, the
+pipeline's one-dispatch window groups (`propainter_tpu/pipeline.py:264-275`,
+the scan at `:528`) and the demo's jitted parts (Cutie's step, the flow
+tracker's RAFT and gate, SAM's encoder and decoder).
 
 `StageGraphs` keeps one captured graph per call key: the stage's name, the
-shapes and dtypes of the call's tensors, and its static arguments.
+shapes and dtypes of the call's tensors, and its static arguments. Each
+owner declares its stage names: the pipeline `STAGES`, `CutieCore`
+`CUTIE_REGIONS`, `FlowMaskTracker` `FLOW_TRACKER_REGIONS`, `SamSegmenter`
+`SAM_REGIONS`.
 
   first sight   the call runs eagerly: the warm-up (cuDNN and cuBLAS plans,
                 the kernels' lazy build and launch setup, the models' index
@@ -22,6 +27,8 @@ captured or first seen, that the last video did not use, with its graph.
 A pipeline reused over videos of many lengths (an evaluation, the demo's
 facade) so keeps the graphs its recurring shapes use, and a key that
 recurs only across videos is captured when two consecutive videos use it.
+The trackers call it when their memory is cleared (one track is one
+video), the segmenter when its image is reset.
 
 What a captured call must keep:
 - it reads no tensor but its arguments and the modules' parameters and
@@ -30,7 +37,8 @@ What a captured call must keep:
 - it makes no host data into a tensor, reads no value back (`.item()`,
   `nonzero`), and fills no cache on the host: its first sight runs
   eagerly, so the models' caches fill there
-  (`tests/test_torch_graphs.py` holds the regions to it on the CPU);
+  (`tests/test_torch_graphs.py` and `tests/test_torch_demo_graphs.py`
+  hold the regions to it on the CPU);
 - each output is copied out of the pool right after a replay, before
   another graph of the pool can overwrite it.
 
@@ -127,16 +135,19 @@ class _Graph:
 
 
 class StageGraphs:
-    """Captured stage calls of one pipeline (see the module docstring).
-    stages: the stage names to graph (a subset of STAGES); a call of any
-    other stage runs eagerly. The pipeline gives it no stage on the CPU
-    and over a mesh of several devices."""
+    """Captured stage calls of one owner (see the module docstring).
+    stages: the stage names to graph (a subset of `names`, the owner's
+    stages; another name raises); a call of any other stage runs eagerly.
+    device: the owner's; off CUDA no stage is graphed. The pipeline also
+    gives it no stage over a mesh of several devices."""
 
-    def __init__(self, stages=()):
-        unknown = set(stages) - set(STAGES)
+    def __init__(self, stages=(), names=STAGES, device=None):
+        unknown = set(stages) - set(names)
         if unknown:
             raise ValueError(f"unknown stages {sorted(unknown)}; the "
-                             f"stages are {STAGES}")
+                             f"stages are {tuple(names)}")
+        if device is not None and torch.device(device).type != "cuda":
+            stages = ()
         self.stages = frozenset(stages)
         self._graphs: dict = {}    # key -> _Graph, None after a first sight
         self._inputs: dict = {}    # (stage, position, shape, dtype) -> buffer

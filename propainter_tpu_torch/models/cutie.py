@@ -26,6 +26,7 @@ management lives in demo/cutie_core.py.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Optional, Sequence
@@ -325,9 +326,20 @@ def positional_encoding_2d(h: int, w: int, dim: int, scale: float,
 
 
 def _pe(h: int, w: int, cfg: CutieConfig, device) -> torch.Tensor:
-    return torch.from_numpy(positional_encoding_2d(
-        h, w, cfg.embed_dim, cfg.pixel_pe_scale,
-        cfg.pixel_pe_temperature)).to(device)
+    return _pe_on(h, w, cfg.embed_dim, cfg.pixel_pe_scale,
+                  cfg.pixel_pe_temperature, torch.device(device))
+
+
+@functools.cache
+def _pe_on(h: int, w: int, dim: int, scale: float, temperature: float,
+           device: torch.device) -> torch.Tensor:
+    """`positional_encoding_2d` on `device`, made once per (shape, device)
+    outside inference mode: a captured CUDA graph of Cutie's step makes no
+    host data into a tensor. Never evicted: a graph reads the tensor by
+    address for as long as it lives."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(positional_encoding_2d(
+            h, w, dim, scale, temperature)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -717,6 +729,15 @@ def readout(affinity, mv):
 # ---------------------------------------------------------------------------
 
 
+@functools.cache
+def _pixel_stats(mean: tuple, std: tuple, device: torch.device) -> tuple:
+    """The pixel mean and std as (3, 1, 1) tensors on `device`, made once
+    per device outside inference mode (see `_pe_on`); never evicted."""
+    with torch.inference_mode(False):
+        return tuple(torch.tensor(v, device=device)[:, None, None]
+                     for v in (mean, std))
+
+
 class CUTIE(nn.Module):
     """Cutie's inference methods; the memory that feeds them is
     demo/cutie_core.py's."""
@@ -734,9 +755,9 @@ class CUTIE(nn.Module):
         self.object_summarizer = ObjectSummarizer(config)
 
     def _normalize(self, image):
-        mean = torch.tensor(self.config.pixel_mean, device=image.device)
-        std = torch.tensor(self.config.pixel_std, device=image.device)
-        return (image - mean[:, None, None]) / std[:, None, None]
+        mean, std = _pixel_stats(self.config.pixel_mean,
+                                 self.config.pixel_std, image.device)
+        return (image - mean) / std
 
     def encode_image(self, image):
         """image (B, 3, H, W) in [0, 1] -> ((f16, f8, f4), pix_feat)."""

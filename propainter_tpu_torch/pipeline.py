@@ -361,8 +361,7 @@ class ProPainterPipeline:
         self._replicas = {name: replicate(getattr(self, name), self.mesh)
                           for name in ("raft", "flowcomp", "inpaint")}
         self.graphs = StageGraphs(
-            cuda_graphs if self.device.type == "cuda" and len(self.mesh) == 1
-            else ())
+            cuda_graphs if len(self.mesh) == 1 else (), STAGES, self.device)
 
     def _sync(self):
         for dev in set(self.mesh) | {self.device}:

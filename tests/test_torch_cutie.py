@@ -417,15 +417,15 @@ def core_runs(jax_jit):
     tops, margins = [], []
     read = t._read_visual
 
-    def recording(key, selection):
-        sim = tc.get_similarity(t.mem_key, t.mem_shrinkage, key.flatten(2),
+    def recording(key, selection, mem_key, mem_shrinkage, mem_value):
+        sim = tc.get_similarity(mem_key, mem_shrinkage, key.flatten(2),
                                 selection.flatten(2))
         tops.append(tc.topk_softmax(sim, t.cfg.top_k).max(dim=1).values)
         if sim.shape[1] > t.cfg.top_k:
             v = sim.sort(dim=1, descending=True).values
             margins.append((v[:, t.cfg.top_k - 1] - v[:, t.cfg.top_k]).min()
                            / v.abs().max())
-        return read(key, selection)
+        return read(key, selection, mem_key, mem_shrinkage, mem_value)
 
     t._read_visual = recording
     out = []
