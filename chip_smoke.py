@@ -127,19 +127,26 @@ Phases:
               seconds; K1, K2, K3 and K4 launched as the protocol's plans
               say (`_eval_launches`; K4 at the plans' shapes, among them
               `K4_EVAL_SHAPE`), K5 and K7 never; `evaluate_flow_completion`
-              on the same videos, `compute_flow` on 10 frames and
-              `raft_demo` on the fixture clip (K1 on a 15 x 27 map), each
-              with its launch counts; GPU against CPU: `evaluate`'s PSNR
+              on the same videos with its launch counts; `compute_flow`
+              on 10 frames and `raft_demo` on the fixture clip (K1 on a
+              15 x 27 map), their RAFT region graphed against eager in 3
+              alternating pairs (launches, files bit for bit, keep or
+              drop), and I3D's region likewise on the two videos; GPU
+              against CPU: `evaluate`'s PSNR
               and SSIM on the fixture clip at 96x128, `compute_flow`'s
               .flo files and I3D's features (`_eval_gpu_vs_cpu`);
   train       training on the card (`phase_train`): a few steps of each
               stage of configs/train_*.json at full width (RAFT-big, the
               flow completion, the generator of hidden 512 and depth 8
               with remat, the T-PatchGAN with hinge; 432x240, l_t 10 with
-              1 or 6 reference frames, batch 1 per card): seconds per
-              step, the trainee's forward and backward by CUDA events,
-              peak memory, and K1, K2 and K3 launched per step as
-              `_train_launches` says, K4, K5 and K7 never; the plain K3
+              1 or 6 reference frames, batch 1 per card), the step's
+              CUDA-graph regions (`targets`, `update`) against eager in
+              alternating pairs from one state with each region's keep or
+              drop, capture s and the pool: seconds per step, the
+              trainee's forward and backward by CUDA events, peak memory,
+              and K1, K2 and K3 launched per step as `_train_launches`
+              says (a replayed step's also in a profiler trace), K4, K5
+              and K7 never; the plain K3
               backward's time at both sites; one step of each stage at
               32x48 on the GPU against the CPU (losses within 1e-4
               relative, gradients within 1e-3 of scale); the 40-step
@@ -150,11 +157,12 @@ Phases:
               configs' full widths on a global batch of 2 whose holes
               cover 2.3% and 40.5% of the frame: (a) the step in an NCCL
               group of one rank against the plain one-process step
-              (within 1e-6), timed at batch 2, and an NCCL all-reduce of
+              (within 1e-6), timed at batch 2 from CUDA graphs, and an
+              NCCL all-reduce of
               the trainee's gradients; (b) two gloo ranks on the one card,
               a sample each (rank 1 from other weights, rank 0's reaching
-              it by broadcast), against the one-process step on the batch
-              of 2 (losses within 1e-5 relative, parameters within 1e-4
+              it by broadcast), eager, against the one-process step on
+              the batch of 2 (losses within 1e-5 relative, parameters within 1e-4
               of scale where Adam's update is determined), each rank's ms
               a step, all-reduce ms a step, peak memory and K1, K2 and K3
               launches as `_train_launches` says; (c) NCCL with one rank
@@ -2518,7 +2526,7 @@ def _trace_counters(launches: dict) -> dict:
 # median is below its eager minimum), one run each of the other five
 # configurations, and the evaluation protocol over four video lengths
 # through one reused pipeline
-GRAPH_PAIRS = {"flash": 3, "bf16": 5}
+GRAPH_PAIRS = {"flash": 3, "bf16": 3}
 GRAPH_CONFIGS = (("pallas", _pallas_pipeline), ("shard", _shard_pipeline),
                  ("bf16_pallas", _bf16_pallas_pipeline),
                  ("bf16_shard", _bf16_shard_pipeline),
@@ -2651,10 +2659,11 @@ def _held_to_trace(name: str, p, frames, flow_masks, counters: dict,
     launch counts (`counters`, `_trace_counters`): a replay's counts
     are the capture's, added back by `graphs.StageGraphs`, and the trace
     shows what ran. `trace`: the counts of a profiled run already taken,
-    else one is. A trace can lose kernel records (an H100 trace of a
-    graphed bf16 run once held 126 of its 128 K4 launches while the
-    replays gave eager's output bit for bit), so a trace that differs is
-    taken again, and the second must agree. Returns the traces."""
+    else one is (both through `_device_trace`). A trace can lose kernel
+    records (an H100 trace of a graphed bf16 run once held 126 of its 128
+    K4 launches while the replays gave eager's output bit for bit), so a
+    trace that differs is taken again, and the second must agree. Returns
+    the traces."""
     def profiled(label):
         return _profile_run(p, frames, flow_masks, label, show=0,
                             host=False)[4]
@@ -2690,6 +2699,7 @@ def _graph_ab(name: str, p, frames, flow_masks, smi: str) -> dict:
 
     from propainter_tpu_torch.graphs import STAGES
 
+    t0 = time.perf_counter()
     eager, graphed = _twin(p, ()), _twin(p, STAGES)
     base = _graph_memory()
     torch.cuda.reset_peak_memory_stats()
@@ -2721,6 +2731,7 @@ def _graph_ab(name: str, p, frames, flow_masks, smi: str) -> dict:
           f"by stage {counts} (the plan's keys), capture "
           f"{graphed.graphs.capture_seconds:.3f} s; graphs' memory "
           f"{gib:.2f} GiB (eager peak allocated {peak_e:.2f} GiB) on {smi}")
+    t1 = time.perf_counter()
     runs = {"graphed": [], "eager": []}
     for i in range(GRAPH_PAIRS[name]):
         order = ("graphed", "eager") if i % 2 == 0 else ("eager", "graphed")
@@ -2743,6 +2754,7 @@ def _graph_ab(name: str, p, frames, flow_masks, smi: str) -> dict:
               f"{GRAPH_PAIRS[name]} pairs: "
               + ("keep the graph" if decisions[stage]["keep"] else
                  "stays eager"))
+    t2 = time.perf_counter()
     busy, traces = {}, []
     counters = _trace_counters(second_g["launches"])
     for side, q in (("graphed", graphed), ("eager", eager)):
@@ -2756,7 +2768,9 @@ def _graph_ab(name: str, p, frames, flow_masks, smi: str) -> dict:
     print(f"  {name}: device busy graphed {100 * busy['graphed']['share']:.1f}"
           f"% of {busy['graphed']['wall_ms']:.1f} ms, eager "
           f"{100 * busy['eager']['share']:.1f}% of "
-          f"{busy['eager']['wall_ms']:.1f} ms")
+          f"{busy['eager']['wall_ms']:.1f} ms; seconds: first videos and "
+          f"second clip {t1 - t0:.1f}, pairs {t2 - t1:.1f}, profiled runs "
+          f"{time.perf_counter() - t2:.1f}")
     result = dict(same, first_video_eager_s=first_e["wall"],
                   first_video_graphed_s=first_g["wall"],
                   second_video_graphed_s=second_g["wall"],
@@ -2771,15 +2785,15 @@ def _graph_ab(name: str, p, frames, flow_masks, smi: str) -> dict:
 
 def _graph_eval(pipe, smi: str) -> dict:
     """The evaluation protocol (`GRAPH_EVAL_CONFIG`, fp32 as
-    `cli/evaluate.py`) over videos of GRAPH_EVAL_LENGTHS, then the first
-    two again, in three passes: an eager pipeline, a graphed one (the
-    default stages) reused across the videos as the CLI reuses its
-    pipeline, and an eager one again (process-wide cuDNN and cuBLAS plans
-    warm in both). Each graphed video's uint8 output against the eager
-    passes' (`_same_run`); each video's seconds; after each graphed
+    `cli/evaluate.py`) over videos of GRAPH_EVAL_LENGTHS in two passes:
+    an eager pipeline, then a graphed one (the default stages) reused
+    across the videos as the CLI reuses its pipeline, with process-wide
+    cuDNN and cuBLAS plans warm, which favours the graphed pass. Each
+    graphed video's uint8 output against the eager pass's (`_same_run`);
+    each video's seconds; after each graphed
     video, the graphs by stage, capture seconds and the GiB the pipeline
     holds (its cache keeps the last video's keys); each pass's peak
-    allocated GiB; the graphed total against the faster eager one."""
+    allocated GiB; the graphed total against the eager one."""
     import numpy as np
     import torch
 
@@ -2792,10 +2806,10 @@ def _graph_eval(pipe, smi: str) -> dict:
         frames, mask = _synthetic_clip(T, 240, 432, seed=T)
         clips[T] = (frames, np.stack([binary_dilation_cross(m, 4)
                                       for m in mask]))
-    order = GRAPH_EVAL_LENGTHS + GRAPH_EVAL_LENGTHS[:2]
+    order = GRAPH_EVAL_LENGTHS
     cfg = PipelineConfig(**GRAPH_EVAL_CONFIG)
     passes, want, rows = {}, {}, []
-    for side in ("eager", "graphed", "eager again"):
+    for side in ("eager", "graphed"):
         q = ProPainterPipeline(pipe.raft, pipe.flowcomp, pipe.inpaint, cfg,
                                device="cuda", **(
                                    {} if side == "graphed"
@@ -2830,8 +2844,7 @@ def _graph_eval(pipe, smi: str) -> dict:
             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         del q
         _graph_memory()
-    eager_min = min(passes["eager"]["total"], passes["eager again"]["total"])
-    pays = passes["graphed"]["total"] < eager_min
+    pays = passes["graphed"]["total"] < passes["eager"]["total"]
     print(f"  eval protocol over {len(order)} videos ({order} frames): "
           + ", ".join(f"{k} {v['total']:.3f} s (peak allocated "
                       f"{v['peak_gib']:.2f} GiB)" for k, v in passes.items())
@@ -2847,6 +2860,7 @@ def _versus_eager(state: dict, name: str, p, frames, flow_masks,
     graphs by stage against the plan's call keys, and a graphed run's
     kernels in a profiler trace against `got`'s launch counts
     (`_held_to_trace`), into state["graphs"]["configs"][name]."""
+    t0 = time.perf_counter()
     eager = _twin(p, ())
     want = _graph_run(eager, frames, flow_masks)
     same = _same_run(name, got, want, p, eager, frames, flow_masks)
@@ -2860,6 +2874,8 @@ def _versus_eager(state: dict, name: str, p, frames, flow_masks,
           f"plan's keys), capture {capture_s:.3f} s")
     traces = _held_to_trace(name, p, frames, flow_masks,
                             _trace_counters(got["launches"]))
+    print(f"  {name}: the eager run and the trace in "
+          f"{time.perf_counter() - t0:.1f} s")
     state.setdefault("graphs", {}).setdefault("configs", {})[name] = dict(
         same, graphed_s=got["wall"], eager_s=want["wall"], graphs=counts,
         capture_s=capture_s, traces=traces)
@@ -2918,25 +2934,66 @@ def phase_graphs(state: dict, smi: str) -> None:
           + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
 
 
+# seconds the device idles at each edge of a checked trace (`_device_trace`)
+TRACE_MARGIN_S = 0.05
+
+
+@contextlib.contextmanager
+def _device_trace(host: bool = False):
+    """torch.profiler over the block (host=False: the device's activity
+    only), the device synchronized and idle for TRACE_MARGIN_S after the
+    trace starts and again before it stops. The profiler drops a device
+    record that its clock places outside the trace's window (kineto's
+    "Out-of-range" record count), and the device's clock drifts from the
+    host's over a process, so a trace stopped as soon as a graphed run
+    returned could lose the run's last kernels (a generator call's K3 and
+    K4 launches), in both of `_held_to_trace`'s takes.
+    tools/torch_trace_window.py counts such losses."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host else [])) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+
+
+def _trace_rows(prof, device=None) -> list:
+    """(name, device ms, launches) of each kernel, copy and fill in a
+    torch.profiler trace (`device`: the DeviceType read, CUDA by default),
+    summed by name, the most time first: read from the profiler's raw
+    events, since building its event tree for `key_averages` took 7-27 s
+    a main-path trace (an H100 run)."""
+    from torch.autograd import DeviceType
+
+    device = DeviceType.CUDA if device is None else device
+    totals: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == device:
+            ms, n = totals.get(e.name(), (0.0, 0))
+            totals[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in totals.items()),
+                  key=lambda r: -r[1])
+
+
 def _profile_run(pipe, frames, flow_masks, label: str,
                  show: int = 21, host: bool = True):
     """One main-path run of `pipe` under torch.profiler (host=False: the
     device's activity only, a smaller trace): (report lines, device ms of
     the port's kernels, wall ms, device busy ms, the kernels' launches in
-    the trace by launch counter, `TRACE_KERNELS`)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    the trace by launch counter, `TRACE_KERNELS`), traced by
+    `_device_trace`."""
     timings: dict = {}
-    with profile(activities=[ProfilerActivity.CUDA] + (
-            [ProfilerActivity.CPU] if host else [])) as prof:
+    with _device_trace(host) as prof:
         t0 = time.perf_counter()
         pipe.inpaint_video(frames, flow_masks, flow_masks, timings=timings)
         wall = time.perf_counter() - t0
-    kern = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda r: -r[1])
+    kern = _trace_rows(prof)
+    print(f"  {label}: the trace stopped and read in "
+          f"{time.perf_counter() - t0 - wall:.1f} s")
     busy = sum(r[1] for r in kern)
     # whole-symbol match: "window_attention_kernel" must not count
     # "sparse_window_attention_kernel"
@@ -3500,24 +3557,18 @@ def _device_kernels(fn) -> dict:
     convolution kernels among them, and the six kernels with the most
     device ms (name, ms, launches)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _device_trace() as prof:
         fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    fft = [e for e in kern if FFT_KERNELS.search(e.key)]
-    ranked = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    return dict(device_ms=sum(e.self_device_time_total for e in kern) / 1e3,
-                launches=sum(e.count for e in kern),
-                fft_launches=sum(e.count for e in fft),
-                fft_ms=sum(e.self_device_time_total for e in fft) / 1e3,
-                top=[[e.key[:100], e.self_device_time_total / 1e3, e.count]
-                     for e in ranked])
+    kern = _trace_rows(prof)
+    fft = [r for r in kern if FFT_KERNELS.search(r[0])]
+    return dict(device_ms=sum(r[1] for r in kern),
+                launches=sum(r[2] for r in kern),
+                fft_launches=sum(r[2] for r in fft),
+                fft_ms=sum(r[1] for r in fft),
+                top=[[name[:100], ms, n] for name, ms, n in kern[:6]])
 
 
 def _metrics_file(path: Path) -> dict:
@@ -3615,9 +3666,12 @@ def phase_eval(state: dict, smi: str) -> None:
     --warp_error and --profile: finite psnr, ssim, ewarp and vfid, the
     trace written, and K1-K4 launched as `_eval_launches` says (K4 at the
     plans' shapes, `K4_EVAL_SHAPE` among them), K5 and K7 never;
-    `evaluate_flow_completion` on the same videos, `compute_flow` on 10
-    frames and `raft_demo` on the fixture clip (120 x 216, no padding),
-    each with its K1 and K2 (and K3) launches; then `_eval_gpu_vs_cpu`."""
+    `evaluate_flow_completion` on the same videos with its K1, K2 and K3
+    launches; `compute_flow` on 10 frames and `raft_demo` on the fixture
+    clip (120 x 216, no padding), their RAFT calls graphed against eager
+    (`_raft_pair_graphs`), and I3D's region (`_i3d_graphs`), each with
+    its keep or drop held to its owner's default; then
+    `_eval_gpu_vs_cpu`."""
     import shutil
     import tempfile
 
@@ -3736,41 +3790,153 @@ def phase_eval(state: dict, smi: str) -> None:
         flow_in.mkdir(parents=True)
         for f in sorted((ds / "JPEGImages" / "video_73").iterdir())[:10]:
             shutil.copy(f, flow_in)
-        _zero_launches()
-        t0 = time.perf_counter()
-        compute_flow.main(["--root", str(tmp / "flow_in"), "--save_path",
-                           str(tmp / "flows"), "--raft_path",
-                           str(weights / "raft-things.pth")])
-        cf_seconds = time.perf_counter() - t0
-        n_flo = len(list((tmp / "flows" / "video_73").glob("*.flo")))
-        _check_launches("compute_flow (10 frames)", _read_launches(),
-                        dict(corr_pyramid_build=18, corr_lookup_moenc=360,
-                             corr_lookup=0))
-        print(f"  compute_flow: {n_flo} .flo files in {cf_seconds:.3f} s")
-        if n_flo != 18:
-            raise AssertionError(f"compute_flow wrote {n_flo} files, not 18")
-
-        _zero_launches()
-        t0 = time.perf_counter()
-        raft_demo.main(["--path", str(root / "assets" / "demo_clip" /
-                                      "frames"), "--output",
-                        str(tmp / "demo"), "--weights",
-                        str(weights / "raft-things.pth"), "--save_flo"])
-        rd_seconds = time.perf_counter() - t0
-        pngs = list((tmp / "demo").glob("*_flow.png"))
-        _check_launches("raft_demo (12 frames of 120 x 216)",
-                        _read_launches(), dict(corr_pyramid_build=11,
-                                               corr_lookup_moenc=220,
-                                               corr_lookup=0))
-        print(f"  raft_demo: {len(pngs)} PNGs in {rd_seconds:.3f} s")
-        if len(pngs) != 11:
-            raise AssertionError(f"raft_demo wrote {len(pngs)} PNGs, not 11")
-        report["compute_flow"] = dict(seconds=cf_seconds, files=n_flo)
-        report["raft_demo"] = dict(seconds=rd_seconds, pngs=len(pngs))
+        failures: list = []
+        report["raft_pair"] = _raft_pair_graphs(tmp, weights, root, smi,
+                                                failures)
+        report["i3d"] = _i3d_graphs(weights, items, smi, failures)
+        if failures:
+            raise AssertionError("; ".join(failures))
 
         report["gpu_vs_cpu"] = _eval_gpu_vs_cpu(tmp, weights)
         report["fp32_convs"] = _eval_conv_shapes(weights, items[0]["frames"])
     state["eval"] = report
+
+
+def _raft_pair_graphs(tmp: Path, weights: Path, root: Path, smi: str,
+                      failures: list) -> dict:
+    """`compute_flow` (10 frames of 432 x 240 from `tmp/flow_in`: 18 RAFT
+    calls at batch 1) and `raft_demo` (the fixture clip, 12 frames of 120
+    x 216: 11 calls) through main(), their `raft_pair` region graphed
+    against eager, REGION_PAIRS alternating runs each (a new CLI run, so
+    each graphed run captures): each run's K1 / K2 launches, its written
+    files equal bit for bit to the first eager run's, the region's ms
+    over the run (CUDA events around each call, `_RegionTimes`) kept or
+    dropped (`_decide`) and held to `RaftPairFlow`'s default
+    (`_check_defaults`)."""
+    from propainter_tpu_torch.cli import compute_flow, raft_demo
+
+    made = []
+    plain = compute_flow.RaftPairFlow
+
+    class Timed(plain):
+        regions = ()
+
+        def __init__(self, raft, iters, device, cuda_graphs=None):
+            super().__init__(raft, iters, device, cuda_graphs=Timed.regions)
+            self.graphs = _RegionTimes(self.graphs)
+            made.append(self)
+
+    clis = {
+        "compute_flow": (compute_flow.main, [
+            "--root", str(tmp / "flow_in"), "--raft_path",
+            str(weights / "raft-things.pth"), "--save_path"],
+            dict(corr_pyramid_build=18, corr_lookup_moenc=360,
+                 corr_lookup=0), ("*/*.flo", 18)),
+        "raft_demo": (raft_demo.main, [
+            "--path", str(root / "assets" / "demo_clip" / "frames"),
+            "--weights", str(weights / "raft-things.pth"), "--save_flo",
+            "--output"],
+            dict(corr_pyramid_build=11, corr_lookup_moenc=220,
+                 corr_lookup=0), ("*_flow.png", 11))}
+    report = {}
+    compute_flow.RaftPairFlow = Timed
+    try:
+        for cli, (main, argv, want, (pattern, n_files)) in clis.items():
+            runs: dict = {"graphed": [], "eager": []}
+            files: dict = {"graphed": [], "eager": []}
+            for i in range(REGION_PAIRS):
+                order = (("graphed", "eager") if i % 2 == 0
+                         else ("eager", "graphed"))
+                for side in order:
+                    Timed.regions = (compute_flow.RAFT_PAIR_REGIONS
+                                     if side == "graphed" else ())
+                    out = tmp / f"{cli}_{side}_{i}"
+                    _zero_launches()
+                    t0 = time.perf_counter()
+                    main(argv + [str(out)])
+                    wall = 1e3 * (time.perf_counter() - t0)
+                    _check_launches(f"{cli} ({side})", _read_launches(), want)
+                    if len(list(out.glob(pattern))) != n_files:
+                        raise AssertionError(f"{cli} wrote "
+                                             f"{len(list(out.glob(pattern)))} "
+                                             f"{pattern}, not {n_files}")
+                    ms = made[-1].graphs.take()
+                    runs[side].append(dict(raft_pair=sum(ms["raft_pair"]),
+                                           run=wall))
+                    files[side].append({
+                        str(f.relative_to(out)): f.read_bytes()
+                        for f in sorted(out.rglob("*")) if f.is_file()})
+            same = all(f == files["eager"][0]
+                       for side in files for f in files[side])
+            if not same:
+                failures.append(f"{cli}: graphed and eager runs wrote "
+                                f"different files")
+            decisions = _decide(f"{cli} (its RAFT calls' ms a run)", runs,
+                                ("raft_pair",), smi)
+            _check_defaults(cli, plain, decisions, failures)
+            print(f"  {cli}: {n_files} files a run, equal bit for bit in "
+                  f"every run {same}; whole runs (ms, with set-up) graphed "
+                  f"{[round(r['run'], 1) for r in runs['graphed']]}, eager "
+                  f"{[round(r['run'], 1) for r in runs['eager']]}")
+            report[cli] = dict(runs=runs, decisions=decisions,
+                               files_equal=same, files=n_files)
+    finally:
+        compute_flow.RaftPairFlow = plain
+    return report
+
+
+def _i3d_graphs(weights: Path, items, smi: str, failures: list) -> dict:
+    """`evaluate.I3DFeatures` on the evaluation's traffic, graphed against
+    eager: each video of `items` (the two synthetic 432 x 240 videos) its
+    true frames and a stand-in for its inpainted ones (the hole grey),
+    `begin_video` before each, a new owner a round, REGION_PAIRS
+    alternating rounds: the features bit for bit against the first eager
+    round's, the region's ms over the round (CUDA events,
+    `_RegionTimes`) kept or dropped (`_decide`) and held to
+    `I3DFeatures`' default (`_check_defaults`); capture seconds."""
+    import numpy as np
+    import torch
+    from propainter_tpu_torch.cli.evaluate import I3D_REGIONS, I3DFeatures
+    from propainter_tpu_torch.cli.inference import load_checkpoint
+    from propainter_tpu_torch.models.i3d import InceptionI3d
+
+    i3d = load_checkpoint(InceptionI3d(), str(weights / "i3d_rgb_imagenet.pt"),
+                          drop_prefixes=("logits.",)).cuda().eval()
+    videos = []
+    for i in range(len(items)):
+        frames, masks = items[i]["frames"], items[i]["masks"]
+        videos.append((frames, np.where(masks[..., None] > 0, 128,
+                                        frames).astype(np.uint8)))
+    runs: dict = {"graphed": [], "eager": []}
+    feats: dict = {"graphed": [], "eager": []}
+    capture = []
+    for i in range(REGION_PAIRS):
+        order = ("graphed", "eager") if i % 2 == 0 else ("eager", "graphed")
+        for side in order:
+            owner = I3DFeatures(i3d, torch.device("cuda"), cuda_graphs=(
+                I3D_REGIONS if side == "graphed" else ()))
+            owner.graphs = _RegionTimes(owner.graphs)
+            got = []
+            for true, comp in videos:
+                owner.begin_video()
+                got += [owner(true), owner(comp)]
+            runs[side].append(dict(i3d=sum(owner.graphs.take()["i3d"])))
+            feats[side].append(got)
+            if side == "graphed":
+                capture.append(owner.graphs.capture_seconds)
+            del owner
+    _graph_memory()
+    same = all(_same_arrays(f"I3D features, {side} round {i}", got,
+                            feats["eager"][0], failures)
+               for side in feats for i, got in enumerate(feats[side]))
+    decisions = _decide("I3D (its ms over the two videos' four calls)", runs,
+                        ("i3d",), smi)
+    _check_defaults("I3D", I3DFeatures, decisions, failures)
+    print(f"  I3D over {[len(v[0]) for v in videos]} frames: features "
+          f"equal bit for bit {same}; capture "
+          f"{[round(c, 3) for c in capture]} s a graphed round")
+    return dict(runs=runs, decisions=decisions, features_equal=same,
+                capture_s=capture)
 
 
 def _eval_conv_shapes(weights: Path, video) -> dict:
@@ -3875,8 +4041,19 @@ def phase_cli(state: dict, out_dir) -> None:
 TRAIN_CONFIGS = {"flowcomp": "configs/train_flowcomp.json",
                  "propainter": "configs/train_propainter.json"}
 TRAIN_SEEDS = {"raft": 61, "flowcomp": 62, "trainee": 63, "dis": 64}
-# full-width train steps of each stage, the first of which warms up
-TRAIN_STEPS = 4
+# full-width train steps of each stage, graphed against eager
+# (`_train_full_width`): a first sight and a capture, then TRAIN_GRAPH_PAIRS
+# alternating pairs; a learning-rate milestone at the fourth update, so the
+# last two replays run at the scaled rate; each step from one state,
+# graphed and eager losses within TRAIN_GRAPH_LOSS_TOL relative and the
+# parameters within TRAIN_GRAPH_PARAM_TOL of each tensor's scale where the
+# gradient is sure (`_compare_steps`); the gradients are reported: the
+# backward's atomics move a single-element sum (the discriminator's last
+# bias) by up to 1.6e-5 of it between two runs
+TRAIN_GRAPH_PAIRS = 3
+TRAIN_STEPS = 2 + TRAIN_GRAPH_PAIRS
+TRAIN_GRAPH_MILESTONES = {3: 0.1}
+TRAIN_GRAPH_LOSS_TOL, TRAIN_GRAPH_PARAM_TOL = 1e-5, 1e-5
 # GPU (kernels) against CPU (plain versions), one fp32 step each: losses
 # relative, gradients of each tensor's largest magnitude (or 1e-4 of the
 # model's largest, where a gradient that is 0 in exact arithmetic is
@@ -3978,14 +4155,17 @@ def _train_modules(stage: str, device, gen=None):
 
 
 def _train_state(stage: str, mods: dict, device, raft_iters: int = 20,
-                 **config):
+                 cuda_graphs=None, **config):
     """(state, step function) of the stage from `mods` (flows precomputed
-    without a 'raft'); config overrides the train config (the defaults
-    are the JAX package's)."""
+    without a 'raft'; the step's regions graphed as `cuda_graphs` says,
+    None for the step maker's default); config overrides the train config
+    (the defaults are the JAX package's)."""
     from propainter_tpu_torch.core import trainer as TT
 
     flows = dict(raft_iters=raft_iters,
                  use_precomputed_flows=mods.get("raft") is None)
+    if cuda_graphs is not None:
+        flows["cuda_graphs"] = cuda_graphs
     if stage == "flowcomp":
         cfg = TT.FlowTrainConfig(**config)
         return (TT.init_flow_state(cfg, mods.get("raft"), mods["trainee"],
@@ -4031,13 +4211,9 @@ def _fwd_bwd_events(module):
         post.remove()
 
 
-def _train_full_width(stage: str, root: Path, smi: str) -> dict:
-    """TRAIN_STEPS steps of the stage at its config's full width and
-    shapes on the card (batch 1 per card, 432 x 240, l_t 10 with 1 or 6
-    reference frames, RAFT run with 20 iterations, the discriminator on
-    with hinge): seconds per step (median and min-max after the first),
-    the trainee's forward and each backward by CUDA events, peak memory,
-    and the last step's launches against `_train_launches`."""
+def _full_width_batch(stage: str, root: Path) -> tuple:
+    """(item 0 of the synthetic train set as a batch of 1 on the card, the
+    stage's data config)."""
     import random
 
     import numpy as np
@@ -4055,50 +4231,235 @@ def _train_full_width(stage: str, root: Path, smi: str) -> dict:
         num_ref_frames=data["num_ref_frames"], w=data["w"], h=data["h"]))
     random.seed(0)
     np.random.seed(0)
-    batch = {k: torch.from_numpy(v[None]).cuda() for k, v in ds[0].items()}
+    return ({k: torch.from_numpy(v[None]).cuda() for k, v in ds[0].items()},
+            data)
+
+
+def _trained_tensors(stage: str, mods: dict) -> dict:
+    """The trained models' parameters by name."""
+    return {f"{n}.{k}": p for n in ("trainee", "dis") if n in mods
+            for k, p in mods[n].named_parameters()}
+
+
+def _copy_train_state_(dst, src) -> None:
+    """`src`'s trained models (parameters and buffers) and optimizers'
+    states and rates into `dst`'s tensors, in place: a graph of `dst`'s
+    step reads them by address."""
+    import torch
+
+    pairs = ([(dst.model, src.model, dst.opt, src.opt)] if hasattr(dst, "opt")
+             else [(dst.gen, src.gen, dst.gen_opt, src.gen_opt)]
+             + ([(dst.dis, src.dis, dst.dis_opt, src.dis_opt)]
+                if dst.dis is not None else []))
+    with torch.no_grad():
+        for m_d, m_s, o_d, o_s in pairs:
+            for t_d, t_s in zip(m_d.state_dict().values(),
+                                m_s.state_dict().values()):
+                t_d.copy_(t_s)
+            o_d.param_groups[0]["lr"].copy_(o_s.param_groups[0]["lr"])
+            for p_d, p_s in zip(m_d.parameters(), m_s.parameters()):
+                for k, v in o_s.state[p_s].items():
+                    o_d.state[p_d][k].copy_(v)
+
+
+def _step_result(stage: str, mods: dict, metrics: dict) -> dict:
+    """A step's result as `_compare_steps` reads it: its metrics, each
+    trained model's gradients and parameters on the CPU."""
+    trained = _dist_trained(stage, mods)
+    return dict(
+        metrics={k: float(v) for k, v in metrics.items()},
+        grads={n: {k: p.grad.detach().to("cpu", copy=True)
+                   for k, p in m.named_parameters() if p.grad is not None}
+               for n, m in trained.items()},
+        params={n: {k: p.detach().to("cpu", copy=True)
+                    for k, p in m.named_parameters()}
+                for n, m in trained.items()})
+
+
+def _train_full_width(stage: str, root: Path, smi: str,
+                      failures: list) -> dict:
+    """TRAIN_STEPS steps of the stage at its config's full width and
+    shapes on the card (batch 1 per card, 432 x 240, l_t 10 with 1 or 6
+    reference frames, RAFT run with 20 iterations, the discriminator on
+    with hinge), both regions graphed against eager on two states from
+    one seeded state dict, in turns: the first sight and the capture,
+    then TRAIN_GRAPH_PAIRS alternating pairs (graphed first in even
+    ones), the eager side's state copied into the graphed side's tensors
+    before each step; a milestone at the fourth update
+    (TRAIN_GRAPH_MILESTONES). Each step's losses graphed against eager,
+    each step's learning rate against the schedule, the last step's
+    gradients and parameters as phase dist compares two runs of a step
+    (`_compare_steps`; bit for bit printed); each region's ms (CUDA
+    events around its calls) and the step's seconds, kept or dropped by
+    the rule (`_decide`, `_check_defaults`); capture seconds
+    and the graphs' GiB against the eager peak; the eager side's trainee
+    forward and backward by CUDA events and its launches, a replayed
+    step's launch counts and its kernels in a profiler trace against
+    `_train_launches`; the flow stage's hysteresis rounds."""
+    import contextlib
+    import copy
+
+    import torch
+    from propainter_tpu_torch.core import trainer as TT
+    from propainter_tpu_torch.graphs import StageGraphs
+
+    batch, data = _full_width_batch(stage, root)
+    l_t = data["num_local_frames"]
     mods = _train_modules(stage, "cuda")
-    state, step = _train_state(stage, mods, "cuda",
-                               num_local_frames=data["num_local_frames"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    seconds, fwd, bwd, metrics = [], [], [], []
+    sides, times = {}, {}
+    for side, regions in (("graphed", TT.TRAIN_REGIONS), ("eager", ())):
+        m = copy.deepcopy(mods)
+        st, step = _train_state(stage, m, "cuda", num_local_frames=l_t,
+                                milestones=TRAIN_GRAPH_MILESTONES,
+                                cuda_graphs=regions)
+        step.graphs = times[side] = _RegionTimes(StageGraphs(
+            regions, TT.TRAIN_REGIONS, "cuda", flush=True))
+        sides[side] = (st, step, m)
+    del mods
+    opt_of = (lambda st: st.opt) if stage == "flowcomp" else (
+        lambda st: st.gen_opt)
+    schedule = TT.multistep_lr(TT.FlowTrainConfig.lr if stage == "flowcomp"
+                               else TT.PropainterTrainConfig.lr,
+                               TRAIN_GRAPH_MILESTONES)
+    runs = {"graphed": [], "eager": []}
+    metrics = {"graphed": [], "eager": []}
+    fwd, bwd, rounds, lr_bad = [], [], [], []
+    gib = {}
     for i in range(TRAIN_STEPS):
-        if i == TRAIN_STEPS - 1:
-            _zero_launches()
-        with _fwd_bwd_events(mods["trainee"]) as marks:
-            t0 = time.perf_counter()
-            _, m, _ = step(state, batch)
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-        fwd.append(sum(s.elapsed_time(e) for s, e in marks["fwd"]))
-        bwd.append([s.elapsed_time(e) for s, e in marks["bwd"]])
-        metrics.append({k: float(v) for k, v in m.items()})
-    launches = _read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    T = data["num_local_frames"] + data["num_ref_frames"]
-    steady = _spread(seconds[1:])
+        order = ("graphed", "eager") if i % 2 == 0 else ("eager", "graphed")
+        # both sides step from one state: Adam at beta1 0 moves a weight by
+        # ~lr whatever its gradient's size, so a gradient within rounding
+        # of 0 (the backward's atomics) takes either sign, and free-running
+        # states part by ~1e-4 of scale in a few steps
+        _copy_train_state_(sides["graphed"][0], sides["eager"][0])
+        for side in order:
+            st, step, m = sides[side]
+            if side == "eager" and i == 0:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            if side == "eager" and i == TRAIN_STEPS - 1:
+                _zero_launches()
+            hooks = (_fwd_bwd_events(m["trainee"]) if side == "eager"
+                     else contextlib.nullcontext({"fwd": [], "bwd": []}))
+            with hooks as marks:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, mt, _ = step(st, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if side == "eager":
+                if i == 0:
+                    gib["eager_peak"] = (torch.cuda.max_memory_allocated()
+                                         / 2 ** 30)
+                if i == TRAIN_STEPS - 1:
+                    eager_launches = _read_launches()
+                fwd.append(sum(a.elapsed_time(b) for a, b in marks["fwd"]))
+                bwd.append([a.elapsed_time(b) for a, b in marks["bwd"]])
+            elif stage == "flowcomp":
+                rounds.append(list(step.hysteresis_rounds))
+            row = {r: sum(v) for r, v in times[side].take().items()}
+            row["step"] = 1e3 * wall
+            runs[side].append(row)
+            metrics[side].append({k: float(v) for k, v in mt.items()})
+            lr = float(opt_of(st).param_groups[0]["lr"])
+            if abs(lr - schedule(i + 1)) > 1e-6 * schedule(i + 1):
+                lr_bad.append((side, i, lr, schedule(i + 1)))
+        if i == 0:
+            gib["before_capture"] = _graph_memory()
+        elif i == 1:
+            gib["graphs"] = _graph_memory() - gib["before_capture"]
+    graphed_step = sides["graphed"][1]
+    capture_s = graphed_step.graphs.capture_seconds
+    counts = graphed_step.graphs.counts()
+    loss_err = max(abs(g[k] - e[k]) / max(abs(e[k]), 1e-12)
+                   for g, e in zip(metrics["graphed"], metrics["eager"])
+                   for k in e)
+    # the last step's gradients and parameters, compared as phase dist
+    # compares two runs of a step
+    err = _compare_steps(*(_step_result(stage, sides[side][2],
+                                        metrics[side][-1])
+                           for side in ("graphed", "eager")))
+    param_err = max(v for k, v in err.items() if k.endswith("param"))
+    grad_err = max(v for k, v in err.items() if k.endswith("grad"))
+    exact = all(torch.equal(p, q) for p, q in zip(
+        _trained_tensors(stage, sides["graphed"][2]).values(),
+        _trained_tensors(stage, sides["eager"][2]).values()))
+    # a replayed step's launches: by the counters, and in a trace
+    _zero_launches()
+    with _device_trace() as prof:
+        graphed_step(sides["graphed"][0], batch)
+    replay_launches = _read_launches()
+    trace = {k: sum(n for name, _, n in _trace_rows(prof)
+                    if re.search(rf"\b{sym}\b", name))
+             for k, sym in TRACE_KERNELS.items()}
+    want = _train_launches(stage, l_t)
+    T = l_t + data["num_ref_frames"]
+    eager_s = [r["step"] / 1e3 for r in runs["eager"]]
+    steady = _spread(eager_s[1:])
     print(f"  {stage} step (B 1, T {T}, {data['w']} x {data['h']}, "
-          f"raft_iters 20): "
-          f"{steady['median']:.3f} s median ({steady['min']:.3f}-"
-          f"{steady['max']:.3f}) of {TRAIN_STEPS - 1} after a first of "
-          f"{seconds[0]:.3f} s; trainee forward "
+          f"raft_iters 20), eager: {steady['median']:.3f} s median "
+          f"({steady['min']:.3f}-{steady['max']:.3f}) of {TRAIN_STEPS - 1} "
+          f"after a first of {eager_s[0]:.3f} s; trainee forward "
           f"{statistics.median(fwd[1:]):.1f} ms, backward "
           + " + ".join(f"{statistics.median(b[j] for b in bwd[1:]):.1f}"
                        for j in range(len(bwd[-1])))
-          + f" ms; peak {peak / 2 ** 30:.2f} GiB; on {smi}")
-    print(f"  {stage} losses by step: "
-          + "; ".join(", ".join(f"{k} {v:.4f}" for k, v in m.items())
-                      for m in metrics))
-    bad = [k for m in metrics for k, v in m.items() if not math.isfinite(v)]
+          + f" ms; peak {gib['eager_peak']:.2f} GiB; on {smi}")
+    print(f"  {stage} graphed against eager over {TRAIN_STEPS} steps, "
+          f"each from one state: losses within {loss_err:.2e} relative "
+          f"(limit {TRAIN_GRAPH_LOSS_TOL}); the last step's gradients "
+          f"{grad_err[0]:.2e} of scale ({grad_err[1]}; reported: the "
+          f"backward's atomics), parameters "
+          f"{param_err[0]:.2e} of scale where the gradient is sure "
+          f"({param_err[1]}; limit {TRAIN_GRAPH_PARAM_TOL}), bit for bit "
+          f"{exact}; the learning rate the schedule's at every step "
+          f"{not lr_bad} (milestone {TRAIN_GRAPH_MILESTONES}, steps 4-5 "
+          f"replayed at it); graphs {counts}, capture {capture_s:.3f} s, "
+          f"the graphs' pool {gib['graphs']:.2f} GiB against the eager "
+          f"peak {gib['eager_peak']:.2f} GiB allocated")
+    if stage == "flowcomp":
+        print(f"  flowcomp hysteresis rounds (forward, backward) a step: "
+              f"{rounds}")
+    print(f"  {stage} losses by step (eager): "
+          + "; ".join(", ".join(f"{k} {v:.4f}" for k, v in mt.items())
+                      for mt in metrics["eager"]))
+    print(f"  {stage} replayed step: launch counts "
+          f"{ {k: replay_launches[k] for k in want} }, in the trace "
+          f"{ {k: trace[k] for k in want if k in trace} }; want {want}")
+    pairs = {side: r[2:] for side, r in runs.items()}
+    decisions = _decide(f"{stage} train step", pairs,
+                        ("targets", "update", "step"), smi)
+    _check_defaults(f"{stage} train step",
+                    TT.make_flow_train_step if stage == "flowcomp"
+                    else TT.make_propainter_train_step,
+                    {k: v for k, v in decisions.items() if k != "step"},
+                    failures)
+    bad = [k for mt in metrics["eager"] + metrics["graphed"]
+           for k, v in mt.items() if not math.isfinite(v)]
     if bad:
         raise AssertionError(f"{stage}: losses not finite: {bad}")
-    _check_launches(f"{stage} train step", launches,
-                    _train_launches(stage, data["num_local_frames"]))
-    del state, mods
-    torch.cuda.empty_cache()
-    return dict(seconds=seconds, step_s=steady,
-                forward_ms=fwd, backward_ms=bwd, peak_bytes=peak,
-                launches=launches, metrics=metrics, frames=T)
+    _check_launches(f"{stage} train step (eager)", eager_launches, want)
+    _check_launches(f"{stage} train step (replayed)", replay_launches, want)
+    if any(trace[k] != v for k, v in want.items() if k in trace):
+        raise AssertionError(f"{stage}: the replayed step's trace {trace} "
+                             f"differs from {want}")
+    if (loss_err > TRAIN_GRAPH_LOSS_TOL
+            or param_err[0] > TRAIN_GRAPH_PARAM_TOL or lr_bad):
+        raise AssertionError(f"{stage}: graphed and eager steps disagree: "
+                             f"losses {loss_err}, the last step {err}, "
+                             f"learning rates {lr_bad}")
+    del sides, graphed_step, times
+    _graph_memory()
+    return dict(seconds=eager_s, step_s=steady, forward_ms=fwd,
+                backward_ms=bwd, peak_bytes=gib["eager_peak"] * 2 ** 30,
+                launches=eager_launches, replay_launches=replay_launches,
+                trace=trace, metrics=metrics["eager"],
+                graphed_metrics=metrics["graphed"], frames=T,
+                loss_rel=loss_err,
+                last_step={k: v if k == "loss" else v[0]
+                           for k, v in err.items()}, bit_exact=exact,
+                pairs=runs, decisions=decisions, graphs=counts,
+                capture_s=capture_s, graphs_gib=gib["graphs"],
+                hysteresis_rounds=rounds)
 
 
 def _plain_k3_backward_ms() -> dict:
@@ -4281,7 +4642,10 @@ def _train_overfit() -> dict:
     losses = _overfit_losses(batch, mods, "cuda")
     seconds = time.perf_counter() - t0
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
-    print(f"  40-step overfit (full-width generator, 32 x 48): gen_loss "
+    from propainter_tpu_torch.core import trainer as TT
+
+    print(f"  40-step overfit (full-width generator, 32 x 48; regions "
+          f"graphed by default, {TT.TRAIN_REGIONS}): gen_loss "
           f"{first:.4f} -> {last:.4f} (first / last 5 means) in "
           f"{seconds:.1f} s")
     if not all(map(math.isfinite, losses)) or last >= 0.5 * first:
@@ -4334,12 +4698,14 @@ def _train_cli(root: Path, weights: Path, smi: str) -> dict:
 
 def phase_train(state: dict, smi: str) -> None:
     """Training on the card: `_train_full_width` for both stages at the
-    JAX configs' full widths (K1, K2 and K3 launched as `_train_launches`
-    says, K4, K5 and K7 never), the plain K3 backward's time
-    (`_plain_k3_backward_ms`), `_train_gpu_vs_cpu`, `_train_overfit`,
-    and the CLI (`_train_cli`) on a synthetic YouTube-VOS-layout set
-    (`TRAIN_VIDEOS` at 432 x 240) written under build/ with seeded
-    checkpoints."""
+    JAX configs' full widths, graphed against eager (K1, K2 and K3
+    launched as `_train_launches` says, eager and replayed, K4, K5 and K7
+    never), the plain K3 backward's time (`_plain_k3_backward_ms`),
+    `_train_gpu_vs_cpu`, `_train_overfit`, and the CLI (`_train_cli`) on a
+    synthetic YouTube-VOS-layout set (`TRAIN_VIDEOS` at 432 x 240)
+    written under build/ with seeded checkpoints; the overfit and the
+    CLI at the steps' default regions. Fails when a region graphed by
+    default fails the keep-or-drop rule."""
     import tempfile
 
     import torch
@@ -4362,8 +4728,9 @@ def phase_train(state: dict, smi: str) -> None:
                                 TRAIN_SEEDS["flowcomp"],
                                 fan_in_scaled=True).state_dict(),
                    weights / "recurrent_flow_completion.pth")
+        failures: list = []
         for stage in ("flowcomp", "propainter"):
-            report[stage] = _train_full_width(stage, root, smi)
+            report[stage] = _train_full_width(stage, root, smi, failures)
             state.setdefault("launches", {})[f"train_{stage}"] = (
                 report[stage]["launches"])
         report["plain_k3_backward_ms"] = _plain_k3_backward_ms()
@@ -4371,6 +4738,8 @@ def phase_train(state: dict, smi: str) -> None:
         report["overfit"] = _train_overfit()
         report["cli"] = _train_cli(root, weights, smi)
     state["train"] = report
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 # data-parallel training (`phase_dist`): one NCCL rank against the plain
@@ -4384,7 +4753,7 @@ def phase_train(state: dict, smi: str) -> None:
 # turns on the gradient's rounding)
 DIST_ONE_RANK_TOL, DIST_GRAD_TOL = 1e-6, 1e-5
 DIST_LOSS_TOL, DIST_PARAM_TOL = 1e-5, 1e-4
-DIST_STEPS = 3
+DIST_STEPS = 2
 # the two samples' holes (y, x, h, w) at 432 x 240: 2.3% and 40.5% of the
 # frame, so a normaliser taken per rank would differ from the batch's
 DIST_HOLES = ((100, 180, 40, 60), (45, 70, 150, 280))
@@ -4491,10 +4860,13 @@ def _compare_steps(got: dict, want: dict) -> dict:
 def _timed_steps(stage: str, state, step, batch) -> dict:
     """DIST_STEPS more steps after a warm-up: seconds a step (host clock
     around a synchronize), the all-reduce of the gradients a step
-    (`trainer._average_grads` timed on the host around synchronizes),
-    peak memory, and the last step's launches."""
+    (`trainer._average_grads` timed on the host around synchronizes, at
+    more than one rank: at one the step's regions replay from CUDA graphs,
+    which hold no synchronize, and the average is a no-op), peak memory,
+    the last step's launches, and the step's graphs by region."""
     import torch
     from propainter_tpu_torch.core import trainer as TT
+    from propainter_tpu_torch.parallel.mesh import world_size
 
     average = TT._average_grads
     reduce_s = []
@@ -4510,7 +4882,8 @@ def _timed_steps(stage: str, state, step, batch) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     seconds = []
-    TT._average_grads = timed
+    if world_size() > 1:
+        TT._average_grads = timed
     try:
         for i in range(DIST_STEPS):
             reduce_s.append(0.0)
@@ -4525,9 +4898,11 @@ def _timed_steps(stage: str, state, step, batch) -> dict:
         TT._average_grads = average
     return dict(step_ms=1e3 * statistics.median(seconds),
                 step_ms_all=[1e3 * x for x in seconds],
-                allreduce_ms=1e3 * statistics.median(reduce_s),
+                allreduce_ms=(1e3 * statistics.median(reduce_s)
+                              if world_size() > 1 else None),
                 peak_bytes=torch.cuda.max_memory_allocated(),
-                launches=launches)
+                launches=launches, graphs=step.graphs.counts(),
+                graph_keys=len(step.graphs.keys()))
 
 
 def _dist_rank(rank: int, world: int, init: str, out_dir: str,
@@ -4605,12 +4980,18 @@ def _check_ranks(label: str, ranks: list, refs: dict, smi: str) -> dict:
                   f"step (median of {DIST_STEPS}: "
                   + ", ".join(f"{x:.1f}" for x in row["step_ms_all"])
                   + f"), all-reduce {row['allreduce_ms']:.1f} ms a step, "
-                  f"peak {row['peak_bytes'] / 2 ** 30:.2f} GiB; on {smi}")
+                  f"peak {row['peak_bytes'] / 2 ** 30:.2f} GiB; eager "
+                  f"({row['graph_keys']} graph keys: the step graphs "
+                  f"nothing across ranks); on {smi}")
+            if row["graph_keys"]:
+                raise AssertionError(f"{label} {stage} rank {r}: a step "
+                                     f"across ranks used its graphs")
         report[stage] = dict(
             errors={k: v if k == "loss" else v[0] for k, v in err.items()},
             ranks=[{k: row[k] for k in ("step_ms", "step_ms_all",
                                         "allreduce_ms", "peak_bytes",
-                                        "launches", "metrics")}
+                                        "launches", "metrics",
+                                        "graph_keys")}
                    for row in rows])
         params = [v[0] for k, v in err.items() if k.endswith("param")]
         if (not same or err["loss"] > DIST_LOSS_TOL
@@ -4670,10 +5051,12 @@ def phase_dist(state: dict, smi: str) -> None:
     the frame (`_dist_batch`): (a) the step inside an NCCL group of one
     rank against the plain one-process step (losses and parameters
     within DIST_ONE_RANK_TOL, gradients within DIST_GRAD_TOL, a second
-    plain step's differences beside), timed, and an NCCL all-reduce of
-    the trainee's gradients at world size 1; (b) two gloo ranks on the
-    one card, a sample each, against the one-process step on the batch
-    of 2 (`_check_ranks`); (c) NCCL
+    plain step's differences beside), timed with its regions replayed
+    from CUDA graphs (the step's default at one rank), and an NCCL
+    all-reduce of the trainee's gradients at world size 1; (b) two gloo
+    ranks on the one card, a sample each, eager (no region graphed
+    across ranks), against the one-process step on the batch of 2
+    (`_check_ranks`); (c) NCCL
     with one rank per GPU where two or more are visible; (d) the train
     CLI under torchrun's environment (`_dist_cli`). K1, K2 and K3 launch
     per rank as `_train_launches` says."""
@@ -4719,7 +5102,7 @@ def phase_dist(state: dict, smi: str) -> None:
             finally:
                 dist.destroy_process_group()
             del st, step, b, mods, grads
-            torch.cuda.empty_cache()
+            _graph_memory()
             print(f"  (a) one NCCL rank, {stage}: losses within "
                   f"{err['loss']:.2e} relative; "
                   + "; ".join(f"{k} {v[0]:.2e} of scale"
@@ -4729,13 +5112,18 @@ def phase_dist(state: dict, smi: str) -> None:
                   f"{noise['loss']:.2e}, "
                   + "; ".join(f"{k} {v[0]:.2e}"
                               for k, v in noise.items() if k != "loss")
-                  + "; batch 2: "
+                  + f"; batch 2, the step's regions from CUDA graphs "
+                  f"{timing['graphs']}: "
                   f"{timing['step_ms']:.1f} ms a step, peak "
                   f"{timing['peak_bytes'] / 2 ** 30:.2f} GiB; an NCCL "
                   f"all-reduce of the trainee's gradients (world size 1) "
                   f"{nccl_ms:.3f} ms; on {smi}")
             _check_launches(f"(a) {stage}", timing["launches"],
                             _train_launches(stage))
+            if set(timing["graphs"].values()) != {1}:
+                raise AssertionError(f"(a) {stage}: one NCCL rank replays "
+                                     f"{timing['graphs']}, not one graph "
+                                     f"a region")
             if (max([err["loss"]] + [v[0] for k, v in err.items()
                                      if k.endswith("param")])
                     > DIST_ONE_RANK_TOL
@@ -5082,6 +5470,8 @@ REGION_PAIRS = 3
 # segmenter of its points_bucket
 SAM_APP_IMAGES = 3
 DEMO_CLICK_COUNTS = (1, 2, 3)
+# rounds of SAM's click sequence per configuration
+SAM_ROUNDS = 2
 SAM_CONFIGS = ((None, ("encode",)), (None, ("decode",)), (8, ("decode",)))
 
 
@@ -5162,20 +5552,16 @@ def _busy(step) -> dict:
     ms, the device's busy ms (its kernels and copies), the busy share and
     the launches."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _device_trace() as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    kern = _trace_rows(prof)
+    busy = sum(r[1] for r in kern)
     return dict(wall_ms=wall, busy_ms=busy, share=busy / wall,
-                launches=sum(e.count for e in kern))
+                launches=sum(r[2] for r in kern))
 
 
 def _same_arrays(what: str, got: list, want: list, failures: list) -> bool:
@@ -5280,7 +5666,7 @@ def _sam_graphs(model, frames: list, clicks, labels, smi: str,
     click sequence (`_sam_session`: SAM_APP_IMAGES frames, the clicks
     growing on each, a new segmenter a sequence), for each configuration
     of SAM_CONFIGS against the eager segmenter of its `points_bucket`,
-    REGION_PAIRS rounds of every configuration in alternating order. With
+    SAM_ROUNDS rounds of every configuration in alternating order. With
     `points_bucket` None (the default) a click count recurs only on the
     next frame: the graphs capture on the second frame and replay from
     the third. Each configuration's decision on the segmenter's ms over
@@ -5301,7 +5687,7 @@ def _sam_graphs(model, frames: list, clicks, labels, smi: str,
          bucket, regions) for bucket, regions in SAM_CONFIGS]
     runs: dict = {name: [] for name, _, _ in configs}
     want: dict = {}
-    for i in range(REGION_PAIRS):
+    for i in range(SAM_ROUNDS):
         for name, bucket, regions in (configs if i % 2 == 0
                                       else configs[::-1]):
             run = _sam_session(model, bucket, regions, frames, clicks,
@@ -6097,19 +6483,13 @@ def _flow_run(tracker, frames, template) -> dict:
 def _flow_trace(tracker, frame) -> tuple:
     """One more tracked frame of `tracker` under torch.profiler: (K1, K2)
     kernels in the trace, (K1, K2) by the launch counters."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     _zero_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _device_trace() as prof:
         tracker.track(frame)
-        torch.cuda.synchronize()
     n = _read_launches()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return ((sum(e.count for e in kern if K1_KERNEL.search(e.key)),
-             sum(e.count for e in kern if K2_KERNEL.search(e.key))),
+    kern = _trace_rows(prof)
+    return ((sum(n for name, _, n in kern if K1_KERNEL.search(name)),
+             sum(n for name, _, n in kern if K2_KERNEL.search(name))),
             (n["corr_lookup_moenc"], n["corr_pyramid_build"]))
 
 

@@ -14,6 +14,7 @@ image propagation, uncapped references, RAFT chunks of 60 frames), per-frame
 PSNR/SSIM, the I3D features of the ground-truth and inpainted videos
 (--i3d_path, for video_completion) for the final VFID, and with
 --warp_error the warping error of the output under RAFT's flow of it.
+I3D runs as `I3DFeatures`' region `i3d`, eager by default.
 Writes {output}/{dataset}_rs_{ref_stride}_nl_{neighbor_length}/
 {dataset}_metrics.txt with the JAX CLI's lines; --profile DIR traces the
 second video with torch.profiler (op input shapes recorded) into DIR.
@@ -28,9 +29,48 @@ import contextlib
 import os
 import time
 
+import torch
+
+from propainter_tpu_torch.device import fp32_numerics
+from propainter_tpu_torch.graphs import StageGraphs
+
 # the metrics file's number formats (the JAX CLI's); the other lines as str()
 METRIC_FORMATS = {"avg s/frame": ".4f", "psnr": ".4f", "ssim": ".4f",
                   "ewarp": ".6f", "vfid": ".4f"}
+
+
+I3D_REGIONS = ("i3d",)
+
+
+class I3DFeatures:
+    """The VFID features of a video (`InceptionI3d`'s Mixed_5c mean), the
+    JAX CLI's jitted `i3d_apply` (`propainter_tpu/cli/evaluate.py:107`),
+    as the region `i3d`: on CUDA replayed from a CUDA graph per video
+    shape (`graphs.StageGraphs`).
+
+    i3d: an `InceptionI3d` on `device`, in eval mode. cuda_graphs: the
+    regions (of `I3D_REGIONS`) replayed from CUDA graphs on CUDA; no
+    effect on the CPU. None by default: the key, the video's shape, recurs
+    only within a video (its true and inpainted frames), and the graph
+    failed the card's keep-or-drop rule (PERF.md section 7). The graphs
+    of the keys the last video used are kept (`begin_video` starts a
+    video)."""
+
+    def __init__(self, i3d, device, cuda_graphs=()):
+        self.i3d, self.device = i3d, device
+        self.graphs = StageGraphs(cuda_graphs, I3D_REGIONS, device)
+
+    def __call__(self, video):
+        """(T, H, W, 3) uint8 -> the (1024,) features on the host."""
+        import numpy as np
+
+        x = (torch.from_numpy(np.ascontiguousarray(video)[None])
+             .to(self.device).float() / 255.0 * 2 - 1)
+        with torch.inference_mode(), fp32_numerics():
+            return self.graphs("i3d", self.i3d, (x,)).cpu().numpy().ravel()
+
+    def begin_video(self) -> None:
+        self.graphs.begin_video()
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -77,14 +117,13 @@ def main(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
 
     import numpy as np
-    import torch
 
     from propainter_tpu_torch.cli.inference import load_checkpoint, load_models
     from propainter_tpu_torch.core.dataset import TestDataset
     from propainter_tpu_torch.core.metrics import (calc_psnr_and_ssim,
                                                    calculate_vfid,
                                                    calculate_warping_error)
-    from propainter_tpu_torch.device import fp32_numerics, resolve_device
+    from propainter_tpu_torch.device import resolve_device
     from propainter_tpu_torch.pipeline import (PipelineConfig,
                                                ProPainterPipeline)
 
@@ -117,17 +156,14 @@ def main(argv=None) -> dict:
     if args.task == "video_completion" and os.path.exists(args.i3d_path):
         from propainter_tpu_torch.models.i3d import InceptionI3d
 
-        i3d = load_checkpoint(InceptionI3d(), args.i3d_path,
-                              drop_prefixes=("logits.",)).to(device).eval()
+        i3d = I3DFeatures(load_checkpoint(
+            InceptionI3d(), args.i3d_path,
+            drop_prefixes=("logits.",)).to(device).eval(), device)
 
     def to_device(video):
         """(T, H, W, 3) uint8 -> (1, T, H, W, 3) in [-1, 1] on the device."""
         return (torch.from_numpy(np.ascontiguousarray(video)[None]).to(device)
                 .float() / 255.0 * 2 - 1)
-
-    def i3d_features(video):
-        with torch.inference_mode(), fp32_numerics():
-            return i3d(to_device(video)).cpu().numpy().ravel()
 
     out_dir = os.path.join(
         args.output,
@@ -177,8 +213,9 @@ def main(argv=None) -> dict:
                 all_psnr.append(psnr)
                 all_ssim.append(ssim)
             if i3d is not None:
-                real_acts.append(i3d_features(frames))
-                fake_acts.append(i3d_features(np.stack(comp)))
+                i3d.begin_video()
+                real_acts.append(i3d(frames))
+                fake_acts.append(i3d(np.stack(comp)))
 
         if args.warp_error:
             comp_arr = np.stack(comp)

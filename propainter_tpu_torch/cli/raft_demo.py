@@ -8,7 +8,9 @@ RAFT/demo.py:50-67), plus `--device`.
       [--weights weights/raft-things.pth | random] [--device cuda|cpu]
 
 Frames are replicate-padded to multiples of 8 (top and sides, `pad8`) and
-the flow cropped back; RAFT runs at batch 1 (K2 and K1 on the card).
+the flow cropped back; RAFT runs at batch 1 (K2 and K1 on the card), as
+`compute_flow.RaftPairFlow`'s region `raft_pair`: replayed from a CUDA
+graph per padded frame shape on the card.
 --weights random gives seeded random weights (`weights.seeded_init_`,
 seed 0). The default device is the GPU: without one this raises unless
 --device cpu is given.
@@ -52,8 +54,9 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from propainter_tpu_torch.cli.compute_flow import RaftPairFlow
     from propainter_tpu_torch.cli.inference import load_checkpoint
-    from propainter_tpu_torch.device import fp32_numerics, resolve_device
+    from propainter_tpu_torch.device import resolve_device
     from propainter_tpu_torch.models.raft import RAFT
     from propainter_tpu_torch.utils.flow_io import flowwrite
     from propainter_tpu_torch.utils.flow_viz import flow_to_image
@@ -66,6 +69,7 @@ def main(argv=None):
     else:
         load_checkpoint(raft, args.weights)
     raft = raft.to(device).eval()
+    flow_pair = RaftPairFlow(raft, args.iters, device)
 
     files = sorted(
         f for f in os.listdir(args.path)
@@ -83,8 +87,7 @@ def main(argv=None):
         cur = torch.from_numpy(
             padded[None].astype(np.float32) / 255.0 * 2 - 1).to(device)
         if prev is not None:
-            with torch.inference_mode(), fp32_numerics():
-                flow = raft(prev, cur, iters=args.iters)[1][0].cpu().numpy()
+            flow = flow_pair(prev, cur)
             flow = flow[ph:, pw // 2: flow.shape[1] - (pw - pw // 2)]
             stem = os.path.splitext(prev_name)[0]
             viz = flow_to_image(flow)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from propainter_tpu_torch.ops.interp import constant_on
 from propainter_tpu_torch.ops.warp import flow_warp
 from propainter_tpu_torch.parallel.mesh import all_reduce_mean, world_size
 
@@ -162,8 +163,8 @@ def charbonnier(x, mask=None, alpha=0.45, beta=1.0, eps=0.001):
 def _conv2d_fixed(x, kernels):
     """(B, H, W, 1) correlated with a stack of 3x3 kernels, zero padding
     -> (B, H, W, K)."""
-    k = torch.as_tensor(np.asarray(kernels, np.float32)[:, None],
-                        dtype=x.dtype, device=x.device)
+    k = constant_on(np.asarray(kernels, np.float32)[:, None], x.dtype,
+                    x.device)
     return F.conv2d(x.permute(0, 3, 1, 2), k, padding=1).permute(0, 2, 3, 1)
 
 

@@ -8,7 +8,8 @@ tracker's RAFT and gate, SAM's encoder and decoder).
 shapes and dtypes of the call's tensors, and its static arguments. Each
 owner declares its stage names: the pipeline `STAGES`, `CutieCore`
 `CUTIE_REGIONS`, `FlowMaskTracker` `FLOW_TRACKER_REGIONS`, `SamSegmenter`
-`SAM_REGIONS`.
+`SAM_REGIONS`, the train steps `TRAIN_REGIONS`, `I3DFeatures`
+`I3D_REGIONS`, `RaftPairFlow` `RAFT_PAIR_REGIONS`.
 
   first sight   the call runs eagerly: the warm-up (cuDNN and cuBLAS plans,
                 the kernels' lazy build and launch setup, the models' index
@@ -139,9 +140,13 @@ class StageGraphs:
     stages: the stage names to graph (a subset of `names`, the owner's
     stages; another name raises); a call of any other stage runs eagerly.
     device: the owner's; off CUDA no stage is graphed. The pipeline also
-    gives it no stage over a mesh of several devices."""
+    gives it no stage over a mesh of several devices. flush: release the
+    caching allocator's free blocks before each capture (a train step's
+    eager first sight leaves its activations' blocks cached, which a
+    capture's private pool cannot use: the step would hold both)."""
 
-    def __init__(self, stages=(), names=STAGES, device=None):
+    def __init__(self, stages=(), names=STAGES, device=None,
+                 flush: bool = False):
         unknown = set(stages) - set(names)
         if unknown:
             raise ValueError(f"unknown stages {sorted(unknown)}; the "
@@ -149,6 +154,7 @@ class StageGraphs:
         if device is not None and torch.device(device).type != "cuda":
             stages = ()
         self.stages = frozenset(stages)
+        self.flush = flush
         self._graphs: dict = {}    # key -> _Graph, None after a first sight
         self._inputs: dict = {}    # (stage, position, shape, dtype) -> buffer
         self._used: set = set()    # the keys used since `begin_video`
@@ -240,11 +246,14 @@ class StageGraphs:
         Captured on one side stream per StageGraphs (the allocator reuses
         a pool's blocks on the stream that freed them, so the graphs share
         their memory), without `torch.cuda.graph`'s device synchronize
-        and cache flush: a capture in the middle of a video would
-        otherwise make every later eager allocation a new cudaMalloc."""
+        and cache flush (unless `flush`): a capture in the middle of a
+        video would otherwise make every later eager allocation a new
+        cudaMalloc."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream()
+        if self.flush:
+            torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         self._stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(self._stream):

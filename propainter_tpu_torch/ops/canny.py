@@ -5,6 +5,11 @@ training targets of the flow completion's edge head. Counterpart of
 directional non-maximum suppression over 8 kernels (zero padding), double
 threshold and conv-based hysteresis repeated until nothing changes. Plain
 PyTorch on either device: the JAX function has no kernel.
+
+`canny_thresholds` (blur to double threshold) makes no host data into a
+tensor and reads nothing back, so a CUDA graph can hold it; `hysteresis`
+loops on the host until the map stops changing (the JAX function's
+`lax.while_loop`), reading a bool back each round, and runs eagerly.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from propainter_tpu_torch.ops.interp import constant_on
 
 
 def _gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
@@ -36,7 +43,7 @@ def _conv_same(x, kernel: np.ndarray, pad_mode: str):
     else:
         xc = F.pad(xc, (pw, pw, ph, ph), mode=pad_mode)
         pad = 0
-    w = torch.as_tensor(k[:, None], dtype=x.dtype, device=x.device)
+    w = constant_on(k[:, None], x.dtype, x.device)
     return F.conv2d(xc, w, padding=pad).permute(0, 2, 3, 1)
 
 
@@ -77,29 +84,50 @@ def _nms(x, eps: float, sigma: float):
 
 
 @torch.no_grad()
+def canny_thresholds(x, low_threshold: float = 0.1,
+                     high_threshold: float = 0.2, eps: float = 1e-6,
+                     sigma: float = 1.0):
+    """x (B, H, W, 1) grayscale in [0, 1] -> (B, H, W, 1) the suppressed
+    gradient magnitude's double threshold: 1 strong, 0.5 weak, 0 none.
+    sigma: the blur's std (the flow trainer's is 2)."""
+    magnitude, margin = _nms(x, eps, sigma)
+    magnitude = magnitude * (margin > 0.0)
+    edges = ((magnitude > low_threshold) * 0.5
+             + (magnitude > high_threshold) * 0.5).to(x.dtype)
+    return edges[..., None]
+
+
+@torch.no_grad()
+def hysteresis_edges(edges, rounds: list | None = None):
+    """A `canny_thresholds` map (B, H, W, 1) -> edges in {0, 1}: weak
+    pixels joined to strong ones through 8-neighbours, one ring a round,
+    repeated until nothing changes (the rounds taken are appended to
+    `rounds` when given)."""
+    edges = edges[..., 0]
+    n = 0
+    while True:
+        n += 1
+        weak = (edges == 0.5).to(edges.dtype)
+        strong = (edges == 1.0).to(edges.dtype)
+        hyst = _conv_same(edges[..., None], _HYST, "zeros")
+        connected = (hyst == 1.0).any(dim=-1).to(edges.dtype)
+        mag = connected * weak + strong
+        new_edges = mag + (mag == 0) * weak * 0.5
+        if torch.equal(new_edges, edges):
+            break
+        edges = new_edges
+    if rounds is not None:
+        rounds.append(n)
+    # the converged map without its weak-only residue
+    return torch.where(edges == 0.5, 0.0, edges)[..., None]
+
+
+@torch.no_grad()
 def canny_edges(x, low_threshold: float = 0.1, high_threshold: float = 0.2,
                 hysteresis: bool = True, eps: float = 1e-6,
                 sigma: float = 1.0):
     """x (B, H, W, 1) grayscale in [0, 1] -> (B, H, W, 1) edges in {0, 1}
     ({0, 0.5, 1} without hysteresis). sigma: the blur's std (the flow
     trainer's is 2)."""
-    magnitude, margin = _nms(x, eps, sigma)
-    magnitude = magnitude * (margin > 0.0)
-
-    edges = ((magnitude > low_threshold) * 0.5
-             + (magnitude > high_threshold) * 0.5).to(x.dtype)
-    if not hysteresis:
-        return edges[..., None]
-
-    while True:
-        weak = (edges == 0.5).to(x.dtype)
-        strong = (edges == 1.0).to(x.dtype)
-        hyst = _conv_same(edges[..., None], _HYST, "zeros")
-        connected = (hyst == 1.0).any(dim=-1).to(x.dtype)
-        mag = connected * weak + strong
-        new_edges = mag + (mag == 0) * weak * 0.5
-        if torch.equal(new_edges, edges):
-            break
-        edges = new_edges
-    # the converged map without its weak-only residue
-    return torch.where(edges == 0.5, 0.0, edges)[..., None]
+    edges = canny_thresholds(x, low_threshold, high_threshold, eps, sigma)
+    return hysteresis_edges(edges) if hysteresis else edges

@@ -32,6 +32,22 @@ def _nearest_index_on(in_size: int, out_size: int, device) -> torch.Tensor:
                                device=device)
 
 
+@functools.cache
+def _constant_on(values: bytes, shape: tuple, dtype, device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.frombuffer(values, np.float32).reshape(
+            shape).copy(), dtype=dtype, device=device)
+
+
+def constant_on(array, dtype, device) -> torch.Tensor:
+    """An fp32 numpy constant (a fixed filter bank) as a tensor of `dtype`
+    on `device`, made once per (values, dtype, device) outside inference
+    mode: a captured CUDA graph uploads no host data, and reads the
+    tensor by address for as long as it lives, so it is never evicted."""
+    a = np.ascontiguousarray(array, np.float32)
+    return _constant_on(a.tobytes(), a.shape, dtype, device)
+
+
 def resize(x, size, method: str = "bilinear", align_corners: bool = False):
     """Resize (..., H, W, C) to (..., size[0], size[1], C)."""
     *lead, H, W, C = x.shape

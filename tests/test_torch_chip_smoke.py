@@ -1,8 +1,10 @@
 """The pieces of `chip_smoke.py` that run without a GPU: the build phase's
 readers of the compiler's and the disassembler's output and its grids, the
-kernels' bounds, and the main path's expected launch counts from the
-pipeline's own stage-4 plan."""
+kernels' bounds, the main path's expected launch counts from the
+pipeline's own stage-4 plan, and the check of each CUDA-graph owner's
+default against the card's keep-or-drop rule."""
 
+import inspect
 import math
 from types import SimpleNamespace
 
@@ -841,3 +843,82 @@ def test_trace_counters_fold_the_forms_that_share_a_kernel():
     assert set(chip_smoke.TRACE_SHARED) == (
         set(chip_smoke._launch_counters()) - set(chip_smoke.TRACE_KERNELS)
         - {"deform_sample"})
+
+
+def _owners():
+    """Every owner of CUDA-graph regions whose default the smoke holds to
+    the card's keep-or-drop rule (`_check_defaults`), with its regions."""
+    from propainter_tpu_torch.cli.compute_flow import (RAFT_PAIR_REGIONS,
+                                                       RaftPairFlow)
+    from propainter_tpu_torch.cli.evaluate import I3D_REGIONS, I3DFeatures
+    from propainter_tpu_torch.core import trainer as TT
+    from propainter_tpu_torch.demo.cutie_core import CUTIE_REGIONS, CutieCore
+    from propainter_tpu_torch.demo.segmenter import SAM_REGIONS, SamSegmenter
+    from propainter_tpu_torch.demo.tracking import (FLOW_TRACKER_REGIONS,
+                                                    FlowMaskTracker)
+
+    return {"cutie": (CutieCore, CUTIE_REGIONS),
+            "flow tracker": (FlowMaskTracker, FLOW_TRACKER_REGIONS),
+            "sam": (SamSegmenter, SAM_REGIONS),
+            "flow train step": (TT.make_flow_train_step, TT.TRAIN_REGIONS),
+            "propainter train step": (TT.make_propainter_train_step,
+                                      TT.TRAIN_REGIONS),
+            "raft_pair": (RaftPairFlow, RAFT_PAIR_REGIONS),
+            "i3d": (I3DFeatures, I3D_REGIONS)}
+
+
+@pytest.mark.parametrize("name", ["cutie", "flow tracker", "sam",
+                                  "flow train step", "propainter train step",
+                                  "raft_pair", "i3d"])
+def test_check_defaults_holds_each_owners_default(name, capsys):
+    """`_check_defaults` reads each owner's `cuda_graphs` default (a class
+    or a train-step maker): every region kept passes; a default region
+    the rule drops is a failure; a region the rule keeps that is off by
+    default is printed and passes. The train steps and `raft_pair` graph
+    every region by default, I3D none."""
+    owner, regions = _owners()[name]
+    default = inspect.signature(owner).parameters["cuda_graphs"].default
+    if name in ("flow train step", "propainter train step", "raft_pair"):
+        assert tuple(default) == tuple(regions)
+    if name == "i3d":
+        assert tuple(default) == ()
+    failures = []
+    chip_smoke._check_defaults(name, owner,
+                               {r: {"keep": True} for r in regions},
+                               failures)
+    assert failures == []
+    for dropped in regions:
+        failures = []
+        chip_smoke._check_defaults(
+            name, owner, {r: {"keep": r != dropped} for r in regions},
+            failures)
+        assert bool(failures) == (dropped in default), (dropped, failures)
+    off = [r for r in regions if r not in default]
+    capsys.readouterr()
+    chip_smoke._check_defaults(name, owner,
+                               {r: {"keep": True} for r in regions}, [])
+    assert ("off by default" in capsys.readouterr().out) == bool(off)
+
+
+def test_trace_rows_read_the_profilers_events():
+    """`_trace_rows` sums a trace's raw events by name, the most time
+    first: each name's count and total time as `key_averages` gives them
+    (here the CPU's ops; on the card the device's kernels, which have no
+    children, so their total time is their own)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(5):
+            torch.add(torch.mm(x, x), x)
+    rows = chip_smoke._trace_rows(prof, DeviceType.CPU)
+    assert [r[1] for r in rows] == sorted((r[1] for r in rows), reverse=True)
+    want = {e.key: (e.cpu_time_total / 1e3, e.count)
+            for e in prof.key_averages()}
+    got = {name: (ms, n) for name, ms, n in rows}
+    assert set(got) == set(want)
+    for name, (ms, n) in got.items():
+        assert n == want[name][1], name
+        assert ms == pytest.approx(want[name][0], rel=1e-6, abs=1e-6), name
+    assert got["aten::mm"][1] == got["aten::add"][1] == 5

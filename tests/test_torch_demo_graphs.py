@@ -25,7 +25,6 @@ Each with one object and two (Cutie), at the small configurations of those
 files.
 """
 
-import collections
 import functools
 import inspect
 
@@ -42,7 +41,7 @@ from tests.test_demo import _scene
 from tests.test_torch_cutie import JAX_SMALL, cutie_pair, jax_jit  # noqa: F401
 from tests.test_torch_sam import JAX_TINY, TINY, assert_close, sam_pair
 from tests.test_torch_tracking import raft_weights  # noqa: F401
-from tests.torch_graph_standins import CPUGraphs
+from tests.torch_graph_standins import CPUGraphs, CountingGraphs
 
 from propainter_tpu_torch.demo.cutie_core import (
     CUTIE_REGIONS, CutieCore, CutieCoreConfig)
@@ -73,26 +72,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-class CountingGraphs(CPUGraphs):
-    """`CPUGraphs` counting each stage's replays."""
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.replays = collections.Counter()
-
-    def _capture(self, stage, fn, tensors):
-        graph = super()._capture(stage, fn, tensors)
-        standin, replays = graph.graph, self.replays
-
-        class Counted:
-            def replay(self):
-                replays[stage] += 1
-                standin.replay()
-
-        graph.graph = Counted()
-        return graph
 
 
 def _clip(T: int, seed: int, n_obj: int, size=(H, W)):

@@ -146,6 +146,43 @@ def test_the_guard_sees_host_data():
                 bad()
 
 
+def test_the_guard_refuses_torch_equal_in_a_region():
+    """(a) `torch.equal` hands its bool back without a
+    `_local_scalar_dense` (a host loop's exit test, as Canny's hysteresis
+    has): eager at the key's first sight, refused at its capture."""
+    region = CPUGraphs(("raft",))
+    x = torch.arange(6.0)
+    assert region("raft", lambda t: torch.equal(t, t), (x,)) is True
+    with pytest.raises(AssertionError, match="aten.equal"):
+        region("raft", lambda t: torch.equal(t, t), (x,))
+    with pytest.raises(AssertionError, match="graphed region"):
+        with NoHostData():
+            torch.equal(x, x)
+
+
+def test_a_stand_in_capture_writes_nothing():
+    """A capture runs nothing on the device: what the stand-in's capture
+    writes into tensors it did not make is put back, so a region that
+    updates state in place (a train step's optimizer) applies once a
+    call, first sight, capture and replays alike."""
+    region = CPUGraphs(("raft",))
+    acc = torch.zeros(3)
+    views = acc[1:]
+
+    def step(t):
+        acc.add_(t)
+        views.mul_(2.0)
+        return acc.sum()
+
+    outs = [float(region("raft", step, (torch.ones(3),))) for _ in range(3)]
+    want = torch.zeros(3)
+    for _ in range(3):
+        want += 1
+        want[1:] *= 2
+    assert torch.equal(acc, want)
+    assert outs[-1] == float(want.sum())
+
+
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_cache_keys_are_the_plans(name):
     """(c) The keys one video gives: RAFT's chunk lengths (3, 4 and 3 of
