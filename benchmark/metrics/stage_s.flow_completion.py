@@ -1,0 +1,8 @@
+"""Median seconds a steady clip spends in stage 'flow_completion' of
+`inpaint_video` (its `timings`, which end in a device synchronize)."""
+
+from benchmark.records import stage_s
+
+
+def read(rec: dict):
+    return stage_s(rec, "flow_completion")
